@@ -21,40 +21,12 @@
 // the split-K products, then their fixed-order sum), allocates nothing, and
 // returns the cudaError_t of the launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "rnn_wgrad.cuh"
 
 namespace {
 
 constexpr int kFwdRows = 16;  // batch rows per forward block
 constexpr int kBwdRows = 8;   // batch rows per backward block
-constexpr int kTileM = 64, kTileN = 64, kTileK = 16;  // weight-gradient tile
-constexpr int kWgradThreads = 256;
-
-template <bool BF16>
-__device__ __forceinline__ float op(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// BB consecutive floats of shared memory (16-byte aligned) into registers.
-template <int BB>
-__device__ __forceinline__ void load_rows(const float* p, float (&v)[BB]) {
-  const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int q = 0; q < BB / 4; ++q) {
-    const float4 f = p4[q];
-    v[4 * q] = f.x;
-    v[4 * q + 1] = f.y;
-    v[4 * q + 2] = f.z;
-    v[4 * q + 3] = f.w;
-  }
-}
 
 // The six gate projections of BB rows for hidden column j: a* = x_t Wx
 // (without bias), c* = h Wh (without bias). hT [H][BB] and xT [D][BB] hold
@@ -103,15 +75,6 @@ __device__ __forceinline__ void gate_projections(
   }
 }
 
-// x_t of the block's BB rows into xT [D][BB] (operand-rounded, zero past B).
-template <int BB, bool BF16>
-__device__ __forceinline__ void load_x(const float* __restrict__ x_t, float* xT,
-                                       int b0, int B, int D) {
-  for (int e = threadIdx.x; e < D * BB; e += blockDim.x) {
-    const int d = e / BB, b = e % BB, row = b0 + b;
-    xT[e] = row < B ? op<BF16>(x_t[(size_t)row * D + d]) : 0.0f;
-  }
-}
 
 // Grid (ceil(B/BB), S), one thread per hidden column j (blockDim.x == H).
 // The block runs the whole window for its BB rows of stream s; thread j keeps
@@ -288,121 +251,6 @@ __global__ void __launch_bounds__(256) gru_x_bwd_kernel(
   }
 }
 
-// Split-K partial products W[s,p] = Σ_k A[s,k,:]ᵀ gs[s,k,:] over the rows k of
-// split p of the K = T*B rows k = t*B + b, with A = [h_masked (H) | x (D) | 1].
-// Grid (N/64, M/64, S*P): one block per 64x64 output tile and split walks its
-// rows in order; 256 threads, 4x4 outputs each. In bf16 mode the h and x rows
-// use rounded operands; the ones row (the bias sums) adds the gradients
-// unrounded.
-template <bool BF16>
-__global__ void __launch_bounds__(kWgradThreads) gru_x_wgrad_kernel(
-    const float* __restrict__ xs, const float* __restrict__ resets,
-    const float* __restrict__ carry0, const float* __restrict__ hs,
-    const float* __restrict__ gs, float* __restrict__ W,
-    int T, int B, int D, int H, int P) {
-  __shared__ __align__(16) float As[kTileK][kTileM];
-  __shared__ __align__(16) float Gs[kTileK][kTileN];
-  const int s = blockIdx.z / P;
-  const int p = blockIdx.z % P;
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
-  const int M = H + D + 1;
-  const int N = 4 * H;
-  const int K = T * B;  // the launcher checks that T*B fits an int
-  const int chunk = ((K + P - 1) / P + kTileK - 1) / kTileK * kTileK;
-  const int k_begin = p * chunk;
-  const int k_end = min(K, k_begin + chunk);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const float* gs_s = gs + (size_t)s * K * N;
-  float* part = W + (size_t)blockIdx.z * M * N;  // this split's [M,N] partial
-
-  bool ones_row[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) ones_row[i] = (m0 + ty * 4 + i) == H + D;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < kTileK * kTileM / kWgradThreads; ++q) {
-      const int e = tid + q * kWgradThreads;
-      const int kk = e / kTileM, mm = e % kTileM;
-      const int k = k0 + kk;
-      const int m = m0 + mm;
-      float a = 0.0f;
-      if (k < k_end && m < M) {
-        const int t = k / B, b = k - t * B;
-        if (m < H) {
-          const float hp = t == 0 ? carry0[((size_t)s * B + b) * H + m]
-                                  : hs[(((size_t)s * T + t - 1) * B + b) * H + m];
-          a = op<BF16>(hp * (1.0f - resets[k]));
-        } else if (m < H + D) {
-          a = op<BF16>(xs[(((size_t)s * T + t) * B + b) * D + (m - H)]);
-        } else {
-          a = 1.0f;
-        }
-      }
-      As[kk][mm] = a;
-      const int n = n0 + mm;  // kTileN == kTileM
-      Gs[kk][mm] = (k < k_end && n < N) ? gs_s[(size_t)k * N + n] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 g4 = *reinterpret_cast<const float4*>(&Gs[kk][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float g[4] = {g4.x, g4.y, g4.z, g4.w};
-      float gr[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) gr[q] = op<BF16>(g[q]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[i][q] = fmaf(a[i], ones_row[i] ? g[q] : gr[q], acc[i][q]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (m < M && n < N) part[(size_t)m * N + n] = acc[i][q];
-    }
-  }
-}
-
-// C[s] = Σ_p W[s,p] in split order 0..P-1: the second, fixed-order pass of the
-// split-K reduction, so the weight gradients are the same on every run.
-__global__ void gru_x_wgrad_sum_kernel(const float* __restrict__ W, float* __restrict__ C,
-                                       int S, int P, int MN) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)S * MN) return;
-  const int s = (int)(i / MN), e = (int)(i % MN);
-  const float* w = W + (size_t)s * P * MN + e;
-  float acc = 0.0f;
-  for (int p = 0; p < P; ++p) acc += w[(size_t)p * MN];
-  C[i] = acc;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-bool bad_dims(int S, int T, int B, int D, int H) {
-  return S < 0 || T < 0 || B < 0 || D < 1 || H < 1 || H > 256 ||
-         (long long)T * B > 0x7fffffffLL;
-}
-
 }  // namespace
 
 extern "C" int gru_x_fwd(const float* xs, const float* resets, const float* carry0,
@@ -451,28 +299,11 @@ extern "C" int gru_x_bwd(const float* xs, const float* resets, const float* carr
   return (int)cudaGetLastError();
 }
 
-// W is the caller's scratch of [S,P,M,N] partial sums, P >= 1 the number of
-// row splits; C [S,M,N] receives their sum.
+// The weight-gradient reduction of rnn_wgrad.cuh: C = Σ_rows [h_masked | x | 1]ᵀ
+// [dr|dz|dn|du]. W is the caller's scratch of [S,P,M,N] partial sums, P >= 1
+// the number of row splits; C [S,M,N] receives their sum.
 extern "C" int gru_x_wgrad(const float* xs, const float* resets, const float* carry0,
                            const float* hs, const float* gs, float* W, float* C, int S, int T,
                            int B, int D, int H, int P, int bf16, void* stream) {
-  if (bad_dims(S, T, B, D, H) || P < 1 || (long long)S * P > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (S == 0) return 0;
-  const int M = H + D + 1, N = 4 * H;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, S * P);
-  if (bf16) {
-    gru_x_wgrad_kernel<true><<<grid, kWgradThreads, 0, st>>>(xs, resets, carry0, hs, gs, W,
-                                                             T, B, D, H, P);
-  } else {
-    gru_x_wgrad_kernel<false><<<grid, kWgradThreads, 0, st>>>(xs, resets, carry0, hs, gs, W,
-                                                              T, B, D, H, P);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)S * M * N;
-  gru_x_wgrad_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(W, C, S, P, M * N);
-  return (int)cudaGetLastError();
+  return rnn_wgrad_launch(xs, resets, carry0, hs, gs, W, C, S, T, B, D, H, P, bf16, stream);
 }

@@ -1,6 +1,8 @@
 """Gaussian MLP actor-critic (counterpart of ``rsl_rl_tpu/modules/actor_critic.py``).
 
-Scalar or log action std and optional running observation normalization, fp32.
+Scalar or log action std and optional running observation normalization.
+Parameters are fp32; ``dtype=torch.bfloat16`` runs the MLP trunks in bf16
+with fp32 output heads.
 The std is the raw parameter in ``"scalar"`` mode (it can drift negative, as
 in the reference) and ``exp`` of it in ``"log"`` mode; ``noise_std_floor``
 clamps it from below when set.
@@ -57,11 +59,6 @@ class ActorCritic(nn.Module):
                 "ActorCritic.__init__ got unexpected arguments, which will be ignored: "
                 + str(list(kwargs.keys()))
             )
-        if dtype is not None:
-            raise NotImplementedError(
-                "reduced-precision policies are not ported yet (ROADMAP.md Queue 1,"
-                " 'bf16 MLP trunks'); use dtype=None (fp32)"
-            )
         if state_dependent_std:
             raise NotImplementedError(
                 "state-dependent std is not ported yet (ROADMAP.md Queue 1, 'Actor-critic')"
@@ -79,9 +76,16 @@ class ActorCritic(nn.Module):
         self.noise_std_floor = noise_std_floor
         # the recurrent subclass feeds its memory outputs to the MLPs
         actor_in, critic_in = trunk_inputs or (self.num_actor_obs, self.num_critic_obs)
+        self.dtype = dtype
+        # reduced precision stays in the trunks; the output heads compute in
+        # fp32, as in the JAX package (a bf16 actor head biases the sigma
+        # gradient on long runs)
+        head = torch.float32 if dtype is not None else None
         gen = torch.Generator().manual_seed(int(seed))
-        self.actor = MLP(actor_in, num_actions, list(actor_hidden_dims), activation, gen)
-        self.critic = MLP(critic_in, 1, list(critic_hidden_dims), activation, gen)
+        self.actor = MLP(actor_in, num_actions, list(actor_hidden_dims), activation, gen,
+                         dtype=dtype, head_dtype=head)
+        self.critic = MLP(critic_in, 1, list(critic_hidden_dims), activation, gen,
+                          dtype=dtype, head_dtype=head)
         std0 = init_noise_std * torch.ones(num_actions)
         self.std = nn.Parameter(std0 if noise_std_type == "scalar" else torch.log(std0))
         self.norm_actor = RunningNormState(self.num_actor_obs) if actor_obs_normalization else None

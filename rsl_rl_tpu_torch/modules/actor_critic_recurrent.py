@@ -1,7 +1,8 @@
 """Recurrent Gaussian actor-critic (counterpart of
-``rsl_rl_tpu/modules/actor_critic_recurrent.py``): a GRU ``Memory`` in front
-of the actor and of the critic MLP. The hidden state is an explicit carry
-``{"actor": (h,...), "critic": (h,...)}``; the update replays both memories
+``rsl_rl_tpu/modules/actor_critic_recurrent.py``): a GRU or LSTM ``Memory``
+in front of the actor and of the critic MLP. The hidden state is an explicit
+carry ``{"actor": ..., "critic": ...}``, per layer ``h`` (GRU) or ``(c, h)``
+(LSTM); the update replays both memories
 over the window through :func:`~rsl_rl_tpu_torch.networks.memory.paired_sequence`.
 """
 
@@ -35,10 +36,12 @@ class ActorCriticRecurrent(ActorCritic):
         self.rnn_hidden_dim = rnn_hidden_dim
         self.rnn_num_layers = rnn_num_layers
         gen = torch.Generator().manual_seed(int(kwargs.get("seed", 0)) + 1)
+        # the policy-wide compute dtype also drives the memory matmuls (bf16
+        # operands, fp32 state) when acting and replaying
         self.memory_a = Memory(self.num_actor_obs, rnn_hidden_dim, rnn_type, rnn_num_layers,
-                               generator=gen)
+                               compute_dtype=self.dtype, generator=gen)
         self.memory_c = Memory(self.num_critic_obs, rnn_hidden_dim, rnn_type, rnn_num_layers,
-                               generator=gen)
+                               compute_dtype=self.dtype, generator=gen)
         self.to(self.device)
 
     # ------------------------------------------------------------- carries

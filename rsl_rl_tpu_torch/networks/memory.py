@@ -1,15 +1,17 @@
 """Recurrent memory with an explicit carry (counterpart of
-``rsl_rl_tpu/networks/memory.py``), GRU only.
+``rsl_rl_tpu/networks/memory.py``), GRU or LSTM.
 
 - acting: ``Memory.step(carry, x)``, one plain-PyTorch step per call;
 - BPTT replay: ``Memory.sequence`` / ``Memory.sequence_with_carry`` /
-  :func:`paired_sequence`, through the
-  GRU replay of ``ops.gru_rnn`` (CUDA kernels on the card, the plain version
-  on the CPU), with the carry zeroed where ``resets[t]`` is set.
+  :func:`paired_sequence`, through the GRU replay of ``ops.gru_rnn`` or the
+  LSTM replay of ``ops.lstm_rnn`` (CUDA kernels on the card, the plain
+  version on the CPU), with the carry zeroed where ``resets[t]`` is set.
 
 Each layer ``cell_{i}`` holds the packed weights of the JAX package's
-``_gru_pack``: ``wx [D,3H]``, ``bx [3H]``, ``wh [H,3H]``, ``bhn [H]`` (gates
-r|z|n). Init is torch's RNN default, ``U(-1/sqrt(H), 1/sqrt(H))``.
+``_gru_pack`` (``wx [D,3H]``, ``bx [3H]``, ``wh [H,3H]``, ``bhn [H]``, gates
+r|z|n) or ``_lstm_pack`` (``wx [D,4H]``, ``wh [H,4H]``, ``bh [4H]``, gates
+i|f|g|o). The carry is one ``h [B,H]`` per GRU layer and one ``(c, h)`` per
+LSTM layer. Init is torch's RNN default, ``U(-1/sqrt(H), 1/sqrt(H))``.
 """
 
 from __future__ import annotations
@@ -20,74 +22,78 @@ import torch
 from torch import nn
 
 from rsl_rl_tpu_torch.ops.gru_rnn import gru_sequence_pair, gru_sequence_x, gru_step
+from rsl_rl_tpu_torch.ops.lstm_rnn import lstm_sequence_pair, lstm_sequence_with_carry, lstm_step
 
-_LSTM_TODO = (
-    "LSTM memories are not ported yet (ROADMAP.md Queue 2, 'LSTM x-streaming' and"
-    " 'LSTM x-streaming, stream-paired')"
-)
+_CELL_SHAPES = {
+    "gru": lambda d, h: {"wx": (d, 3 * h), "bx": (3 * h,), "wh": (h, 3 * h), "bhn": (h,)},
+    "lstm": lambda d, h: {"wx": (d, 4 * h), "wh": (h, 4 * h), "bh": (4 * h,)},
+}
 
 
-class GRUCellParams(nn.Module):
-    """The packed weights of one GRU layer."""
+class CellParams(nn.Module):
+    """The packed weights of one GRU or LSTM layer."""
 
-    def __init__(self, input_dim: int, hidden: int, generator=None, device=None):
+    def __init__(self, rnn_type: str, input_dim: int, hidden: int, generator=None, device=None):
         super().__init__()
         bound = 1.0 / math.sqrt(hidden)
-
-        def init(*shape):
+        self.names = tuple(_CELL_SHAPES[rnn_type](input_dim, hidden))
+        for name, shape in _CELL_SHAPES[rnn_type](input_dim, hidden).items():
             t = torch.empty(shape, dtype=torch.float32, device=device)
-            return nn.Parameter(t.uniform_(-bound, bound, generator=generator))
-
-        self.wx = init(input_dim, 3 * hidden)
-        self.bx = init(3 * hidden)
-        self.wh = init(hidden, 3 * hidden)
-        self.bhn = init(hidden)
+            self.register_parameter(name, nn.Parameter(t.uniform_(-bound, bound, generator=generator)))
 
     def params(self) -> dict[str, torch.Tensor]:
-        return {"wx": self.wx, "bx": self.bx, "wh": self.wh, "bhn": self.bhn}
+        return {name: getattr(self, name) for name in self.names}
 
 
 class Memory(nn.Module):
-    """Stacked GRU layers.
+    """Stacked GRU or LSTM layers.
 
     Args:
         input_dim: width of the input of layer 0.
         hidden_size: hidden width of every layer.
-        rnn_type: ``"gru"``; ``"lstm"`` raises ``NotImplementedError``.
+        rnn_type: ``"gru"`` or ``"lstm"``.
         num_layers: number of stacked layers.
         compute_dtype: ``None`` (IEEE fp32) or ``torch.bfloat16`` (bf16 matmul
             operands, fp32 state), the same scheme when acting and replaying.
     """
 
-    def __init__(self, input_dim: int, hidden_size: int = 256, rnn_type: str = "gru",
+    def __init__(self, input_dim: int, hidden_size: int = 256, rnn_type: str = "lstm",
                  num_layers: int = 1, compute_dtype=None, generator=None, device=None):
         super().__init__()
-        if rnn_type.lower() != "gru":
-            raise NotImplementedError(_LSTM_TODO)
-        self.rnn_type = "gru"
+        self.rnn_type = rnn_type.lower()
+        if self.rnn_type not in _CELL_SHAPES:
+            raise ValueError(f"rnn_type must be 'gru' or 'lstm', got {rnn_type!r}")
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.compute_dtype = compute_dtype
         for layer in range(num_layers):
             d = input_dim if layer == 0 else hidden_size
-            self.add_module(f"cell_{layer}", GRUCellParams(d, hidden_size, generator, device))
+            self.add_module(f"cell_{layer}", CellParams(self.rnn_type, d, hidden_size, generator, device))
 
     def cell(self, layer: int) -> dict[str, torch.Tensor]:
         return getattr(self, f"cell_{layer}").params()
 
-    def initialize_carry(self, batch_size: int, device=None) -> tuple[torch.Tensor, ...]:
-        """Zero carry: one ``[B, H]`` hidden state per layer."""
-        return tuple(
-            torch.zeros(batch_size, self.hidden_size, device=device) for _ in range(self.num_layers)
-        )
+    def initialize_carry(self, batch_size: int, device=None):
+        """Zero carry: per layer ``h [B, H]`` (GRU) or ``(c, h)`` (LSTM)."""
+
+        def zeros():
+            return torch.zeros(batch_size, self.hidden_size, device=device)
+
+        if self.rnn_type == "gru":
+            return tuple(zeros() for _ in range(self.num_layers))
+        return tuple((zeros(), zeros()) for _ in range(self.num_layers))
 
     def step(self, carry, x: torch.Tensor):
         """One recurrent step: returns ``(new_carry, out)``."""
         new_carry = []
         out = x
         for layer in range(self.num_layers):
-            out = gru_step(self.cell(layer), carry[layer], out, self.compute_dtype)
-            new_carry.append(out)
+            if self.rnn_type == "gru":
+                layer_carry = out = gru_step(self.cell(layer), carry[layer], out, self.compute_dtype)
+            else:
+                layer_carry = lstm_step(self.cell(layer), carry[layer], out, self.compute_dtype)
+                out = layer_carry[1]
+            new_carry.append(layer_carry)
         return tuple(new_carry), out
 
     def sequence(self, carry0, xs: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
@@ -103,8 +109,13 @@ class Memory(nn.Module):
         out = xs
         finals = []
         for layer in range(self.num_layers):
-            out = gru_sequence_x(self.cell(layer), carry0[layer], out, resets, self.compute_dtype)
-            finals.append(out[-1].detach())
+            if self.rnn_type == "gru":
+                out = gru_sequence_x(self.cell(layer), carry0[layer], out, resets, self.compute_dtype)
+                finals.append(out[-1].detach())
+            else:
+                out, final = lstm_sequence_with_carry(self.cell(layer), carry0[layer], out, resets,
+                                                      self.compute_dtype)
+                finals.append(final)
         return out, tuple(finals)
 
 
@@ -116,16 +127,18 @@ def paired_sequence(mem_a: Memory, carry0_a, xs_a: torch.Tensor,
     stream-paired launch when the memories are twins and the inputs have one
     shape; otherwise two :meth:`Memory.sequence` calls. Same result either way."""
     twins = (
-        mem_a.hidden_size == mem_b.hidden_size
+        mem_a.rnn_type == mem_b.rnn_type
+        and mem_a.hidden_size == mem_b.hidden_size
         and mem_a.num_layers == mem_b.num_layers
         and mem_a.compute_dtype == mem_b.compute_dtype
         and xs_a.shape == xs_b.shape
     )
     if not twins:
         return mem_a.sequence(carry0_a, xs_a, resets), mem_b.sequence(carry0_b, xs_b, resets)
+    pair_fn = gru_sequence_pair if mem_a.rnn_type == "gru" else lstm_sequence_pair
     out_a, out_b = xs_a, xs_b
     for layer in range(mem_a.num_layers):
-        out_a, out_b = gru_sequence_pair(
+        out_a, out_b = pair_fn(
             (mem_a.cell(layer), mem_b.cell(layer)),
             (carry0_a[layer], carry0_b[layer]),
             (out_a, out_b),
@@ -136,9 +149,11 @@ def paired_sequence(mem_a: Memory, carry0_a, xs_a: torch.Tensor,
 
 
 def mask_carry(carry, reset_mask: torch.Tensor):
-    """Zero the carry rows where ``reset_mask [N]`` (bool) is set."""
-    keep = 1.0 - reset_mask.to(torch.float32)[:, None]
-    return tuple(h * keep for h in carry)
+    """Zero the carry rows where ``reset_mask [N]`` (bool) is set; the carry
+    is a tensor or nested tuples of tensors (an LSTM layer's ``(c, h)``)."""
+    if isinstance(carry, torch.Tensor):
+        return carry * (1.0 - reset_mask.to(torch.float32)[:, None])
+    return tuple(mask_carry(c, reset_mask) for c in carry)
 
 
 def memory_sequence(mem: Memory, carry0, xs: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:

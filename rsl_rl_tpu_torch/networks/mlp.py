@@ -1,8 +1,12 @@
-"""Configurable MLP (counterpart of ``rsl_rl_tpu/networks/mlp.py``), fp32.
+"""Configurable MLP (counterpart of ``rsl_rl_tpu/networks/mlp.py``).
 
 Layers are ``dense_{i}`` ``nn.Linear``s with torch's default init,
 ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weight and bias, drawn from an
-explicit generator.
+explicit generator. Parameters are fp32. With ``dtype=torch.bfloat16`` a
+layer computes as flax ``nn.Dense(dtype=bfloat16)`` does: input, kernel and
+bias cast to bf16, a bf16 matmul, the bias added in bf16, the activation in
+bf16. ``head_dtype=torch.float32`` computes the last layer in fp32 (``None``
+inherits ``dtype``); the output is fp32 either way.
 """
 
 from __future__ import annotations
@@ -16,6 +20,11 @@ from torch import nn
 from rsl_rl_tpu_torch.utils.resolvers import resolve_nn_activation
 
 
+def _check_dtype(name: str, dtype, allowed: tuple) -> None:
+    if dtype not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {dtype}")
+
+
 class MLP(nn.Module):
     def __init__(
         self,
@@ -24,9 +33,15 @@ class MLP(nn.Module):
         hidden_dims: Sequence[int],
         activation: str = "elu",
         generator: torch.Generator | None = None,
+        dtype=None,
+        head_dtype=None,
     ):
         super().__init__()
+        _check_dtype("dtype", dtype, (None, torch.bfloat16))
+        _check_dtype("head_dtype", head_dtype, (None, torch.float32))
         self.act = resolve_nn_activation(activation)
+        self.dtype = dtype
+        self.head_dtype = head_dtype
         dims = [input_dim, *hidden_dims, output_dim]
         self.num_linear = len(dims) - 1
         for i in range(self.num_linear):
@@ -39,7 +54,13 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_linear):
-            x = getattr(self, f"dense_{i}")(x)
-            if i < self.num_linear - 1:
+            layer = getattr(self, f"dense_{i}")
+            is_head = i == self.num_linear - 1
+            dt = self.head_dtype if is_head and self.head_dtype is not None else self.dtype
+            if dt is None:
+                x = layer(x)
+            else:
+                x = torch.matmul(x.to(dt), layer.weight.to(dt).T) + layer.bias.to(dt)
+            if not is_head:
                 x = self.act(x)
-        return x
+        return x.to(torch.float32)

@@ -22,7 +22,8 @@ Kernels (``csrc/gru_x.cu``), one CUDA launch each:
   ``_gru_core_x_pair_bwd_impl`` and ``_bwd_kernel_x`` / ``_gru_core_x_bwd_impl``.
   ``gru_x_bwd`` runs the reverse-time BPTT chain and writes each step's gate
   gradients to a scratch buffer; ``gru_x_wgrad`` reduces them into the weight
-  gradients.
+  gradients (the split-K reduction of ``csrc/rnn_wgrad.cuh``, which the LSTM
+  replay shares).
 
 What bounds them on an H100: the products ``h @ Wh`` (forward and recompute)
 and ``dgates @ Whᵀ`` are ``T`` dependent steps of ``[B,H] x [H,3H]`` in IEEE
@@ -46,28 +47,21 @@ they launch the kernels or raise. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
-#: the kernels run one thread per hidden column of a block
-KERNEL_MAX_HIDDEN = 256
-#: inputs wider than this take the JAX package's xproj-streaming cores, which
-#: are not ported yet (ROADMAP.md Queue 2, "GRU xproj-streaming")
-X_STREAM_MAX_D = 512
-
-
-@dataclass
-class LaunchCounts:
-    """Launches of each kernel since the last :meth:`reset`."""
-
-    fwd_launches: int = 0
-    bwd_launches: int = 0
-    wgrad_launches: int = 0
-
-    def reset(self) -> None:
-        self.fwd_launches = self.bwd_launches = self.wgrad_launches = 0
-
+from rsl_rl_tpu_torch.ops.rnn_common import (
+    LaunchCounts,
+    check,
+    check_hidden,
+    check_replay_inputs,
+    is_bf16,
+    load_kernels,
+    mm,
+    raise_on,
+    stream,
+    wgrad_splits,
+)
 
 launch_counts = LaunchCounts()
 
@@ -77,21 +71,10 @@ launch_counts = LaunchCounts()
 # --------------------------------------------------------------------------
 
 
-def _op(x: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """A matmul operand: rounded to bf16 (and held in fp32) in bf16 mode."""
-    return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """fp32-accumulated matmul of optionally bf16-rounded operands (the
-    JAX package's ``_mm``). The product of two bf16 values is exact in fp32."""
-    return torch.matmul(_op(a, bf16), _op(b, bf16))
-
-
 def _gates(wx, bx, wh, bhn, h, x, bf16):
     H = wh.shape[-2]
-    xp = _mm(x, wx, bf16) + bx[:, None, :]
-    hp = _mm(h, wh, bf16)
+    xp = mm(x, wx, bf16) + bx[:, None, :]
+    hp = mm(h, wh, bf16)
     r = torch.sigmoid(xp[..., :H] + hp[..., :H])
     z = torch.sigmoid(xp[..., H : 2 * H] + hp[..., H : 2 * H])
     u = hp[..., 2 * H :] + bhn[:, None, :]
@@ -138,9 +121,9 @@ def gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = F
         du = dn * r
         dr = dn * u * r * (1.0 - r)
         gscratch[:, t] = torch.cat([dr, dz, dn, du], dim=-1)
-        dx[:, t] = _mm(torch.cat([dr, dz, dn], dim=-1), wx.transpose(-1, -2), bf16)
+        dx[:, t] = mm(torch.cat([dr, dz, dn], dim=-1), wx.transpose(-1, -2), bf16)
         dgates = torch.cat([dr, dz, du], dim=-1)
-        dh = (g * z + _mm(dgates, wh.transpose(-1, -2), bf16)) * k
+        dh = (g * z + mm(dgates, wh.transpose(-1, -2), bf16)) * k
     return dx, dh, gscratch
 
 
@@ -154,8 +137,8 @@ def gru_x_plain_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
     G = gscratch.reshape(S, T * B, 4 * H)
     dxproj = G[..., : 3 * H]
     dgates = torch.cat([G[..., : 2 * H], G[..., 3 * H :]], dim=-1)
-    dwh = _mm(h_prev.reshape(S, T * B, H).transpose(-1, -2), dgates, bf16)
-    dwx = _mm(xs.reshape(S, T * B, D).transpose(-1, -2), dxproj, bf16)
+    dwh = mm(h_prev.reshape(S, T * B, H).transpose(-1, -2), dgates, bf16)
+    dwx = mm(xs.reshape(S, T * B, D).transpose(-1, -2), dxproj, bf16)
     return dwx, dxproj.sum(dim=1), dwh, G[..., 3 * H :].sum(dim=1)
 
 
@@ -170,70 +153,37 @@ _SIGNATURES = {
     "gru_x_bwd": [_P] * 13 + [_I] * 6 + [_P],
     "gru_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
 }
-#: rows of the T*B weight-gradient reduction that one split of ``gru_x_wgrad``
-#: walks, and the most splits: at T=24, B=1024 that is 12 splits, 1,920 blocks
-WGRAD_ROWS_PER_SPLIT = 2048
-WGRAD_MAX_SPLITS = 16
 _LIB: ctypes.CDLL | None = None
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        from rsl_rl_tpu_torch.utils.cuda_build import load_library
-
-        lib = load_library("gru_x")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = load_kernels("gru_x", _SIGNATURES)
     return _LIB
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple) -> int:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    return t.data_ptr()
-
-
-def _raise_on(fn: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
 
 
 def _dims(wx, xs):
     S, T, B, D = xs.shape
     H = wx.shape[-1] // 3
-    if not 1 <= H <= KERNEL_MAX_HIDDEN:
-        raise ValueError(f"GRU kernels take 1 <= H <= {KERNEL_MAX_HIDDEN}, got H={H}")
+    check_hidden("GRU", H)
     return S, T, B, D, H
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def gru_x_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16: bool = False) -> torch.Tensor:
     """Launch the forward kernel; shapes as :func:`gru_x_plain_fwd`."""
     S, T, B, D, H = _dims(wx, xs)
     ptrs = [
-        _check("xs", xs, (S, T, B, D)),
-        _check("resets", resets, (T, B)),
-        _check("carry0", carry0, (S, B, H)),
-        _check("wx", wx, (S, D, 3 * H)),
-        _check("bx", bx, (S, 3 * H)),
-        _check("wh", wh, (S, H, 3 * H)),
-        _check("bhn", bhn, (S, H)),
+        check("xs", xs, (S, T, B, D)),
+        check("resets", resets, (T, B)),
+        check("carry0", carry0, (S, B, H)),
+        check("wx", wx, (S, D, 3 * H)),
+        check("bx", bx, (S, 3 * H)),
+        check("wh", wh, (S, H, 3 * H)),
+        check("bhn", bhn, (S, H)),
     ]
     hs = torch.empty((S, T, B, H), dtype=torch.float32, device=xs.device)
-    _raise_on("gru_x_fwd", _lib().gru_x_fwd(*ptrs, hs.data_ptr(), S, T, B, D, H, int(bf16), _stream()))
+    raise_on("gru_x_fwd", _lib().gru_x_fwd(*ptrs, hs.data_ptr(), S, T, B, D, H, int(bf16), stream()))
     launch_counts.fwd_launches += 1
     return hs
 
@@ -247,22 +197,22 @@ def gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
     S, T, B, D, H = _dims(wx, xs)
     whT = wh.transpose(-1, -2).contiguous()  # [S,3H,H]: coalesced dgates @ Whᵀ
     ptrs = [
-        _check("xs", xs, (S, T, B, D)),
-        _check("resets", resets, (T, B)),
-        _check("carry0", carry0, (S, B, H)),
-        _check("wx", wx, (S, D, 3 * H)),
-        _check("bx", bx, (S, 3 * H)),
-        _check("wh", wh, (S, H, 3 * H)),
-        _check("whT", whT, (S, 3 * H, H)),
-        _check("bhn", bhn, (S, H)),
-        _check("hs", hs, (S, T, B, H)),
-        _check("ghs", ghs, (S, T, B, H)),
+        check("xs", xs, (S, T, B, D)),
+        check("resets", resets, (T, B)),
+        check("carry0", carry0, (S, B, H)),
+        check("wx", wx, (S, D, 3 * H)),
+        check("bx", bx, (S, 3 * H)),
+        check("wh", wh, (S, H, 3 * H)),
+        check("whT", whT, (S, 3 * H, H)),
+        check("bhn", bhn, (S, H)),
+        check("hs", hs, (S, T, B, H)),
+        check("ghs", ghs, (S, T, B, H)),
     ]
     dx = torch.empty_like(xs)
     dcarry0 = torch.empty_like(carry0)
     gscratch = torch.empty((S, T, B, 4 * H), dtype=torch.float32, device=xs.device)
     out = [dx.data_ptr(), dcarry0.data_ptr(), gscratch.data_ptr()]
-    _raise_on("gru_x_bwd", _lib().gru_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), _stream()))
+    raise_on("gru_x_bwd", _lib().gru_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream()))
     launch_counts.bwd_launches += 1
     return dx, dcarry0, gscratch
 
@@ -276,17 +226,17 @@ def gru_x_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
     S, T, B, D = xs.shape
     H = carry0.shape[-1]
     ptrs = [
-        _check("xs", xs, (S, T, B, D)),
-        _check("resets", resets, (T, B)),
-        _check("carry0", carry0, (S, B, H)),
-        _check("hs", hs, (S, T, B, H)),
-        _check("gscratch", gscratch, (S, T, B, 4 * H)),
+        check("xs", xs, (S, T, B, D)),
+        check("resets", resets, (T, B)),
+        check("carry0", carry0, (S, B, H)),
+        check("hs", hs, (S, T, B, H)),
+        check("gscratch", gscratch, (S, T, B, 4 * H)),
     ]
-    P = min(WGRAD_MAX_SPLITS, max(1, -(-T * B // WGRAD_ROWS_PER_SPLIT)))
+    P = wgrad_splits(T * B)
     W = torch.empty((S, P, H + D + 1, 4 * H), dtype=torch.float32, device=xs.device)
     C = torch.empty((S, H + D + 1, 4 * H), dtype=torch.float32, device=xs.device)
-    _raise_on("gru_x_wgrad", _lib().gru_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
-                                                int(bf16), _stream()))
+    raise_on("gru_x_wgrad", _lib().gru_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
+                                                int(bf16), stream()))
     launch_counts.wgrad_launches += 1
     dwh = torch.cat([C[:, :H, : 2 * H], C[:, :H, 3 * H :]], dim=-1)
     dwx = C[:, H : H + D, : 3 * H].contiguous()
@@ -324,25 +274,10 @@ class _GruX(torch.autograd.Function):
         return dwx, dbx, dwh, dbhn, dcarry0, dx, None, None
 
 
-def _is_bf16(compute_dtype) -> bool:
-    if compute_dtype is None:
-        return False
-    if compute_dtype == torch.bfloat16:
-        return True
-    raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
-
-
 def _gru_x_streams(params_list, carry0_list, xs_list, resets, compute_dtype):
     T, B, D = xs_list[0].shape
-    devices = {t.device for p in params_list for t in p.values()}
-    devices |= {t.device for t in (*carry0_list, *xs_list, resets)}
-    if len(devices) != 1:
-        raise ValueError(f"GRU replay inputs are on several devices: {sorted(map(str, devices))}")
-    if xs_list[0].is_cuda and D > X_STREAM_MAX_D:
-        raise NotImplementedError(
-            f"GRU replay with input width D={D} > {X_STREAM_MAX_D} needs the xproj-streaming"
-            " kernels, not ported yet (ROADMAP.md Queue 2, 'GRU xproj-streaming')"
-        )
+    tensors = [t for p in params_list for t in p.values()] + [*carry0_list, *xs_list, resets]
+    check_replay_inputs("GRU", tensors, D, xs_list[0].is_cuda)
     f32 = torch.float32
     wx = torch.stack([p["wx"] for p in params_list]).to(f32)
     bx = torch.stack([p["bx"] for p in params_list]).to(f32)
@@ -351,14 +286,14 @@ def _gru_x_streams(params_list, carry0_list, xs_list, resets, compute_dtype):
     carry0 = torch.stack(list(carry0_list)).to(f32)
     xs = torch.stack(list(xs_list)).to(f32)
     resets = resets.to(f32).reshape(T, B).contiguous()
-    return _GruX.apply(wx, bx, wh, bhn, carry0, xs, resets, _is_bf16(compute_dtype))
+    return _GruX.apply(wx, bx, wh, bhn, carry0, xs, resets, is_bf16(compute_dtype))
 
 
 def gru_step(params: dict, h: torch.Tensor, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """One GRU step, ``h [N,H]``, ``x [N,D]`` -> ``h' [N,H]``, with the same
     math and operand rounding as the replay, so acting and replay agree.
     Plain PyTorch on every device: acting runs one step at a time."""
-    bf16 = _is_bf16(compute_dtype)
+    bf16 = is_bf16(compute_dtype)
     r, z, u, n = _gates(
         params["wx"][None], params["bx"][None], params["wh"][None], params["bhn"][None],
         h[None], x[None], bf16,

@@ -1,0 +1,109 @@
+"""What the GRU and LSTM window replays (``ops/gru_rnn.py``,
+``ops/lstm_rnn.py``) share: the operand rounding of the bf16 mode, the
+compute-dtype rule, launch counters and the checks of the kernel wrappers."""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+#: the kernels run one thread per hidden column of a block
+KERNEL_MAX_HIDDEN = 256
+#: inputs wider than this take the JAX package's xproj-streaming cores, which
+#: are not ported yet (ROADMAP.md Queue 2, "xproj-streaming")
+X_STREAM_MAX_D = 512
+#: rows of the T*B weight-gradient reduction (``csrc/rnn_wgrad.cuh``) that one
+#: split walks, and the most splits: at T=24, B=1024 that is 12 splits
+WGRAD_ROWS_PER_SPLIT = 2048
+WGRAD_MAX_SPLITS = 16
+
+
+@dataclass
+class LaunchCounts:
+    """Launches of each kernel since the last :meth:`reset`."""
+
+    fwd_launches: int = 0
+    bwd_launches: int = 0
+    wgrad_launches: int = 0
+
+    def reset(self) -> None:
+        self.fwd_launches = self.bwd_launches = self.wgrad_launches = 0
+
+
+def op(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A matmul operand: rounded to bf16 (and held in fp32) in bf16 mode."""
+    return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """fp32-accumulated matmul of optionally bf16-rounded operands (the
+    JAX package's ``_mm``). The product of two bf16 values is exact in fp32."""
+    return torch.matmul(op(a, bf16), op(b, bf16))
+
+
+def is_bf16(compute_dtype) -> bool:
+    """``None`` -> IEEE fp32, ``torch.bfloat16`` -> bf16 operands; else raise."""
+    if compute_dtype is None:
+        return False
+    if compute_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+
+
+def load_kernels(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (on first use) and load ``csrc/<name>.cu`` and type its entry points."""
+    from rsl_rl_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library(name)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(name: str, t: torch.Tensor, shape: tuple) -> int:
+    """The data pointer of a contiguous fp32 CUDA tensor of ``shape``; raises otherwise."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t.data_ptr()
+
+
+def raise_on(fn: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+def check_hidden(kind: str, H: int) -> None:
+    if not 1 <= H <= KERNEL_MAX_HIDDEN:
+        raise ValueError(f"{kind} kernels take 1 <= H <= {KERNEL_MAX_HIDDEN}, got H={H}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def wgrad_splits(rows: int) -> int:
+    """Row splits of the weight-gradient reduction over ``rows = T*B`` rows."""
+    return min(WGRAD_MAX_SPLITS, max(1, -(-rows // WGRAD_ROWS_PER_SPLIT)))
+
+
+def check_replay_inputs(kind: str, tensors, D: int, on_cuda: bool) -> None:
+    """One device for all replay inputs, and an input width the x-streaming
+    kernels take (on the CPU the plain version takes any width)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{kind} replay inputs are on several devices: {sorted(map(str, devices))}")
+    if on_cuda and D > X_STREAM_MAX_D:
+        raise NotImplementedError(
+            f"{kind} replay with input width D={D} > {X_STREAM_MAX_D} needs the xproj-streaming"
+            f" kernels, not ported yet (ROADMAP.md Queue 2, '{kind} xproj-streaming')"
+        )

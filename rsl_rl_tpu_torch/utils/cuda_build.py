@@ -2,8 +2,9 @@
 
 Each ``rsl_rl_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into ``build/<name>-<hash>.so`` at the repository root, with a
-plain C interface bound through ``ctypes``. The hash covers every source in
-``csrc/`` and the compiler flags, so a build is reused until something
+plain C interface bound through ``ctypes``; the ``*.cuh`` headers there hold
+code the sources share. The hash covers every source and header in ``csrc/``
+and the compiler flags, so a build is reused until something
 changes. All sources compile in parallel, one ``nvcc`` each. Nothing here runs
 at import time: the first :func:`load_library` call builds.
 """

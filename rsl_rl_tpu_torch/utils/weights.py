@@ -5,13 +5,17 @@ The JAX policy's state arrives as nested dicts of numpy arrays:
 - ``params``: ``{"actor": {"dense_i": {"kernel" [in,out], "bias"}}, "critic": ...,
   "std": [A], "memory_a"/"memory_c": {"cell_i": {"ir"/"iz"/"in": {"kernel",
   "bias"}, "hr"/"hz": {"kernel"}, "hn": {"kernel", "bias"}}}}`` (flax
-  ``Dense`` and ``GRUCell`` layouts);
+  ``Dense`` and ``GRUCell`` layouts), or for an LSTM memory ``{"ii".."io":
+  {"kernel"}, "hi".."ho": {"kernel", "bias"}}`` per cell (``OptimizedLSTMCell``);
 - ``norm``: ``{"actor"/"critic": {"mean", "var", "count"} or None}``.
 
 GRU cells are packed as the JAX package's ``_gru_pack`` packs them (gates
 r|z|n): ``wx = [ir|iz|in]`` ``[D,3H]``, ``bx`` ``[3H]``, ``wh = [hr|hz|hn]``
-``[H,3H]``, ``bhn`` ``[H]``. The port keeps its own copy of these layout
-maps; it imports nothing of the JAX package.
+``[H,3H]``, ``bhn`` ``[H]``. LSTM cells (flax ``OptimizedLSTMCell``: ``ii``..
+``io`` without bias, ``hi``..``ho`` with) as ``_lstm_pack`` packs them (gates
+i|f|g|o): ``wx = [ii|if|ig|io]`` ``[D,4H]``, ``wh = [hi|hf|hg|ho]`` ``[H,4H]``,
+``bh`` ``[4H]``. The port keeps its own copy of these layout maps; it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -19,16 +23,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_GATES = ("r", "z", "n")
+_GRU_GATES = ("r", "z", "n")
+_LSTM_GATES = ("i", "f", "g", "o")
 
 
 def pack_gru_cell(cell: dict) -> dict[str, np.ndarray]:
     """flax ``GRUCell`` params -> the packed ``wx``, ``bx``, ``wh``, ``bhn``."""
     return {
-        "wx": np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]) for g in _GATES], axis=1),
-        "bx": np.concatenate([np.asarray(cell[f"i{g}"]["bias"]) for g in _GATES]),
-        "wh": np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]) for g in _GATES], axis=1),
+        "wx": np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]) for g in _GRU_GATES], axis=1),
+        "bx": np.concatenate([np.asarray(cell[f"i{g}"]["bias"]) for g in _GRU_GATES]),
+        "wh": np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]) for g in _GRU_GATES], axis=1),
         "bhn": np.asarray(cell["hn"]["bias"]),
+    }
+
+
+def pack_lstm_cell(cell: dict) -> dict[str, np.ndarray]:
+    """flax ``OptimizedLSTMCell`` params -> the packed ``wx``, ``wh``, ``bh``."""
+    return {
+        "wx": np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]) for g in _LSTM_GATES], axis=1),
+        "wh": np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]) for g in _LSTM_GATES], axis=1),
+        "bh": np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _LSTM_GATES]),
     }
 
 
@@ -53,8 +67,9 @@ def from_jax_state(params_np: dict, norm_np: dict, policy) -> None:
     if policy.is_recurrent:
         for mem in ("memory_a", "memory_c"):
             memory = getattr(policy, mem)
+            pack = pack_gru_cell if memory.rnn_type == "gru" else pack_lstm_cell
             for layer in range(memory.num_layers):
-                packed = pack_gru_cell(params_np[mem][f"cell_{layer}"])
+                packed = pack(params_np[mem][f"cell_{layer}"])
                 cell = getattr(memory, f"cell_{layer}")
                 for key, value in packed.items():
                     _copy(getattr(cell, key), value, f"{mem}.cell_{layer}.{key}")

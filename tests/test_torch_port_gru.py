@@ -220,6 +220,15 @@ def test_paired_sequence_equals_two_sequences():
     torch.testing.assert_close(pb, mem_b.sequence(c0, 2 * xs, resets), rtol=0, atol=0)
 
 
-def test_lstm_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Memory(D, H, "lstm", device="cpu")
+def test_lstm_memory_builds():
+    """LSTM memories are ported: two layers of packed ``wx``, ``wh``, ``bh``
+    and a ``(c, h)`` carry per layer; an unknown cell type raises."""
+    mem = Memory(D, H, "lstm", num_layers=2, device="cpu")
+    assert mem.rnn_type == "lstm"
+    assert {k: tuple(v.shape) for k, v in mem.cell(0).items()} == {
+        "wx": (D, 4 * H), "wh": (H, 4 * H), "bh": (4 * H,)}
+    assert tuple(mem.cell(1)["wx"].shape) == (H, 4 * H)
+    carry = mem.initialize_carry(3)
+    assert len(carry) == 2 and all(len(layer) == 2 for layer in carry)
+    with pytest.raises(ValueError, match="rnn_type"):
+        Memory(D, H, "rnn", device="cpu")

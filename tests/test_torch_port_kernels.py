@@ -1,4 +1,4 @@
-"""The port's GRU replay kernels and their plain versions, without JAX, so the
+"""The port's GRU and LSTM replay kernels and their plain versions, without JAX, so the
 file also runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_port_kernels.py
@@ -14,7 +14,7 @@ import math
 import pytest
 import torch
 
-from rsl_rl_tpu_torch.ops import gru_rnn
+from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
 
 
 def _inputs(S, T, B, D, H, seed, device="cpu"):
@@ -27,6 +27,22 @@ def _inputs(S, T, B, D, H, seed, device="cpu"):
     resets = (torch.rand(T, B, generator=g) < 0.15).float()
     resets[0] = 0.0
     w = (u(S, D, 3 * H), u(S, 3 * H), u(S, H, 3 * H), u(S, H),
+         torch.randn(S, B, H, generator=g) * 0.5, torch.randn(S, T, B, D, generator=g), resets)
+    ghs = torch.randn(S, T, B, H, generator=g)
+    return tuple(t.to(device) for t in w), ghs.to(device)
+
+
+def _lstm_inputs(S, T, B, D, H, seed, device="cpu"):
+    """``(wx, wh, bh, c0, h0, xs, resets)`` and ``ghs`` of an LSTM replay."""
+    g = torch.Generator().manual_seed(seed)
+    bound = 1.0 / math.sqrt(H)
+
+    def u(*shape):
+        return (torch.rand(shape, generator=g) * 2 - 1) * bound
+
+    resets = (torch.rand(T, B, generator=g) < 0.15).float()
+    resets[0] = 0.0
+    w = (u(S, D, 4 * H), u(S, H, 4 * H), u(S, 4 * H), torch.randn(S, B, H, generator=g),
          torch.randn(S, B, H, generator=g) * 0.5, torch.randn(S, T, B, D, generator=g), resets)
     ghs = torch.randn(S, T, B, H, generator=g)
     return tuple(t.to(device) for t in w), ghs.to(device)
@@ -49,6 +65,23 @@ def test_plain_backward_is_the_gradient_of_plain_forward(S, T):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5, msg=name)
 
 
+@pytest.mark.parametrize("S,T", [(1, 5), (2, 5), (2, 1)], ids=["S1T5", "S2T5", "S2T1"])
+def test_lstm_plain_backward_is_the_gradient_of_plain_forward(S, T):
+    """fp32: the plain LSTM BPTT chain and weight-gradient reduction equal
+    autograd through the plain forward, for a loss on ``hs`` and on ``cs``."""
+    (wx, wh, bh, c0, h0, xs, resets), ghs = _lstm_inputs(S, T, 16, 6, 8, seed=S * 10 + T + 1)
+    leaves = [t.clone().requires_grad_(True) for t in (wx, wh, bh, c0, h0, xs)]
+    hs, cs = lstm_rnn.lstm_x_plain_fwd(*leaves, resets)
+    want = torch.autograd.grad(hs, leaves, ghs)
+
+    hs, cs = hs.detach(), cs.detach()
+    dx, dc0, dh0, gs = lstm_rnn.lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs)
+    dwx, dwh, dbh = lstm_rnn.lstm_x_plain_wgrad(xs, resets, h0, hs, gs)
+    for name, got, ref in zip(("dwx", "dwh", "dbh", "dc0", "dh0", "dx"),
+                              (dwx, dwh, dbh, dc0, dh0, dx), want):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5, msg=name)
+
+
 @pytest.mark.parametrize("kernel", ["gru_x_fwd", "gru_x_bwd", "gru_x_wgrad"])
 def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     """No silent fallback: the kernel entry points take CUDA tensors only."""
@@ -62,6 +95,20 @@ def test_kernel_wrappers_refuse_cpu_tensors(kernel):
     }[kernel]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         getattr(gru_rnn, kernel)(*args)
+
+
+@pytest.mark.parametrize("kernel", ["lstm_x_fwd", "lstm_x_bwd", "lstm_x_wgrad"])
+def test_lstm_kernel_wrappers_refuse_cpu_tensors(kernel):
+    w, ghs = _lstm_inputs(1, 2, 16, 6, 8, seed=0)
+    hs, cs = lstm_rnn.lstm_x_plain_fwd(*w)
+    gs = lstm_rnn.lstm_x_plain_bwd(*w, hs, cs, ghs)[3]
+    args = {
+        "lstm_x_fwd": w,
+        "lstm_x_bwd": (*w, hs, cs, ghs),
+        "lstm_x_wgrad": (w[5], w[6], w[4], hs, gs),
+    }[kernel]
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        getattr(lstm_rnn, kernel)(*args)
 
 
 def test_replay_rejects_unknown_compute_dtype():
@@ -132,5 +179,60 @@ def test_replay_autograd_on_card_matches_cpu():
         grads = torch.autograd.grad(out, leaves, ghs.to(device))
         results[device] = [out.detach().cpu(), *(g.cpu() for g in grads)]
     for name, a, b in zip(("hs", "dwx", "dbx", "dwh", "dbhn", "dcarry0", "dxs"),
+                          results["cuda"], results["cpu"]):
+        _close(a, b, 1e-3, 1e-4, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,T,bf16", [(2, 24, False), (2, 24, True), (1, 24, False), (2, 1, False)],
+    ids=["S2T24-fp32", "S2T24-bf16", "S1T24-fp32", "S2T1-fp32"],
+)
+def test_lstm_kernels_match_plain_on_card(S, T, bf16):
+    """Each LSTM kernel against its plain version on the same inputs, at the
+    main path's widths (D=15, H=256) and a ragged batch of 200 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, ghs = _lstm_inputs(S, T, 200, 15, 256, seed=S * 100 + T + 1, device="cuda")
+    fwd_rtol, fwd_atol, bwd_rtol, bwd_atol_rel = TOL[bf16]
+    counts = lstm_rnn.launch_counts
+    counts.reset()
+
+    hs_plain, cs_plain = lstm_rnn.lstm_x_plain_fwd(*w, bf16)
+    hs, cs = lstm_rnn.lstm_x_fwd(*w, bf16)
+    torch.testing.assert_close(hs, hs_plain, rtol=fwd_rtol, atol=fwd_atol)
+    torch.testing.assert_close(cs, cs_plain, rtol=fwd_rtol, atol=fwd_atol)
+    got = lstm_rnn.lstm_x_bwd(*w, hs_plain, cs_plain, ghs, bf16)
+    want = lstm_rnn.lstm_x_plain_bwd(*w, hs_plain, cs_plain, ghs, bf16)
+    for name, a, b in zip(("dx", "dc0", "dh0", "gscratch"), got, want):
+        _close(a, b, bwd_rtol, bwd_atol_rel, name)
+    gs = want[3]
+    got = lstm_rnn.lstm_x_wgrad(w[5], w[6], w[4], hs_plain, gs, bf16)
+    want = lstm_rnn.lstm_x_plain_wgrad(w[5], w[6], w[4], hs_plain, gs, bf16)
+    for name, a, b in zip(("dwx", "dwh", "dbh"), got, want):
+        _close(a, b, bwd_rtol, bwd_atol_rel, name)
+    torch.cuda.synchronize()
+    assert (counts.fwd_launches, counts.bwd_launches, counts.wgrad_launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_lstm_replay_autograd_on_card_matches_cpu():
+    """``lstm_sequence_pair`` on the card (kernels) against the CPU (plain
+    version): values and the gradients of every input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, ghs = _lstm_inputs(2, 8, 64, 15, 256, seed=6)
+    results = {}
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).clone().requires_grad_(True) for t in w[:6]]
+        params = [dict(zip(("wx", "wh", "bh"), (t[s] for t in leaves[:3]))) for s in range(2)]
+        carries = [(leaves[3][s], leaves[4][s]) for s in range(2)]
+        hs = lstm_rnn.lstm_sequence_pair(params, carries, (leaves[5][0], leaves[5][1]), w[6].to(device))
+        out = torch.stack(hs)
+        grads = torch.autograd.grad(out, leaves, ghs.to(device))
+        results[device] = [out.detach().cpu(), *(g.cpu() for g in grads)]
+    for name, a, b in zip(("hs", "dwx", "dwh", "dbh", "dc0", "dh0", "dxs"),
                           results["cuda"], results["cpu"]):
         _close(a, b, 1e-3, 1e-4, name)

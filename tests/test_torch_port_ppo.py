@@ -33,6 +33,7 @@ GROUPS = {"policy": ["policy"], "critic": ["policy"]}
 POLICY_KW = dict(rnn_type="gru", rnn_hidden_dim=HID, actor_hidden_dims=[32, 32],
                  critic_hidden_dims=[32, 32], actor_obs_normalization=True,
                  critic_obs_normalization=True)
+LSTM_KW = dict(POLICY_KW, rnn_type="lstm")
 PPO_KW = dict(num_learning_epochs=2, num_mini_batches=2)
 
 
@@ -57,6 +58,16 @@ def _norm_np(norm):
 def _close(got, want, rtol, atol, what):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol, err_msg=what)
+
+
+def _close_tree(got, want, rtol, atol, what):
+    """:func:`_close` over a carry: a tensor or nested tuples of them."""
+    if isinstance(got, (tuple, list)):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close_tree(g, w, rtol, atol, f"{what}[{i}]")
+    else:
+        _close(got, want, rtol, atol, what)
 
 
 # ------------------------------------------------------------------ ops
@@ -107,10 +118,10 @@ def test_gae_matches(normalize):
 # ------------------------------------------------------------ JAX setup
 
 
-def _jax_setup(max_episode_length, randomize):
+def _jax_setup(max_episode_length, randomize, policy_kw=POLICY_KW):
     env = JaxNLink(N, LINKS, max_episode_length=max_episode_length)
     _, obs = env.reset(jax.random.PRNGKey(0))
-    policy = JaxACR(obs, GROUPS, env.num_actions, **POLICY_KW)
+    policy = JaxACR(obs, GROUPS, env.num_actions, **policy_kw)
     ppo = JaxPPO(policy, **PPO_KW)
     ts = ppo.init_train_state(jax.random.PRNGKey(1), N)
     cs = ppo.init_collect_state(jax.random.PRNGKey(2), env)
@@ -119,9 +130,9 @@ def _jax_setup(max_episode_length, randomize):
     return env, ppo, ts, cs
 
 
-def _port_policy(obs, ps):
+def _port_policy(obs, ps, policy_kw=POLICY_KW):
     policy = ActorCriticRecurrent({k: _t(v) for k, v in obs.items()}, GROUPS, LINKS,
-                                  device="cpu", **POLICY_KW)
+                                  device="cpu", **policy_kw)
     from_jax_state(jax.device_get(ps.params), _norm_np(ps.norm), policy)
     return policy
 
@@ -160,11 +171,20 @@ def test_acting_matches_jax_for_each_std_mode(std_type, floor):
 
 def test_collect_window_matches_jax():
     """No time-out in the window; the port replays the JAX action noise."""
-    jenv, jppo, ts0, cs0 = _jax_setup(max_episode_length=1000, randomize=False)
+    _check_collect_window(POLICY_KW)
+
+
+def test_lstm_collect_window_matches_jax():
+    """The same with LSTM memories: a ``(c, h)`` carry per layer."""
+    _check_collect_window(LSTM_KW)
+
+
+def _check_collect_window(policy_kw):
+    jenv, jppo, ts0, cs0 = _jax_setup(max_episode_length=1000, randomize=False, policy_kw=policy_kw)
     ts1, cs1, rollout, _ = jax.jit(jppo.make_collect_fn(jenv, T))(ts0, cs0)
     assert not np.asarray(rollout.dones).any()
 
-    policy = _port_policy(cs0.obs, ts0.policy)
+    policy = _port_policy(cs0.obs, ts0.policy, policy_kw)
     ppo = PPO(policy, **PPO_KW)
     env = NLinkPendulum(N, LINKS, max_episode_length=1000, device="cpu")
     st = cs0.env_state
@@ -182,7 +202,7 @@ def test_collect_window_matches_jax():
     _close(got.obs["policy"], rollout.obs["policy"], 1e-4, 1e-5, "obs")
     np.testing.assert_array_equal(got.dones.numpy(), np.asarray(rollout.dones))
     for role in ("actor", "critic"):
-        _close(cs.carry[role][0], cs1.carry[role][0], 1e-4, 1e-5, f"final {role} carry")
+        _close_tree(cs.carry[role], cs1.carry[role], 1e-4, 1e-5, f"final {role} carry")
         state = getattr(policy, f"norm_{role}")
         for k in ("mean", "var", "count"):
             _close(getattr(state, k), getattr(ts1.policy.norm[role], k), 1e-5, 1e-6, f"norm {role} {k}")
@@ -192,13 +212,23 @@ def test_recurrent_update_matches_jax():
     """One full update (GAE, 2 epochs x 2 minibatches, adaptive-KL lr,
     global-norm clip, Adam) on a JAX-made rollout with dones: losses and
     every updated parameter at rtol 3e-4 / atol 3e-5."""
-    jenv, jppo, ts0, cs0 = _jax_setup(max_episode_length=5, randomize=True)
+    _check_update(POLICY_KW)
+
+
+def test_lstm_recurrent_update_matches_jax():
+    """The same with LSTM memories in fp32: the window-start ``(c, h)``
+    carries are sliced per minibatch and replayed with the rollout's resets."""
+    _check_update(LSTM_KW)
+
+
+def _check_update(policy_kw):
+    jenv, jppo, ts0, cs0 = _jax_setup(max_episode_length=5, randomize=True, policy_kw=policy_kw)
     ts1, cs1, rollout, _ = jax.jit(jppo.make_collect_fn(jenv, T))(ts0, cs0)
     dones = np.asarray(rollout.dones)
     assert dones.any() and not dones.all(axis=1).any(), "want desynchronized dones"
     ts2, _, um = jax.jit(jppo.make_update_fn())(ts1, cs1, rollout)
 
-    policy = _port_policy(cs1.obs, ts1.policy)
+    policy = _port_policy(cs1.obs, ts1.policy, policy_kw)
     ppo = PPO(policy, **PPO_KW)
     cs = CollectState(env_state=None, obs={k: _t(v) for k, v in cs1.obs.items()},
                       carry=_tree_t(jax.device_get(cs1.carry)), stats=None)
@@ -214,6 +244,6 @@ def test_recurrent_update_matches_jax():
     assert set(metrics) == set(um)
     for k in um:
         _close(metrics[k], um[k], 3e-4, 3e-5, f"metric {k}")
-    want = _port_policy(cs1.obs, ts2.policy)
+    want = _port_policy(cs1.obs, ts2.policy, policy_kw)
     for (name, got_p), (_, want_p) in zip(policy.named_parameters(), want.named_parameters()):
         _close(got_p, want_p.detach(), 3e-4, 3e-5, f"updated {name}")
