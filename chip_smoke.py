@@ -9,21 +9,32 @@ Phases, each fatal on failure:
    and turn TF32 off for matmuls and cuDNN, so fp32 means IEEE fp32.
 2. Build the CUDA kernels from ``rsl_rl_tpu_torch/csrc/`` (into ``build/``,
    one ``nvcc`` per source, all in parallel).
-3. Hold every kernel (GRU and LSTM) against its plain PyTorch version on the
-   same inputs, at the main-path shape (T=24, B=1024, D=15, H=256) with S=2
-   and S=1, in IEEE fp32 and in bf16-operand mode, and at T=1.
-4. The slices, each through ``OnPolicyRunner.learn`` for 3 iterations with
-   every kernel launch counter set to 0 just before and read just after:
-   ``recurrent_gru256`` (GRU-256 actor and critic memories, [256, 256] MLPs,
-   obs normalization, fp32) and ``recurrent_lstm256_bf16`` (the same with
-   LSTM-256 memories and ``dtype=bfloat16``: bf16 MLP trunks with fp32
-   heads, bf16 memory matmul operands), both on 4096 ``NLinkPendulum`` envs
-   with 5 links, T=24, 5 epochs x 4 minibatches. After each, check that the
-   kernel replay of a collected window reproduces the acting-time policy.
-5. Time each kernel at the main-path shape beside its plain version, a
+3. Hold every kernel against its plain PyTorch version on the same inputs:
+   the x-streaming kernels (GRU and LSTM) at their main-path shape (T=24,
+   B=1024, D=15, H=256) with S=2 and S=1, the xproj kernels at theirs
+   (G=16 streams of B=128: 8 seeds x actor and critic, per-stream resets)
+   and at G=1, B=1024 (the wide-input shape, D=520), each in IEEE fp32 and
+   in bf16-operand mode, and at T=1.
+4. The slices, each trained for 3 iterations with every kernel launch
+   counter set to 0 just before and read just after: through
+   ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
+   memories, [256, 256] MLPs, obs normalization, fp32) and
+   ``recurrent_lstm256_bf16`` (the same with LSTM-256 memories and
+   ``dtype=bfloat16``: bf16 MLP trunks with fp32 heads, bf16 memory matmul
+   operands), both on 4096 ``NLinkPendulum`` envs with 5 links, T=24, 5
+   epochs x 4 minibatches; through ``MultiSeedRunner.learn``,
+   ``multiseed8_recurrent_gru256`` and ``multiseed8_recurrent_lstm256_bf16``,
+   the same policies for 8 seeds of 512 envs each (4096 in all). After each,
+   check finite (and, across seeds, distinct) metrics, and that the kernel
+   replay of a collected window reproduces the acting-time policy, per seed.
+5. Time each kernel at its main-path shape beside its plain version, a
    PyTorch yardstick the port never calls (cuDNN's ``torch.nn.GRU`` /
-   ``torch.nn.LSTM``; one ``torch.bmm`` for the weight-gradient reductions)
-   and the card's lower bound for the same work; then each kernel at S=1.
+   ``torch.nn.LSTM``; one ``torch.bmm`` for the weight-gradient reductions;
+   none for the xproj forward and backward at G=16, which no single library
+   call computes) and the card's lower bound for the same work; then the
+   x-streaming kernels at S=1, and the xproj kernels and the port's whole
+   xproj replay (outside projection included) at G=1 beside cuDNN on the
+   raw wide input.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -39,23 +50,33 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+from torch.func import functional_call, vmap
 
 from rsl_rl_tpu_torch.env import NLinkPendulum
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
-from rsl_rl_tpu_torch.runners import OnPolicyRunner
+from rsl_rl_tpu_torch.runners import MultiSeedRunner, OnPolicyRunner
 from rsl_rl_tpu_torch.storage.rollout import slice_envs
 from rsl_rl_tpu_torch.utils import cuda_build
 
 PALLAS = "rsl_rl_tpu/ops/pallas_rnn.py"
+#: kernel families: the x-streaming kernels (the input projection inside) and
+#: the xproj ones (over a projection computed outside, one reset mask per stream)
 FAMILIES = {
     "gru": {"module": gru_rnn, "source": "rsl_rl_tpu_torch/csrc/gru_x.cu", "gates": 3,
-            "kernels": ("gru_x_fwd", "gru_x_bwd", "gru_x_wgrad")},
+            "counts": "launch_counts", "kernels": ("gru_x_fwd", "gru_x_bwd", "gru_x_wgrad")},
     "lstm": {"module": lstm_rnn, "source": "rsl_rl_tpu_torch/csrc/lstm_x.cu", "gates": 4,
-             "kernels": ("lstm_x_fwd", "lstm_x_bwd", "lstm_x_wgrad")},
+             "counts": "launch_counts", "kernels": ("lstm_x_fwd", "lstm_x_bwd", "lstm_x_wgrad")},
+    "gru_xp": {"module": gru_rnn, "source": "rsl_rl_tpu_torch/csrc/gru_xp.cu", "gates": 3,
+               "counts": "xp_launch_counts", "kernels": ("gru_xp_fwd", "gru_xp_bwd", "gru_xp_wgrad")},
+    "lstm_xp": {"module": lstm_rnn, "source": "rsl_rl_tpu_torch/csrc/lstm_xp.cu", "gates": 4,
+                "counts": "xp_launch_counts", "kernels": ("lstm_xp_fwd", "lstm_xp_bwd", "lstm_xp_wgrad")},
 }
-#: the TPU kernel each replaces (stream-paired) and the single-stream ones
+#: the TPU kernel each replaces (the pallas_call, or for a weight-gradient
+#: reduction the accumulation line of its kernel body) and further ones it
+#: replaces at S=1
 REPLACES = {
     "gru_x_fwd": (f"{PALLAS}:1354", [f"{PALLAS}:492"]),
     "gru_x_bwd": (f"{PALLAS}:1414", [f"{PALLAS}:548"]),
@@ -63,6 +84,12 @@ REPLACES = {
     "lstm_x_fwd": (f"{PALLAS}:1619", [f"{PALLAS}:1051"]),
     "lstm_x_bwd": (f"{PALLAS}:1690", [f"{PALLAS}:1122"]),
     "lstm_x_wgrad": (f"{PALLAS}:1764", [f"{PALLAS}:1195"]),
+    "gru_xp_fwd": (f"{PALLAS}:271", []),
+    "gru_xp_bwd": (f"{PALLAS}:392", []),
+    "gru_xp_wgrad": (f"{PALLAS}:360", []),
+    "lstm_xp_fwd": (f"{PALLAS}:836", []),
+    "lstm_xp_bwd": (f"{PALLAS}:968", []),
+    "lstm_xp_wgrad": (f"{PALLAS}:937", []),
 }
 
 RECURRENT_GRU256 = {
@@ -88,7 +115,15 @@ RECURRENT_LSTM256_BF16 = copy.deepcopy(RECURRENT_GRU256)
 RECURRENT_LSTM256_BF16["policy"].update(rnn_type="lstm", dtype=torch.bfloat16)
 SLICES = {"recurrent_gru256": ("gru", RECURRENT_GRU256),
           "recurrent_lstm256_bf16": ("lstm", RECURRENT_LSTM256_BF16)}
+# the multi-seed slices: examples/train_multiseed.py's 8 seeds x 512 envs
+# (bench.py's measure_multiseed(8)) with the recurrent flagships' policies;
+# every minibatch replays the 8 seeds' actor and critic memories in one
+# launch per kernel (G = 16 streams of 128 envs)
+MULTISEED_SLICES = {"multiseed8_recurrent_gru256": ("gru_xp", RECURRENT_GRU256),
+                    "multiseed8_recurrent_lstm256_bf16": ("lstm_xp", RECURRENT_LSTM256_BF16)}
 NUM_ENVS, NUM_LINKS, ITERATIONS = 4096, 5, 3
+NUM_SEEDS, ENVS_PER_SEED = 8, 512
+WIDE_D = 520  # an input width beyond the x-streaming kernels' 512
 
 # Tolerances of kernel against plain version. fp32: the two sum in another
 # order (the plain version through cuBLAS); values of the forward are O(1).
@@ -134,26 +169,39 @@ def card_peaks(name: str) -> tuple[str, dict]:
     return part, PEAKS[part]
 
 
+def cell_of(family: str) -> str:
+    return family.split("_")[0]
+
+
+def plain(name: str):
+    """The plain PyTorch version of a kernel entry point: ``gru_x_fwd`` ->
+    ``gru_x_plain_fwd``."""
+    head, tail = name.rsplit("_", 1)
+    module = gru_rnn if name.startswith("gru") else lstm_rnn
+    return getattr(module, f"{head}_plain_{tail}")
+
+
 def make_inputs(family, S, T, B, D, H, seed):
     """Random replay inputs on the card: torch-default RNN init, normal
     inputs, 15% resets (none at t=0), a random carry and output gradient.
-    ``x["w"]`` holds the positional inputs of the family's kernels."""
+    ``x["w"]`` holds the positional inputs of the family's kernels: for the
+    xproj families, the input projection of ``xs`` and one reset mask per
+    stream."""
     g = torch.Generator().manual_seed(seed)
     bound = 1.0 / math.sqrt(H)
 
     def u(*shape):
         return (torch.rand(shape, generator=g) * 2 - 1) * bound
 
-    resets = (torch.rand(T, B, generator=g) < 0.15).float()
-    resets[0] = 0.0
-    if family == "gru":
-        names = ("wx", "bx", "wh", "bhn", "carry0", "xs", "resets")
+    xp = family.endswith("_xp")
+    resets = (torch.rand(*((S,) if xp else ()), T, B, generator=g) < 0.15).float()
+    resets[..., 0, :] = 0.0
+    if cell_of(family) == "gru":
         tensors = {
             "wx": u(S, D, 3 * H), "bx": u(S, 3 * H), "wh": u(S, H, 3 * H), "bhn": u(S, H),
             "carry0": torch.randn(S, B, H, generator=g) * 0.5,
         }
     else:
-        names = ("wx", "wh", "bh", "c0", "h0", "xs", "resets")
         tensors = {
             "wx": u(S, D, 4 * H), "wh": u(S, H, 4 * H), "bh": u(S, 4 * H),
             "c0": torch.randn(S, B, H, generator=g), "h0": torch.randn(S, B, H, generator=g) * 0.5,
@@ -161,9 +209,16 @@ def make_inputs(family, S, T, B, D, H, seed):
     tensors.update(xs=torch.randn(S, T, B, D, generator=g), resets=resets,
                    ghs=torch.randn(S, T, B, H, generator=g))
     x = {k: v.cuda().contiguous() for k, v in tensors.items()}
-    x["w"] = tuple(x[k] for k in names)
-    if family == "gru":
+    if cell_of(family) == "gru":
         x["h0"] = x["carry0"]  # the hidden state entering step 0, as for the LSTM
+        names = ("wh", "bhn", "carry0", "xproj", "resets") if xp else ("wx", "bx", "wh", "bhn", "carry0", "xs", "resets")
+    else:
+        names = ("wh", "bh", "c0", "h0", "xproj", "resets") if xp else ("wx", "wh", "bh", "c0", "h0", "xs", "resets")
+    if xp:
+        mod = FAMILIES[family]["module"]
+        weights = (x["wx"], x["bx"]) if cell_of(family) == "gru" else (x["wx"],)
+        x["xproj"] = mod.input_projection(*weights, x["xs"]).contiguous()
+    x["w"] = tuple(x[k] for k in names)
     return x
 
 
@@ -179,7 +234,13 @@ def compare(got, want, rtol, atol, relative_atol):
 
 def forward_state(family, hs_cs):
     """The forward outputs the backward takes: ``(hs,)`` or ``(hs, cs)``."""
-    return (hs_cs,) if family == "gru" else hs_cs
+    return (hs_cs,) if cell_of(family) == "gru" else hs_cs
+
+
+def wgrad_rows(family, x, state, gs):
+    """The weight-gradient reduction's inputs (the xproj one has no x columns)."""
+    rows = (x["resets"], x["h0"], state[0], gs)
+    return rows if family.endswith("_xp") else (x["xs"], *rows)
 
 
 def check_kernels(family, S, T, B, D, H, bf16, seed):
@@ -195,16 +256,16 @@ def check_kernels(family, S, T, B, D, H, bf16, seed):
     result = {}
 
     got = getattr(mod, fwd)(*w, bf16)
-    want = getattr(mod, fwd.replace("_x_", "_x_plain_"))(*w, bf16)
+    want = plain(fwd)(*w, bf16)
     result[fwd] = [compare(a, b, tol["fwd_rtol"], tol["fwd_atol"], False)
                    for a, b in zip(forward_state(family, got), forward_state(family, want))]
     state = forward_state(family, want)
     got = getattr(mod, bwd)(*w, *state, x["ghs"], bf16)
-    want = getattr(mod, bwd.replace("_x_", "_x_plain_"))(*w, *state, x["ghs"], bf16)
+    want = plain(bwd)(*w, *state, x["ghs"], bf16)
     result[bwd] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, want)]
-    rows = (x["xs"], x["resets"], x["h0"], state[0], want[-1])
+    rows = wgrad_rows(family, x, state, want[-1])
     got = getattr(mod, wgrad)(*rows, bf16)
-    want = getattr(mod, wgrad.replace("_x_", "_x_plain_"))(*rows, bf16)
+    want = plain(wgrad)(*rows, bf16)
     result[wgrad] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, want)]
     torch.cuda.synchronize()
     return result
@@ -212,17 +273,12 @@ def check_kernels(family, S, T, B, D, H, bf16, seed):
 
 def kernel_calls(family, x):
     """``{kernel: (kernel call, plain-version call)}`` on the inputs ``x``,
-    and ``(h_prev rows' inputs, gscratch)`` for the library reduction."""
+    and the reduction's inputs for its library yardstick."""
     mod = FAMILIES[family]["module"]
     fwd, bwd, wgrad = FAMILIES[family]["kernels"]
     w = x["w"]
     state = forward_state(family, getattr(mod, fwd)(*w))
-    gs = getattr(mod, bwd)(*w, *state, x["ghs"])[-1]
-    rows = (x["xs"], x["resets"], x["h0"], state[0], gs)
-
-    def plain(name):
-        return getattr(mod, name.replace("_x_", "_x_plain_"))
-
+    rows = wgrad_rows(family, x, state, getattr(mod, bwd)(*w, *state, x["ghs"])[-1])
     calls = {
         fwd: (lambda: getattr(mod, fwd)(*w), lambda: plain(fwd)(*w)),
         bwd: (lambda: getattr(mod, bwd)(*w, *state, x["ghs"]), lambda: plain(bwd)(*w, *state, x["ghs"])),
@@ -250,14 +306,29 @@ def work(family, S, T, B, D, H):
     rows = T * B
     G = FAMILIES[family]["gates"]
     fwd, bwd, wgrad = FAMILIES[family]["kernels"]
-    if family == "gru":
-        weights = S * (D * 3 * H + 3 * H + H * 3 * H + H)
+    if cell_of(family) == "gru":
+        rec_weights = S * (H * 3 * H + H)  # wh, bhn
+        bias_cols = H  # dbhn
         carries = S * B * H  # carry0 in, dcarry0 out
         states = S * rows * H  # hs
     else:
-        weights = S * (D * 4 * H + H * 4 * H + 4 * H)
+        rec_weights = S * (H * 4 * H + 4 * H)  # wh, bh
+        bias_cols = 4 * H  # dbh
         carries = 2 * S * B * H  # (c0, h0) in, (dc0, dh0) out
         states = 2 * S * rows * H  # hs, cs
+    if family.endswith("_xp"):
+        # the input projection comes in, G*H columns a row; one reset mask a stream
+        fwd_ops = S * 2 * rows * H * G * H
+        inputs = S * rows * G * H + S * rows + carries + rec_weights
+        return {
+            fwd: (fwd_ops, f * (inputs + states)),
+            # recompute of h @ Wh and dgates @ Whᵀ; out: the gate-gradient scratch
+            bwd: (2 * fwd_ops, f * (inputs + states + S * rows * H + carries + S * rows * 4 * H)),
+            # dWh and the bias sums
+            wgrad: (S * (2 * rows * H * G * H + rows * bias_cols),
+                    f * (S * rows + S * B * H + S * rows * H + S * rows * 4 * H + S * (H * G * H + bias_cols))),
+        }
+    weights = rec_weights + S * D * G * H + (S * 3 * H if cell_of(family) == "gru" else 0)
     fwd_ops = S * 2 * rows * (H + D) * G * H
     return {
         fwd: (fwd_ops, f * (S * rows * D + rows + carries + weights + states)),
@@ -276,76 +347,170 @@ def work(family, S, T, B, D, H):
     }
 
 
-def library_rnn_ms(family, S, T, B, D, H, x, reps):
-    """cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM`` on the same shapes with no
-    resets: the same function when no carry is reset. Forward ms, backward
-    ms (data and weight gradients together) for S streams, and its forward
-    output of stream 0 for an agreement check."""
-    nets, grads_in = [], []
-    for s in range(S):
-        if family == "gru":
-            net = torch.nn.GRU(D, H).cuda()
-            with torch.no_grad():
-                net.weight_ih_l0.copy_(x["wx"][s].T)
-                net.weight_hh_l0.copy_(x["wh"][s].T)
-                net.bias_ih_l0.copy_(x["bx"][s])
-                net.bias_hh_l0.copy_(torch.cat([torch.zeros(2 * H, device="cuda"), x["bhn"][s]]))
-        else:
-            net = torch.nn.LSTM(D, H).cuda()
-            with torch.no_grad():
-                net.weight_ih_l0.copy_(x["wx"][s].T)
-                net.weight_hh_l0.copy_(x["wh"][s].T)
-                net.bias_ih_l0.zero_()
-                net.bias_hh_l0.copy_(x["bh"][s])
-        nets.append(net)
+def cudnn_rnn(family, x, s):
+    """cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM`` holding stream ``s``'s
+    weights: with no resets the same function as the replay."""
+    D, H = x["wx"].shape[1], x["wh"].shape[1]
+    if cell_of(family) == "gru":
+        net = torch.nn.GRU(D, H).cuda()
+        with torch.no_grad():
+            net.weight_ih_l0.copy_(x["wx"][s].T)
+            net.weight_hh_l0.copy_(x["wh"][s].T)
+            net.bias_ih_l0.copy_(x["bx"][s])
+            net.bias_hh_l0.copy_(torch.cat([torch.zeros(2 * H, device="cuda"), x["bhn"][s]]))
+    else:
+        net = torch.nn.LSTM(D, H).cuda()
+        with torch.no_grad():
+            net.weight_ih_l0.copy_(x["wx"][s].T)
+            net.weight_hh_l0.copy_(x["wh"][s].T)
+            net.bias_ih_l0.zero_()
+            net.bias_hh_l0.copy_(x["bh"][s])
+    return net
+
+
+def fwd_bwd_ms(fwd, leaves, ghs, reps):
+    """Forward ms, backward ms (gradients of every leaf) and the forward's
+    output of a differentiable replay ``fwd()``."""
+    fwd_ms = time_ms(fwd, reps)
+    out = fwd()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, ghs, retain_graph=True), reps)
+    return fwd_ms, bwd_ms, out.detach()
+
+
+def library_rnn_ms(family, S, x, reps):
+    """cuDNN on the same shapes with no resets: forward ms, backward ms (data
+    and weight gradients together) for S streams, and the forward output of
+    stream 0 for an agreement check."""
+    nets = [cudnn_rnn(family, x, s) for s in range(S)]
     xs = [x["xs"][s].clone().requires_grad_(True) for s in range(S)]
-    if family == "gru":
+    if cell_of(family) == "gru":
         carry = [x["carry0"][s][None].clone().requires_grad_(True) for s in range(S)]
         leaves = [[c] for c in carry]
     else:
         carry = [(x["h0"][s][None].clone().requires_grad_(True), x["c0"][s][None].clone().requires_grad_(True))
                  for s in range(S)]
         leaves = [list(c) for c in carry]
+    grads_in = [p for s in range(S) for p in (xs[s], *leaves[s], *nets[s].parameters())]
 
     def fwd():
-        return [nets[s](xs[s], carry[s])[0] for s in range(S)]
+        return torch.stack([nets[s](xs[s], carry[s])[0] for s in range(S)])
 
-    fwd_ms = time_ms(fwd, reps)
-    outs = fwd()
-    for s in range(S):
-        grads_in.append([xs[s], *leaves[s], *nets[s].parameters()])
+    fwd_ms, bwd_ms, out = fwd_bwd_ms(fwd, grads_in, x["ghs"], reps)
+    return fwd_ms, bwd_ms, out[0]
 
-    def bwd():
-        for s in range(S):
-            torch.autograd.grad(outs[s], grads_in[s], x["ghs"][s], retain_graph=True)
 
-    bwd_ms = time_ms(bwd, reps)
-    return fwd_ms, bwd_ms, outs[0].detach()
+def port_replay_ms(family, x, reps):
+    """The port's whole xproj replay (``*_sequence_xproj``: the outside
+    projection and the xproj kernels) with no resets: forward ms, backward ms
+    (every gradient) and its output of stream 0."""
+    mod = FAMILIES[family]["module"]
+    names = ("wx", "bx", "wh", "bhn") if cell_of(family) == "gru" else ("wx", "wh", "bh")
+    params = {k: x[k].clone().requires_grad_(True) for k in names}
+    carry = [x[k].clone().requires_grad_(True) for k in (("carry0",) if cell_of(family) == "gru" else ("c0", "h0"))]
+    xs = x["xs"].clone().requires_grad_(True)
+    no_resets = torch.zeros_like(x["resets"])
+
+    def fwd():
+        if cell_of(family) == "gru":
+            return mod.gru_sequence_xproj(params, carry[0], xs, no_resets)
+        return mod.lstm_sequence_xproj(params, tuple(carry), xs, no_resets)[0]
+
+    fwd_ms, bwd_ms, out = fwd_bwd_ms(fwd, [*params.values(), *carry, xs], x["ghs"], reps)
+    return fwd_ms, bwd_ms, out[0]
 
 
 def library_wgrad_ms(rows, reps):
-    """One ``torch.bmm`` of the prepared ``[h_masked | x | 1]ᵀ [S, H+D+1, T*B]``
-    by the gate-gradient scratch ``[S, T*B, 4H]``: the function of the
-    weight-gradient reduction (in fp32; the bf16 mode has no library call)."""
-    xs, resets, h0, hs, gs = rows
-    S, T, B, D = xs.shape
-    H = h0.shape[-1]
-    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * (1.0 - resets)[None, :, :, None]
-    A = torch.cat([h_prev, xs, torch.ones(S, T, B, 1, device=xs.device)], dim=-1).reshape(S, T * B, -1)
+    """One ``torch.bmm`` of the prepared ``[h_masked | x | 1]ᵀ [S, M, T*B]``
+    (no x columns for the xproj reduction) by the gate-gradient scratch
+    ``[S, T*B, 4H]``: the function of the weight-gradient reduction (in fp32;
+    the bf16 mode has no library call)."""
+    *xs, resets, h0, hs, gs = rows
+    S, T, B, H = hs.shape
+    keep = 1.0 - (resets if resets.ndim == 3 else resets[None])
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * keep[..., None]
+    A = torch.cat([h_prev, *xs, torch.ones(S, T, B, 1, device=hs.device)], dim=-1).reshape(S, T * B, -1)
     At, G = A.transpose(1, 2), gs.reshape(S, T * B, 4 * H)
     return time_ms(lambda: torch.bmm(At, G), reps)
 
 
 def all_counts() -> dict:
     return {
-        name: getattr(fam["module"].launch_counts, f"{name.split('_')[-1]}_launches")
+        name: getattr(getattr(fam["module"], fam["counts"]), f"{name.split('_')[-1]}_launches")
         for fam in FAMILIES.values() for name in fam["kernels"]
     }
 
 
 def reset_counts() -> None:
     for fam in FAMILIES.values():
-        fam["module"].launch_counts.reset()
+        getattr(fam["module"], fam["counts"]).reset()
+
+
+def check_launches(name, family, cfg, counts) -> dict:
+    alg_cfg = cfg["algorithm"]
+    expected = ITERATIONS * alg_cfg["num_learning_epochs"] * alg_cfg["num_mini_batches"]
+    want = {k: expected if k in FAMILIES[family]["kernels"] else 0 for k in counts}
+    print(f"{name} launches: {counts} (expected {expected} of each {family} kernel, 0 of the others)")
+    if counts != want:
+        fail(f"{name}: main path launches {counts}, expected {want}")
+    return {k: counts[k] for k in FAMILIES[family]["kernels"]}
+
+
+def print_history(name, runner) -> None:
+    for row in runner.history:
+        bad = {k: v for k, v in row["metrics"].items() if not np.isfinite(v).all()}
+        if bad:
+            fail(f"{name}: non-finite metrics in iteration {row['iteration']}: {bad}")
+        print(f"{name} iteration {row['iteration']}: collection {row['collection_s']:.4f} s,"
+              f" learning {row['learn_s']:.4f} s, {row['steps_per_s']:.0f} env-steps/s,"
+              f" losses " + ", ".join(f"{k}={np.round(v, 4)}" for k, v in row["metrics"].items()
+                                      if k.startswith("Loss/")))
+    print(f"{name}: " + json.dumps({"iterations": [
+        {k: row[k] for k in ("iteration", "collection_s", "learn_s", "steps_per_s")}
+        for row in runner.history]}))
+
+
+def replay_outputs(policy, obs, carry0, resets):
+    """The kernel replay of a window (``act_value_seq``'s mean and value, and
+    the paired memory replay) beside the acting-time memory outputs (one
+    ``Memory.step`` at a time)."""
+    mean, _, value = policy.act_value_seq(obs, carry0, resets)
+    xa, xc = policy._actor_in(obs), policy._critic_in(obs)
+    fa, fc = paired_sequence(policy.memory_a, carry0["actor"], xa, policy.memory_c, carry0["critic"], xc, resets)
+    ra = memory_sequence(policy.memory_a, carry0["actor"], xa, resets)
+    rc = memory_sequence(policy.memory_c, carry0["critic"], xc, resets)
+    return mean, value, fa, fc, ra, rc
+
+
+class _Replay(torch.nn.Module):
+    """:func:`replay_outputs` as a module, for ``torch.func.functional_call``
+    with one seed's state."""
+
+    def __init__(self, policy):
+        super().__init__()
+        self.policy = policy
+
+    def forward(self, obs, carry0, resets):
+        return replay_outputs(self.policy, obs, carry0, resets)
+
+
+def check_replay(label, outputs, mu, values, bf16) -> bool:
+    """Hold one seed's kernel replay against its acting-time outputs."""
+    mean, value, fa, fc, ra, rc = outputs
+    ok = True
+    for role, got, want in (("actor", fa, ra), ("critic", fc, rc)):
+        err, scale, mem_ok = compare(got, want, MEMORY_TOL["rtol"], MEMORY_TOL["atol"], False)
+        ok &= mem_ok
+        print(f"{label} replay vs acting, {role} memory outputs: max_abs_err={err:.3e}"
+              f" (max |acting| {scale:.3g}; rtol {MEMORY_TOL['rtol']:g} atol {MEMORY_TOL['atol']:g})"
+              f" {'ok' if mem_ok else 'FAIL'}")
+    mu_tol, mu_relative, v_tol = POLICY_TOL[bf16]
+    err_mu = float((mean - mu).abs().max())
+    err_v = float((value - values).abs().max())
+    mu_bound = mu_tol * (max(1.0, float(mu.abs().max())) if mu_relative else 1.0)
+    v_bound = v_tol * max(1.0, float(values.abs().max()))
+    print(f"{label} replay vs acting over a collected window: mean max_abs_err={err_mu:.3e}"
+          f" (bound {mu_bound:.3e}), value max_abs_err={err_v:.3e} (bound {v_bound:.3e})")
+    return ok and err_mu < mu_bound and err_v < v_bound
 
 
 def run_slice(name, family, cfg, T, B):
@@ -358,24 +523,8 @@ def run_slice(name, family, cfg, T, B):
     reset_counts()
     runner.learn(ITERATIONS)
     torch.cuda.synchronize()
-    counts = all_counts()
-    alg_cfg = cfg["algorithm"]
-    expected = ITERATIONS * alg_cfg["num_learning_epochs"] * alg_cfg["num_mini_batches"]
-    want = {k: expected if k in FAMILIES[family]["kernels"] else 0 for k in counts}
-    print(f"{name} launches: {counts} (expected {expected} of each {family} kernel, 0 of the others)")
-    if counts != want:
-        fail(f"{name}: main path launches {counts}, expected {want}")
-    for row in runner.history:
-        bad = {k: v for k, v in row["metrics"].items() if not math.isfinite(v)}
-        if bad:
-            fail(f"{name}: non-finite metrics in iteration {row['iteration']}: {bad}")
-        print(f"{name} iteration {row['iteration']}: collection {row['collection_s']:.4f} s,"
-              f" learning {row['learn_s']:.4f} s, {row['steps_per_s']:.0f} env-steps/s,"
-              f" losses " + ", ".join(f"{k}={v:.4g}" for k, v in row["metrics"].items()
-                                      if k.startswith("Loss/")))
-    print(f"{name}: " + json.dumps({"iterations": [
-        {k: row[k] for k in ("iteration", "collection_s", "learn_s", "steps_per_s")}
-        for row in runner.history]}))
+    launches = check_launches(name, family, cfg, all_counts())
+    print_history(name, runner)
 
     # the kernel replay of a fresh window reproduces the acting-time outputs
     # (the PPO invariant: replayed log-probs equal behavior log-probs). The
@@ -385,33 +534,79 @@ def run_slice(name, family, cfg, T, B):
     for norm in (policy.norm_actor, policy.norm_critic):
         norm.until = float(norm.count)
     _, rollout, _ = runner.alg.collect(env, runner.collect_state, T)
-    bf16 = policy.dtype is not None
     with torch.no_grad():
         carry0 = slice_envs(rollout.carry0, 0, B, axis=0)
         obs = {k: v[:, :B] for k, v in rollout.obs.items()}
-        resets = rollout.replay_resets()[:, :B]
-        mean, _, value = policy.act_value_seq(obs, carry0, resets)
-        xa, xc = policy._actor_in(obs), policy._critic_in(obs)
-        fa, fc = paired_sequence(policy.memory_a, carry0["actor"], xa, policy.memory_c, carry0["critic"], xc,
-                                 resets)
-        mem_ok = True
-        for role, got, mem, x in (("actor", fa, policy.memory_a, xa), ("critic", fc, policy.memory_c, xc)):
-            want = memory_sequence(mem, carry0[role], x, resets)
-            err, scale, ok = compare(got, want, MEMORY_TOL["rtol"], MEMORY_TOL["atol"], False)
-            mem_ok &= ok
-            print(f"{name} replay vs acting, {role} memory outputs: max_abs_err={err:.3e}"
-                  f" (max |acting| {scale:.3g}; rtol {MEMORY_TOL['rtol']:g} atol {MEMORY_TOL['atol']:g})"
-                  f" {'ok' if ok else 'FAIL'}")
-    mu_tol, mu_relative, v_tol = POLICY_TOL[bf16]
-    err_mu = float((mean - rollout.mu[:, :B]).abs().max())
-    err_v = float((value - rollout.values[:, :B]).abs().max())
-    mu_bound = mu_tol * (max(1.0, float(rollout.mu.abs().max())) if mu_relative else 1.0)
-    v_bound = v_tol * max(1.0, float(rollout.values.abs().max()))
-    print(f"{name} replay vs acting over a collected window: mean max_abs_err={err_mu:.3e}"
-          f" (bound {mu_bound:.3e}), value max_abs_err={err_v:.3e} (bound {v_bound:.3e})")
-    if not (mem_ok and err_mu < mu_bound and err_v < v_bound):
+        outputs = replay_outputs(policy, obs, carry0, rollout.replay_resets()[:, :B])
+    if not check_replay(name, outputs, rollout.mu[:, :B], rollout.values[:, :B], policy.dtype is not None):
         fail(f"{name}: kernel replay does not reproduce the acting-time outputs")
-    return {k: counts[k] for k in FAMILIES[family]["kernels"]}
+    return launches
+
+
+def run_multiseed_slice(name, family, cfg, T, B):
+    """Train ``cfg`` for NUM_SEEDS seeds through ``MultiSeedRunner.learn``
+    with the launch counters zeroed just before and read just after; check
+    finite, per-seed distinct losses, and hold each seed's kernel replay of a
+    collected window against its acting-time outputs. Returns the launches
+    of the family's kernels."""
+    env = NLinkPendulum(ENVS_PER_SEED, NUM_LINKS, device="cuda")
+    runner = MultiSeedRunner(env, cfg, NUM_SEEDS, device="cuda")
+    reset_counts()
+    runner.learn(ITERATIONS)
+    torch.cuda.synchronize()
+    launches = check_launches(name, family, cfg, all_counts())
+    print_history(name, runner)
+    for row in runner.history:
+        for k in ("Loss/value_function", "Loss/surrogate"):
+            if len({float(v) for v in row["metrics"][k]}) != NUM_SEEDS:
+                fail(f"{name}: {k} is not distinct across the {NUM_SEEDS} seeds: {row['metrics'][k]}")
+    rewards, count = runner.seed_rewards()
+    print(f"{name}: per-seed trailing mean rewards {np.round(rewards, 3).tolist()} ({count:.0f} episodes)")
+
+    # as in run_slice, per seed; until=0 freezes every seed's normalizer
+    policy, ts = runner.alg.policy, runner.train_state
+    for norm in (policy.norm_actor, policy.norm_critic):
+        norm.until = 0.0
+    _, rollout, _ = runner.alg.collect_stacked(env, ts, runner.collect_state, T)
+    replay = _Replay(policy)
+    state = ({f"policy.{k}": v for k, v in ts.params.items()}, {f"policy.{k}": v for k, v in ts.buffers.items()})
+    with torch.no_grad():
+        carry0 = slice_envs(rollout.carry0, 0, B, axis=1)
+        obs = {k: v[:, :, :B] for k, v in rollout.obs.items()}
+        resets = rollout.replay_resets()[:, :, :B]
+        outputs = vmap(lambda p, b, *a: functional_call(replay, (p, b), a))(*state, obs, carry0, resets)
+    ok = True
+    for g in range(NUM_SEEDS):
+        ok &= check_replay(f"{name} seed {g}", [o[g] for o in outputs], rollout.mu[g, :, :B],
+                           rollout.values[g, :, :B], policy.dtype is not None)
+    if not ok:
+        fail(f"{name}: kernel replay does not reproduce the acting-time outputs")
+    return launches
+
+
+def kernel_entry(name, family, launches, max_abs, passed, ms, plain_ms, library_ms, ops, nbytes, peaks):
+    t_ops = ops / peaks["fp32_flops"] * 1e3
+    t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"time {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library {lib});"
+          f" bound max({ops / 1e9:.2f} GFLOP / {peaks['fp32_flops'] / 1e12:.0f} TFLOP/s ="
+          f" {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB / {peaks['bytes_per_s'] / 1e12:.2f} TB/s ="
+          f" {t_bytes:.4f} ms)")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": FAMILIES[family]["source"],
+        "replaces": REPLACES[name][0],
+        "also_replaces": REPLACES[name][1],
+        "launches": launches[name],
+        "max_abs_err": max_abs[name],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+        "passed": passed[name],
+    }
 
 
 def main() -> None:
@@ -443,28 +638,34 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions
     T = RECURRENT_GRU256["num_steps_per_env"]
-    B = NUM_ENVS // RECURRENT_GRU256["algorithm"]["num_mini_batches"]
+    num_mini_batches = RECURRENT_GRU256["algorithm"]["num_mini_batches"]
+    B = NUM_ENVS // num_mini_batches
+    B_seed = ENVS_PER_SEED // num_mini_batches
+    G = 2 * NUM_SEEDS  # the seeds' actor and critic memories, one launch
     D = 3 * NUM_LINKS
     H = RECURRENT_GRU256["policy"]["rnn_hidden_dim"]
     max_abs = {}
     passed = {}
-    cases = [(2, T, bf16) for bf16 in (False, True)] + [(1, T, bf16) for bf16 in (False, True)]
-    cases += [(2, 1, False), (2, 1, True)]
-    for offset, family in ((100, "gru"), (200, "lstm")):
-        for i, (S, t, bf16) in enumerate(cases):
-            res = check_kernels(family, S, t, B, D, H, bf16, seed=offset + i)
+    x_cases = [(2, T, B, D, bf16) for bf16 in (False, True)] + [(1, T, B, D, bf16) for bf16 in (False, True)]
+    x_cases += [(2, 1, B, D, False), (2, 1, B, D, True)]
+    xp_cases = [(G, T, B_seed, D, bf16) for bf16 in (False, True)] + [(1, T, B, WIDE_D, bf16) for bf16 in (False, True)]
+    xp_cases += [(G, 1, B_seed, D, False), (G, 1, B_seed, D, True)]
+    for offset, family, cases in ((100, "gru", x_cases), (200, "lstm", x_cases),
+                                  (300, "gru_xp", xp_cases), (400, "lstm_xp", xp_cases)):
+        for i, (S, t, b, d, bf16) in enumerate(cases):
+            res = check_kernels(family, S, t, b, d, H, bf16, seed=offset + i)
             summary = []
             for name, checks in res.items():
                 err = max(e for e, _, _ in checks)
                 scale = max(m for _, m, _ in checks)
                 ok = all(o for _, _, o in checks)
                 passed[name] = passed.get(name, True) and ok
-                if (S, t, bf16) == (2, T, False):
+                if (S, t, bf16) == (cases[0][0], T, False):
                     max_abs[name] = err
                 summary.append(f"{name} max_abs_err={err:.3e} (max |plain| {scale:.3g})"
                                f" {'ok' if ok else 'FAIL'}")
             tol = TOL[bf16]
-            print(f"check S={S} T={t} B={B} D={D} H={H} {'bf16' if bf16 else 'fp32'}"
+            print(f"check S={S} T={t} B={b} D={d} H={H} {'bf16' if bf16 else 'fp32'}"
                   f" (fwd rtol {tol['fwd_rtol']:g} atol {tol['fwd_atol']:g}; bwd rtol {tol['bwd_rtol']:g}"
                   f" atol {tol['bwd_atol_rel']:g} x max |plain|): " + "; ".join(summary))
     if not all(passed.values()):
@@ -474,15 +675,17 @@ def main() -> None:
     launches = {}
     for name, (family, cfg) in SLICES.items():
         launches.update(run_slice(name, family, cfg, T, B))
+    for name, (family, cfg) in MULTISEED_SLICES.items():
+        launches.update(run_multiseed_slice(name, family, cfg, T, B_seed))
 
-    # ---- 5. times at the main-path shape
+    # ---- 5. times at the main-path shapes
     kernels = []
     for seed, family in ((7, "gru"), (9, "lstm")):
         S = 2
         x = make_inputs(family, S, T, B, D, H, seed=seed)
         calls, rows = kernel_calls(family, x)
-        times = {name: (time_ms(kernel, 20), time_ms(plain, 5)) for name, (kernel, plain) in calls.items()}
-        lib_fwd, lib_bwd, lib_out = library_rnn_ms(family, S, T, B, D, H, x, 20)
+        times = {name: (time_ms(kernel, 20), time_ms(plain_call, 5)) for name, (kernel, plain_call) in calls.items()}
+        lib_fwd, lib_bwd, lib_out = library_rnn_ms(family, S, x, 20)
         fwd, bwd, wgrad = FAMILIES[family]["kernels"]
         # with no resets the kernel computes cuDNN's function: check agreement
         hs0 = getattr(FAMILIES[family]["module"], fwd)(*x["w"][:6], torch.zeros_like(x["resets"]))
@@ -492,40 +695,50 @@ def main() -> None:
         if not lib_err < 1e-4:
             fail(f"{fwd} disagrees with cuDNN's {family.upper()} where both compute the same function")
         library = {fwd: lib_fwd, bwd: lib_bwd, wgrad: library_wgrad_ms(rows, 20)}
-
         for name, (ops, nbytes) in work(family, S, T, B, D, H).items():
-            t_ops = ops / peaks["fp32_flops"] * 1e3
-            t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
-            ms, plain_ms = times[name]
-            print(f"time {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library {library[name]:.4f} ms);"
-                  f" bound max({ops / 1e9:.2f} GFLOP / {peaks['fp32_flops'] / 1e12:.0f} TFLOP/s ="
-                  f" {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB / {peaks['bytes_per_s'] / 1e12:.2f} TB/s ="
-                  f" {t_bytes:.4f} ms)")
-            kernels.append({
-                "name": name,
-                "route": "cuda",
-                "source": FAMILIES[family]["source"],
-                "replaces": REPLACES[name][0],
-                "also_replaces": REPLACES[name][1],
-                "launches": launches[name],
-                "max_abs_err": max_abs[name],
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": library[name],
-                "passed": passed[name],
-            })
+            kernels.append(kernel_entry(name, family, launches, max_abs, passed, *times[name], library[name],
+                                        ops, nbytes, peaks))
         # the same kernels at S=1, the work of the single-stream Pallas kernels
         x1 = make_inputs(family, 1, T, B, D, H, seed=seed + 1)
         calls, rows = kernel_calls(family, x1)
-        lib1 = dict(zip((fwd, bwd), library_rnn_ms(family, 1, T, B, D, H, x1, 20)[:2]))
+        lib1 = dict(zip((fwd, bwd), library_rnn_ms(family, 1, x1, 20)[:2]))
         lib1[wgrad] = library_wgrad_ms(rows, 20)
         for name, (ops, nbytes) in work(family, 1, T, B, D, H).items():
             bound = max(ops / peaks["fp32_flops"], nbytes / peaks["bytes_per_s"]) * 1e3
-            kernel, plain = calls[name]
-            print(f"time {name} at S=1: {time_ms(kernel, 20):.4f} ms (plain {time_ms(plain, 5):.4f} ms,"
+            kernel, plain_call = calls[name]
+            print(f"time {name} at S=1: {time_ms(kernel, 20):.4f} ms (plain {time_ms(plain_call, 5):.4f} ms,"
                   f" library {lib1[name]:.4f} ms, bound {bound:.4f} ms)")
+    for seed, family in ((11, "gru_xp"), (13, "lstm_xp")):
+        x = make_inputs(family, G, T, B_seed, D, H, seed=seed)
+        calls, rows = kernel_calls(family, x)
+        fwd, bwd, wgrad = FAMILIES[family]["kernels"]
+        # no single library call computes the G-stream forward or backward
+        library = {fwd: None, bwd: None, wgrad: library_wgrad_ms(rows, 20)}
+        for name, (ops, nbytes) in work(family, G, T, B_seed, D, H).items():
+            kernel, plain_call = calls[name]
+            kernels.append(kernel_entry(name, family, launches, max_abs, passed, time_ms(kernel, 20),
+                                        time_ms(plain_call, 5), library[name], ops, nbytes, peaks))
+        # G=1 at the wide-input shape: the kernels alone, the port's whole
+        # replay (outside projection included) and cuDNN on the raw input
+        x1 = make_inputs(family, 1, T, B, WIDE_D, H, seed=seed + 1)
+        calls, rows = kernel_calls(family, x1)
+        port_fwd, port_bwd, port_out = port_replay_ms(family, x1, 20)
+        lib_fwd, lib_bwd, lib_out = library_rnn_ms(family, 1, x1, 20)
+        lib_err = float((port_out - lib_out).abs().max())
+        print(f"cuDNN {cell_of(family).upper()} vs the port's xproj replay without resets, D={WIDE_D}:"
+              f" max_abs_err={lib_err:.3e}")
+        if not lib_err < 1e-4:
+            fail(f"the {family} replay disagrees with cuDNN where both compute the same function")
+        work1 = work(family, 1, T, B, WIDE_D, H)
+        for name in (fwd, bwd, wgrad):
+            ops, nbytes = work1[name]
+            bound = max(ops / peaks["fp32_flops"], nbytes / peaks["bytes_per_s"]) * 1e3
+            kernel, plain_call = calls[name]
+            print(f"time {name} at G=1 B={B}: {time_ms(kernel, 20):.4f} ms (plain {time_ms(plain_call, 5):.4f} ms,"
+                  f" bound {bound:.4f} ms)")
+        print(f"time {family} replay at G=1 B={B} D={WIDE_D} (projection + kernels): forward {port_fwd:.4f} ms,"
+              f" backward {port_bwd:.4f} ms; cuDNN {cell_of(family).upper()} forward {lib_fwd:.4f} ms,"
+              f" backward {lib_bwd:.4f} ms; {wgrad} library (bmm) {library_wgrad_ms(rows, 20):.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

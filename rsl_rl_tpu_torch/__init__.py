@@ -4,8 +4,10 @@ The JAX package ``rsl_rl_tpu`` stays the reference; this package mirrors its
 layout (``env``, ``ops``, ``networks``, ``modules``, ``storage``,
 ``algorithms``, ``runners``, ``utils``) and runs on an NVIDIA GPU. The GRU
 and LSTM replays that the JAX package wrote as Pallas kernels are hand-written
-CUDA here (``csrc/gru_x.cu``, ``csrc/lstm_x.cu``, bound in ``ops/gru_rnn.py``
-and ``ops/lstm_rnn.py``).
+CUDA here (``csrc/gru_x.cu``, ``csrc/lstm_x.cu``, ``csrc/gru_xp.cu``,
+``csrc/lstm_xp.cu``, bound in ``ops/gru_rnn.py`` and ``ops/lstm_rnn.py``).
+Multi-seed training (``runners.MultiSeedRunner``) batches G seeds with
+``torch.func.vmap`` where the JAX package uses ``jax.vmap``.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 there is no silent CPU fallback. The package imports ``torch`` and ``numpy``

@@ -11,6 +11,17 @@
   adaptive-KL learning rate, the global-norm clip and Adam with the formulas
   of the optax chain the JAX package uses (``clip_by_global_norm`` then
   ``scale_by_adam``, applied as ``p - lr * u``).
+- :meth:`PPO.collect_stacked` / :meth:`PPO.update_stacked` do the same for
+  G independent seeds at once (multi-seed training, the counterpart of
+  ``jax.vmap`` over the JAX package's collect and update): the policies'
+  states, the Adam moments and count and the learning rate are stacked on a
+  leading ``[G]`` axis (:class:`StackedTrainState`), the policy runs through
+  ``torch.func.vmap`` (``modules.policy.seed_call``), the per-seed arithmetic
+  (GAE and its advantage normalization, the loss means, the KL, the
+  learning-rate rule, the clip and Adam) is the single-seed code vmapped over
+  the seed axis, and one ``torch.autograd.grad`` of the summed per-seed
+  losses gives each seed its own gradient. The env steps all G*E envs in
+  one call.
 
 RND, symmetry, the feedforward update and other optimizers are not ported yet
 and raise when configured.
@@ -19,13 +30,16 @@ and raise when configured.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from functools import partial
 from typing import Any
 
 import torch
+from torch.func import functional_call, stack_module_state, vmap
 
+from rsl_rl_tpu_torch.modules.policy import seed_call
 from rsl_rl_tpu_torch.ops import distributions
 from rsl_rl_tpu_torch.ops.gae import compute_gae
-from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs
+from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs, tree_map
 from rsl_rl_tpu_torch.utils.registry import register
 
 
@@ -41,12 +55,32 @@ class EpisodeStats:
 
 @dataclass
 class CollectState:
-    """Env state, current obs, policy carry and episode sums between windows."""
+    """Env state, current obs, policy carry and episode sums between windows
+    (for G seeds: obs, carry and sums ``[G, E, ...]``, the env state flat over
+    the ``G*E`` envs)."""
 
     env_state: Any
     obs: dict[str, torch.Tensor]
     carry: Any
     stats: EpisodeStats
+
+
+@dataclass
+class StackedTrainState:
+    """What G independent seeds train, every tensor with a leading ``[G]`` axis.
+
+    ``params`` and ``buffers`` are the policies' parameters and normalizer
+    moments by module name (``torch.func.stack_module_state``); ``adam_mu``
+    and ``adam_nu`` the Adam moments by the same names; ``adam_count [G]``
+    and ``lr [G]`` each seed's Adam step count and adaptive learning rate.
+    """
+
+    params: dict[str, torch.Tensor]
+    buffers: dict[str, torch.Tensor]
+    adam_mu: dict[str, torch.Tensor]
+    adam_nu: dict[str, torch.Tensor]
+    adam_count: torch.Tensor
+    lr: torch.Tensor
 
 
 ACC_KEYS = ("ep_reward_sum", "ep_length_sum", "ep_ereward_sum", "ep_ireward_sum", "ep_count")
@@ -58,7 +92,8 @@ def init_episode_stats(num_envs: int, device) -> EpisodeStats:
 
 def step_episode_stats(stats: EpisodeStats, acc: dict, rew, irew, done_f):
     """Advance the per-env episode sums one step and fold the episodes that
-    ended this step into the window totals ``acc``."""
+    ended this step into the window totals ``acc`` (sums over the last, env
+    axis: per seed with a leading seed axis)."""
     stats = EpisodeStats(
         cur_reward_sum=stats.cur_reward_sum + rew + irew,
         cur_episode_length=stats.cur_episode_length + 1.0,
@@ -66,11 +101,11 @@ def step_episode_stats(stats: EpisodeStats, acc: dict, rew, irew, done_f):
         cur_ireward_sum=stats.cur_ireward_sum + irew,
     )
     acc = {
-        "ep_reward_sum": acc["ep_reward_sum"] + torch.sum(stats.cur_reward_sum * done_f),
-        "ep_length_sum": acc["ep_length_sum"] + torch.sum(stats.cur_episode_length * done_f),
-        "ep_ereward_sum": acc["ep_ereward_sum"] + torch.sum(stats.cur_ereward_sum * done_f),
-        "ep_ireward_sum": acc["ep_ireward_sum"] + torch.sum(stats.cur_ireward_sum * done_f),
-        "ep_count": acc["ep_count"] + torch.sum(done_f),
+        "ep_reward_sum": acc["ep_reward_sum"] + torch.sum(stats.cur_reward_sum * done_f, dim=-1),
+        "ep_length_sum": acc["ep_length_sum"] + torch.sum(stats.cur_episode_length * done_f, dim=-1),
+        "ep_ereward_sum": acc["ep_ereward_sum"] + torch.sum(stats.cur_ereward_sum * done_f, dim=-1),
+        "ep_ireward_sum": acc["ep_ireward_sum"] + torch.sum(stats.cur_ireward_sum * done_f, dim=-1),
+        "ep_count": acc["ep_count"] + torch.sum(done_f, dim=-1),
     }
     keep = 1.0 - done_f
     stats = EpisodeStats(*(getattr(stats, f.name) * keep for f in fields(EpisodeStats)))
@@ -81,6 +116,55 @@ def collect_extras_logs(extras: dict) -> dict[str, torch.Tensor]:
     """Per-step means of the env's ``episode`` (preferred) or ``log`` extras."""
     group = extras.get("episode", extras.get("log", {}))
     return {k: torch.as_tensor(v, dtype=torch.float32).mean() for k, v in group.items()}
+
+
+def update_data(rollout: Rollout, returns, advantages) -> dict:
+    """What the update's minibatches slice: the rollout, its GAE returns and
+    advantages, and the replay resets."""
+    return {
+        "obs": rollout.obs,
+        "actions": rollout.actions,
+        "values": rollout.values,
+        "returns": returns,
+        "advantages": advantages,
+        "log_probs": rollout.log_probs,
+        "mu": rollout.mu,
+        "sigma": rollout.sigma,
+        "resets": rollout.replay_resets(),
+    }
+
+
+def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
+    """The adaptive-KL learning-rate rule, elementwise (one rate per seed)."""
+    up = torch.clamp(lr * 1.5, max=max_lr)
+    down = torch.clamp(lr / 1.5, min=min_lr)
+    return torch.where(
+        kl_mean > desired_kl * 2.0,
+        down,
+        torch.where((kl_mean < desired_kl / 2.0) & (kl_mean > 0.0), up, lr),
+    )
+
+
+def clip_adam(params, grads, mu, nu, count, lr, max_grad_norm: float | None):
+    """``clip_by_global_norm`` -> ``scale_by_adam`` -> ``p - lr * u`` with
+    optax's formulas (the clip scales by ``max_norm / norm`` only when
+    ``norm >= max_norm``; b1=0.9, b2=0.999, eps=1e-8, eps_root=0) for one
+    seed. Pure, so ``torch.func.vmap`` runs it for G seeds, each with its own
+    norm. Returns the new ``(params, mu, nu, count)``."""
+    grads = list(grads)
+    if max_grad_norm is not None:
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = g_norm < max_grad_norm
+        grads = [torch.where(keep, g, (g / g_norm) * max_grad_norm) for g in grads]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    count = count + 1
+    c = count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.full_like(c, b1), c)
+    bc2 = 1.0 - torch.pow(torch.full_like(c, b2), c)
+    mu = [(1.0 - b1) * g + b1 * m for g, m in zip(grads, mu)]
+    nu = [(1.0 - b2) * (g * g) + b2 * v for g, v in zip(grads, nu)]
+    params = [p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for p, m, v in zip(params, mu, nu)]
+    return params, mu, nu, count
 
 
 @register("algorithm")
@@ -146,6 +230,7 @@ class PPO:
         self.min_lr = min_lr
         self.max_lr = max_lr
 
+        self.learning_rate = learning_rate
         self.params = list(policy.parameters())
         self.lr = torch.tensor(learning_rate, dtype=torch.float32, device=self.device)
         # optax.scale_by_adam state (b1=0.9, b2=0.999, eps=1e-8, eps_root=0)
@@ -229,17 +314,7 @@ class PPO:
                 normalize_advantage=not self.normalize_advantage_per_mini_batch,
             )
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
-        data = {
-            "obs": rollout.obs,
-            "actions": rollout.actions,
-            "values": rollout.values,
-            "returns": returns,
-            "advantages": advantages,
-            "log_probs": rollout.log_probs,
-            "mu": rollout.mu,
-            "sigma": rollout.sigma,
-            "resets": rollout.replay_resets(),
-        }
+        data = update_data(rollout, returns, advantages)
         nb = N // self.num_mini_batches
         outs: dict[str, list] = {}
         for start in recurrent_minibatch_starts(N, self.num_mini_batches, self.num_learning_epochs):
@@ -257,47 +332,158 @@ class PPO:
         metrics["Loss/learning_rate"] = outs["learning_rate"][-1]
         return cs, metrics
 
+    # ------------------------------------------------------- G seeds at once
+
+    def init_stacked_state(self, policies) -> StackedTrainState:
+        """Stack G policies (each its own init, the architecture of
+        ``self.policy``) into a fresh training state: zero Adam moments and
+        count, every seed at the initial learning rate."""
+        params, buffers = stack_module_state(list(policies))
+        G = len(policies)
+        return StackedTrainState(
+            params=params,
+            buffers=buffers,
+            adam_mu={k: torch.zeros_like(v) for k, v in params.items()},
+            adam_nu={k: torch.zeros_like(v) for k, v in params.items()},
+            adam_count=torch.zeros(G, dtype=torch.int32, device=self.device),
+            lr=torch.full((G,), self.learning_rate, dtype=torch.float32, device=self.device),
+        )
+
+    def init_stacked_collect_state(self, env_state, obs, num_seeds: int) -> CollectState:
+        """``env_state`` flat over the ``G*E`` envs, ``obs`` ``[G, E, ...]``."""
+        num_envs = next(iter(obs.values())).shape[1]
+        return CollectState(
+            env_state=env_state,
+            obs=obs,
+            carry=tree_map(lambda t: t.expand(num_seeds, *t.shape).clone(), self.policy.initial_carry(num_envs)),
+            stats=EpisodeStats(*(torch.zeros(num_seeds, num_envs, device=self.device) for _ in range(4))),
+        )
+
+    @torch.no_grad()
+    def collect_stacked(self, env, ts: StackedTrainState, cs: CollectState, num_steps: int,
+                        action_noise: torch.Tensor | None = None):
+        """:meth:`collect` for G seeds: returns ``(cs, rollout, metrics)`` with
+        a leading ``[G]`` axis on the rollout (``[G, T, E, ...]``) and on every
+        metric. The normalizer moments in ``ts.buffers`` update in place, per
+        seed. ``action_noise [G, T, E, A]`` replaces the normal draws, which
+        are otherwise taken for all seeds at once, outside the batched policy."""
+        call = partial(seed_call, self.policy, ts.params, ts.buffers)
+        env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
+        G, E = stats.cur_reward_sum.shape
+        carry0 = carry
+        acc = {k: torch.zeros(G, device=self.device) for k in ACC_KEYS}
+        steps = {k: [] for k in ("obs", "actions", "rewards", "dones", "values",
+                                 "log_probs", "mu", "sigma")}
+        logs: dict[str, list] = {}
+        for t in range(num_steps):
+            mean, std, carry = call("act", obs, carry)
+            noise = None if action_noise is None else action_noise[:, t]
+            action = distributions.sample(mean, std, noise, self.generator)
+            log_p = distributions.log_prob(mean, std, action)
+            value, carry = call("value", obs, carry)
+
+            env_state, *out = env.step(env_state, action.reshape(G * E, -1))
+            next_obs, rew, done, extras = tree_map(lambda x: x.reshape(G, E, *x.shape[1:]), out)
+            done_f = done.to(torch.float32)
+            call("update_normalization", next_obs, out_dims=None)
+            total_rew = rew
+            if "time_outs" in extras:
+                total_rew = rew + self.gamma * value * extras["time_outs"].to(torch.float32)
+            carry = vmap(self.policy.reset_carry)(carry, done)
+            stats, acc = step_episode_stats(stats, acc, rew, torch.zeros_like(rew), done_f)
+            for k, v in vmap(collect_extras_logs)(extras).items():
+                logs.setdefault(k, []).append(v)
+
+            for k, v in (("obs", obs), ("actions", action), ("rewards", total_rew),
+                         ("dones", done), ("values", value), ("log_probs", log_p),
+                         ("mu", mean), ("sigma", std)):
+                steps[k].append(v)
+            obs = next_obs
+
+        rollout = Rollout(
+            obs={k: torch.stack([o[k] for o in steps["obs"]], dim=1) for k in steps["obs"][0]},
+            **{k: torch.stack(v, dim=1) for k, v in steps.items() if k != "obs"},
+            carry0=carry0,
+        )
+        metrics = dict(acc)
+        metrics["Policy/mean_noise_std"] = rollout.sigma.flatten(1).mean(dim=1)
+        for k, v in logs.items():
+            metrics[f"extras/{k}"] = torch.stack(v).mean(dim=0)
+        cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
+        return cs, rollout, metrics
+
+    def update_stacked(self, ts: StackedTrainState, cs: CollectState, rollout: Rollout):
+        """:meth:`update` for G seeds, in place on ``ts``; returns ``(ts, cs,
+        metrics)`` with ``[G]`` metrics. Every minibatch replays all seeds'
+        memories in one batched call (the xproj kernels, through the replays'
+        vmap rules), takes one gradient of the summed per-seed losses, and
+        steps each seed's learning rate, clip and Adam on its own."""
+        call = partial(seed_call, self.policy, ts.params, ts.buffers)
+        N = rollout.num_envs
+        with torch.no_grad():
+            last_values, carry = call("value", cs.obs, cs.carry)
+            gae = partial(compute_gae, gamma=self.gamma, lam=self.lam,
+                          normalize_advantage=not self.normalize_advantage_per_mini_batch)
+            returns, advantages = vmap(gae)(rollout.rewards, rollout.values, rollout.dones, last_values)
+        cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
+        data = update_data(rollout, returns, advantages)
+        names = list(ts.params)
+        step = vmap(partial(clip_adam, max_grad_norm=self.max_grad_norm))
+        nb = N // self.num_mini_batches
+        outs: dict[str, list] = {}
+        for start in recurrent_minibatch_starts(N, self.num_mini_batches, self.num_learning_epochs):
+            batch = slice_envs(data, start, nb, axis=2)
+            carry0 = slice_envs(rollout.carry0, start, nb, axis=1)
+            loss, aux = vmap(self._seed_loss)(ts.params, ts.buffers, batch, carry0)
+            grads = torch.autograd.grad(loss.sum(), [ts.params[k] for k in names])
+            with torch.no_grad():
+                if self.desired_kl is not None and self.schedule == "adaptive":
+                    ts.lr = adapt_lr(ts.lr, aux["kl"], self.desired_kl, self.min_lr, self.max_lr)
+                params, mu, nu, ts.adam_count = step(
+                    [ts.params[k] for k in names], grads, [ts.adam_mu[k] for k in names],
+                    [ts.adam_nu[k] for k in names], ts.adam_count, ts.lr)
+                for k, p, m, v in zip(names, params, mu, nu):
+                    ts.params[k].copy_(p)
+                    ts.adam_mu[k].copy_(m)
+                    ts.adam_nu[k].copy_(v)
+            for k, v in aux.items():
+                outs.setdefault(k, []).append(v.detach())
+            outs.setdefault("learning_rate", []).append(ts.lr.clone())
+        metrics = {f"Loss/{k}": torch.stack(v).mean(dim=0) for k, v in outs.items() if k != "learning_rate"}
+        metrics["Loss/learning_rate"] = outs["learning_rate"][-1]
+        return ts, cs, metrics
+
     @torch.no_grad()
     def _adapt_lr(self, kl_mean: torch.Tensor) -> None:
-        lr = self.lr
-        up = torch.clamp(lr * 1.5, max=self.max_lr)
-        down = torch.clamp(lr / 1.5, min=self.min_lr)
-        lr = torch.where(
-            kl_mean > self.desired_kl * 2.0,
-            down,
-            torch.where((kl_mean < self.desired_kl / 2.0) & (kl_mean > 0.0), up, lr),
-        )
-        self.lr = lr
+        self.lr = adapt_lr(self.lr, kl_mean, self.desired_kl, self.min_lr, self.max_lr)
 
     @torch.no_grad()
     def _apply(self, grads) -> None:
-        """``clip_by_global_norm`` -> ``scale_by_adam`` -> ``p -= lr * u``,
-        with optax's formulas (the clip scales by ``max_norm / norm`` only
-        when ``norm >= max_norm``)."""
-        grads = list(grads)
-        if self.max_grad_norm is not None:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = g_norm < self.max_grad_norm
-            grads = [torch.where(keep, g, (g / g_norm) * self.max_grad_norm) for g in grads]
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        self.adam_count = self.adam_count + 1
-        count = self.adam_count.to(torch.float32)
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, device=self.device), count)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, device=self.device), count)
-        for p, g, mu, nu in zip(self.params, grads, self.adam_mu, self.adam_nu):
-            mu.copy_((1.0 - b1) * g + b1 * mu)
-            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-            p.sub_(self.lr * u)
+        """The clipped Adam step (:func:`clip_adam`), in place."""
+        params, mu, nu, self.adam_count = clip_adam(self.params, grads, self.adam_mu, self.adam_nu,
+                                                    self.adam_count, self.lr, self.max_grad_norm)
+        for dst, src in zip(self.params + self.adam_mu + self.adam_nu, params + mu + nu):
+            dst.copy_(src)
 
     # ------------------------------------------------------------------ loss
 
     def _loss(self, batch: dict, carry0):
         """Per-minibatch loss over a ``[T, nb]`` window; returns ``(loss, aux)``."""
+        mean, std, value = self.policy.act_value_seq(batch["obs"], carry0, batch["resets"])
+        return self._loss_terms(mean, std, value, batch)
+
+    def _seed_loss(self, params: dict, buffers: dict, batch: dict, carry0):
+        """:meth:`_loss` of one seed with its policy state substituted (vmapped
+        over the seeds by :meth:`update_stacked`)."""
+        mean, std, value = functional_call(
+            self.policy, (params, buffers), ("act_value_seq", batch["obs"], carry0, batch["resets"]))
+        return self._loss_terms(mean, std, value, batch)
+
+    def _loss_terms(self, mean, std, value, batch: dict):
+        """The loss of a minibatch from the replayed policy outputs."""
         advantages = batch["advantages"]
         if self.normalize_advantage_per_mini_batch:
             advantages = (advantages - advantages.mean()) / (advantages.std() + 1e-8)
-        mean, std, value = self.policy.act_value_seq(batch["obs"], carry0, batch["resets"])
         logp = distributions.log_prob(mean, std, batch["actions"])
         entropy_mean = distributions.entropy(std).mean()
         kl_mean = distributions.kl_divergence(

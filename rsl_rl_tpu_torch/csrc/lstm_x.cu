@@ -311,5 +311,5 @@ extern "C" int lstm_x_bwd(const float* xs, const float* resets, const float* c0,
 extern "C" int lstm_x_wgrad(const float* xs, const float* resets, const float* h0,
                             const float* hs, const float* gs, float* W, float* C, int S, int T,
                             int B, int D, int H, int P, int bf16, void* stream) {
-  return rnn_wgrad_launch(xs, resets, h0, hs, gs, W, C, S, T, B, D, H, P, bf16, stream);
+  return rnn_wgrad_launch(xs, resets, h0, hs, gs, W, C, S, T, B, D, H, P, bf16, 0, stream);
 }

@@ -1,4 +1,5 @@
-// Device helpers shared by the recurrent replay kernels (gru_x.cu, lstm_x.cu).
+// Device helpers shared by the recurrent replay kernels (gru_x.cu, lstm_x.cu,
+// gru_xp.cu, lstm_xp.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,14 +43,42 @@ __device__ __forceinline__ void load_x(const float* __restrict__ x_t, float* xT,
   }
 }
 
+// acc[q][b] = Σ_k vT[k][b] W[k, q*H + j] for the NG column blocks q of
+// thread j: vT [K][BB] in shared memory holds (rounded) operands of BB rows,
+// W [K, NG*H] row-major in global memory (L2), one coalesced row per k
+// across the block's threads.
+template <int NG, int BB, bool BF16>
+__device__ __forceinline__ void gate_matvec(const float* __restrict__ w, const float* vT,
+                                            int K, int H, int j, float (&acc)[NG][BB]) {
+  const int N = NG * H;
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+#pragma unroll
+    for (int b = 0; b < BB; ++b) acc[q][b] = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    const float* wk = w + (size_t)k * N + j;
+    float wq[NG];
+#pragma unroll
+    for (int q = 0; q < NG; ++q) wq[q] = op<BF16>(__ldg(wk + q * H));
+    float v[BB];
+    load_rows<BB>(vT + k * BB, v);
+#pragma unroll
+    for (int q = 0; q < NG; ++q)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) acc[q][b] = fmaf(v[b], wq[q], acc[q][b]);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// D = 0: no input columns (the xproj kernels and their weight gradients).
 bool bad_dims(int S, int T, int B, int D, int H) {
-  return S < 0 || T < 0 || B < 0 || D < 1 || H < 1 || H > 256 ||
+  return S < 0 || T < 0 || B < 0 || D < 0 || H < 1 || H > 256 ||
          (long long)T * B > 0x7fffffffLL;
 }
 

@@ -9,6 +9,9 @@
 // dWh | dWx | dbh directly. In bf16 mode the h and x rows use rounded
 // operands and the gradients are rounded too; the ones row (the bias sums)
 // adds the gradients unrounded, like the JAX package's jnp.sum(dgates).
+// resets is [T,B], shared by the streams (the x kernels), or [S,T,B], one
+// mask per stream (the xproj kernels, whose streams are seeds). D = 0 (no
+// x columns, xs unused): the xproj kernels' C = dWh | the bias sums.
 //
 // Split-K: the rows are cut into P splits; each block owns one 64x64 output
 // tile of one split and walks its rows in order into its own partial tile of
@@ -30,7 +33,7 @@ __global__ void __launch_bounds__(kWgradThreads) rnn_wgrad_kernel(
     const float* __restrict__ xs, const float* __restrict__ resets,
     const float* __restrict__ carry0, const float* __restrict__ hs,
     const float* __restrict__ gs, float* __restrict__ W,
-    int T, int B, int D, int H, int P) {
+    int T, int B, int D, int H, int P, int per_stream_resets) {
   __shared__ __align__(16) float As[kTileK][kTileM];
   __shared__ __align__(16) float Gs[kTileK][kTileN];
   const int s = blockIdx.z / P;
@@ -46,6 +49,7 @@ __global__ void __launch_bounds__(kWgradThreads) rnn_wgrad_kernel(
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const float* gs_s = gs + (size_t)s * K * N;
+  const float* resets_s = resets + (per_stream_resets ? (size_t)s * K : 0);
   float* part = W + (size_t)blockIdx.z * M * N;  // this split's [M,N] partial
 
   bool ones_row[4];
@@ -70,7 +74,7 @@ __global__ void __launch_bounds__(kWgradThreads) rnn_wgrad_kernel(
         if (m < H) {
           const float hp = t == 0 ? carry0[((size_t)s * B + b) * H + m]
                                   : hs[(((size_t)s * T + t - 1) * B + b) * H + m];
-          a = op<BF16>(hp * (1.0f - resets[k]));
+          a = op<BF16>(hp * (1.0f - resets_s[k]));
         } else if (m < H + D) {
           a = op<BF16>(xs[(((size_t)s * T + t) * B + b) * D + (m - H)]);
         } else {
@@ -127,7 +131,8 @@ __global__ void rnn_wgrad_sum_kernel(const float* __restrict__ W, float* __restr
 // partial sums, P >= 1 the number of row splits; C [S,M,N] receives their sum.
 int rnn_wgrad_launch(const float* xs, const float* resets, const float* carry0,
                      const float* hs, const float* gs, float* W, float* C, int S, int T,
-                     int B, int D, int H, int P, int bf16, void* stream) {
+                     int B, int D, int H, int P, int bf16, int per_stream_resets,
+                     void* stream) {
   if (bad_dims(S, T, B, D, H) || P < 1 || (long long)S * P > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -137,10 +142,10 @@ int rnn_wgrad_launch(const float* xs, const float* resets, const float* carry0,
   const dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, S * P);
   if (bf16) {
     rnn_wgrad_kernel<true><<<grid, kWgradThreads, 0, st>>>(xs, resets, carry0, hs, gs, W,
-                                                           T, B, D, H, P);
+                                                           T, B, D, H, P, per_stream_resets);
   } else {
     rnn_wgrad_kernel<false><<<grid, kWgradThreads, 0, st>>>(xs, resets, carry0, hs, gs, W,
-                                                            T, B, D, H, P);
+                                                            T, B, D, H, P, per_stream_resets);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from rsl_rl_tpu_torch.env.vec_env import EnvState, VecEnv, as_episode_length
+from rsl_rl_tpu_torch.env.vec_env import EnvState, VecEnv, as_episode_length, check_episode_length
 from rsl_rl_tpu_torch.utils.device import resolve_device
 
 
@@ -132,11 +132,13 @@ class NLinkPendulum(VecEnv):
         omega = torch.rand(shape, **kw) * 0.1 - 0.05
         return theta, omega
 
-    def reset(self, seed: int = 0) -> tuple[NLinkState, dict[str, torch.Tensor]]:
+    def reset(self, seed: int = 0, num_envs: int | None = None) -> tuple[NLinkState, dict[str, torch.Tensor]]:
+        num_envs = self.num_envs if num_envs is None else int(num_envs)
+        check_episode_length(self.max_episode_length, num_envs)
         self.generator.manual_seed(int(seed))
-        theta, omega = self._sample_init(self.num_envs)
+        theta, omega = self._sample_init(num_envs)
         state = NLinkState(
-            episode_length=torch.zeros(self.num_envs, dtype=torch.int32, device=self.device),
+            episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
             theta=theta,
             omega=omega,
         )
@@ -163,7 +165,7 @@ class NLinkPendulum(VecEnv):
 
         # like the JAX env, draw reset states for every env and keep those of
         # the done envs (no host sync on whether any env is done)
-        reset_theta, reset_omega = self._sample_init(self.num_envs)
+        reset_theta, reset_omega = self._sample_init(theta.shape[0])
         done_col = done[:, None]
         state = NLinkState(
             episode_length=torch.where(done, torch.zeros_like(episode_length), episode_length),

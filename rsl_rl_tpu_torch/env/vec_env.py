@@ -2,8 +2,12 @@
 
 The env is a state machine over tensors that live on one device:
 
-- ``reset(seed) -> (state, obs)``
+- ``reset(seed, num_envs=None) -> (state, obs)``
 - ``step(state, actions) -> (state, obs, rewards, dones, extras)``
+
+``reset`` initializes ``num_envs`` envs (the env's own ``num_envs`` by
+default) and ``step`` steps as many as the state holds, so multi-seed
+training steps the envs of all G seeds, ``G * num_envs``, in one call.
 
 Observations are a dict of named groups; ``extras["time_outs"]`` marks
 time-limit truncations (value bootstrap) and ``extras["log"]`` carries per-env
@@ -40,6 +44,12 @@ def as_episode_length(value, device: torch.device | str = "cpu") -> int | torch.
     return torch.as_tensor(value, dtype=torch.int32, device=device)
 
 
+def check_episode_length(value, num_envs: int) -> None:
+    """A per-env ``max_episode_length`` must cover every env of the state."""
+    if isinstance(value, torch.Tensor) and value.numel() != num_envs:
+        raise ValueError(f"max_episode_length has {value.numel()} entries for {num_envs} envs")
+
+
 class VecEnv(abc.ABC):
     """Abstract vectorized environment on one torch device."""
 
@@ -49,11 +59,12 @@ class VecEnv(abc.ABC):
     device: torch.device
 
     @abc.abstractmethod
-    def reset(self, seed: int) -> tuple[EnvState, dict[str, torch.Tensor]]:
-        """Seed the env's generator and initialize all envs."""
+    def reset(self, seed: int, num_envs: int | None = None) -> tuple[EnvState, dict[str, torch.Tensor]]:
+        """Seed the env's generator and initialize ``num_envs`` envs (default
+        ``self.num_envs``)."""
 
     @abc.abstractmethod
     def step(
         self, state: EnvState, actions: torch.Tensor
     ) -> tuple[EnvState, dict[str, torch.Tensor], torch.Tensor, torch.Tensor, dict]:
-        """Step all envs: ``(state, obs, rewards [N], dones [N] bool, extras)``."""
+        """Step the N envs of ``state``: ``(state, obs, rewards [N], dones [N] bool, extras)``."""

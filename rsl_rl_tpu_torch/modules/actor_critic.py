@@ -92,6 +92,11 @@ class ActorCritic(nn.Module):
         self.norm_critic = RunningNormState(self.num_critic_obs) if critic_obs_normalization else None
         self.to(self.device)
 
+    def forward(self, method: str, *args):
+        """``self.<method>(*args)``: lets ``torch.func.functional_call`` run any
+        policy method with a substituted state (see ``modules.policy.seed_call``)."""
+        return getattr(self, method)(*args)
+
     # ------------------------------------------------------------- carries
 
     def initial_carry(self, num_envs: int) -> Any:

@@ -4,12 +4,16 @@
 The JAX package hoists a policy's state into a ``PolicyState`` pytree
 (``params`` + normalizer ``norm``). In the port that state is the policy
 ``nn.Module`` itself: its parameters are the trainable ``params`` and its
-``RunningNormState`` submodules hold the normalizer moments as buffers.
+``RunningNormState`` submodules hold the normalizer moments as buffers. G
+seeds' states stack on a leading axis (``torch.func.stack_module_state``),
+and :func:`seed_call` runs a policy method for all of them in one batched
+call, as ``jax.vmap`` does in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call, vmap
 
 
 def concat_obs(obs: dict[str, torch.Tensor], groups: list[str]) -> torch.Tensor:
@@ -27,3 +31,22 @@ def obs_set_dim(obs: dict[str, torch.Tensor], groups: list[str]) -> int:
             raise ValueError("Policy modules only support 1D observations per env.")
         dim += obs[g].shape[-1]
     return dim
+
+
+def seed_call(policy, params: dict, buffers: dict, method: str, *args, out_dims=0):
+    """``policy.<method>(*args)`` for each of G seeds in one batched call.
+
+    ``params`` and ``buffers`` hold the G seeds' policy states stacked on a
+    leading ``[G]`` axis by module name (``torch.func.stack_module_state``);
+    every tensor in ``args`` carries the same leading axis. ``torch.func.vmap``
+    runs ``policy`` with each seed's state substituted
+    (``torch.func.functional_call``), so the batched call computes what G
+    separate calls would: per-seed normalizer moments, per-seed carries. An
+    in-place normalizer update writes into ``buffers``. A method that returns
+    nothing takes ``out_dims=None``.
+    """
+
+    def one(p, b, *a):
+        return functional_call(policy, (p, b), (method, *a))
+
+    return vmap(one, out_dims=out_dims)(params, buffers, *args)

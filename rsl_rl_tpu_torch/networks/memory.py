@@ -5,7 +5,10 @@
 - BPTT replay: ``Memory.sequence`` / ``Memory.sequence_with_carry`` /
   :func:`paired_sequence`, through the GRU replay of ``ops.gru_rnn`` or the
   LSTM replay of ``ops.lstm_rnn`` (CUDA kernels on the card, the plain
-  version on the CPU), with the carry zeroed where ``resets[t]`` is set.
+  version on the CPU), with the carry zeroed where ``resets[t]`` is set. A
+  layer whose input is wider than ``X_STREAM_MAX_D`` takes the xproj replay,
+  as do all replays under ``torch.func.vmap`` (the seed axis of multi-seed
+  training; the x-streaming replays' vmap rules route there).
 
 Each layer ``cell_{i}`` holds the packed weights of the JAX package's
 ``_gru_pack`` (``wx [D,3H]``, ``bx [3H]``, ``wh [H,3H]``, ``bhn [H]``, gates
@@ -21,8 +24,9 @@ import math
 import torch
 from torch import nn
 
-from rsl_rl_tpu_torch.ops.gru_rnn import gru_sequence_pair, gru_sequence_x, gru_step
+from rsl_rl_tpu_torch.ops.gru_rnn import gru_sequence, gru_sequence_pair, gru_step
 from rsl_rl_tpu_torch.ops.lstm_rnn import lstm_sequence_pair, lstm_sequence_with_carry, lstm_step
+from rsl_rl_tpu_torch.ops.rnn_common import X_STREAM_MAX_D
 
 _CELL_SHAPES = {
     "gru": lambda d, h: {"wx": (d, 3 * h), "bx": (3 * h,), "wh": (h, 3 * h), "bhn": (h,)},
@@ -110,7 +114,7 @@ class Memory(nn.Module):
         finals = []
         for layer in range(self.num_layers):
             if self.rnn_type == "gru":
-                out = gru_sequence_x(self.cell(layer), carry0[layer], out, resets, self.compute_dtype)
+                out = gru_sequence(self.cell(layer), carry0[layer], out, resets, self.compute_dtype)
                 finals.append(out[-1].detach())
             else:
                 out, final = lstm_sequence_with_carry(self.cell(layer), carry0[layer], out, resets,
@@ -124,8 +128,10 @@ def paired_sequence(mem_a: Memory, carry0_a, xs_a: torch.Tensor,
                     resets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Replay two memories over the same window and resets (the actor and
     critic of a recurrent PPO minibatch), each layer's two replays in one
-    stream-paired launch when the memories are twins and the inputs have one
-    shape; otherwise two :meth:`Memory.sequence` calls. Same result either way."""
+    stream-paired launch when the memories are twins, the inputs have one
+    shape and every layer's input is at most ``X_STREAM_MAX_D`` wide (the
+    JAX package's pair gate); otherwise two :meth:`Memory.sequence` calls.
+    Same result either way."""
     twins = (
         mem_a.rnn_type == mem_b.rnn_type
         and mem_a.hidden_size == mem_b.hidden_size
@@ -133,7 +139,9 @@ def paired_sequence(mem_a: Memory, carry0_a, xs_a: torch.Tensor,
         and mem_a.compute_dtype == mem_b.compute_dtype
         and xs_a.shape == xs_b.shape
     )
-    if not twins:
+    # layer 0 takes D, deeper layers H: every layer must pass the gate
+    widths = {xs_a.shape[-1]} | ({mem_a.hidden_size} if mem_a.num_layers > 1 else set())
+    if not (twins and max(widths) <= X_STREAM_MAX_D):
         return mem_a.sequence(carry0_a, xs_a, resets), mem_b.sequence(carry0_b, xs_b, resets)
     pair_fn = gru_sequence_pair if mem_a.rnn_type == "gru" else lstm_sequence_pair
     out_a, out_b = xs_a, xs_b

@@ -1,5 +1,6 @@
 """Generalized Advantage Estimation (counterpart of ``rsl_rl_tpu/ops/gae.py``),
-as the reference's reverse loop over the window."""
+as the reference's reverse loop over the window. Multi-seed training runs it
+under ``torch.func.vmap``, so each seed whitens its own advantages."""
 
 from __future__ import annotations
 

@@ -9,21 +9,34 @@ Math (flax ``GRUCell``, gates r|z|n, ``h`` zeroed where ``resets[t]`` is set):
     h' = (1 - z) * n + z * h
 
 Weights use the packed layout of the JAX package's ``_gru_pack``: ``wx
-[D,3H]``, ``bx [3H]``, ``wh [H,3H]``, ``bhn [H]``. A leading stream axis S
-runs independent recurrences (S=2: the actor and critic memories of a PPO
-minibatch) that share the reset mask.
+[D,3H]``, ``bx [3H]``, ``wh [H,3H]``, ``bhn [H]``. A leading stream axis runs
+independent recurrences.
 
-Kernels (``csrc/gru_x.cu``), one CUDA launch each:
+Two kernel sets, as in the JAX package:
 
-- ``gru_x_fwd`` replaces the Pallas ``_fwd_kernel_x_pair`` /
-  ``_gru_core_x_pair_fwd_impl`` (S=2) and ``_fwd_kernel_x`` /
-  ``_gru_core_x_fwd_impl`` (S=1) of ``rsl_rl_tpu/ops/pallas_rnn.py``.
-- ``gru_x_bwd`` and ``gru_x_wgrad`` together replace ``_bwd_kernel_x_pair`` /
-  ``_gru_core_x_pair_bwd_impl`` and ``_bwd_kernel_x`` / ``_gru_core_x_bwd_impl``.
-  ``gru_x_bwd`` runs the reverse-time BPTT chain and writes each step's gate
-  gradients to a scratch buffer; ``gru_x_wgrad`` reduces them into the weight
-  gradients (the split-K reduction of ``csrc/rnn_wgrad.cuh``, which the LSTM
-  replay shares).
+- x-streaming (``csrc/gru_x.cu``), S streams that share the reset mask (S=2:
+  the actor and critic memories of a PPO minibatch), the input projection
+  inside the kernels. ``gru_x_fwd`` replaces the Pallas
+  ``_fwd_kernel_x_pair`` / ``_gru_core_x_pair_fwd_impl`` (S=2) and
+  ``_fwd_kernel_x`` / ``_gru_core_x_fwd_impl`` (S=1) of
+  ``rsl_rl_tpu/ops/pallas_rnn.py``; ``gru_x_bwd`` and ``gru_x_wgrad`` together
+  replace ``_bwd_kernel_x_pair`` / ``_gru_core_x_pair_bwd_impl`` and
+  ``_bwd_kernel_x`` / ``_gru_core_x_bwd_impl``.
+- xproj-streaming (``csrc/gru_xp.cu``), G streams with a reset mask each, over
+  ``xproj = x Wx + bx`` computed outside the kernels in one bulk product per
+  stream (a library GEMM, as XLA computes it in the JAX package). ``gru_xp_fwd``
+  replaces ``_fwd_kernel`` / ``_gru_core_fwd_impl``; ``gru_xp_bwd`` and
+  ``gru_xp_wgrad`` replace ``_bwd_kernel`` / ``_gru_core_bwd_impl``. They serve
+  inputs wider than ``X_STREAM_MAX_D`` (G=1) and every replay under
+  ``torch.func.vmap``, the seed axis of multi-seed training: the x-streaming
+  replay's vmap rule folds the seed and stream axes into G and takes them.
+
+The backward kernels run the reverse-time BPTT chain and write each step's
+gate gradients ``dr | dz | dn | du`` to a scratch buffer; the ``*_wgrad``
+kernels reduce them into the weight gradients (the split-K reduction of
+``csrc/rnn_wgrad.cuh``, which the LSTM replay shares). The xproj backward
+needs no ``dx`` product: the gradient of ``xproj`` is the scratch's first 3H
+columns.
 
 What bounds them on an H100: the products ``h @ Wh`` (forward and recompute)
 and ``dgates @ Whᵀ`` are ``T`` dependent steps of ``[B,H] x [H,3H]`` in IEEE
@@ -35,7 +48,7 @@ keeps its hidden tile in shared memory and its own hidden column in
 registers, and re-reads ``Wh`` from L2 (50 MB, where all blocks share one
 copy) at every step. The weight gradients, which the TPU accumulates in a
 scratch carried across its sequential grid, come from a separate
-deterministic pass: every block of ``gru_x_wgrad`` owns one output tile and
+deterministic pass: every block of the reduction owns one output tile and
 one split of the ``T*B`` rows and sums them in order into its own partial
 tile; a second kernel adds the partials in split order. No atomics, so the
 gradients are the same on every run.
@@ -51,19 +64,27 @@ import ctypes
 import torch
 
 from rsl_rl_tpu_torch.ops.rnn_common import (
+    X_STREAM_MAX_D,
     LaunchCounts,
+    batch_first,
     check,
     check_hidden,
     check_replay_inputs,
+    check_resets,
     is_bf16,
     load_kernels,
+    merge_streams,
     mm,
+    op,
     raise_on,
+    shared_resets,
     stream,
     wgrad_splits,
 )
 
+#: launches of the x-streaming kernels (``gru_x_*``) and of the xproj kernels (``gru_xp_*``)
 launch_counts = LaunchCounts()
+xp_launch_counts = LaunchCounts()
 
 
 # --------------------------------------------------------------------------
@@ -71,9 +92,9 @@ launch_counts = LaunchCounts()
 # --------------------------------------------------------------------------
 
 
-def _gates(wx, bx, wh, bhn, h, x, bf16):
+def _gates(xp, wh, bhn, h, bf16):
+    """r, z, u, n of one step from its input projection ``xp = x Wx + bx``."""
     H = wh.shape[-2]
-    xp = mm(x, wx, bf16) + bx[:, None, :]
     hp = mm(h, wh, bf16)
     r = torch.sigmoid(xp[..., :H] + hp[..., :H])
     z = torch.sigmoid(xp[..., H : 2 * H] + hp[..., H : 2 * H])
@@ -82,19 +103,75 @@ def _gates(wx, bx, wh, bhn, h, x, bf16):
     return r, z, u, n
 
 
+def input_projection(wx, bx, xs, bf16: bool = False) -> torch.Tensor:
+    """``xs [S,T,B,D] @ wx [S,D,3H] + bx [S,3H]`` -> ``[S,T,B,3H]``: one bulk
+    product per stream with the replay's operand rounding (differentiable)."""
+    S, T, B, D = xs.shape
+    xp = torch.baddbmm(bx[:, None, :], op(xs.reshape(S, T * B, D), bf16), op(wx, bf16))
+    return xp.reshape(S, T, B, -1)
+
+
+def gru_xp_plain_fwd(wh, bhn, carry0, xproj, resets, bf16: bool = False) -> torch.Tensor:
+    """Plain xproj forward: ``xproj [G,T,B,3H]``, ``resets [G,T,B]`` float,
+    ``carry0 [G,B,H]``, ``wh [G,H,3H]``, ``bhn [G,H]`` -> ``hs [G,T,B,H]``."""
+    keep = 1.0 - resets
+    h = carry0
+    hs = []
+    for t in range(xproj.shape[1]):
+        h = h * keep[:, t, :, None]
+        r, z, u, n = _gates(xproj[:, t], wh, bhn, h, bf16)
+        h = (1.0 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def gru_xp_plain_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False):
+    """Plain reverse-time BPTT chain of :func:`gru_xp_plain_fwd` for the output
+    gradient ``ghs`` (the plain version of ``gru_xp_bwd``).
+
+    Returns ``(dcarry0, gscratch)`` with ``gscratch [G,T,B,4H]`` holding each
+    step's ``dr | dz | dn | du``; its first 3H columns are the gradient of
+    ``xproj``. Gate activations are recomputed from ``hs[t-1]`` (``carry0``
+    at t=0) with the forward's operand rounding.
+    """
+    G, T, B, _ = xproj.shape
+    H = carry0.shape[-1]
+    keep = 1.0 - resets
+    gscratch = torch.empty((G, T, B, 4 * H), dtype=xproj.dtype, device=xproj.device)
+    dh = torch.zeros_like(carry0)
+    for t in reversed(range(T)):
+        k = keep[:, t, :, None]
+        h = (carry0 if t == 0 else hs[:, t - 1]) * k
+        r, z, u, n = _gates(xproj[:, t], wh, bhn, h, bf16)
+        g = ghs[:, t] + dh
+        dz = g * (h - n) * z * (1.0 - z)
+        dn = g * (1.0 - z) * (1.0 - n * n)
+        du = dn * r
+        dr = dn * u * r * (1.0 - r)
+        gscratch[:, t] = torch.cat([dr, dz, dn, du], dim=-1)
+        dgates = torch.cat([dr, dz, du], dim=-1)
+        dh = (g * z + mm(dgates, wh.transpose(-1, -2), bf16)) * k
+    return dh, gscratch
+
+
+def gru_xp_plain_wgrad(resets, carry0, hs, gscratch, bf16: bool = False):
+    """Plain weight-gradient reduction (the plain version of ``gru_xp_wgrad``):
+    sums over all ``T*B`` rows of ``h_maskedᵀ [dr|dz|du]`` and ``du``.
+    Returns ``(dwh, dbhn)``."""
+    G, T, B = resets.shape
+    H = carry0.shape[-1]
+    h_prev = torch.cat([carry0[:, None], hs[:, :-1]], dim=1) * (1.0 - resets)[..., None]
+    gs = gscratch.reshape(G, T * B, 4 * H)
+    dgates = torch.cat([gs[..., : 2 * H], gs[..., 3 * H :]], dim=-1)
+    return mm(h_prev.reshape(G, T * B, H).transpose(-1, -2), dgates, bf16), gs[..., 3 * H :].sum(dim=1)
+
+
 def gru_x_plain_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16: bool = False) -> torch.Tensor:
     """Plain forward: ``xs [S,T,B,D]``, ``resets [T,B]`` float, ``carry0
     [S,B,H]``, ``wx [S,D,3H]``, ``bx [S,3H]``, ``wh [S,H,3H]``, ``bhn [S,H]``
     -> ``hs [S,T,B,H]``."""
-    keep = 1.0 - resets
-    h = carry0
-    hs = []
-    for t in range(xs.shape[1]):
-        h = h * keep[t][None, :, None]
-        r, z, u, n = _gates(wx, bx, wh, bhn, h, xs[:, t], bf16)
-        h = (1.0 - z) * n + z * h
-        hs.append(h)
-    return torch.stack(hs, dim=1)
+    xproj = input_projection(wx, bx, xs, bf16)
+    return gru_xp_plain_fwd(wh, bhn, carry0, xproj, shared_resets(resets, xs.shape[0]), bf16)
 
 
 def gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
@@ -102,29 +179,14 @@ def gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = F
     gradient ``ghs`` (the plain version of ``gru_x_bwd``).
 
     Returns ``(dx, dcarry0, gscratch)`` with ``gscratch [S,T,B,4H]`` holding
-    each step's ``dr | dz | dn | du``. Gate activations are recomputed from
-    ``hs[t-1]`` (``carry0`` at t=0) with the forward's operand rounding.
+    each step's ``dr | dz | dn | du``, and ``dx = [dr|dz|dn] Wxᵀ``.
     """
-    S, T, B, _ = xs.shape
     H = carry0.shape[-1]
-    keep = 1.0 - resets
-    dx = torch.empty_like(xs)
-    gscratch = torch.empty((S, T, B, 4 * H), dtype=xs.dtype, device=xs.device)
-    dh = torch.zeros_like(carry0)
-    for t in reversed(range(T)):
-        k = keep[t][None, :, None]
-        h = (carry0 if t == 0 else hs[:, t - 1]) * k
-        r, z, u, n = _gates(wx, bx, wh, bhn, h, xs[:, t], bf16)
-        g = ghs[:, t] + dh
-        dz = g * (h - n) * z * (1.0 - z)
-        dn = g * (1.0 - z) * (1.0 - n * n)
-        du = dn * r
-        dr = dn * u * r * (1.0 - r)
-        gscratch[:, t] = torch.cat([dr, dz, dn, du], dim=-1)
-        dx[:, t] = mm(torch.cat([dr, dz, dn], dim=-1), wx.transpose(-1, -2), bf16)
-        dgates = torch.cat([dr, dz, du], dim=-1)
-        dh = (g * z + mm(dgates, wh.transpose(-1, -2), bf16)) * k
-    return dx, dh, gscratch
+    xproj = input_projection(wx, bx, xs, bf16)
+    dcarry0, gscratch = gru_xp_plain_bwd(wh, bhn, carry0, xproj, shared_resets(resets, xs.shape[0]),
+                                         hs, ghs, bf16)
+    dx = mm(gscratch[..., : 3 * H], wx.transpose(-1, -2)[:, None], bf16)
+    return dx, dcarry0, gscratch
 
 
 def gru_x_plain_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
@@ -133,13 +195,10 @@ def gru_x_plain_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
     ``[dr|dz|dn]`` and ``du``. Returns ``(dwx, dbx, dwh, dbhn)``."""
     S, T, B, D = xs.shape
     H = carry0.shape[-1]
-    h_prev = torch.cat([carry0[:, None], hs[:, :-1]], dim=1) * (1.0 - resets)[None, :, :, None]
-    G = gscratch.reshape(S, T * B, 4 * H)
-    dxproj = G[..., : 3 * H]
-    dgates = torch.cat([G[..., : 2 * H], G[..., 3 * H :]], dim=-1)
-    dwh = mm(h_prev.reshape(S, T * B, H).transpose(-1, -2), dgates, bf16)
+    dwh, dbhn = gru_xp_plain_wgrad(shared_resets(resets, S), carry0, hs, gscratch, bf16)
+    dxproj = gscratch.reshape(S, T * B, 4 * H)[..., : 3 * H]
     dwx = mm(xs.reshape(S, T * B, D).transpose(-1, -2), dxproj, bf16)
-    return dwx, dxproj.sum(dim=1), dwh, G[..., 3 * H :].sum(dim=1)
+    return dwx, dxproj.sum(dim=1), dwh, dbhn
 
 
 # --------------------------------------------------------------------------
@@ -149,18 +208,24 @@ def gru_x_plain_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gru_x_fwd": [_P] * 8 + [_I] * 6 + [_P],
-    "gru_x_bwd": [_P] * 13 + [_I] * 6 + [_P],
-    "gru_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    "gru_x": {
+        "gru_x_fwd": [_P] * 8 + [_I] * 6 + [_P],
+        "gru_x_bwd": [_P] * 13 + [_I] * 6 + [_P],
+        "gru_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    },
+    "gru_xp": {
+        "gru_xp_fwd": [_P] * 6 + [_I] * 5 + [_P],
+        "gru_xp_bwd": [_P] * 10 + [_I] * 5 + [_P],
+        "gru_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
+    },
 }
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        _LIB = load_kernels("gru_x", _SIGNATURES)
-    return _LIB
+def _lib(name: str = "gru_x") -> ctypes.CDLL:
+    if name not in _LIBS:
+        _LIBS[name] = load_kernels(name, _SIGNATURES[name])
+    return _LIBS[name]
 
 
 def _dims(wx, xs):
@@ -245,21 +310,138 @@ def gru_x_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
     return dwx, dbx, dwh, dbhn
 
 
+def _xp_dims(wh, xproj):
+    G, T, B, _ = xproj.shape
+    H = wh.shape[-2]
+    check_hidden("GRU", H)
+    return G, T, B, H
+
+
+def gru_xp_fwd(wh, bhn, carry0, xproj, resets, bf16: bool = False) -> torch.Tensor:
+    """Launch the xproj forward kernel; shapes as :func:`gru_xp_plain_fwd`."""
+    G, T, B, H = _xp_dims(wh, xproj)
+    ptrs = [
+        check("xproj", xproj, (G, T, B, 3 * H)),
+        check("resets", resets, (G, T, B)),
+        check("carry0", carry0, (G, B, H)),
+        check("wh", wh, (G, H, 3 * H)),
+        check("bhn", bhn, (G, H)),
+    ]
+    hs = torch.empty((G, T, B, H), dtype=torch.float32, device=xproj.device)
+    raise_on("gru_xp_fwd", _lib("gru_xp").gru_xp_fwd(*ptrs, hs.data_ptr(), G, T, B, H, int(bf16), stream()))
+    xp_launch_counts.fwd_launches += 1
+    return hs
+
+
+def gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False):
+    """Launch the xproj BPTT kernel; returns ``(dcarry0, gscratch)`` as
+    :func:`gru_xp_plain_bwd`."""
+    G, T, B, H = _xp_dims(wh, xproj)
+    whT = wh.transpose(-1, -2).contiguous()  # [G,3H,H]: coalesced dgates @ Whᵀ
+    ptrs = [
+        check("xproj", xproj, (G, T, B, 3 * H)),
+        check("resets", resets, (G, T, B)),
+        check("carry0", carry0, (G, B, H)),
+        check("wh", wh, (G, H, 3 * H)),
+        check("whT", whT, (G, 3 * H, H)),
+        check("bhn", bhn, (G, H)),
+        check("hs", hs, (G, T, B, H)),
+        check("ghs", ghs, (G, T, B, H)),
+    ]
+    dcarry0 = torch.empty_like(carry0)
+    gscratch = torch.empty((G, T, B, 4 * H), dtype=torch.float32, device=xproj.device)
+    raise_on("gru_xp_bwd", _lib("gru_xp").gru_xp_bwd(*ptrs, dcarry0.data_ptr(), gscratch.data_ptr(),
+                                                      G, T, B, H, int(bf16), stream()))
+    xp_launch_counts.bwd_launches += 1
+    return dcarry0, gscratch
+
+
+def gru_xp_wgrad(resets, carry0, hs, gscratch, bf16: bool = False):
+    """Launch the xproj weight-gradient reduction; returns ``(dwh, dbhn)``.
+
+    The kernel computes ``C = Σ_rows [h_masked | 1]ᵀ · [dr | dz | dn | du]``
+    over the ``T*B`` rows, ``C [G, H+1, 4H]``; the gradients are slices of it.
+    """
+    G, T, B = resets.shape
+    H = carry0.shape[-1]
+    ptrs = [
+        check("resets", resets, (G, T, B)),
+        check("carry0", carry0, (G, B, H)),
+        check("hs", hs, (G, T, B, H)),
+        check("gscratch", gscratch, (G, T, B, 4 * H)),
+    ]
+    P = wgrad_splits(T * B)
+    W = torch.empty((G, P, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
+    C = torch.empty((G, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
+    raise_on("gru_xp_wgrad", _lib("gru_xp").gru_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
+                                                          int(bf16), stream()))
+    xp_launch_counts.wgrad_launches += 1
+    dwh = torch.cat([C[:, :H, : 2 * H], C[:, :H, 3 * H :]], dim=-1)
+    return dwh, C[:, H, 3 * H :].contiguous()
+
+
 # --------------------------------------------------------------------------
 # autograd and public API
 # --------------------------------------------------------------------------
 
 
-class _GruX(torch.autograd.Function):
+class _GruXp(torch.autograd.Function):
+    """``hs`` of G xproj replays; differentiable in ``wh``, ``bhn``,
+    ``carry0`` and ``xproj`` (the JAX package's ``_gru_core``)."""
+
     @staticmethod
-    def forward(ctx, wx, bx, wh, bhn, carry0, xs, resets, bf16):
-        if xs.is_cuda:
-            hs = gru_x_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16)
-        else:
-            hs = gru_x_plain_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16)
-        ctx.save_for_backward(wx, bx, wh, bhn, carry0, xs, resets, hs)
+    def forward(wh, bhn, carry0, xproj, resets, bf16):
+        fwd = gru_xp_fwd if xproj.is_cuda else gru_xp_plain_fwd
+        return fwd(wh, bhn, carry0, xproj, resets, bf16)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        wh, bhn, carry0, xproj, resets, bf16 = inputs
+        ctx.save_for_backward(wh, bhn, carry0, xproj, resets, output)
         ctx.bf16 = bf16
-        return hs
+
+    @staticmethod
+    def backward(ctx, ghs):
+        wh, bhn, carry0, xproj, resets, hs = ctx.saved_tensors
+        ghs = ghs.contiguous()
+        if xproj.is_cuda:
+            dcarry0, gscratch = gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, ctx.bf16)
+            dwh, dbhn = gru_xp_wgrad(resets, carry0, hs, gscratch, ctx.bf16)
+        else:
+            dcarry0, gscratch = gru_xp_plain_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, ctx.bf16)
+            dwh, dbhn = gru_xp_plain_wgrad(resets, carry0, hs, gscratch, ctx.bf16)
+        return dwh, dbhn, dcarry0, gscratch[..., : 3 * wh.shape[-2]], None, None
+
+    @staticmethod
+    def vmap(info, in_dims, wh, bhn, carry0, xproj, resets, bf16):
+        """A vmapped axis V folds into the stream axis: one launch of V*G streams."""
+        args = [merge_streams(batch_first(t, d, info.batch_size))
+                for t, d in zip((wh, bhn, carry0, xproj, resets), in_dims)]
+        hs = _GruXp.apply(*args, bf16)
+        return hs.reshape(info.batch_size, -1, *hs.shape[1:]), 0
+
+
+def _gru_xproj(wx, bx, wh, bhn, carry0, xs, resets, bf16):
+    """G xproj replays (fp32 tensors with a leading stream axis): the input
+    projections in one bulk product, then the xproj kernels."""
+    xproj = input_projection(wx, bx, xs, bf16)
+    return _GruXp.apply(wh.contiguous(), bhn.contiguous(), carry0.contiguous(), xproj,
+                        resets.contiguous(), bf16)
+
+
+class _GruX(torch.autograd.Function):
+    """``hs`` of S x-streaming replays that share the reset mask."""
+
+    @staticmethod
+    def forward(wx, bx, wh, bhn, carry0, xs, resets, bf16):
+        fwd = gru_x_fwd if xs.is_cuda else gru_x_plain_fwd
+        return fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        wx, bx, wh, bhn, carry0, xs, resets, bf16 = inputs
+        ctx.save_for_backward(wx, bx, wh, bhn, carry0, xs, resets, output)
+        ctx.bf16 = bf16
 
     @staticmethod
     def backward(ctx, ghs):
@@ -273,11 +455,24 @@ class _GruX(torch.autograd.Function):
             dwx, dbx, dwh, dbhn = gru_x_plain_wgrad(xs, resets, carry0, hs, gscratch, ctx.bf16)
         return dwx, dbx, dwh, dbhn, dcarry0, dx, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, wx, bx, wh, bhn, carry0, xs, resets, bf16):
+        """Under ``torch.func.vmap`` (the seed axis of multi-seed training) the
+        replay takes the xproj kernels, as the JAX package's replay does under
+        ``jax.vmap``: the vmapped axis V and the stream axis S fold into the
+        xproj kernels' stream axis, V*S streams with a reset mask each."""
+        V = info.batch_size
+        wx, bx, wh, bhn, carry0, xs, resets = (
+            batch_first(t, d, V) for t, d in zip((wx, bx, wh, bhn, carry0, xs, resets), in_dims))
+        S = xs.shape[1]
+        resets = resets[:, None].expand(V, S, *resets.shape[1:])
+        hs = _gru_xproj(*(merge_streams(t) for t in (wx, bx, wh, bhn, carry0, xs, resets)), bf16)
+        return hs.reshape(V, S, *hs.shape[1:]), 0
+
 
 def _gru_x_streams(params_list, carry0_list, xs_list, resets, compute_dtype):
-    T, B, D = xs_list[0].shape
-    tensors = [t for p in params_list for t in p.values()] + [*carry0_list, *xs_list, resets]
-    check_replay_inputs("GRU", tensors, D, xs_list[0].is_cuda)
+    T, B, _ = xs_list[0].shape
+    check_replay_inputs("GRU", [t for p in params_list for t in p.values()] + [*carry0_list, *xs_list, resets])
     f32 = torch.float32
     wx = torch.stack([p["wx"] for p in params_list]).to(f32)
     bx = torch.stack([p["bx"] for p in params_list]).to(f32)
@@ -294,16 +489,15 @@ def gru_step(params: dict, h: torch.Tensor, x: torch.Tensor, compute_dtype=None)
     math and operand rounding as the replay, so acting and replay agree.
     Plain PyTorch on every device: acting runs one step at a time."""
     bf16 = is_bf16(compute_dtype)
-    r, z, u, n = _gates(
-        params["wx"][None], params["bx"][None], params["wh"][None], params["bhn"][None],
-        h[None], x[None], bf16,
-    )
+    xp = mm(x[None], params["wx"][None], bf16) + params["bx"][None, None]
+    r, z, u, n = _gates(xp, params["wh"][None], params["bhn"][None], h[None], bf16)
     return ((1.0 - z) * n + z * h[None])[0]
 
 
 def gru_sequence_x(params: dict, carry0: torch.Tensor, xs: torch.Tensor, resets: torch.Tensor,
                    compute_dtype=None) -> torch.Tensor:
-    """Replay one GRU over a window, ``xs [T,B,D]`` -> ``hs [T,B,H]``.
+    """Replay one GRU over a window through the x-streaming kernels,
+    ``xs [T,B,D]`` -> ``hs [T,B,H]``.
 
     ``params`` holds the packed ``wx``, ``bx``, ``wh``, ``bhn``; ``carry0 [B,H]``
     enters step 0; ``resets [T,B]`` zeroes the carry before step ``t``.
@@ -312,6 +506,36 @@ def gru_sequence_x(params: dict, carry0: torch.Tensor, xs: torch.Tensor, resets:
     ``params``, ``carry0`` and ``xs``.
     """
     return _gru_x_streams([params], [carry0], [xs], resets, compute_dtype)[0]
+
+
+def gru_sequence_xproj(params: dict, carry0: torch.Tensor, xs: torch.Tensor, resets: torch.Tensor,
+                       compute_dtype=None) -> torch.Tensor:
+    """G independent GRU replays through the xproj kernels, ``xs [G,T,B,D]``
+    -> ``hs [G,T,B,H]``.
+
+    ``params`` holds the packed weights with a leading ``[G]`` axis,
+    ``carry0 [G,B,H]``, ``resets [G,T,B]`` (each stream its own mask). The
+    input projection is one bulk product per stream outside the kernels (in
+    bf16 mode of rounded operands, accumulated in fp32). Differentiable in
+    ``params``, ``carry0`` and ``xs``.
+    """
+    G, T, B, _ = xs.shape
+    check_replay_inputs("GRU", [*params.values(), carry0, xs, resets])
+    check_resets("GRU", resets, G, T, B)
+    f32 = torch.float32
+    weights = (params[k].to(f32) for k in ("wx", "bx", "wh", "bhn"))
+    return _gru_xproj(*weights, carry0.to(f32), xs.to(f32), resets.to(f32), is_bf16(compute_dtype))
+
+
+def gru_sequence(params: dict, carry0: torch.Tensor, xs: torch.Tensor, resets: torch.Tensor,
+                 compute_dtype=None) -> torch.Tensor:
+    """One GRU replay, ``xs [T,B,D]`` -> ``hs [T,B,H]``: the x-streaming
+    kernels up to ``X_STREAM_MAX_D`` input columns, the xproj kernels (G=1)
+    beyond, as the JAX package's ``gru_sequence`` chooses."""
+    if xs.shape[-1] <= X_STREAM_MAX_D:
+        return gru_sequence_x(params, carry0, xs, resets, compute_dtype)
+    one = {k: v[None] for k, v in params.items()}
+    return gru_sequence_xproj(one, carry0[None], xs[None], resets[None], compute_dtype)[0]
 
 
 def gru_sequence_pair(params_pair, carry0_pair, xs_pair, resets: torch.Tensor,

@@ -9,23 +9,32 @@ Math (flax ``OptimizedLSTMCell``, gates i|f|g|o, no input bias; ``c`` and
     h' = o * tanh(c')
 
 Weights use the packed layout of the JAX package's ``_lstm_pack``: ``wx
-[D,4H]``, ``wh [H,4H]``, ``bh [4H]``. A leading stream axis S runs
-independent recurrences (S=2: the actor and critic memories of a PPO
-minibatch) that share the reset mask.
+[D,4H]``, ``wh [H,4H]``, ``bh [4H]``. A leading stream axis runs independent
+recurrences.
 
-Kernels (``csrc/lstm_x.cu``), one CUDA launch each:
+Two kernel sets, one CUDA launch each, as in the JAX package:
 
-- ``lstm_x_fwd`` replaces the Pallas ``_lstm_fwd_kernel_x_pair`` /
-  ``_lstm_core_x_pair_fwd_impl`` (S=2) and ``_lstm_fwd_kernel_x`` /
-  ``_lstm_core_x_fwd_impl`` (S=1) of ``rsl_rl_tpu/ops/pallas_rnn.py``; it
-  writes ``hs`` and ``cs``.
-- ``lstm_x_bwd`` and ``lstm_x_wgrad`` together replace
+- x-streaming (``csrc/lstm_x.cu``), S streams that share the reset mask (S=2:
+  the actor and critic memories of a PPO minibatch). ``lstm_x_fwd`` replaces
+  the Pallas ``_lstm_fwd_kernel_x_pair`` / ``_lstm_core_x_pair_fwd_impl``
+  (S=2) and ``_lstm_fwd_kernel_x`` / ``_lstm_core_x_fwd_impl`` (S=1) of
+  ``rsl_rl_tpu/ops/pallas_rnn.py``; it writes ``hs`` and ``cs``.
+  ``lstm_x_bwd`` and ``lstm_x_wgrad`` together replace
   ``_lstm_bwd_kernel_x_pair`` / ``_lstm_core_x_pair_bwd_impl`` and
   ``_lstm_bwd_kernel_x`` / ``_lstm_core_x_bwd_impl``. ``lstm_x_bwd`` runs the
   reverse-time BPTT chain, recomputing the gates from ``(cs, hs)[t-1]``, and
   writes each step's gate gradients ``di|df|dg|do`` to a scratch buffer;
   ``lstm_x_wgrad`` reduces them into ``dWh | dWx | dbh`` with the same
   split-K kernel as ``gru_x_wgrad`` (``csrc/rnn_wgrad.cuh``).
+- xproj-streaming (``csrc/lstm_xp.cu``), G streams with a reset mask each,
+  over ``xproj = x Wx`` computed outside the kernels in one bulk product per
+  stream. ``lstm_xp_fwd`` replaces ``_lstm_fwd_kernel`` /
+  ``_lstm_core_fwd_impl``; ``lstm_xp_bwd`` and ``lstm_xp_wgrad`` replace
+  ``_lstm_bwd_kernel`` / ``_lstm_core_bwd_impl`` (the gate gradients are the
+  gradient of ``xproj``; the reduction gives ``dWh | dbh``). They serve
+  inputs wider than ``X_STREAM_MAX_D`` (G=1) and every replay under
+  ``torch.func.vmap``, the seed axis of multi-seed training: the x-streaming
+  replay's vmap rule folds the seed and stream axes into G and takes them.
 
 What bounds them on an H100 is what bounds the GRU kernels
 (``ops/gru_rnn.py``): ``T`` dependent steps of ``[B,H] x [H,4H]`` in IEEE
@@ -45,19 +54,27 @@ import ctypes
 import torch
 
 from rsl_rl_tpu_torch.ops.rnn_common import (
+    X_STREAM_MAX_D,
     LaunchCounts,
+    batch_first,
     check,
     check_hidden,
     check_replay_inputs,
+    check_resets,
     is_bf16,
     load_kernels,
+    merge_streams,
     mm,
+    op,
     raise_on,
+    shared_resets,
     stream,
     wgrad_splits,
 )
 
+#: launches of the x-streaming kernels (``lstm_x_*``) and of the xproj kernels (``lstm_xp_*``)
 launch_counts = LaunchCounts()
+xp_launch_counts = LaunchCounts()
 
 
 # --------------------------------------------------------------------------
@@ -65,9 +82,10 @@ launch_counts = LaunchCounts()
 # --------------------------------------------------------------------------
 
 
-def _gates(wx, wh, bh, h, x, bf16):
+def _gates(xp, wh, bh, h, bf16):
+    """i, f, g, o of one step from its input projection ``xp = x Wx``."""
     H = wh.shape[-2]
-    a = mm(x, wx, bf16) + mm(h, wh, bf16) + bh[:, None, :]
+    a = xp + mm(h, wh, bf16) + bh[:, None, :]
     i = torch.sigmoid(a[..., :H])
     f = torch.sigmoid(a[..., H : 2 * H])
     g = torch.tanh(a[..., 2 * H : 3 * H])
@@ -75,17 +93,24 @@ def _gates(wx, wh, bh, h, x, bf16):
     return i, f, g, o
 
 
-def lstm_x_plain_fwd(wx, wh, bh, c0, h0, xs, resets, bf16: bool = False):
-    """Plain forward: ``xs [S,T,B,D]``, ``resets [T,B]`` float, ``c0, h0
-    [S,B,H]``, ``wx [S,D,4H]``, ``wh [S,H,4H]``, ``bh [S,4H]`` -> ``(hs, cs)``,
-    each ``[S,T,B,H]``."""
+def input_projection(wx, xs, bf16: bool = False) -> torch.Tensor:
+    """``xs [S,T,B,D] @ wx [S,D,4H]`` -> ``[S,T,B,4H]`` (no input bias): one
+    bulk product per stream with the replay's operand rounding (differentiable)."""
+    S, T, B, D = xs.shape
+    return torch.bmm(op(xs.reshape(S, T * B, D), bf16), op(wx, bf16)).reshape(S, T, B, -1)
+
+
+def lstm_xp_plain_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
+    """Plain xproj forward: ``xproj [G,T,B,4H]``, ``resets [G,T,B]`` float,
+    ``c0, h0 [G,B,H]``, ``wh [G,H,4H]``, ``bh [G,4H]`` -> ``(hs, cs)``, each
+    ``[G,T,B,H]``."""
     keep = 1.0 - resets
     c, h = c0, h0
     hs, cs = [], []
-    for t in range(xs.shape[1]):
-        k = keep[t][None, :, None]
+    for t in range(xproj.shape[1]):
+        k = keep[:, t, :, None]
         c, h = c * k, h * k
-        i, f, g, o = _gates(wx, wh, bh, h, xs[:, t], bf16)
+        i, f, g, o = _gates(xproj[:, t], wh, bh, h, bf16)
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs.append(h)
@@ -93,27 +118,26 @@ def lstm_x_plain_fwd(wx, wh, bh, c0, h0, xs, resets, bf16: bool = False):
     return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
 
 
-def lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = False):
-    """Plain reverse-time BPTT chain of :func:`lstm_x_plain_fwd` for the output
-    gradient ``ghs`` (the plain version of ``lstm_x_bwd``).
+def lstm_xp_plain_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = False):
+    """Plain reverse-time BPTT chain of :func:`lstm_xp_plain_fwd` for the
+    output gradient ``ghs`` (the plain version of ``lstm_xp_bwd``).
 
-    Returns ``(dx, dc0, dh0, gscratch)`` with ``gscratch [S,T,B,4H]`` holding
-    each step's ``di | df | dg | do``. Gate activations are recomputed from
-    ``(cs, hs)[t-1]`` (``(c0, h0)`` at t=0) with the forward's operand
-    rounding; the new cell state is ``cs[t]``.
+    Returns ``(dc0, dh0, gscratch)`` with ``gscratch [G,T,B,4H]`` holding each
+    step's ``di | df | dg | do``, which is also the gradient of ``xproj``.
+    Gate activations are recomputed from ``(cs, hs)[t-1]`` (``(c0, h0)`` at
+    t=0) with the forward's operand rounding; the new cell state is ``cs[t]``.
     """
-    S, T, B, _ = xs.shape
+    G, T, B, _ = xproj.shape
     H = h0.shape[-1]
     keep = 1.0 - resets
-    dx = torch.empty_like(xs)
-    gscratch = torch.empty((S, T, B, 4 * H), dtype=xs.dtype, device=xs.device)
+    gscratch = torch.empty((G, T, B, 4 * H), dtype=xproj.dtype, device=xproj.device)
     dh = torch.zeros_like(h0)
     dc = torch.zeros_like(c0)
     for t in reversed(range(T)):
-        k = keep[t][None, :, None]
+        k = keep[:, t, :, None]
         c_prev = (c0 if t == 0 else cs[:, t - 1]) * k
         h_prev = (h0 if t == 0 else hs[:, t - 1]) * k
-        i, f, g, o = _gates(wx, wh, bh, h_prev, xs[:, t], bf16)
+        i, f, g, o = _gates(xproj[:, t], wh, bh, h_prev, bf16)
         tc = torch.tanh(cs[:, t])
         gh = ghs[:, t] + dh
         gc = dc + gh * o * (1.0 - tc * tc)
@@ -124,10 +148,42 @@ def lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = F
             gh * tc * o * (1.0 - o),
         ], dim=-1)
         gscratch[:, t] = dgates
-        dx[:, t] = mm(dgates, wx.transpose(-1, -2), bf16)
         dh = mm(dgates, wh.transpose(-1, -2), bf16) * k
         dc = gc * f * k
-    return dx, dc, dh, gscratch
+    return dc, dh, gscratch
+
+
+def lstm_xp_plain_wgrad(resets, h0, hs, gscratch, bf16: bool = False):
+    """Plain weight-gradient reduction (the plain version of ``lstm_xp_wgrad``):
+    sums over all ``T*B`` rows of ``h_maskedᵀ dgates`` and ``dgates``.
+    Returns ``(dwh, dbh)``."""
+    G, T, B = resets.shape
+    H = h0.shape[-1]
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * (1.0 - resets)[..., None]
+    gs = gscratch.reshape(G, T * B, 4 * H)
+    return mm(h_prev.reshape(G, T * B, H).transpose(-1, -2), gs, bf16), gs.sum(dim=1)
+
+
+def lstm_x_plain_fwd(wx, wh, bh, c0, h0, xs, resets, bf16: bool = False):
+    """Plain forward: ``xs [S,T,B,D]``, ``resets [T,B]`` float, ``c0, h0
+    [S,B,H]``, ``wx [S,D,4H]``, ``wh [S,H,4H]``, ``bh [S,4H]`` -> ``(hs, cs)``,
+    each ``[S,T,B,H]``."""
+    xproj = input_projection(wx, xs, bf16)
+    return lstm_xp_plain_fwd(wh, bh, c0, h0, xproj, shared_resets(resets, xs.shape[0]), bf16)
+
+
+def lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = False):
+    """Plain reverse-time BPTT chain of :func:`lstm_x_plain_fwd` for the output
+    gradient ``ghs`` (the plain version of ``lstm_x_bwd``).
+
+    Returns ``(dx, dc0, dh0, gscratch)`` with ``gscratch [S,T,B,4H]`` holding
+    each step's ``di | df | dg | do``, and ``dx = dgates Wxᵀ``.
+    """
+    xproj = input_projection(wx, xs, bf16)
+    dc0, dh0, gscratch = lstm_xp_plain_bwd(wh, bh, c0, h0, xproj, shared_resets(resets, xs.shape[0]),
+                                           hs, cs, ghs, bf16)
+    dx = mm(gscratch, wx.transpose(-1, -2)[:, None], bf16)
+    return dx, dc0, dh0, gscratch
 
 
 def lstm_x_plain_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
@@ -136,11 +192,9 @@ def lstm_x_plain_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
     ``dgates``. Returns ``(dwx, dwh, dbh)``."""
     S, T, B, D = xs.shape
     H = h0.shape[-1]
-    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * (1.0 - resets)[None, :, :, None]
-    G = gscratch.reshape(S, T * B, 4 * H)
-    dwh = mm(h_prev.reshape(S, T * B, H).transpose(-1, -2), G, bf16)
-    dwx = mm(xs.reshape(S, T * B, D).transpose(-1, -2), G, bf16)
-    return dwx, dwh, G.sum(dim=1)
+    dwh, dbh = lstm_xp_plain_wgrad(shared_resets(resets, S), h0, hs, gscratch, bf16)
+    dwx = mm(xs.reshape(S, T * B, D).transpose(-1, -2), gscratch.reshape(S, T * B, 4 * H), bf16)
+    return dwx, dwh, dbh
 
 
 # --------------------------------------------------------------------------
@@ -150,18 +204,24 @@ def lstm_x_plain_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "lstm_x_fwd": [_P] * 9 + [_I] * 6 + [_P],
-    "lstm_x_bwd": [_P] * 15 + [_I] * 6 + [_P],
-    "lstm_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    "lstm_x": {
+        "lstm_x_fwd": [_P] * 9 + [_I] * 6 + [_P],
+        "lstm_x_bwd": [_P] * 15 + [_I] * 6 + [_P],
+        "lstm_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
+    },
+    "lstm_xp": {
+        "lstm_xp_fwd": [_P] * 8 + [_I] * 5 + [_P],
+        "lstm_xp_bwd": [_P] * 13 + [_I] * 5 + [_P],
+        "lstm_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
+    },
 }
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        _LIB = load_kernels("lstm_x", _SIGNATURES)
-    return _LIB
+def _lib(name: str = "lstm_x") -> ctypes.CDLL:
+    if name not in _LIBS:
+        _LIBS[name] = load_kernels(name, _SIGNATURES[name])
+    return _LIBS[name]
 
 
 def _dims(wx, xs):
@@ -245,29 +305,156 @@ def lstm_x_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
     return C[:, H : H + D].contiguous(), C[:, :H].contiguous(), C[:, H + D].contiguous()
 
 
+def _xp_dims(wh, xproj):
+    G, T, B, _ = xproj.shape
+    H = wh.shape[-2]
+    check_hidden("LSTM", H)
+    return G, T, B, H
+
+
+def _xp_input_ptrs(wh, bh, c0, h0, xproj, resets):
+    G, T, B, H = _xp_dims(wh, xproj)
+    return [
+        check("xproj", xproj, (G, T, B, 4 * H)),
+        check("resets", resets, (G, T, B)),
+        check("c0", c0, (G, B, H)),
+        check("h0", h0, (G, B, H)),
+        check("wh", wh, (G, H, 4 * H)),
+    ]
+
+
+def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
+    """Launch the xproj forward kernel; shapes as :func:`lstm_xp_plain_fwd`.
+    Returns ``(hs, cs)``."""
+    G, T, B, H = _xp_dims(wh, xproj)
+    ptrs = _xp_input_ptrs(wh, bh, c0, h0, xproj, resets) + [check("bh", bh, (G, 4 * H))]
+    hs = torch.empty((G, T, B, H), dtype=torch.float32, device=xproj.device)
+    cs = torch.empty_like(hs)
+    raise_on("lstm_xp_fwd", _lib("lstm_xp").lstm_xp_fwd(*ptrs, hs.data_ptr(), cs.data_ptr(),
+                                                         G, T, B, H, int(bf16), stream()))
+    xp_launch_counts.fwd_launches += 1
+    return hs, cs
+
+
+def lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = False):
+    """Launch the xproj BPTT kernel; returns ``(dc0, dh0, gscratch)`` as
+    :func:`lstm_xp_plain_bwd`."""
+    G, T, B, H = _xp_dims(wh, xproj)
+    whT = wh.transpose(-1, -2).contiguous()  # [G,4H,H]: coalesced dgates @ Whᵀ
+    ptrs = _xp_input_ptrs(wh, bh, c0, h0, xproj, resets) + [
+        check("whT", whT, (G, 4 * H, H)),
+        check("bh", bh, (G, 4 * H)),
+        check("hs", hs, (G, T, B, H)),
+        check("cs", cs, (G, T, B, H)),
+        check("ghs", ghs, (G, T, B, H)),
+    ]
+    dc0 = torch.empty_like(c0)
+    dh0 = torch.empty_like(h0)
+    gscratch = torch.empty((G, T, B, 4 * H), dtype=torch.float32, device=xproj.device)
+    out = [dc0.data_ptr(), dh0.data_ptr(), gscratch.data_ptr()]
+    raise_on("lstm_xp_bwd", _lib("lstm_xp").lstm_xp_bwd(*ptrs, *out, G, T, B, H, int(bf16), stream()))
+    xp_launch_counts.bwd_launches += 1
+    return dc0, dh0, gscratch
+
+
+def lstm_xp_wgrad(resets, h0, hs, gscratch, bf16: bool = False):
+    """Launch the xproj weight-gradient reduction; returns ``(dwh, dbh)``.
+
+    The kernel computes ``C = Σ_rows [h_masked | 1]ᵀ · [di | df | dg | do]``
+    over the ``T*B`` rows, ``C [G, H+1, 4H]``; the gradients are slices of it.
+    """
+    G, T, B = resets.shape
+    H = h0.shape[-1]
+    ptrs = [
+        check("resets", resets, (G, T, B)),
+        check("h0", h0, (G, B, H)),
+        check("hs", hs, (G, T, B, H)),
+        check("gscratch", gscratch, (G, T, B, 4 * H)),
+    ]
+    P = wgrad_splits(T * B)
+    W = torch.empty((G, P, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
+    C = torch.empty((G, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
+    raise_on("lstm_xp_wgrad", _lib("lstm_xp").lstm_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
+                                                             int(bf16), stream()))
+    xp_launch_counts.wgrad_launches += 1
+    return C[:, :H].contiguous(), C[:, H].contiguous()
+
+
 # --------------------------------------------------------------------------
 # autograd and public API
 # --------------------------------------------------------------------------
 
 
-class _LstmX(torch.autograd.Function):
-    """``(hs, cT)``; ``cT`` (the cell state after the last step) is value-only,
-    like the JAX package's ``_lstm_core_x``."""
+class _LstmXp(torch.autograd.Function):
+    """``(hs, cT, cs)`` of G xproj replays (the JAX package's ``_lstm_core``);
+    ``hs`` is differentiable in ``wh``, ``bh``, ``c0``, ``h0`` and ``xproj``;
+    ``cT`` (the cell state after the last step) and ``cs`` (every step's, which
+    the backward reads) are value-only."""
 
     @staticmethod
-    def forward(ctx, wx, wh, bh, c0, h0, xs, resets, bf16):
-        if xs.is_cuda:
-            hs, cs = lstm_x_fwd(wx, wh, bh, c0, h0, xs, resets, bf16)
+    def forward(wh, bh, c0, h0, xproj, resets, bf16):
+        fwd = lstm_xp_fwd if xproj.is_cuda else lstm_xp_plain_fwd
+        hs, cs = fwd(wh, bh, c0, h0, xproj, resets, bf16)
+        return hs, cs[:, -1].clone(), cs
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        wh, bh, c0, h0, xproj, resets, bf16 = inputs
+        hs, cT, cs = output
+        ctx.save_for_backward(wh, bh, c0, h0, xproj, resets, hs, cs)
+        ctx.bf16 = bf16
+        ctx.mark_non_differentiable(cT, cs)
+
+    @staticmethod
+    def backward(ctx, ghs, _gcT, _gcs):
+        wh, bh, c0, h0, xproj, resets, hs, cs = ctx.saved_tensors
+        ghs = ghs.contiguous()
+        if xproj.is_cuda:
+            dc0, dh0, gscratch = lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, ctx.bf16)
+            dwh, dbh = lstm_xp_wgrad(resets, h0, hs, gscratch, ctx.bf16)
         else:
-            hs, cs = lstm_x_plain_fwd(wx, wh, bh, c0, h0, xs, resets, bf16)
+            dc0, dh0, gscratch = lstm_xp_plain_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, ctx.bf16)
+            dwh, dbh = lstm_xp_plain_wgrad(resets, h0, hs, gscratch, ctx.bf16)
+        return dwh, dbh, dc0, dh0, gscratch, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, wh, bh, c0, h0, xproj, resets, bf16):
+        """A vmapped axis V folds into the stream axis: one launch of V*G streams."""
+        V = info.batch_size
+        args = [merge_streams(batch_first(t, d, V)) for t, d in zip((wh, bh, c0, h0, xproj, resets), in_dims)]
+        out = _LstmXp.apply(*args, bf16)
+        return tuple(t.reshape(V, -1, *t.shape[1:]) for t in out), (0, 0, 0)
+
+
+def _lstm_xproj(wx, wh, bh, c0, h0, xs, resets, bf16):
+    """G xproj replays (fp32 tensors with a leading stream axis): the input
+    projections in one bulk product, then the xproj kernels. ``(hs, cT, cs)``."""
+    xproj = input_projection(wx, xs, bf16)
+    return _LstmXp.apply(wh.contiguous(), bh.contiguous(), c0.contiguous(), h0.contiguous(), xproj,
+                         resets.contiguous(), bf16)
+
+
+class _LstmX(torch.autograd.Function):
+    """``(hs, cT, cs)`` of S x-streaming replays that share the reset mask;
+    ``cT`` (the cell state after the last step) is value-only, like the JAX
+    package's ``_lstm_core_x``, and so is ``cs``, which the backward reads."""
+
+    @staticmethod
+    def forward(wx, wh, bh, c0, h0, xs, resets, bf16):
+        fwd = lstm_x_fwd if xs.is_cuda else lstm_x_plain_fwd
+        hs, cs = fwd(wx, wh, bh, c0, h0, xs, resets, bf16)
+        return hs, cs[:, -1].clone(), cs
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        wx, wh, bh, c0, h0, xs, resets, bf16 = inputs
+        hs, cT, cs = output
         ctx.save_for_backward(wx, wh, bh, c0, h0, xs, resets, hs, cs)
         ctx.bf16 = bf16
-        cT = cs[:, -1].clone()
-        ctx.mark_non_differentiable(cT)
-        return hs, cT
+        ctx.mark_non_differentiable(cT, cs)
 
     @staticmethod
-    def backward(ctx, ghs, _gcT):
+    def backward(ctx, ghs, _gcT, _gcs):
         wx, wh, bh, c0, h0, xs, resets, hs, cs = ctx.saved_tensors
         ghs = ghs.contiguous()
         if xs.is_cuda:
@@ -278,12 +465,26 @@ class _LstmX(torch.autograd.Function):
             dwx, dwh, dbh = lstm_x_plain_wgrad(xs, resets, h0, hs, gscratch, ctx.bf16)
         return dwx, dwh, dbh, dc0, dh0, dx, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, wx, wh, bh, c0, h0, xs, resets, bf16):
+        """Under ``torch.func.vmap`` (the seed axis of multi-seed training) the
+        replay takes the xproj kernels, as the JAX package's replay does under
+        ``jax.vmap``: the vmapped axis V and the stream axis S fold into the
+        xproj kernels' stream axis, V*S streams with a reset mask each."""
+        V = info.batch_size
+        wx, wh, bh, c0, h0, xs, resets = (
+            batch_first(t, d, V) for t, d in zip((wx, wh, bh, c0, h0, xs, resets), in_dims))
+        S = xs.shape[1]
+        resets = resets[:, None].expand(V, S, *resets.shape[1:])
+        out = _lstm_xproj(*(merge_streams(t) for t in (wx, wh, bh, c0, h0, xs, resets)), bf16)
+        return tuple(t.reshape(V, S, *t.shape[1:]) for t in out), (0, 0, 0)
+
 
 def _lstm_x_streams(params_list, carry0_list, xs_list, resets, compute_dtype):
     """``(hs [S,T,B,H], cT [S,B,H])`` of S replays in one launch per kernel."""
-    T, B, D = xs_list[0].shape
+    T, B, _ = xs_list[0].shape
     tensors = [t for p in params_list for t in p.values()] + [t for c in carry0_list for t in c]
-    check_replay_inputs("LSTM", tensors + [*xs_list, resets], D, xs_list[0].is_cuda)
+    check_replay_inputs("LSTM", tensors + [*xs_list, resets])
     f32 = torch.float32
     wx = torch.stack([p["wx"] for p in params_list]).to(f32)
     wh = torch.stack([p["wh"] for p in params_list]).to(f32)
@@ -292,7 +493,8 @@ def _lstm_x_streams(params_list, carry0_list, xs_list, resets, compute_dtype):
     h0 = torch.stack([h for _, h in carry0_list]).to(f32)
     xs = torch.stack(list(xs_list)).to(f32)
     resets = resets.to(f32).reshape(T, B).contiguous()
-    return _LstmX.apply(wx, wh, bh, c0, h0, xs, resets, is_bf16(compute_dtype))
+    hs, cT, _ = _LstmX.apply(wx, wh, bh, c0, h0, xs, resets, is_bf16(compute_dtype))
+    return hs, cT
 
 
 def lstm_step(params: dict, carry, x: torch.Tensor, compute_dtype=None):
@@ -301,31 +503,65 @@ def lstm_step(params: dict, carry, x: torch.Tensor, compute_dtype=None):
     (the JAX package's ``lstm_step_mixed``), so acting and replay agree.
     Plain PyTorch on every device: acting runs one step at a time."""
     c, h = carry
-    i, f, g, o = _gates(params["wx"][None], params["wh"][None], params["bh"][None],
-                        h[None], x[None], is_bf16(compute_dtype))
+    bf16 = is_bf16(compute_dtype)
+    i, f, g, o = _gates(mm(x[None], params["wx"][None], bf16), params["wh"][None], params["bh"][None],
+                        h[None], bf16)
     c_new = f[0] * c + i[0] * g[0]
     return c_new, o[0] * torch.tanh(c_new)
 
 
-def lstm_sequence_with_carry(params: dict, carry0, xs: torch.Tensor, resets: torch.Tensor,
-                             compute_dtype=None):
-    """Replay one LSTM over a window, ``xs [T,B,D]`` -> ``(hs [T,B,H], (cT, hT))``.
+def lstm_sequence_xproj(params: dict, carry0, xs: torch.Tensor, resets: torch.Tensor,
+                        compute_dtype=None):
+    """G independent LSTM replays through the xproj kernels, ``xs [G,T,B,D]``
+    -> ``(hs [G,T,B,H], cT [G,B,H])``.
+
+    ``params`` holds the packed ``wx``, ``wh``, ``bh`` with a leading ``[G]``
+    axis, ``carry0 = (c0, h0)`` each ``[G,B,H]``, ``resets [G,T,B]`` (each
+    stream its own mask). The input projection is one bulk product per stream
+    outside the kernels (in bf16 mode of rounded operands, accumulated in
+    fp32). ``hs`` is differentiable in ``params``, ``carry0`` and ``xs``;
+    ``cT`` is value-only.
+    """
+    G, T, B, _ = xs.shape
+    c0, h0 = carry0
+    check_replay_inputs("LSTM", [*params.values(), c0, h0, xs, resets])
+    check_resets("LSTM", resets, G, T, B)
+    f32 = torch.float32
+    weights = (params[k].to(f32) for k in ("wx", "wh", "bh"))
+    hs, cT, _ = _lstm_xproj(*weights, c0.to(f32), h0.to(f32), xs.to(f32), resets.to(f32), is_bf16(compute_dtype))
+    return hs, cT
+
+
+def lstm_sequence_x(params: dict, carry0, xs: torch.Tensor, resets: torch.Tensor,
+                    compute_dtype=None) -> torch.Tensor:
+    """Replay one LSTM over a window through the x-streaming kernels,
+    ``xs [T,B,D]`` -> ``hs [T,B,H]``.
 
     ``params`` holds the packed ``wx``, ``wh``, ``bh``; ``carry0 = (c0, h0)``,
     each ``[B,H]``, enters step 0; ``resets [T,B]`` zeroes the carry before
     step ``t``. ``compute_dtype`` is ``None`` (IEEE fp32) or
     ``torch.bfloat16`` (bf16 matmul operands, fp32 accumulation and state).
-    ``hs`` is differentiable in ``params``, ``carry0`` and ``xs``; the final
-    carry is value-only (detached), for truncated-BPTT replay.
+    Differentiable in ``params``, ``carry0`` and ``xs``.
     """
-    hs, cT = _lstm_x_streams([params], [carry0], [xs], resets, compute_dtype)
+    return _lstm_x_streams([params], [carry0], [xs], resets, compute_dtype)[0][0]
+
+
+def lstm_sequence_with_carry(params: dict, carry0, xs: torch.Tensor, resets: torch.Tensor,
+                             compute_dtype=None):
+    """One LSTM replay that also returns the carry after the last step,
+    ``xs [T,B,D]`` -> ``(hs [T,B,H], (cT, hT))``; arguments as
+    :func:`lstm_sequence_x`. The final carry is value-only (detached), for
+    truncated-BPTT replay. The x-streaming kernels take up to
+    ``X_STREAM_MAX_D`` input columns, the xproj kernels (G=1) wider inputs,
+    as the JAX package's ``lstm_sequence`` chooses.
+    """
+    if xs.shape[-1] <= X_STREAM_MAX_D:
+        hs, cT = _lstm_x_streams([params], [carry0], [xs], resets, compute_dtype)
+    else:
+        one = {k: v[None] for k, v in params.items()}
+        hs, cT = lstm_sequence_xproj(one, tuple(c[None] for c in carry0), xs[None], resets[None],
+                                     compute_dtype)
     return hs[0], (cT[0], hs[0, -1].detach())
-
-
-def lstm_sequence_x(params: dict, carry0, xs: torch.Tensor, resets: torch.Tensor,
-                    compute_dtype=None) -> torch.Tensor:
-    """:func:`lstm_sequence_with_carry` without the final carry: ``hs [T,B,H]``."""
-    return lstm_sequence_with_carry(params, carry0, xs, resets, compute_dtype)[0]
 
 
 def lstm_sequence_pair(params_pair, carry0_pair, xs_pair, resets: torch.Tensor,

@@ -1,6 +1,7 @@
 """What the GRU and LSTM window replays (``ops/gru_rnn.py``,
 ``ops/lstm_rnn.py``) share: the operand rounding of the bf16 mode, the
-compute-dtype rule, launch counters and the checks of the kernel wrappers."""
+compute-dtype rule, launch counters, the checks of the kernel wrappers and the
+batching of the replays' ``torch.func.vmap`` rules."""
 
 from __future__ import annotations
 
@@ -11,8 +12,8 @@ import torch
 
 #: the kernels run one thread per hidden column of a block
 KERNEL_MAX_HIDDEN = 256
-#: inputs wider than this take the JAX package's xproj-streaming cores, which
-#: are not ported yet (ROADMAP.md Queue 2, "xproj-streaming")
+#: inputs wider than this take the xproj replay (the input projection as one
+#: bulk product outside the kernels), as in the JAX package (``_X_STREAM_MAX_D``)
 X_STREAM_MAX_D = 512
 #: rows of the T*B weight-gradient reduction (``csrc/rnn_wgrad.cuh``) that one
 #: split walks, and the most splits: at T=24, B=1024 that is 12 splits
@@ -96,14 +97,34 @@ def wgrad_splits(rows: int) -> int:
     return min(WGRAD_MAX_SPLITS, max(1, -(-rows // WGRAD_ROWS_PER_SPLIT)))
 
 
-def check_replay_inputs(kind: str, tensors, D: int, on_cuda: bool) -> None:
-    """One device for all replay inputs, and an input width the x-streaming
-    kernels take (on the CPU the plain version takes any width)."""
+def check_replay_inputs(kind: str, tensors) -> None:
+    """One device for all replay inputs."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{kind} replay inputs are on several devices: {sorted(map(str, devices))}")
-    if on_cuda and D > X_STREAM_MAX_D:
-        raise NotImplementedError(
-            f"{kind} replay with input width D={D} > {X_STREAM_MAX_D} needs the xproj-streaming"
-            f" kernels, not ported yet (ROADMAP.md Queue 2, '{kind} xproj-streaming')"
-        )
+
+
+def check_resets(kind: str, resets: torch.Tensor, G: int, T: int, B: int) -> None:
+    """The xproj replays take one reset mask per stream (seeds have their own dones)."""
+    if tuple(resets.shape) != (G, T, B):
+        raise ValueError(f"{kind} xproj replay: resets must be [G, T, B] = {(G, T, B)},"
+                         f" got {tuple(resets.shape)}")
+
+
+def shared_resets(resets: torch.Tensor, S: int) -> torch.Tensor:
+    """A ``[T,B]`` reset mask shared by S streams, as the xproj replays take
+    it: ``[S,T,B]`` (a view)."""
+    return resets.expand(S, *resets.shape)
+
+
+def batch_first(t: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """In a ``torch.func.vmap`` rule: the argument with its vmapped axis first
+    (``dim``), or expanded to ``size`` along a new first axis when unbatched."""
+    if dim is None:
+        return t.expand(size, *t.shape)
+    return t.movedim(dim, 0)
+
+
+def merge_streams(t: torch.Tensor) -> torch.Tensor:
+    """``[V, G, ...]`` -> ``[V*G, ...]``: a vmapped axis folded into the stream axis."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])

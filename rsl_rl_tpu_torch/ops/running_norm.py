@@ -1,6 +1,8 @@
 """Running-moment observation normalization (counterpart of
 ``rsl_rl_tpu/ops/running_norm.py``). The moments are buffers of a small
-``nn.Module``, so they move with ``.to(device)`` and are updated in place."""
+``nn.Module``, so they move with ``.to(device)`` and are updated in place.
+Multi-seed training stacks each seed's moments and updates them under
+``torch.func.vmap`` (``modules.policy.seed_call``), per seed."""
 
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """Training runners."""
 
+from rsl_rl_tpu_torch.runners.multiseed import make_multiseed_train
+from rsl_rl_tpu_torch.runners.multiseed_runner import MultiSeedRunner
 from rsl_rl_tpu_torch.runners.on_policy_runner import OnPolicyRunner
 
-__all__ = ["OnPolicyRunner"]
+__all__ = ["MultiSeedRunner", "OnPolicyRunner", "make_multiseed_train"]

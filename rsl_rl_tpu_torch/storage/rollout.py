@@ -1,6 +1,7 @@
 """Rollout storage (counterpart of ``rsl_rl_tpu/storage/rollout.py``).
 
-A rollout is one collection window, time-major ``[T, N, ...]``. Recurrent
+A rollout is one collection window, time-major ``[T, N, ...]`` (multi-seed
+training stacks G of them, ``[G, T, N, ...]``, carries ``[G, N, ...]``). Recurrent
 rollouts keep only the window-start carry ``carry0``: trajectories that start
 mid-window begin from a zeroed carry, which the replay reproduces from
 ``resets[t] = dones[t-1]``.
@@ -30,15 +31,15 @@ class Rollout:
 
     @property
     def num_steps(self) -> int:
-        return self.dones.shape[0]
+        return self.dones.shape[-2]
 
     @property
     def num_envs(self) -> int:
-        return self.dones.shape[1]
+        return self.dones.shape[-1]
 
     def replay_resets(self) -> torch.Tensor:
-        """``resets[t] = dones[t-1]``, ``resets[0] = False``."""
-        return torch.cat([torch.zeros_like(self.dones[:1]), self.dones[:-1]], dim=0)
+        """``resets[t] = dones[t-1]``, ``resets[0] = False`` (per seed)."""
+        return torch.cat([torch.zeros_like(self.dones[..., :1, :]), self.dones[..., :-1, :]], dim=-2)
 
 
 def recurrent_minibatch_starts(num_envs: int, num_mini_batches: int, num_epochs: int) -> list[int]:
@@ -47,10 +48,15 @@ def recurrent_minibatch_starts(num_envs: int, num_mini_batches: int, num_epochs:
     return [i * mb for i in range(num_mini_batches)] * num_epochs
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every tensor of a nested dict/tuple/list."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def slice_envs(tree: Any, start: int, size: int, axis: int = 1) -> Any:
     """Slice the env axis of every tensor in a nested dict/tuple (a view)."""
-    if isinstance(tree, dict):
-        return {k: slice_envs(v, start, size, axis) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(slice_envs(v, start, size, axis) for v in tree)
-    return tree.narrow(axis, start, size)
+    return tree_map(lambda t: t.narrow(axis, start, size), tree)

@@ -16,9 +16,15 @@ r|z|n): ``wx = [ir|iz|in]`` ``[D,3H]``, ``bx`` ``[3H]``, ``wh = [hr|hz|hn]``
 i|f|g|o): ``wx = [ii|if|ig|io]`` ``[D,4H]``, ``wh = [hi|hf|hg|ho]`` ``[H,4H]``,
 ``bh`` ``[4H]``. The port keeps its own copy of these layout maps; it imports
 nothing of the JAX package.
+
+A multi-seed study's trees (``jax.vmap`` of the policy init) carry a leading
+``[G]`` axis on every leaf; :func:`from_jax_stacked_state` loads them, one
+seed or all, into the port's stacked training state.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -81,3 +87,36 @@ def from_jax_state(params_np: dict, norm_np: dict, policy) -> None:
         if state is not None:
             for key in ("mean", "var", "count"):
                 _copy(getattr(state, key), src[key], f"norm.{role}.{key}")
+
+
+def _take(tree, index: int):
+    """Leaf ``index`` of the leading axis of every array of a nested dict."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _take(v, index) for k, v in tree.items()}
+    return np.asarray(tree)[index]
+
+
+@torch.no_grad()
+def from_jax_stacked_state(params_np: dict, norm_np: dict, policy, state, seeds=None) -> None:
+    """Load seed-stacked JAX policy parameters and normalizer moments (every
+    leaf ``[G, ...]``) into a stacked training state in place: ``state.params``
+    and ``state.buffers`` (``algorithms.ppo.StackedTrainState``), by module
+    name with a leading ``[G]`` axis.
+
+    ``policy`` is the architecture template (left unchanged); ``seeds`` is
+    one seed index, a list of them, or ``None`` for all.
+    """
+    num_seeds = next(iter(state.params.values())).shape[0]
+    if seeds is None:
+        seeds = range(num_seeds)
+    elif isinstance(seeds, int):
+        seeds = [seeds]
+    scratch = copy.deepcopy(policy)
+    for g in seeds:
+        from_jax_state(_take(params_np, g), _take(norm_np, g), scratch)
+        for name, t in scratch.named_parameters():
+            state.params[name][g].copy_(t)
+        for name, t in scratch.named_buffers():
+            state.buffers[name][g].copy_(t)

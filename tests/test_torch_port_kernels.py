@@ -236,3 +236,156 @@ def test_lstm_replay_autograd_on_card_matches_cpu():
     for name, a, b in zip(("hs", "dwx", "dwh", "dbh", "dc0", "dh0", "dxs"),
                           results["cuda"], results["cpu"]):
         _close(a, b, 1e-3, 1e-4, name)
+
+
+# ------------------------------------------------------- xproj kernels
+
+
+def _xp_inputs(family, G, T, B, H, seed, device="cpu"):
+    """The xproj kernels' inputs ``(wh, bhn, carry0, xproj, resets)`` (GRU) or
+    ``(wh, bh, c0, h0, xproj, resets)`` (LSTM), with one reset mask per
+    stream, and an output gradient ``ghs``."""
+    g = torch.Generator().manual_seed(seed)
+    bound = 1.0 / math.sqrt(H)
+    gates = 3 if family == "gru" else 4
+
+    def u(*shape):
+        return (torch.rand(shape, generator=g) * 2 - 1) * bound
+
+    resets = (torch.rand(G, T, B, generator=g) < 0.15).float()
+    resets[:, 0] = 0.0
+    xproj = torch.randn(G, T, B, gates * H, generator=g)
+    if family == "gru":
+        w = (u(G, H, 3 * H), u(G, H), torch.randn(G, B, H, generator=g) * 0.5, xproj, resets)
+    else:
+        w = (u(G, H, 4 * H), u(G, 4 * H), torch.randn(G, B, H, generator=g),
+             torch.randn(G, B, H, generator=g) * 0.5, xproj, resets)
+    ghs = torch.randn(G, T, B, H, generator=g)
+    return tuple(t.to(device) for t in w), ghs.to(device)
+
+
+XP_KERNELS = {
+    "gru": ("gru_xp_fwd", "gru_xp_bwd", "gru_xp_wgrad"),
+    "lstm": ("lstm_xp_fwd", "lstm_xp_bwd", "lstm_xp_wgrad"),
+}
+
+
+def _xp_module(family):
+    return gru_rnn if family == "gru" else lstm_rnn
+
+
+def _xp_wgrad_rows(family, w, state, gs):
+    """The reduction's inputs: resets, the carry entering step 0, hs, scratch."""
+    h0 = w[2] if family == "gru" else w[3]
+    return w[-1], h0, state[0], gs
+
+
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+@pytest.mark.parametrize("G,T", [(1, 5), (3, 5), (3, 1)], ids=["G1T5", "G3T5", "G3T1"])
+def test_xp_plain_backward_is_the_gradient_of_plain_forward(family, G, T):
+    """fp32: the plain xproj BPTT chain and weight-gradient reduction equal
+    autograd through the plain xproj forward, per stream with its own resets."""
+    mod = _xp_module(family)
+    w, ghs = _xp_inputs(family, G, T, 16, 8, seed=G * 10 + T)
+    leaves = [t.clone().requires_grad_(True) for t in w[:-1]]
+    fwd, bwd, wgrad = (getattr(mod, k.replace("_xp_", "_xp_plain_")) for k in XP_KERNELS[family])
+    out = fwd(*leaves, w[-1])
+    hs = out if family == "gru" else out[0]
+    want = torch.autograd.grad(hs, leaves, ghs)
+
+    state = (hs.detach(),) if family == "gru" else tuple(t.detach() for t in out)
+    back = bwd(*w, *state, ghs)
+    gs = back[-1]
+    H = w[0].shape[-2]
+    dxproj = gs[..., : 3 * H] if family == "gru" else gs
+    got = (*wgrad(*_xp_wgrad_rows(family, w, state, gs)), *back[:-1], dxproj)
+    names = ("dwh", "dbhn", "dcarry0", "dxproj") if family == "gru" else ("dwh", "dbh", "dc0", "dh0", "dxproj")
+    for name, a, b in zip(names, got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("kernel", [k for ks in XP_KERNELS.values() for k in ks])
+def test_xp_kernel_wrappers_refuse_cpu_tensors(kernel):
+    """No silent fallback for the xproj kernels either."""
+    family = kernel.split("_")[0]
+    mod = _xp_module(family)
+    w, ghs = _xp_inputs(family, 2, 2, 16, 8, seed=0)
+    out = getattr(mod, f"{family}_xp_plain_fwd")(*w)
+    state = (out,) if family == "gru" else out
+    gs = getattr(mod, f"{family}_xp_plain_bwd")(*w, *state, ghs)[-1]
+    args = {"fwd": w, "bwd": (*w, *state, ghs), "wgrad": _xp_wgrad_rows(family, w, state, gs)}
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        getattr(mod, kernel)(*args[kernel.split("_")[-1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+@pytest.mark.parametrize(
+    "G,T,B,bf16", [(16, 24, 128, False), (16, 24, 128, True), (1, 24, 200, False), (3, 1, 128, False)],
+    ids=["G16T24-fp32", "G16T24-bf16", "G1T24B200-fp32", "G3T1-fp32"],
+)
+def test_xp_kernels_match_plain_on_card(family, G, T, B, bf16):
+    """Each xproj kernel against its plain version on the same inputs (H=256,
+    per-stream resets), at the multi-seed main path's shape and a ragged
+    batch of 200 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = _xp_module(family)
+    fwd, bwd, wgrad = XP_KERNELS[family]
+    w, ghs = _xp_inputs(family, G, T, B, 256, seed=G * 100 + T, device="cuda")
+    fwd_rtol, fwd_atol, bwd_rtol, bwd_atol_rel = TOL[bf16]
+    counts = mod.xp_launch_counts
+    counts.reset()
+
+    def plain(name):
+        return getattr(mod, name.replace("_xp_", "_xp_plain_"))
+
+    want = plain(fwd)(*w, bf16)
+    got = getattr(mod, fwd)(*w, bf16)
+    state = (want,) if family == "gru" else want
+    for a, b in zip((got,) if family == "gru" else got, state):
+        torch.testing.assert_close(a, b, rtol=fwd_rtol, atol=fwd_atol)
+    got = getattr(mod, bwd)(*w, *state, ghs, bf16)
+    want = plain(bwd)(*w, *state, ghs, bf16)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, bwd_rtol, bwd_atol_rel, f"{bwd} output {i}")
+    rows = _xp_wgrad_rows(family, w, state, want[-1])
+    for i, (a, b) in enumerate(zip(getattr(mod, wgrad)(*rows, bf16), plain(wgrad)(*rows, bf16))):
+        _close(a, b, bwd_rtol, bwd_atol_rel, f"{wgrad} output {i}")
+    torch.cuda.synchronize()
+    assert (counts.fwd_launches, counts.bwd_launches, counts.wgrad_launches) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+def test_xp_replay_autograd_on_card_matches_cpu(family):
+    """The seed-axis replay (``*_sequence_xproj``, G=3, per-stream resets, a
+    wide input D=520) on the card against the CPU: values and the gradients
+    of every input, through the outside projection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    G, T, B, D, H = 3, 8, 64, 520, 256
+    gen = torch.Generator().manual_seed(7)
+    gates = 3 if family == "gru" else 4
+    names = ("wx", "bx", "wh", "bhn") if family == "gru" else ("wx", "wh", "bh")
+    shapes = {"wx": (G, D, gates * H), "bx": (G, gates * H), "wh": (G, H, gates * H), "bhn": (G, H),
+              "bh": (G, gates * H)}
+    weights = [(torch.rand(shapes[k], generator=gen) * 2 - 1) / math.sqrt(H) for k in names]
+    carries = [torch.randn(G, B, H, generator=gen) for _ in range(1 if family == "gru" else 2)]
+    xs = torch.randn(G, T, B, D, generator=gen)
+    resets = (torch.rand(G, T, B, generator=gen) < 0.15).float()
+    ghs = torch.randn(G, T, B, H, generator=gen)
+    results = {}
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).clone().requires_grad_(True) for t in (*weights, *carries, xs)]
+        params = dict(zip(names, leaves[: len(names)]))
+        carry0 = leaves[len(names)] if family == "gru" else tuple(leaves[len(names) : len(names) + 2])
+        seq = gru_rnn.gru_sequence_xproj if family == "gru" else lstm_rnn.lstm_sequence_xproj
+        out = seq(params, carry0, leaves[-1], resets.to(device))
+        hs = out if family == "gru" else out[0]
+        grads = torch.autograd.grad(hs, leaves, ghs.to(device))
+        results[device] = [hs.detach().cpu(), *(g.cpu() for g in grads)]
+    for i, (a, b) in enumerate(zip(results["cuda"], results["cpu"])):
+        _close(a, b, 1e-3, 1e-4, f"output {i}")
