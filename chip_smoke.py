@@ -14,7 +14,11 @@ Phases, each fatal on failure:
    B=1024, D=15, H=256) with S=2 and S=1, the xproj kernels at theirs
    (G=16 streams of B=128: 8 seeds x actor and critic, per-stream resets)
    and at G=1, B=1024 (the wide-input shape, D=520), each in IEEE fp32 and
-   in bf16-operand mode, and at T=1.
+   in bf16-operand mode, and at T=1. The kernels redesigned for Hopper
+   (``lstm_x_bwd`` and the four weight-gradient reductions) also at edge
+   shapes (H=128 and 200, B=200, T=1 and 5, resets at t=0 and mid-window,
+   per-stream resets for the xproj reductions), in both modes, and two calls
+   of each must give the same bits.
 4. The slices, each trained for 3 iterations with every kernel launch
    counter set to 0 just before and read just after: through
    ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
@@ -27,14 +31,15 @@ Phases, each fatal on failure:
    the same policies for 8 seeds of 512 envs each (4096 in all). After each,
    check finite (and, across seeds, distinct) metrics, and that the kernel
    replay of a collected window reproduces the acting-time policy, per seed.
-5. Time each kernel at its main-path shape beside its plain version, a
-   PyTorch yardstick the port never calls (cuDNN's ``torch.nn.GRU`` /
-   ``torch.nn.LSTM``; one ``torch.bmm`` for the weight-gradient reductions;
-   none for the xproj forward and backward at G=16, which no single library
-   call computes) and the card's lower bound for the same work; then the
-   x-streaming kernels at S=1, and the xproj kernels and the port's whole
-   xproj replay (outside projection included) at G=1 beside cuDNN on the
-   raw wide input.
+5. Time each kernel, in fp32 and in bf16-operand mode, at its main-path
+   shape beside its plain version, a PyTorch yardstick the port never calls
+   (cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM``; one ``torch.bmm`` for the
+   weight-gradient reductions; none for the xproj forward and backward at
+   G=16, which no single library call computes) and the card's lower bound
+   for the same work (bf16 mode: operations at the bf16 tensor-core peak);
+   then the x-streaming kernels at S=1, and the xproj kernels and the port's
+   whole xproj replay (outside projection included) at G=1 beside cuDNN on
+   the raw wide input.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -148,13 +153,21 @@ MEMORY_TOL = {"rtol": 1e-3, "atol": 5e-4}
 # (mean atol, relative to max(1, max |mean|)?, value atol relative to max(1, max |value|))
 POLICY_TOL = {False: (1e-4, False, 1e-3), True: (2.0**-5, True, 2.0**-5)}
 
-# Published dense peaks (NVIDIA data sheets): fp32 outside the tensor cores
-# and memory bandwidth, by part.
+# Published dense peaks (NVIDIA data sheets): fp32 outside the tensor cores,
+# bf16 on the tensor cores (held for the SXM part only; the bf16 bound of
+# another part is left empty) and memory bandwidth, by part.
 PEAKS = {
-    "PCIe": {"fp32_flops": 51e12, "bytes_per_s": 2.0e12},
-    "NVL": {"fp32_flops": 60e12, "bytes_per_s": 3.9e12},
-    "SXM": {"fp32_flops": 67e12, "bytes_per_s": 3.35e12},
+    "PCIe": {"fp32_flops": 51e12, "bf16_flops": None, "bytes_per_s": 2.0e12},
+    "NVL": {"fp32_flops": 60e12, "bf16_flops": None, "bytes_per_s": 3.9e12},
+    "SXM": {"fp32_flops": 67e12, "bf16_flops": 989e12, "bytes_per_s": 3.35e12},
 }
+#: the kernels redesigned for Hopper after their bring-up, held at edge shapes
+#: and for bitwise-repeatable outputs in phase 3
+REDESIGNED = ("lstm_x_bwd", "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad", "lstm_xp_wgrad")
+#: (family, streams, T, B, H): H that the 128- and 64-wide tiles do not divide,
+#: a ragged batch, one-step windows; D = 15 (the xproj families project it)
+EDGE_CASES = [("lstm", 2, 5, 200, 200), ("lstm", 1, 1, 200, 128), ("gru", 2, 5, 200, 200),
+              ("gru", 1, 1, 200, 128), ("gru_xp", 3, 5, 200, 200), ("lstm_xp", 3, 5, 200, 128)]
 
 
 def fail(msg: str) -> None:
@@ -260,31 +273,89 @@ def check_kernels(family, S, T, B, D, H, bf16, seed):
     result[fwd] = [compare(a, b, tol["fwd_rtol"], tol["fwd_atol"], False)
                    for a, b in zip(forward_state(family, got), forward_state(family, want))]
     state = forward_state(family, want)
-    got = getattr(mod, bwd)(*w, *state, x["ghs"], bf16)
     want = plain(bwd)(*w, *state, x["ghs"], bf16)
-    result[bwd] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, want)]
     rows = wgrad_rows(family, x, state, want[-1])
-    got = getattr(mod, wgrad)(*rows, bf16)
-    want = plain(wgrad)(*rows, bf16)
-    result[wgrad] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, want)]
+    calls = {bwd: (lambda: getattr(mod, bwd)(*w, *state, x["ghs"], bf16), want),
+             wgrad: (lambda: getattr(mod, wgrad)(*rows, bf16), plain(wgrad)(*rows, bf16))}
+    repeat = {}
+    for name, (call, ref) in calls.items():
+        got = [t.clone() for t in call()]
+        result[name] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, ref)]
+        if name in REDESIGNED:
+            repeat[name] = all(torch.equal(a, b) for a, b in zip(got, call()))
     torch.cuda.synchronize()
-    return result
+    return result, repeat
 
 
-def kernel_calls(family, x):
-    """``{kernel: (kernel call, plain-version call)}`` on the inputs ``x``,
-    and the reduction's inputs for its library yardstick."""
+def check_edge(family, S, T, B, H, bf16, seed):
+    """The family's redesigned kernels against their plain versions at an edge
+    shape, with resets at t=0 (a third of the rows) and mid-window, and two
+    calls of each compared bit for bit: ``(results, repeatable)``."""
+    mod = FAMILIES[family]["module"]
+    fwd, bwd, wgrad = FAMILIES[family]["kernels"]
+    x = make_inputs(family, S, T, B, 3 * NUM_LINKS, H, seed)
+    x["resets"][..., 0, : B // 3] = 1.0
+    tol = TOL[bf16]
+    w = x["w"]
+    state = forward_state(family, plain(fwd)(*w, bf16))
+    want = plain(bwd)(*w, *state, x["ghs"], bf16)
+    rows = wgrad_rows(family, x, state, want[-1])
+    calls = {wgrad: (lambda: getattr(mod, wgrad)(*rows, bf16), plain(wgrad)(*rows, bf16))}
+    if bwd in REDESIGNED:
+        calls[bwd] = (lambda: getattr(mod, bwd)(*w, *state, x["ghs"], bf16), want)
+    result, repeat = {}, {}
+    for name, (call, ref) in calls.items():
+        got = [t.clone() for t in call()]
+        result[name] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, ref)]
+        repeat[name] = all(torch.equal(a, b) for a, b in zip(got, call()))
+    torch.cuda.synchronize()
+    return result, repeat
+
+
+def kernel_calls(family, x, bf16=False):
+    """``{kernel: (kernel call, plain-version call)}`` on the inputs ``x`` in
+    the given operand mode, and the reduction's inputs for its library
+    yardstick."""
     mod = FAMILIES[family]["module"]
     fwd, bwd, wgrad = FAMILIES[family]["kernels"]
     w = x["w"]
-    state = forward_state(family, getattr(mod, fwd)(*w))
-    rows = wgrad_rows(family, x, state, getattr(mod, bwd)(*w, *state, x["ghs"])[-1])
+    state = forward_state(family, getattr(mod, fwd)(*w, bf16))
+    rows = wgrad_rows(family, x, state, getattr(mod, bwd)(*w, *state, x["ghs"], bf16)[-1])
     calls = {
-        fwd: (lambda: getattr(mod, fwd)(*w), lambda: plain(fwd)(*w)),
-        bwd: (lambda: getattr(mod, bwd)(*w, *state, x["ghs"]), lambda: plain(bwd)(*w, *state, x["ghs"])),
-        wgrad: (lambda: getattr(mod, wgrad)(*rows), lambda: plain(wgrad)(*rows)),
+        fwd: (lambda: getattr(mod, fwd)(*w, bf16), lambda: plain(fwd)(*w, bf16)),
+        bwd: (lambda: getattr(mod, bwd)(*w, *state, x["ghs"], bf16),
+              lambda: plain(bwd)(*w, *state, x["ghs"], bf16)),
+        wgrad: (lambda: getattr(mod, wgrad)(*rows, bf16), lambda: plain(wgrad)(*rows, bf16)),
     }
     return calls, rows
+
+
+def mode_times(family, x, reps=20):
+    """``{bf16: {kernel: (ms, plain ms)}}`` in both operand modes, and the
+    reduction's inputs (fp32 mode)."""
+    times = {}
+    for bf16 in (False, True):
+        calls, rows_bf16 = kernel_calls(family, x, bf16)
+        if not bf16:
+            rows = rows_bf16
+        times[bf16] = {name: (time_ms(kernel, reps), time_ms(plain_call, 5))
+                       for name, (kernel, plain_call) in calls.items()}
+    return times, rows
+
+
+def fmt_ms(ms) -> str:
+    return "not held for this part" if ms is None else f"{ms:.4f} ms"
+
+
+def bound_ms(ops, nbytes, peaks, bf16):
+    """The card's least time for the work and what bounds it: operations at
+    the fp32 peak (bf16 mode: the bf16 tensor-core peak, ``None`` where the
+    script holds none) or bytes at the memory rate."""
+    peak = peaks["bf16_flops" if bf16 else "fp32_flops"]
+    if peak is None:
+        return None, None
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / peaks["bytes_per_s"] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def time_ms(fn, reps: int) -> float:
@@ -584,14 +655,17 @@ def run_multiseed_slice(name, family, cfg, T, B):
     return launches
 
 
-def kernel_entry(name, family, launches, max_abs, passed, ms, plain_ms, library_ms, ops, nbytes, peaks):
-    t_ops = ops / peaks["fp32_flops"] * 1e3
-    t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
+def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
+    """The kernel's line of the JSON result: fp32-mode time, plain time, bound
+    and library time, and the bf16-mode time, plain time and bound."""
+    (ms, plain_ms), (bf16_ms, bf16_plain_ms) = times[False][name], times[True][name]
+    bound, bound_by = bound_ms(ops, nbytes, peaks, False)
+    bf16_bound, bf16_bound_by = bound_ms(ops, nbytes, peaks, True)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"time {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library {lib});"
-          f" bound max({ops / 1e9:.2f} GFLOP / {peaks['fp32_flops'] / 1e12:.0f} TFLOP/s ="
-          f" {t_ops:.4f} ms, {nbytes / 1e6:.1f} MB / {peaks['bytes_per_s'] / 1e12:.2f} TB/s ="
-          f" {t_bytes:.4f} ms)")
+    bf16_b = fmt_ms(bf16_bound) + ("" if bf16_bound is None else f" ({bf16_bound_by})")
+    print(f"time {name}: fp32 {ms:.4f} ms (plain {plain_ms:.4f} ms, library {lib}, bound {bound:.4f} ms,"
+          f" {bound_by}: {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); bf16 {bf16_ms:.4f} ms"
+          f" (plain {bf16_plain_ms:.4f} ms, bound {bf16_b})")
     return {
         "name": name,
         "route": "cuda",
@@ -602,9 +676,13 @@ def kernel_entry(name, family, launches, max_abs, passed, ms, plain_ms, library_
         "max_abs_err": max_abs[name],
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": library_ms,
+        "bf16_ms": bf16_ms,
+        "bf16_plain_ms": bf16_plain_ms,
+        "bf16_bound_ms": bf16_bound,
+        "bf16_bound_by": bf16_bound_by,
         "passed": passed[name],
     }
 
@@ -646,6 +724,7 @@ def main() -> None:
     H = RECURRENT_GRU256["policy"]["rnn_hidden_dim"]
     max_abs = {}
     passed = {}
+    repeatable = {}
     x_cases = [(2, T, B, D, bf16) for bf16 in (False, True)] + [(1, T, B, D, bf16) for bf16 in (False, True)]
     x_cases += [(2, 1, B, D, False), (2, 1, B, D, True)]
     xp_cases = [(G, T, B_seed, D, bf16) for bf16 in (False, True)] + [(1, T, B, WIDE_D, bf16) for bf16 in (False, True)]
@@ -653,7 +732,9 @@ def main() -> None:
     for offset, family, cases in ((100, "gru", x_cases), (200, "lstm", x_cases),
                                   (300, "gru_xp", xp_cases), (400, "lstm_xp", xp_cases)):
         for i, (S, t, b, d, bf16) in enumerate(cases):
-            res = check_kernels(family, S, t, b, d, H, bf16, seed=offset + i)
+            res, repeat = check_kernels(family, S, t, b, d, H, bf16, seed=offset + i)
+            for name, same in repeat.items():
+                repeatable[name] = repeatable.get(name, True) and same
             summary = []
             for name, checks in res.items():
                 err = max(e for e, _, _ in checks)
@@ -668,8 +749,25 @@ def main() -> None:
             print(f"check S={S} T={t} B={b} D={d} H={H} {'bf16' if bf16 else 'fp32'}"
                   f" (fwd rtol {tol['fwd_rtol']:g} atol {tol['fwd_atol']:g}; bwd rtol {tol['bwd_rtol']:g}"
                   f" atol {tol['bwd_atol_rel']:g} x max |plain|): " + "; ".join(summary))
+    # the redesigned kernels at edge shapes, resets at t=0 and mid-window
+    for i, (family, S, t, b, h) in enumerate(EDGE_CASES):
+        for bf16 in (False, True):
+            res, repeat = check_edge(family, S, t, b, h, bf16, seed=500 + 10 * i + bf16)
+            summary = []
+            for name, checks in res.items():
+                ok = all(o for _, _, o in checks)
+                passed[name] = passed[name] and ok
+                repeatable[name] = repeatable[name] and repeat[name]
+                summary.append(f"{name} max_abs_err={max(e for e, _, _ in checks):.3e}"
+                               f" (max |plain| {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'},"
+                               f" {'bitwise repeatable' if repeat[name] else 'NOT REPEATABLE'}")
+            print(f"edge {family} S={S} T={t} B={b} D={3 * NUM_LINKS} H={h} {'bf16' if bf16 else 'fp32'},"
+                  f" resets at t=0: " + "; ".join(summary))
+    print(f"two calls bitwise equal: {repeatable}")
     if not all(passed.values()):
         fail(f"kernel disagrees with its plain version: {passed}")
+    if not all(repeatable.values()):
+        fail(f"redesigned kernel not bitwise repeatable: {repeatable}")
 
     # ---- 4. the slices
     launches = {}
@@ -678,13 +776,12 @@ def main() -> None:
     for name, (family, cfg) in MULTISEED_SLICES.items():
         launches.update(run_multiseed_slice(name, family, cfg, T, B_seed))
 
-    # ---- 5. times at the main-path shapes
+    # ---- 5. times at the main-path shapes, fp32 and bf16 operand modes
     kernels = []
     for seed, family in ((7, "gru"), (9, "lstm")):
         S = 2
         x = make_inputs(family, S, T, B, D, H, seed=seed)
-        calls, rows = kernel_calls(family, x)
-        times = {name: (time_ms(kernel, 20), time_ms(plain_call, 5)) for name, (kernel, plain_call) in calls.items()}
+        times, rows = mode_times(family, x)
         lib_fwd, lib_bwd, lib_out = library_rnn_ms(family, S, x, 20)
         fwd, bwd, wgrad = FAMILIES[family]["kernels"]
         # with no resets the kernel computes cuDNN's function: check agreement
@@ -696,32 +793,34 @@ def main() -> None:
             fail(f"{fwd} disagrees with cuDNN's {family.upper()} where both compute the same function")
         library = {fwd: lib_fwd, bwd: lib_bwd, wgrad: library_wgrad_ms(rows, 20)}
         for name, (ops, nbytes) in work(family, S, T, B, D, H).items():
-            kernels.append(kernel_entry(name, family, launches, max_abs, passed, *times[name], library[name],
+            kernels.append(kernel_entry(name, family, launches, max_abs, passed, times, library[name],
                                         ops, nbytes, peaks))
+        print(f"time {bwd} + {wgrad} at S={S}: fp32 {times[False][bwd][0] + times[False][wgrad][0]:.4f} ms,"
+              f" bf16 {times[True][bwd][0] + times[True][wgrad][0]:.4f} ms; cuDNN backward {lib_bwd:.4f} ms")
         # the same kernels at S=1, the work of the single-stream Pallas kernels
         x1 = make_inputs(family, 1, T, B, D, H, seed=seed + 1)
-        calls, rows = kernel_calls(family, x1)
+        times1, rows = mode_times(family, x1)
         lib1 = dict(zip((fwd, bwd), library_rnn_ms(family, 1, x1, 20)[:2]))
         lib1[wgrad] = library_wgrad_ms(rows, 20)
         for name, (ops, nbytes) in work(family, 1, T, B, D, H).items():
-            bound = max(ops / peaks["fp32_flops"], nbytes / peaks["bytes_per_s"]) * 1e3
-            kernel, plain_call = calls[name]
-            print(f"time {name} at S=1: {time_ms(kernel, 20):.4f} ms (plain {time_ms(plain_call, 5):.4f} ms,"
-                  f" library {lib1[name]:.4f} ms, bound {bound:.4f} ms)")
+            print(f"time {name} at S=1: fp32 {times1[False][name][0]:.4f} ms (plain {times1[False][name][1]:.4f} ms,"
+                  f" library {lib1[name]:.4f} ms, bound {fmt_ms(bound_ms(ops, nbytes, peaks, False)[0])});"
+                  f" bf16 {times1[True][name][0]:.4f} ms (bound {fmt_ms(bound_ms(ops, nbytes, peaks, True)[0])})")
+        print(f"time {bwd} + {wgrad} at S=1: fp32 {times1[False][bwd][0] + times1[False][wgrad][0]:.4f} ms,"
+              f" bf16 {times1[True][bwd][0] + times1[True][wgrad][0]:.4f} ms; cuDNN backward {lib1[bwd]:.4f} ms")
     for seed, family in ((11, "gru_xp"), (13, "lstm_xp")):
         x = make_inputs(family, G, T, B_seed, D, H, seed=seed)
-        calls, rows = kernel_calls(family, x)
+        times, rows = mode_times(family, x)
         fwd, bwd, wgrad = FAMILIES[family]["kernels"]
         # no single library call computes the G-stream forward or backward
         library = {fwd: None, bwd: None, wgrad: library_wgrad_ms(rows, 20)}
         for name, (ops, nbytes) in work(family, G, T, B_seed, D, H).items():
-            kernel, plain_call = calls[name]
-            kernels.append(kernel_entry(name, family, launches, max_abs, passed, time_ms(kernel, 20),
-                                        time_ms(plain_call, 5), library[name], ops, nbytes, peaks))
+            kernels.append(kernel_entry(name, family, launches, max_abs, passed, times, library[name],
+                                        ops, nbytes, peaks))
         # G=1 at the wide-input shape: the kernels alone, the port's whole
         # replay (outside projection included) and cuDNN on the raw input
         x1 = make_inputs(family, 1, T, B, WIDE_D, H, seed=seed + 1)
-        calls, rows = kernel_calls(family, x1)
+        times1, rows = mode_times(family, x1)
         port_fwd, port_bwd, port_out = port_replay_ms(family, x1, 20)
         lib_fwd, lib_bwd, lib_out = library_rnn_ms(family, 1, x1, 20)
         lib_err = float((port_out - lib_out).abs().max())
@@ -729,13 +828,10 @@ def main() -> None:
               f" max_abs_err={lib_err:.3e}")
         if not lib_err < 1e-4:
             fail(f"the {family} replay disagrees with cuDNN where both compute the same function")
-        work1 = work(family, 1, T, B, WIDE_D, H)
-        for name in (fwd, bwd, wgrad):
-            ops, nbytes = work1[name]
-            bound = max(ops / peaks["fp32_flops"], nbytes / peaks["bytes_per_s"]) * 1e3
-            kernel, plain_call = calls[name]
-            print(f"time {name} at G=1 B={B}: {time_ms(kernel, 20):.4f} ms (plain {time_ms(plain_call, 5):.4f} ms,"
-                  f" bound {bound:.4f} ms)")
+        for name, (ops, nbytes) in work(family, 1, T, B, WIDE_D, H).items():
+            print(f"time {name} at G=1 B={B}: fp32 {times1[False][name][0]:.4f} ms"
+                  f" (plain {times1[False][name][1]:.4f} ms, bound {fmt_ms(bound_ms(ops, nbytes, peaks, False)[0])});"
+                  f" bf16 {times1[True][name][0]:.4f} ms (bound {fmt_ms(bound_ms(ops, nbytes, peaks, True)[0])})")
         print(f"time {family} replay at G=1 B={B} D={WIDE_D} (projection + kernels): forward {port_fwd:.4f} ms,"
               f" backward {port_bwd:.4f} ms; cuDNN {cell_of(family).upper()} forward {lib_fwd:.4f} ms,"
               f" backward {lib_bwd:.4f} ms; {wgrad} library (bmm) {library_wgrad_ms(rows, 20):.4f} ms")

@@ -305,5 +305,5 @@ extern "C" int gru_x_bwd(const float* xs, const float* resets, const float* carr
 extern "C" int gru_x_wgrad(const float* xs, const float* resets, const float* carry0,
                            const float* hs, const float* gs, float* W, float* C, int S, int T,
                            int B, int D, int H, int P, int bf16, void* stream) {
-  return rnn_wgrad_launch(xs, resets, carry0, hs, gs, W, C, S, T, B, D, H, P, bf16, 0, stream);
+  return rnn_wgrad_launch(xs, resets, carry0, hs, gs, W, C, S, T, B, D, H, P, bf16, 0, 1, stream);
 }

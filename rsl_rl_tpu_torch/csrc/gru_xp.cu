@@ -244,5 +244,5 @@ extern "C" int gru_xp_wgrad(const float* resets, const float* carry0, const floa
                             const float* gs, float* W, float* C, int G, int T, int B, int H,
                             int P, int bf16, void* stream) {
   return rnn_wgrad_launch(nullptr, resets, carry0, hs, gs, W, C, G, T, B, 0, H, P, bf16, 1,
-                          stream);
+                          1, stream);
 }

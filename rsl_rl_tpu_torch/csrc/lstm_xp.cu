@@ -262,5 +262,5 @@ extern "C" int lstm_xp_bwd(const float* xproj, const float* resets, const float*
 extern "C" int lstm_xp_wgrad(const float* resets, const float* h0, const float* hs,
                              const float* gs, float* W, float* C, int G, int T, int B, int H,
                              int P, int bf16, void* stream) {
-  return rnn_wgrad_launch(nullptr, resets, h0, hs, gs, W, C, G, T, B, 0, H, P, bf16, 1, stream);
+  return rnn_wgrad_launch(nullptr, resets, h0, hs, gs, W, C, G, T, B, 0, H, P, bf16, 1, 0, stream);
 }

@@ -79,7 +79,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     raise_on,
     shared_resets,
     stream,
-    wgrad_splits,
+    wgrad_scratch,
 )
 
 #: launches of the x-streaming kernels (``gru_x_*``) and of the xproj kernels (``gru_xp_*``)
@@ -282,11 +282,31 @@ def gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
     return dx, dcarry0, gscratch
 
 
+def gru_wgrad_dropped(H: int, D: int):
+    """The blocks of the reduction's ``C [., H+D+1, 4H]`` that the GRU drops,
+    as ``(rows, columns)`` slices: h rows x dn (the gradient of ``h Wh_n``
+    flows through du) and x rows x du (``u`` has no x term). The kernel does
+    not compute them and writes zeros there; :func:`gru_wgrad_outputs` never
+    reads them."""
+    return [(slice(0, H), slice(2 * H, 3 * H)), (slice(H, H + D), slice(3 * H, 4 * H))]
+
+
+def gru_wgrad_outputs(C: torch.Tensor, H: int, D: int):
+    """``(dwx, dbx, dwh, dbhn)`` from the reduction's ``C [S, H+D+1, 4H] =
+    Σ [h_masked | x | 1]ᵀ [dr | dz | dn | du]`` (D = 0 for the xproj one)."""
+    dwh = torch.cat([C[:, :H, : 2 * H], C[:, :H, 3 * H :]], dim=-1)
+    dwx = C[:, H : H + D, : 3 * H].contiguous()
+    dbx = C[:, H + D, : 3 * H].contiguous()
+    dbhn = C[:, H + D, 3 * H :].contiguous()
+    return dwx, dbx, dwh, dbhn
+
+
 def gru_x_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
     """Launch the weight-gradient reduction; returns ``(dwx, dbx, dwh, dbhn)``.
 
     The kernel computes ``C = Σ_rows [h_masked | x | 1]ᵀ · [dr | dz | dn | du]``
-    over the ``T*B`` rows, ``C [S, H+D+1, 4H]``; the gradients are slices of it.
+    over the ``T*B`` rows, ``C [S, H+D+1, 4H]``, but the blocks of
+    :func:`gru_wgrad_dropped`; the gradients are slices of it.
     """
     S, T, B, D = xs.shape
     H = carry0.shape[-1]
@@ -297,17 +317,11 @@ def gru_x_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
         check("hs", hs, (S, T, B, H)),
         check("gscratch", gscratch, (S, T, B, 4 * H)),
     ]
-    P = wgrad_splits(T * B)
-    W = torch.empty((S, P, H + D + 1, 4 * H), dtype=torch.float32, device=xs.device)
-    C = torch.empty((S, H + D + 1, 4 * H), dtype=torch.float32, device=xs.device)
+    P, W, C = wgrad_scratch(S, T, B, D, H, xs.device, bf16)
     raise_on("gru_x_wgrad", _lib().gru_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
                                                 int(bf16), stream()))
     launch_counts.wgrad_launches += 1
-    dwh = torch.cat([C[:, :H, : 2 * H], C[:, :H, 3 * H :]], dim=-1)
-    dwx = C[:, H : H + D, : 3 * H].contiguous()
-    dbx = C[:, H + D, : 3 * H].contiguous()
-    dbhn = C[:, H + D, 3 * H :].contiguous()
-    return dwx, dbx, dwh, dbhn
+    return gru_wgrad_outputs(C, H, D)
 
 
 def _xp_dims(wh, xproj):
@@ -370,14 +384,11 @@ def gru_xp_wgrad(resets, carry0, hs, gscratch, bf16: bool = False):
         check("hs", hs, (G, T, B, H)),
         check("gscratch", gscratch, (G, T, B, 4 * H)),
     ]
-    P = wgrad_splits(T * B)
-    W = torch.empty((G, P, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
-    C = torch.empty((G, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
+    P, W, C = wgrad_scratch(G, T, B, 0, H, hs.device, bf16)
     raise_on("gru_xp_wgrad", _lib("gru_xp").gru_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
                                                           int(bf16), stream()))
     xp_launch_counts.wgrad_launches += 1
-    dwh = torch.cat([C[:, :H, : 2 * H], C[:, :H, 3 * H :]], dim=-1)
-    return dwh, C[:, H, 3 * H :].contiguous()
+    return gru_wgrad_outputs(C, H, 0)[2:]
 
 
 # --------------------------------------------------------------------------

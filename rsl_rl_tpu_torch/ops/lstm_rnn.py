@@ -36,12 +36,19 @@ Two kernel sets, one CUDA launch each, as in the JAX package:
   ``torch.func.vmap``, the seed axis of multi-seed training: the x-streaming
   replay's vmap rule folds the seed and stream axes into G and takes them.
 
-What bounds them on an H100 is what bounds the GRU kernels
+What bounds the forwards on an H100 is what bounds the GRU kernels
 (``ops/gru_rnn.py``): ``T`` dependent steps of ``[B,H] x [H,4H]`` in IEEE
 fp32 on the CUDA cores, with ``Wh`` (1 MiB in fp32 at H=256, more than a
 block's 227 KB of shared memory) re-read from L2 at every step. Each block
 owns a tile of ``BB`` batch rows of one stream, keeps its hidden tile in
-shared memory and its own ``c`` and ``h`` columns in registers.
+shared memory and its own ``c`` and ``h`` columns in registers. So does the
+xproj backward. ``lstm_x_bwd`` takes out of the serial chain what does not
+depend on the carried gradients: the gates of all steps in one tiled GEMM
+over the ``T*B`` rows, then per step one launch of ``dgates @ Whᵀ`` tiled
+over the whole card (each ``Whᵀ`` element read from L2 serves 64 rows) with
+the cell's elementwise gradient in its epilogue, then ``dx`` for all
+steps at once (the design note is in ``csrc/lstm_x.cu``). In bf16 mode its
+products and the reduction's run on the tensor cores.
 
 On a CPU tensor the wrappers take the plain PyTorch version; on a CUDA tensor
 they launch the kernels or raise. There is no fallback between the two.
@@ -69,7 +76,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     raise_on,
     shared_resets,
     stream,
-    wgrad_splits,
+    wgrad_scratch,
 )
 
 #: launches of the x-streaming kernels (``lstm_x_*``) and of the xproj kernels (``lstm_xp_*``)
@@ -124,32 +131,34 @@ def lstm_xp_plain_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = F
 
     Returns ``(dc0, dh0, gscratch)`` with ``gscratch [G,T,B,4H]`` holding each
     step's ``di | df | dg | do``, which is also the gradient of ``xproj``.
-    Gate activations are recomputed from ``(cs, hs)[t-1]`` (``(c0, h0)`` at
-    t=0) with the forward's operand rounding; the new cell state is ``cs[t]``.
+    In the phases of ``lstm_x_bwd``: the gate activations of every step at
+    once, recomputed from ``(cs, hs)[t-1]`` (``(c0, h0)`` at t=0) with the
+    forward's operand rounding (the new cell state is ``cs[t]``); then the
+    chain, whose only product is ``dgates @ Whᵀ``.
     """
     G, T, B, _ = xproj.shape
     H = h0.shape[-1]
-    keep = 1.0 - resets
+    keep = (1.0 - resets)[..., None]
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1) * keep
+    c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1) * keep
+    i, f, g, o = _gates(xproj.reshape(G, T * B, 4 * H), wh, bh, h_prev.reshape(G, T * B, H), bf16)
+    i, f, g, o = (v.reshape(G, T, B, H) for v in (i, f, g, o))
+    tc = torch.tanh(cs)
     gscratch = torch.empty((G, T, B, 4 * H), dtype=xproj.dtype, device=xproj.device)
     dh = torch.zeros_like(h0)
     dc = torch.zeros_like(c0)
     for t in reversed(range(T)):
-        k = keep[:, t, :, None]
-        c_prev = (c0 if t == 0 else cs[:, t - 1]) * k
-        h_prev = (h0 if t == 0 else hs[:, t - 1]) * k
-        i, f, g, o = _gates(xproj[:, t], wh, bh, h_prev, bf16)
-        tc = torch.tanh(cs[:, t])
         gh = ghs[:, t] + dh
-        gc = dc + gh * o * (1.0 - tc * tc)
+        gc = dc + gh * o[:, t] * (1.0 - tc[:, t] * tc[:, t])
         dgates = torch.cat([
-            gc * g * i * (1.0 - i),
-            gc * c_prev * f * (1.0 - f),
-            gc * i * (1.0 - g * g),
-            gh * tc * o * (1.0 - o),
+            gc * g[:, t] * i[:, t] * (1.0 - i[:, t]),
+            gc * c_prev[:, t] * f[:, t] * (1.0 - f[:, t]),
+            gc * i[:, t] * (1.0 - g[:, t] * g[:, t]),
+            gh * tc[:, t] * o[:, t] * (1.0 - o[:, t]),
         ], dim=-1)
         gscratch[:, t] = dgates
-        dh = mm(dgates, wh.transpose(-1, -2), bf16) * k
-        dc = gc * f * k
+        dh = mm(dgates, wh.transpose(-1, -2), bf16) * keep[:, t]
+        dc = gc * f[:, t] * keep[:, t]
     return dc, dh, gscratch
 
 
@@ -177,7 +186,8 @@ def lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = F
     gradient ``ghs`` (the plain version of ``lstm_x_bwd``).
 
     Returns ``(dx, dc0, dh0, gscratch)`` with ``gscratch [S,T,B,4H]`` holding
-    each step's ``di | df | dg | do``, and ``dx = dgates Wxᵀ``.
+    each step's ``di | df | dg | do``, and ``dx = dgates Wxᵀ``, the third
+    phase, over all steps at once.
     """
     xproj = input_projection(wx, xs, bf16)
     dc0, dh0, gscratch = lstm_xp_plain_bwd(wh, bh, c0, h0, xproj, shared_resets(resets, xs.shape[0]),
@@ -296,9 +306,7 @@ def lstm_x_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
         check("hs", hs, (S, T, B, H)),
         check("gscratch", gscratch, (S, T, B, 4 * H)),
     ]
-    P = wgrad_splits(T * B)
-    W = torch.empty((S, P, H + D + 1, 4 * H), dtype=torch.float32, device=xs.device)
-    C = torch.empty((S, H + D + 1, 4 * H), dtype=torch.float32, device=xs.device)
+    P, W, C = wgrad_scratch(S, T, B, D, H, xs.device, bf16)
     raise_on("lstm_x_wgrad", _lib().lstm_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
                                                  int(bf16), stream()))
     launch_counts.wgrad_launches += 1
@@ -371,9 +379,7 @@ def lstm_xp_wgrad(resets, h0, hs, gscratch, bf16: bool = False):
         check("hs", hs, (G, T, B, H)),
         check("gscratch", gscratch, (G, T, B, 4 * H)),
     ]
-    P = wgrad_splits(T * B)
-    W = torch.empty((G, P, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
-    C = torch.empty((G, H + 1, 4 * H), dtype=torch.float32, device=hs.device)
+    P, W, C = wgrad_scratch(G, T, B, 0, H, hs.device, bf16)
     raise_on("lstm_xp_wgrad", _lib("lstm_xp").lstm_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
                                                              int(bf16), stream()))
     xp_launch_counts.wgrad_launches += 1

@@ -6,6 +6,7 @@ batching of the replays' ``torch.func.vmap`` rules."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -15,10 +16,17 @@ KERNEL_MAX_HIDDEN = 256
 #: inputs wider than this take the xproj replay (the input projection as one
 #: bulk product outside the kernels), as in the JAX package (``_X_STREAM_MAX_D``)
 X_STREAM_MAX_D = 512
-#: rows of the T*B weight-gradient reduction (``csrc/rnn_wgrad.cuh``) that one
-#: split walks, and the most splits: at T=24, B=1024 that is 12 splits
-WGRAD_ROWS_PER_SPLIT = 2048
-WGRAD_MAX_SPLITS = 16
+#: the weight-gradient reduction's block (``csrc/rnn_wgrad.cuh`` ``WgradCfg``),
+#: by bf16 mode: the operand rows of its tile of C and the blocks an SM holds
+#: at once (its launch bound); the columns of its tile, the most rows beyond
+#: the full row tiles that the first row tile takes, the fewest of the T*B
+#: rows a split walks and the most splits
+WGRAD_TILE_ROWS = {False: 128, True: 256}
+WGRAD_BLOCKS_PER_SM = {False: 2, True: 1}
+WGRAD_TILE_COLS = 128
+WGRAD_TAIL = 16
+WGRAD_MIN_SPLIT_ROWS = 256
+WGRAD_MAX_SPLITS = 64
 
 
 @dataclass
@@ -92,9 +100,44 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def wgrad_splits(rows: int) -> int:
-    """Row splits of the weight-gradient reduction over ``rows = T*B`` rows."""
-    return min(WGRAD_MAX_SPLITS, max(1, -(-rows // WGRAD_ROWS_PER_SPLIT)))
+@dataclass(frozen=True)
+class WgradPlan:
+    """The grid of the weight-gradient reduction of ``C [S, H+D+1, 4H]``."""
+
+    row_tiles: int  # row tiles of the H+D operand rows
+    tail: int  # operand rows beyond them, taken by the first row tile's blocks
+    col_tiles: int  # 128-column tiles of the 4H gate-gradient columns
+    splits: int  # row splits P, each summed into its own partial C
+
+
+def wgrad_plan(S: int, T: int, B: int, D: int, H: int, sms: int, bf16: bool = False) -> WgradPlan:
+    """Tiles and split-K of the reduction (the kernel applies the same row
+    rule): as many splits as fill the card's ``sms`` SMs once, at the mode's
+    blocks an SM, with at least ``WGRAD_MIN_SPLIT_ROWS`` of the ``T*B`` rows
+    a split."""
+    M, tile = H + D, WGRAD_TILE_ROWS[bf16]
+    if M >= tile and M % tile <= WGRAD_TAIL:
+        row_tiles, tail = M // tile, M % tile
+    else:
+        row_tiles, tail = -(-M // tile), 0
+    col_tiles = -(-4 * H // WGRAD_TILE_COLS)
+    tiles = max(1, S * row_tiles * col_tiles)
+    splits = min(WGRAD_BLOCKS_PER_SM[bf16] * sms // tiles, T * B // WGRAD_MIN_SPLIT_ROWS, WGRAD_MAX_SPLITS)
+    return WgradPlan(row_tiles, tail, col_tiles, max(1, splits))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def wgrad_scratch(S: int, T: int, B: int, D: int, H: int, device, bf16: bool):
+    """``(P, W, C)`` of a reduction launch on ``device``: its split count, the
+    partial sums ``W [S,P,H+D+1,4H]`` (C itself when P == 1) and ``C``."""
+    P = wgrad_plan(S, T, B, D, H, _sm_count(device.index), bf16).splits
+    C = torch.empty((S, H + D + 1, 4 * H), dtype=torch.float32, device=device)
+    W = C if P == 1 else torch.empty((S, P, H + D + 1, 4 * H), dtype=torch.float32, device=device)
+    return P, W, C
 
 
 def check_replay_inputs(kind: str, tensors) -> None:

@@ -389,3 +389,190 @@ def test_xp_replay_autograd_on_card_matches_cpu(family):
         results[device] = [hs.detach().cpu(), *(g.cpu() for g in grads)]
     for i, (a, b) in enumerate(zip(results["cuda"], results["cpu"])):
         _close(a, b, 1e-3, 1e-4, f"output {i}")
+
+
+# ------------------------------------------- the weight-gradient plan (CPU)
+
+from rsl_rl_tpu_torch.ops.rnn_common import WGRAD_BLOCKS_PER_SM, wgrad_plan  # noqa: E402
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize(
+    "S,T,B,D",
+    [(2, 24, 1024, 15), (16, 24, 128, 0), (1, 24, 1024, 15), (1, 24, 1024, 0)],
+    ids=["x-S2", "xp-G16", "x-S1", "xp-G1"],
+)
+def test_wgrad_plan_fills_one_wave(S, T, B, D, bf16):
+    """At every main-path shape the reduction's blocks fill at least 90% of
+    one wave on the 132 SMs of an H100 and no more than one, and every split
+    has rows."""
+    plan = wgrad_plan(S, T, B, D, 256, H100_SMS, bf16)
+    blocks = S * plan.row_tiles * plan.col_tiles * plan.splits
+    assert 0.9 * H100_SMS * WGRAD_BLOCKS_PER_SM[bf16] <= blocks <= WGRAD_BLOCKS_PER_SM[bf16] * H100_SMS
+    assert plan.splits * 32 <= T * B
+
+
+@pytest.mark.parametrize(
+    "bf16,H,D,row_tiles,tail",
+    [(False, 256, 15, 2, 15), (False, 256, 0, 2, 0), (False, 200, 15, 2, 0), (False, 130, 0, 1, 2),
+     (False, 8, 6, 1, 0), (False, 256, 48, 3, 0), (True, 256, 15, 1, 15), (True, 256, 0, 1, 0),
+     (True, 200, 15, 1, 0), (True, 256, 272, 2, 16)],
+)
+def test_wgrad_plan_row_tiles(bf16, H, D, row_tiles, tail):
+    """The row tiles (128 operand rows in fp32 mode, 256 in bf16) cover the
+    H+D operand rows; up to 16 rows beyond the full tiles ride on the first
+    row tile instead of a tile of their own."""
+    plan = wgrad_plan(1, 24, 1024, D, H, H100_SMS, bf16)
+    assert (plan.row_tiles, plan.tail) == (row_tiles, tail)
+    assert plan.row_tiles * (256 if bf16 else 128) + plan.tail >= H + D
+    assert plan.col_tiles == -(-4 * H // 128)
+
+
+def test_wgrad_plan_keeps_small_windows_whole():
+    """A short window is not cut into splits of a few rows."""
+    assert wgrad_plan(2, 1, 200, 15, 256, H100_SMS).splits == 1
+    assert wgrad_plan(1, 24, 1024, 15, 256, 8).splits == 1
+    assert wgrad_plan(1, 24, 1024, 15, 256, 4, bf16=True).splits == 1
+
+
+@pytest.mark.parametrize("D", [6, 0], ids=["x", "xp"])
+def test_gru_wgrad_outputs_read_no_dropped_block(D):
+    """The GRU gradients come from the reduction's C without reading a block
+    the kernel leaves out (filled with NaN here), and equal the plain ones."""
+    S, T, B, H = 2, 3, 16, 8
+    (wx, bx, wh, bhn, carry0, xs, resets), ghs = _inputs(S, T, B, max(D, 1), H, seed=3)
+    xs = xs[..., :D]
+    wx = wx[:, :D]
+    hs = gru_rnn.gru_x_plain_fwd(wx, bx, wh, bhn, carry0, xs, resets)
+    gs = gru_rnn.gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs)[2]
+    h_prev = torch.cat([carry0[:, None], hs[:, :-1]], dim=1) * (1.0 - resets)[None, ..., None]
+    A = torch.cat([h_prev, xs, torch.ones(S, T, B, 1)], dim=-1).reshape(S, T * B, -1)
+    C = A.transpose(1, 2) @ gs.reshape(S, T * B, 4 * H)
+    for rows, cols in gru_rnn.gru_wgrad_dropped(H, D):
+        C[:, rows, cols] = float("nan")
+    got = gru_rnn.gru_wgrad_outputs(C, H, D)
+    want = gru_rnn.gru_x_plain_wgrad(xs, resets, carry0, hs, gs)
+    for name, a, b in zip(("dwx", "dbx", "dwh", "dbhn"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,T", [(1, 1), (1, 5), (2, 1), (2, 5)], ids=["S1T1", "S1T5", "S2T1", "S2T5"])
+def test_lstm_phased_plain_backward_is_autograd(S, T, bf16):
+    """The plain LSTM backward, in the kernel's phases (all gates at once, the
+    chain, dx at once), equals autograd through the plain forward: fp32 to
+    summation order; in bf16 mode within the bf16 bars, since the chain rounds
+    the gate gradients it multiplies, where autograd does not."""
+    (wx, wh, bh, c0, h0, xs, resets), ghs = _lstm_inputs(S, T, 16, 6, 8, seed=S * 10 + T + 7)
+    resets[0, :4] = 1.0  # resets at t=0 too
+    leaves = [t.clone().requires_grad_(True) for t in (wx, wh, bh, c0, h0, xs)]
+    hs, cs = lstm_rnn.lstm_x_plain_fwd(*leaves, resets, bf16)
+    want = torch.autograd.grad(hs, leaves, ghs)
+    hs, cs = hs.detach(), cs.detach()
+    dx, dc0, dh0, gs = lstm_rnn.lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16)
+    dwx, dwh, dbh = lstm_rnn.lstm_x_plain_wgrad(xs, resets, h0, hs, gs, bf16)
+    for name, got, ref in zip(("dwx", "dwh", "dbh", "dc0", "dh0", "dx"), (dwx, dwh, dbh, dc0, dh0, dx), want):
+        if bf16:
+            _close(got, ref, TOL[True][2], TOL[True][3], name)
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, msg=name)
+
+
+# -------------------- the redesigned kernels on the card: edges, repeatability
+
+#: (family, streams, T, B, D, H): H that the 128- and 64-wide tiles do not
+#: divide, a ragged batch, one-step windows, per-stream resets for the xproj
+#: reductions
+EDGE_CASES = [
+    ("lstm", 2, 5, 200, 15, 200),
+    ("lstm", 1, 1, 200, 15, 128),
+    ("gru", 2, 5, 200, 15, 200),
+    ("gru", 1, 1, 200, 15, 128),
+    ("gru_xp", 3, 5, 200, 0, 200),
+    ("lstm_xp", 3, 5, 200, 0, 128),
+]
+
+
+def _edge_case(family, S, T, B, D, H, seed):
+    """Inputs on the card with resets at t=0 and mid-window; the plain
+    backward's outputs; the kernels' and plain versions' calls."""
+    cell = family.split("_")[0]
+    if family.endswith("_xp"):
+        w, ghs = _xp_inputs(cell, S, T, B, H, seed, device="cuda")
+        w[-1][:, 0, : B // 3] = 1.0
+    else:
+        w, ghs = (_inputs if cell == "gru" else _lstm_inputs)(S, T, B, D, H, seed, device="cuda")
+        w[-1][0, : B // 3] = 1.0
+    return cell, w, ghs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("family,S,T,B,D,H", EDGE_CASES,
+                         ids=[f"{c[0]}-S{c[1]}T{c[2]}B{c[3]}H{c[5]}" for c in EDGE_CASES])
+def test_redesigned_kernels_edge_shapes_on_card(family, S, T, B, D, H, bf16):
+    """``lstm_x_bwd`` and the weight-gradient reductions against their plain
+    versions at edge shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell, w, ghs = _edge_case(family, S, T, B, D, H, seed=S * 1000 + T * 10 + H)
+    _, _, bwd_rtol, bwd_atol_rel = TOL[bf16]
+    mod = gru_rnn if cell == "gru" else lstm_rnn
+    if family.endswith("_xp"):
+        out = getattr(mod, f"{cell}_xp_plain_fwd")(*w, bf16)
+        state = (out,) if cell == "gru" else out
+        gs = getattr(mod, f"{cell}_xp_plain_bwd")(*w, *state, ghs, bf16)[-1]
+        rows = _xp_wgrad_rows(cell, w, state, gs)
+        name = f"{cell}_xp_wgrad"
+    else:
+        out = getattr(mod, f"{cell}_x_plain_fwd")(*w, bf16)
+        state = (out,) if cell == "gru" else out
+        want = getattr(mod, f"{cell}_x_plain_bwd")(*w, *state, ghs, bf16)
+        if cell == "lstm":
+            got = lstm_rnn.lstm_x_bwd(*w, *state, ghs, bf16)
+            for part, a, b in zip(("dx", "dc0", "dh0", "gscratch"), got, want):
+                _close(a, b, bwd_rtol, bwd_atol_rel, part)
+        gs = want[-1]
+        carry0 = w[4]  # the GRU's carry0, the LSTM's h0
+        rows = (w[5], w[6], carry0, state[0], gs)
+        name = f"{cell}_x_wgrad"
+    plain_wgrad = getattr(mod, name.replace("_wgrad", "_plain_wgrad"))
+    for i, (a, b) in enumerate(zip(getattr(mod, name)(*rows, bf16), plain_wgrad(*rows, bf16))):
+        _close(a, b, bwd_rtol, bwd_atol_rel, f"{name} output {i}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
+    """Two calls give the same bits: ``lstm_x_bwd``'s outputs and every
+    weight-gradient reduction, at the main paths' shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    calls = {}
+    w, ghs = _lstm_inputs(2, 24, 1024, 15, 256, seed=21, device="cuda")
+    hs, cs = lstm_rnn.lstm_x_plain_fwd(*w, bf16)
+    calls["lstm_x_bwd"] = lambda: lstm_rnn.lstm_x_bwd(*w, hs, cs, ghs, bf16)
+    gs = lstm_rnn.lstm_x_plain_bwd(*w, hs, cs, ghs, bf16)[-1]
+    calls["lstm_x_wgrad"] = lambda: lstm_rnn.lstm_x_wgrad(w[5], w[6], w[4], hs, gs, bf16)
+    gw, gghs = _inputs(2, 24, 1024, 15, 256, seed=22, device="cuda")
+    ghs_ = gru_rnn.gru_x_plain_fwd(*gw, bf16)
+    ggs = gru_rnn.gru_x_plain_bwd(*gw, ghs_, gghs, bf16)[-1]
+    calls["gru_x_wgrad"] = lambda: gru_rnn.gru_x_wgrad(gw[5], gw[6], gw[4], ghs_, ggs, bf16)
+    for cell in ("gru", "lstm"):
+        xw, xghs = _xp_inputs(cell, 16, 24, 128, 256, seed=23, device="cuda")
+        mod = _xp_module(cell)
+        out = getattr(mod, f"{cell}_xp_plain_fwd")(*xw, bf16)
+        state = (out,) if cell == "gru" else out
+        xgs = getattr(mod, f"{cell}_xp_plain_bwd")(*xw, *state, xghs, bf16)[-1]
+        rows = _xp_wgrad_rows(cell, xw, state, xgs)
+        calls[f"{cell}_xp_wgrad"] = lambda mod=mod, cell=cell, rows=rows: getattr(mod, f"{cell}_xp_wgrad")(*rows, bf16)
+    for name, call in calls.items():
+        first = [t.clone() for t in call()]
+        second = call()
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            assert torch.equal(a, b), f"{name} output {i} differs between two calls"
