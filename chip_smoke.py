@@ -14,11 +14,12 @@ Phases, each fatal on failure:
    B=1024, D=15, H=256) with S=2 and S=1, the xproj kernels at theirs
    (G=16 streams of B=128: 8 seeds x actor and critic, per-stream resets)
    and at G=1, B=1024 (the wide-input shape, D=520), each in IEEE fp32 and
-   in bf16-operand mode, and at T=1. The kernels redesigned for Hopper
-   (``lstm_x_bwd`` and the four weight-gradient reductions) also at edge
-   shapes (H=128 and 200, B=200, T=1 and 5, resets at t=0 and mid-window,
-   per-stream resets for the xproj reductions), in both modes, and two calls
-   of each must give the same bits.
+   in bf16-operand mode, and at T=1. Every kernel also at edge shapes (H=128
+   and 200, B=200 and 203, T=1 and 5, resets at t=0 and mid-window,
+   per-stream resets for the xproj families, and H=384 and 512 for all four
+   families), in both modes; two calls of each kernel redesigned for Hopper
+   (``lstm_x_fwd``, ``gru_x_bwd``, ``lstm_x_bwd`` and the four
+   weight-gradient reductions) must give the same bits.
 4. The slices, each trained for 3 iterations with every kernel launch
    counter set to 0 just before and read just after: through
    ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
@@ -39,7 +40,10 @@ Phases, each fatal on failure:
    for the same work (bf16 mode: operations at the bf16 tensor-core peak);
    then the x-streaming kernels at S=1, and the xproj kernels and the port's
    whole xproj replay (outside projection included) at G=1 beside cuDNN on
-   the raw wide input.
+   the raw wide input. Also the phase split (gates / chain / dx, CUDA events
+   between the phases of a dedicated timing call) of ``gru_x_bwd`` and
+   ``lstm_x_bwd`` at S=2 and S=1, and the grid ``lstm_x_fwd`` chose (the
+   clusters the card runs at once, the batch rows of a cluster).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -161,13 +165,22 @@ PEAKS = {
     "NVL": {"fp32_flops": 60e12, "bf16_flops": None, "bytes_per_s": 3.9e12},
     "SXM": {"fp32_flops": 67e12, "bf16_flops": 989e12, "bytes_per_s": 3.35e12},
 }
-#: the kernels redesigned for Hopper after their bring-up, held at edge shapes
-#: and for bitwise-repeatable outputs in phase 3
-REDESIGNED = ("lstm_x_bwd", "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad", "lstm_xp_wgrad")
-#: (family, streams, T, B, H): H that the 128- and 64-wide tiles do not divide,
-#: a ragged batch, one-step windows; D = 15 (the xproj families project it)
+#: the kernels redesigned for Hopper after their bring-up, held for
+#: bitwise-repeatable outputs in phase 3
+REDESIGNED = ("lstm_x_fwd", "gru_x_bwd", "lstm_x_bwd", "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad",
+              "lstm_xp_wgrad")
+#: (family, streams, T, B, H): H that the 128- and 64-wide tiles do not divide
+#: (at H=200, 25 hidden columns a CTA of lstm_x_fwd's clusters), a ragged batch
+#: (203 rows: no whole number of a cluster's rows), one-step windows, and the
+#: hidden states above 256 (two columns a thread in the one-thread-per-column
+#: kernels; the weights streamed from L2 in lstm_x_fwd); D = 15 (the xproj
+#: families project it)
 EDGE_CASES = [("lstm", 2, 5, 200, 200), ("lstm", 1, 1, 200, 128), ("gru", 2, 5, 200, 200),
-              ("gru", 1, 1, 200, 128), ("gru_xp", 3, 5, 200, 200), ("lstm_xp", 3, 5, 200, 128)]
+              ("gru", 1, 1, 200, 128), ("gru_xp", 3, 5, 200, 200), ("lstm_xp", 3, 5, 200, 128),
+              ("lstm", 1, 5, 203, 200), ("gru", 1, 5, 203, 200),
+              ("lstm", 2, 3, 64, 384), ("lstm", 1, 2, 48, 512), ("gru", 2, 3, 64, 384), ("gru", 1, 2, 48, 512),
+              ("gru_xp", 2, 3, 64, 384), ("gru_xp", 1, 2, 48, 512), ("lstm_xp", 2, 3, 64, 384),
+              ("lstm_xp", 1, 2, 48, 512)]
 
 
 def fail(msg: str) -> None:
@@ -256,58 +269,33 @@ def wgrad_rows(family, x, state, gs):
     return rows if family.endswith("_xp") else (x["xs"], *rows)
 
 
-def check_kernels(family, S, T, B, D, H, bf16, seed):
+def check_kernels(family, S, T, B, D, H, bf16, seed, resets_at_start=False):
     """One case: each kernel of the family against its plain version on the
-    same inputs. The backward and the reduction both take the plain
-    version's upstream outputs, so each kernel is held against its plain
-    version alone."""
+    same inputs (with ``resets_at_start``, a third of the rows reset at t=0
+    too). The backward and the reduction both take the plain version's
+    upstream outputs, so each kernel is held against its plain version alone.
+    Returns ``(results, repeatable)``: two calls of each redesigned kernel
+    compared bit for bit."""
     mod = FAMILIES[family]["module"]
     fwd, bwd, wgrad = FAMILIES[family]["kernels"]
     x = make_inputs(family, S, T, B, D, H, seed)
-    tol = TOL[bf16]
-    w = x["w"]
-    result = {}
-
-    got = getattr(mod, fwd)(*w, bf16)
-    want = plain(fwd)(*w, bf16)
-    result[fwd] = [compare(a, b, tol["fwd_rtol"], tol["fwd_atol"], False)
-                   for a, b in zip(forward_state(family, got), forward_state(family, want))]
-    state = forward_state(family, want)
-    want = plain(bwd)(*w, *state, x["ghs"], bf16)
-    rows = wgrad_rows(family, x, state, want[-1])
-    calls = {bwd: (lambda: getattr(mod, bwd)(*w, *state, x["ghs"], bf16), want),
-             wgrad: (lambda: getattr(mod, wgrad)(*rows, bf16), plain(wgrad)(*rows, bf16))}
-    repeat = {}
-    for name, (call, ref) in calls.items():
-        got = [t.clone() for t in call()]
-        result[name] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, ref)]
-        if name in REDESIGNED:
-            repeat[name] = all(torch.equal(a, b) for a, b in zip(got, call()))
-    torch.cuda.synchronize()
-    return result, repeat
-
-
-def check_edge(family, S, T, B, H, bf16, seed):
-    """The family's redesigned kernels against their plain versions at an edge
-    shape, with resets at t=0 (a third of the rows) and mid-window, and two
-    calls of each compared bit for bit: ``(results, repeatable)``."""
-    mod = FAMILIES[family]["module"]
-    fwd, bwd, wgrad = FAMILIES[family]["kernels"]
-    x = make_inputs(family, S, T, B, 3 * NUM_LINKS, H, seed)
-    x["resets"][..., 0, : B // 3] = 1.0
+    if resets_at_start:
+        x["resets"][..., 0, : B // 3] = 1.0
     tol = TOL[bf16]
     w = x["w"]
     state = forward_state(family, plain(fwd)(*w, bf16))
     want = plain(bwd)(*w, *state, x["ghs"], bf16)
     rows = wgrad_rows(family, x, state, want[-1])
-    calls = {wgrad: (lambda: getattr(mod, wgrad)(*rows, bf16), plain(wgrad)(*rows, bf16))}
-    if bwd in REDESIGNED:
-        calls[bwd] = (lambda: getattr(mod, bwd)(*w, *state, x["ghs"], bf16), want)
+    calls = {fwd: (lambda: forward_state(family, getattr(mod, fwd)(*w, bf16)), state, False),
+             bwd: (lambda: getattr(mod, bwd)(*w, *state, x["ghs"], bf16), want, True),
+             wgrad: (lambda: getattr(mod, wgrad)(*rows, bf16), plain(wgrad)(*rows, bf16), True)}
     result, repeat = {}, {}
-    for name, (call, ref) in calls.items():
+    for name, (call, ref, relative) in calls.items():
         got = [t.clone() for t in call()]
-        result[name] = [compare(a, b, tol["bwd_rtol"], tol["bwd_atol_rel"], True) for a, b in zip(got, ref)]
-        repeat[name] = all(torch.equal(a, b) for a, b in zip(got, call()))
+        rtol, atol = (tol["bwd_rtol"], tol["bwd_atol_rel"]) if relative else (tol["fwd_rtol"], tol["fwd_atol"])
+        result[name] = [compare(a, b, rtol, atol, relative) for a, b in zip(got, ref)]
+        if name in REDESIGNED:
+            repeat[name] = all(torch.equal(a, b) for a, b in zip(got, call()))
     torch.cuda.synchronize()
     return result, repeat
 
@@ -341,6 +329,21 @@ def mode_times(family, x, reps=20):
         times[bf16] = {name: (time_ms(kernel, reps), time_ms(plain_call, 5))
                        for name, (kernel, plain_call) in calls.items()}
     return times, rows
+
+
+def phase_split(family, x, bf16, reps=10) -> str:
+    """The mean milliseconds of the three phases (gates, chain, dx) of the
+    family's backward over ``reps`` timing calls (CUDA events between the
+    phases; each call waits for the stream), as a line."""
+    mod = FAMILIES[family]["module"]
+    fwd, bwd, _ = FAMILIES[family]["kernels"]
+    w = x["w"]
+    state = forward_state(family, getattr(mod, fwd)(*w, bf16))
+    timed = getattr(mod, f"{bwd}_phase_ms")
+    timed(*w, *state, x["ghs"], bf16)
+    gates, chain, dx = np.mean([timed(*w, *state, x["ghs"], bf16) for _ in range(reps)], axis=0)
+    return (f"gates {gates:.4f} ms, chain {chain:.4f} ms ({chain / x['xs'].shape[1] * 1e3:.1f} us a step),"
+            f" dx {dx:.4f} ms")
 
 
 def fmt_ms(ms) -> str:
@@ -749,19 +752,20 @@ def main() -> None:
             print(f"check S={S} T={t} B={b} D={d} H={H} {'bf16' if bf16 else 'fp32'}"
                   f" (fwd rtol {tol['fwd_rtol']:g} atol {tol['fwd_atol']:g}; bwd rtol {tol['bwd_rtol']:g}"
                   f" atol {tol['bwd_atol_rel']:g} x max |plain|): " + "; ".join(summary))
-    # the redesigned kernels at edge shapes, resets at t=0 and mid-window
+    # every kernel at edge shapes, resets at t=0 and mid-window
     for i, (family, S, t, b, h) in enumerate(EDGE_CASES):
         for bf16 in (False, True):
-            res, repeat = check_edge(family, S, t, b, h, bf16, seed=500 + 10 * i + bf16)
+            res, repeat = check_kernels(family, S, t, b, D, h, bf16, seed=500 + 10 * i + bf16, resets_at_start=True)
             summary = []
             for name, checks in res.items():
                 ok = all(o for _, _, o in checks)
                 passed[name] = passed[name] and ok
-                repeatable[name] = repeatable[name] and repeat[name]
+                if name in repeat:
+                    repeatable[name] = repeatable[name] and repeat[name]
                 summary.append(f"{name} max_abs_err={max(e for e, _, _ in checks):.3e}"
-                               f" (max |plain| {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'},"
-                               f" {'bitwise repeatable' if repeat[name] else 'NOT REPEATABLE'}")
-            print(f"edge {family} S={S} T={t} B={b} D={3 * NUM_LINKS} H={h} {'bf16' if bf16 else 'fp32'},"
+                               f" (max |plain| {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'}"
+                               + (f", {'bitwise repeatable' if repeat[name] else 'NOT REPEATABLE'}" if name in repeat else ""))
+            print(f"edge {family} S={S} T={t} B={b} D={D} H={h} {'bf16' if bf16 else 'fp32'},"
                   f" resets at t=0: " + "; ".join(summary))
     print(f"two calls bitwise equal: {repeatable}")
     if not all(passed.values()):
@@ -808,6 +812,14 @@ def main() -> None:
                   f" bf16 {times1[True][name][0]:.4f} ms (bound {fmt_ms(bound_ms(ops, nbytes, peaks, True)[0])})")
         print(f"time {bwd} + {wgrad} at S=1: fp32 {times1[False][bwd][0] + times1[False][wgrad][0]:.4f} ms,"
               f" bf16 {times1[True][bwd][0] + times1[True][wgrad][0]:.4f} ms; cuDNN backward {lib1[bwd]:.4f} ms")
+        for S_, x_ in ((S, x), (1, x1)):
+            for bf16 in (False, True):
+                print(f"phases {bwd} S={S_} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x_, bf16)}")
+        if family == "lstm":
+            for S_ in (S, 1):
+                for bf16 in (False, True):
+                    print(f"grid {fwd} S={S_} B={B} H={H} {'bf16' if bf16 else 'fp32'}:"
+                          f" {json.dumps(lstm_rnn.lstm_x_fwd_plan(S_, B, D, H, bf16))}")
     for seed, family in ((11, "gru_xp"), (13, "lstm_xp")):
         x = make_inputs(family, G, T, B_seed, D, H, seed=seed)
         times, rows = mode_times(family, x)

@@ -31,8 +31,8 @@
 
 namespace {
 
-constexpr int kFwdRows = 16;  // batch rows per forward block
-constexpr int kBwdRows = 8;   // batch rows per backward block
+constexpr int kFwdRows = 16;  // batch rows per forward block (H <= 256)
+constexpr int kBwdRows = 8;   // batch rows per backward block (H <= 256)
 
 // Grid (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H).
 // The block runs the whole window for its BB rows of stream s; thread j keeps
@@ -189,6 +189,181 @@ __global__ void __launch_bounds__(256, 2) gru_xp_bwd_kernel(
   }
 }
 
+// H > 256: the forward above with kWideCols hidden columns a thread (see
+// wide_columns) and half the rows a block.
+template <int BB, bool BF16>
+__global__ void __launch_bounds__(256) gru_xp_fwd_wide_kernel(
+    const float* __restrict__ xproj, const float* __restrict__ resets,
+    const float* __restrict__ carry0, const float* __restrict__ wh,
+    const float* __restrict__ bhn, float* __restrict__ hs, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* hT = smem;  // [H][BB]
+  const int s = blockIdx.y;
+  const int b0 = blockIdx.x * BB;
+  const int G3 = 3 * H;
+  const float* wh_s = wh + (size_t)s * H * G3;
+  int j[kWideCols];
+  bool on[kWideCols];
+  wide_columns(H, j, on);
+  float bn[kWideCols];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) bn[c] = bhn[(size_t)s * H + j[c]];
+
+  float h[kWideCols][BB];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const int row = b0 + b;
+      h[c][b] = row < B ? carry0[((size_t)s * B + row) * H + j[c]] : 0.0f;
+    }
+  for (int t = 0; t < T; ++t) {
+    const size_t st = (size_t)s * T + t;
+    const float* xp_t = xproj + st * B * G3;
+    // this step's projections, loaded before the h Wh chain so that their
+    // latency overlaps it
+    float xr[kWideCols][BB], xz[kWideCols][BB], xn[kWideCols][BB];
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const int row = b0 + b;
+      const bool in = row < B;
+      const float* xp = xp_t + (size_t)(in ? row : 0) * G3;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) {
+        xr[c][b] = in ? __ldg(xp + j[c]) : 0.0f;
+        xz[c][b] = in ? __ldg(xp + H + j[c]) : 0.0f;
+        xn[c][b] = in ? __ldg(xp + 2 * H + j[c]) : 0.0f;
+      }
+      const float keep = in ? 1.0f - resets[st * B + row] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) {
+        h[c][b] *= keep;
+        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
+      }
+    }
+    __syncthreads();
+
+    float acc[kWideCols][3][BB];  // h Wh for r, z, n
+    gate_matvec_wide<3, BB, BF16>(wh_s, hT, H, H, j, acc);
+
+    float* hs_t = hs + st * B * H;
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        const float r = sigmoid(xr[c][b] + acc[c][0][b]);
+        const float z = sigmoid(xz[c][b] + acc[c][1][b]);
+        const float u = acc[c][2][b] + bn[c];
+        const float n = tanhf(xn[c][b] + r * u);
+        h[c][b] = (1.0f - z) * n + z * h[c][b];
+        if (on[c] && b0 + b < B) hs_t[(size_t)(b0 + b) * H + j[c]] = h[c][b];
+      }
+    __syncthreads();  // hT is rewritten next step
+  }
+}
+
+// H > 256: the backward above with kWideCols hidden columns a thread (see
+// wide_columns) and half the rows a block.
+template <int BB, bool BF16>
+__global__ void __launch_bounds__(256, 2) gru_xp_bwd_wide_kernel(
+    const float* __restrict__ xproj, const float* __restrict__ resets,
+    const float* __restrict__ carry0, const float* __restrict__ wh,
+    const float* __restrict__ whT, const float* __restrict__ bhn,
+    const float* __restrict__ hs, const float* __restrict__ ghs,
+    float* __restrict__ dcarry0, float* __restrict__ gs, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* hT = smem;          // [H][BB]  h operand
+  float* dgT = hT + H * BB;  // [3H][BB] dr | dz | du operands
+  const int s = blockIdx.y;
+  const int b0 = blockIdx.x * BB;
+  const int G3 = 3 * H;
+  const float* wh_s = wh + (size_t)s * H * G3;
+  const float* whT_s = whT + (size_t)s * G3 * H;
+  int j[kWideCols];
+  bool on[kWideCols];
+  wide_columns(H, j, on);
+  float bn[kWideCols];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c) bn[c] = bhn[(size_t)s * H + j[c]];
+
+  float dh[kWideCols][BB];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+    for (int b = 0; b < BB; ++b) dh[c][b] = 0.0f;
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t st = (size_t)s * T + t;
+    float h[kWideCols][BB], keep[BB];
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const int row = b0 + b;
+      keep[b] = row < B ? 1.0f - resets[st * B + row] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) {
+        const float hp = row >= B ? 0.0f
+                         : t == 0 ? carry0[((size_t)s * B + row) * H + j[c]]
+                                  : hs[((st - 1) * B + row) * H + j[c]];
+        h[c][b] = hp * keep[b];
+        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
+      }
+    }
+    __syncthreads();
+
+    float acc[kWideCols][3][BB];
+    gate_matvec_wide<3, BB, BF16>(wh_s, hT, H, H, j, acc);
+
+    const float* xp_t = xproj + st * B * G3;
+    const float* g_t = ghs + st * B * H;
+    float* gs_t = gs + st * B * 4 * H;
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        const int row = b0 + b;
+        float dr = 0.0f, dz = 0.0f, dn = 0.0f, du = 0.0f;
+        if (row < B) {
+          const float* xp = xp_t + (size_t)row * G3;
+          const float r = sigmoid(xp[j[c]] + acc[c][0][b]);
+          const float z = sigmoid(xp[H + j[c]] + acc[c][1][b]);
+          const float u = acc[c][2][b] + bn[c];
+          const float n = tanhf(xp[2 * H + j[c]] + r * u);
+          const float g = g_t[(size_t)row * H + j[c]] + dh[c][b];
+          dz = g * (h[c][b] - n) * z * (1.0f - z);
+          dn = g * (1.0f - z) * (1.0f - n * n);
+          du = dn * r;
+          dr = dn * u * r * (1.0f - r);
+          dh[c][b] = g * z;
+          if (on[c]) {
+            float* grow = gs_t + (size_t)row * 4 * H;
+            grow[j[c]] = dr;
+            grow[H + j[c]] = dz;
+            grow[2 * H + j[c]] = dn;
+            grow[3 * H + j[c]] = du;
+          }
+        }
+        if (on[c]) {
+          dgT[j[c] * BB + b] = op<BF16>(dr);
+          dgT[(H + j[c]) * BB + b] = op<BF16>(dz);
+          dgT[(2 * H + j[c]) * BB + b] = op<BF16>(du);
+        }
+      }
+    __syncthreads();
+
+    // dh_prev[:, j] = (g*z + Σ_c dgates[:, c] Wh[j, c]) * keep
+    float acc1[kWideCols][1][BB];
+    gate_matvec_wide<1, BB, BF16>(whT_s, dgT, G3, H, j, acc1);
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        dh[c][b] = (dh[c][b] + acc1[c][0][b]) * keep[b];
+        if (t == 0 && on[c] && b0 + b < B) dcarry0[((size_t)s * B + b0 + b) * H + j[c]] = dh[c][b];
+      }
+    __syncthreads();  // hT / dgT are rewritten next step
+  }
+}
+
 }  // namespace
 
 extern "C" int gru_xp_fwd(const float* xproj, const float* resets, const float* carry0,
@@ -196,20 +371,13 @@ extern "C" int gru_xp_fwd(const float* xproj, const float* resets, const float* 
                           int H, int bf16, void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
-  const dim3 grid((B + kFwdRows - 1) / kFwdRows, G);
-  const size_t smem = (size_t)H * kFwdRows * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
-    auto kernel = gru_xp_fwd_kernel<kFwdRows, true>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, carry0, wh, bhn, hs, T, B, H);
-  } else {
-    auto kernel = gru_xp_fwd_kernel<kFwdRows, false>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, carry0, wh, bhn, hs, T, B, H);
+    return (int)launch_columns(gru_xp_fwd_kernel<kFwdRows, true>, gru_xp_fwd_wide_kernel<kFwdRows / 2, true>,
+                               kFwdRows, G, B, H, H, st, xproj, resets, carry0, wh, bhn, hs, T, B, H);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_columns(gru_xp_fwd_kernel<kFwdRows, false>, gru_xp_fwd_wide_kernel<kFwdRows / 2, false>,
+                             kFwdRows, G, B, H, H, st, xproj, resets, carry0, wh, bhn, hs, T, B, H);
 }
 
 extern "C" int gru_xp_bwd(const float* xproj, const float* resets, const float* carry0,
@@ -218,22 +386,15 @@ extern "C" int gru_xp_bwd(const float* xproj, const float* resets, const float* 
                           int H, int bf16, void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
-  const dim3 grid((B + kBwdRows - 1) / kBwdRows, G);
-  const size_t smem = (size_t)4 * H * kBwdRows * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
-    auto kernel = gru_xp_bwd_kernel<kBwdRows, true>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, carry0, wh, whT, bhn, hs, ghs, dcarry0, gs,
-                                  T, B, H);
-  } else {
-    auto kernel = gru_xp_bwd_kernel<kBwdRows, false>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, carry0, wh, whT, bhn, hs, ghs, dcarry0, gs,
-                                  T, B, H);
+    return (int)launch_columns(gru_xp_bwd_kernel<kBwdRows, true>, gru_xp_bwd_wide_kernel<kBwdRows / 2, true>,
+                               kBwdRows, G, B, H, 4 * H, st, xproj, resets, carry0, wh, whT, bhn, hs, ghs,
+                               dcarry0, gs, T, B, H);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_columns(gru_xp_bwd_kernel<kBwdRows, false>, gru_xp_bwd_wide_kernel<kBwdRows / 2, false>,
+                             kBwdRows, G, B, H, 4 * H, st, xproj, resets, carry0, wh, whT, bhn, hs, ghs,
+                             dcarry0, gs, T, B, H);
 }
 
 // The weight-gradient reduction of rnn_wgrad.cuh with no x columns and one

@@ -29,8 +29,8 @@
 
 namespace {
 
-constexpr int kFwdRows = 8;  // batch rows per forward block
-constexpr int kBwdRows = 8;  // batch rows per backward block
+constexpr int kFwdRows = 8;  // batch rows per forward block (H <= 256)
+constexpr int kBwdRows = 8;  // batch rows per backward block (H <= 256)
 
 // Grid (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H).
 // The block runs the whole window for its BB rows of stream s; thread j keeps
@@ -208,6 +208,201 @@ __global__ void __launch_bounds__(256, 2) lstm_xp_bwd_kernel(
   }
 }
 
+// H > 256: the forward above with kWideCols hidden columns a thread (see
+// wide_columns) and half the rows a block.
+template <int BB, bool BF16>
+__global__ void __launch_bounds__(256) lstm_xp_fwd_wide_kernel(
+    const float* __restrict__ xproj, const float* __restrict__ resets,
+    const float* __restrict__ c0, const float* __restrict__ h0,
+    const float* __restrict__ wh, const float* __restrict__ bh, float* __restrict__ hs,
+    float* __restrict__ cs, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* hT = smem;  // [H][BB]
+  const int s = blockIdx.y;
+  const int b0 = blockIdx.x * BB;
+  const int G4 = 4 * H;
+  const float* wh_s = wh + (size_t)s * H * G4;
+  int j[kWideCols];
+  bool on[kWideCols];
+  wide_columns(H, j, on);
+  float bias[kWideCols][4];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bias[c][q] = bh[(size_t)s * G4 + q * H + j[c]];
+
+  float cc[kWideCols][BB], h[kWideCols][BB];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const int row = b0 + b;
+      cc[c][b] = row < B ? c0[((size_t)s * B + row) * H + j[c]] : 0.0f;
+      h[c][b] = row < B ? h0[((size_t)s * B + row) * H + j[c]] : 0.0f;
+    }
+  for (int t = 0; t < T; ++t) {
+    const size_t st = (size_t)s * T + t;
+    const float* xp_t = xproj + st * B * G4;
+    // this step's projections, loaded before the h Wh chain so that their
+    // latency overlaps it
+    float x[kWideCols][4][BB];
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const int row = b0 + b;
+      const bool in = row < B;
+      const float* xp = xp_t + (size_t)(in ? row : 0) * G4;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) x[c][q][b] = in ? __ldg(xp + q * H + j[c]) : 0.0f;
+      const float keep = in ? 1.0f - resets[st * B + row] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) {
+        cc[c][b] *= keep;
+        h[c][b] *= keep;
+        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
+      }
+    }
+    __syncthreads();
+
+    float a[kWideCols][4][BB];  // h Wh for i, f, g, o
+    gate_matvec_wide<4, BB, BF16>(wh_s, hT, H, H, j, a);
+
+    const size_t out = st * B * H;
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        const int row = b0 + b;
+        const float i = sigmoid(x[c][0][b] + a[c][0][b] + bias[c][0]);
+        const float f = sigmoid(x[c][1][b] + a[c][1][b] + bias[c][1]);
+        const float g = tanhf(x[c][2][b] + a[c][2][b] + bias[c][2]);
+        const float o = sigmoid(x[c][3][b] + a[c][3][b] + bias[c][3]);
+        cc[c][b] = f * cc[c][b] + i * g;
+        h[c][b] = o * tanhf(cc[c][b]);
+        if (on[c] && row < B) {
+          hs[out + (size_t)row * H + j[c]] = h[c][b];
+          cs[out + (size_t)row * H + j[c]] = cc[c][b];
+        }
+      }
+    __syncthreads();  // hT is rewritten next step
+  }
+}
+
+// H > 256: the backward above with kWideCols hidden columns a thread (see
+// wide_columns) and half the rows a block.
+template <int BB, bool BF16>
+__global__ void __launch_bounds__(256, 2) lstm_xp_bwd_wide_kernel(
+    const float* __restrict__ xproj, const float* __restrict__ resets,
+    const float* __restrict__ c0, const float* __restrict__ h0,
+    const float* __restrict__ wh, const float* __restrict__ whT,
+    const float* __restrict__ bh, const float* __restrict__ hs,
+    const float* __restrict__ cs, const float* __restrict__ ghs, float* __restrict__ dc0,
+    float* __restrict__ dh0, float* __restrict__ gs, int T, int B, int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* hT = smem;          // [H][BB]  h operand
+  float* dgT = hT + H * BB;  // [4H][BB] di | df | dg | do operands
+  const int s = blockIdx.y;
+  const int b0 = blockIdx.x * BB;
+  const int G4 = 4 * H;
+  const float* wh_s = wh + (size_t)s * H * G4;
+  const float* whT_s = whT + (size_t)s * G4 * H;
+  int j[kWideCols];
+  bool on[kWideCols];
+  wide_columns(H, j, on);
+  float bias[kWideCols][4];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bias[c][q] = bh[(size_t)s * G4 + q * H + j[c]];
+
+  float dh[kWideCols][BB], dc[kWideCols][BB];
+#pragma unroll
+  for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+    for (int b = 0; b < BB; ++b) dh[c][b] = dc[c][b] = 0.0f;
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t st = (size_t)s * T + t;
+    float cp[kWideCols][BB], keep[BB];
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const int row = b0 + b;
+      keep[b] = row < B ? 1.0f - resets[st * B + row] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < kWideCols; ++c) {
+        float hp = 0.0f, cv = 0.0f;
+        if (row < B) {
+          const size_t prev = t == 0 ? ((size_t)s * B + row) * H + j[c] : ((st - 1) * B + row) * H + j[c];
+          hp = t == 0 ? h0[prev] : hs[prev];
+          cv = t == 0 ? c0[prev] : cs[prev];
+        }
+        cp[c][b] = cv * keep[b];
+        if (on[c]) hT[j[c] * BB + b] = op<BF16>(hp * keep[b]);
+      }
+    }
+    __syncthreads();
+
+    float a[kWideCols][4][BB];
+    gate_matvec_wide<4, BB, BF16>(wh_s, hT, H, H, j, a);
+
+    const float* xp_t = xproj + st * B * G4;
+    const size_t cur = st * B * H;
+    float* gs_t = gs + st * B * G4;
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        const int row = b0 + b;
+        float d_i = 0.0f, d_f = 0.0f, d_g = 0.0f, d_o = 0.0f;
+        if (row < B) {
+          const float* xp = xp_t + (size_t)row * G4;
+          const float i = sigmoid(xp[j[c]] + a[c][0][b] + bias[c][0]);
+          const float f = sigmoid(xp[H + j[c]] + a[c][1][b] + bias[c][1]);
+          const float g = tanhf(xp[2 * H + j[c]] + a[c][2][b] + bias[c][2]);
+          const float o = sigmoid(xp[3 * H + j[c]] + a[c][3][b] + bias[c][3]);
+          const float tc = tanhf(cs[cur + (size_t)row * H + j[c]]);
+          const float gh = ghs[cur + (size_t)row * H + j[c]] + dh[c][b];
+          const float gc = dc[c][b] + gh * o * (1.0f - tc * tc);
+          d_o = gh * tc * o * (1.0f - o);
+          d_f = gc * cp[c][b] * f * (1.0f - f);
+          d_i = gc * g * i * (1.0f - i);
+          d_g = gc * i * (1.0f - g * g);
+          dc[c][b] = gc * f * keep[b];
+          if (on[c]) {
+            float* grow = gs_t + (size_t)row * G4;
+            grow[j[c]] = d_i;
+            grow[H + j[c]] = d_f;
+            grow[2 * H + j[c]] = d_g;
+            grow[3 * H + j[c]] = d_o;
+          }
+        }
+        if (on[c]) {
+          dgT[j[c] * BB + b] = op<BF16>(d_i);
+          dgT[(H + j[c]) * BB + b] = op<BF16>(d_f);
+          dgT[(2 * H + j[c]) * BB + b] = op<BF16>(d_g);
+          dgT[(3 * H + j[c]) * BB + b] = op<BF16>(d_o);
+        }
+      }
+    __syncthreads();
+
+    // dh_prev[:, j] = (Σ_c dgates[:, c] Wh[j, c]) * keep
+    float acc[kWideCols][1][BB];
+    gate_matvec_wide<1, BB, BF16>(whT_s, dgT, G4, H, j, acc);
+#pragma unroll
+    for (int c = 0; c < kWideCols; ++c)
+#pragma unroll
+      for (int b = 0; b < BB; ++b) {
+        dh[c][b] = acc[c][0][b] * keep[b];
+        if (t == 0 && on[c] && b0 + b < B) {
+          dh0[((size_t)s * B + b0 + b) * H + j[c]] = dh[c][b];
+          dc0[((size_t)s * B + b0 + b) * H + j[c]] = dc[c][b];
+        }
+      }
+    __syncthreads();  // hT / dgT are rewritten next step
+  }
+}
+
 }  // namespace
 
 extern "C" int lstm_xp_fwd(const float* xproj, const float* resets, const float* c0,
@@ -215,20 +410,13 @@ extern "C" int lstm_xp_fwd(const float* xproj, const float* resets, const float*
                            float* cs, int G, int T, int B, int H, int bf16, void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
-  const dim3 grid((B + kFwdRows - 1) / kFwdRows, G);
-  const size_t smem = (size_t)H * kFwdRows * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
-    auto kernel = lstm_xp_fwd_kernel<kFwdRows, true>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
-  } else {
-    auto kernel = lstm_xp_fwd_kernel<kFwdRows, false>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
+    return (int)launch_columns(lstm_xp_fwd_kernel<kFwdRows, true>, lstm_xp_fwd_wide_kernel<kFwdRows / 2, true>,
+                               kFwdRows, G, B, H, H, st, xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_columns(lstm_xp_fwd_kernel<kFwdRows, false>, lstm_xp_fwd_wide_kernel<kFwdRows / 2, false>,
+                             kFwdRows, G, B, H, H, st, xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
 }
 
 extern "C" int lstm_xp_bwd(const float* xproj, const float* resets, const float* c0,
@@ -238,22 +426,15 @@ extern "C" int lstm_xp_bwd(const float* xproj, const float* resets, const float*
                            void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
-  const dim3 grid((B + kBwdRows - 1) / kBwdRows, G);
-  const size_t smem = (size_t)5 * H * kBwdRows * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (bf16) {
-    auto kernel = lstm_xp_bwd_kernel<kBwdRows, true>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, c0, h0, wh, whT, bh, hs, cs, ghs, dc0, dh0, gs,
-                                  T, B, H);
-  } else {
-    auto kernel = lstm_xp_bwd_kernel<kBwdRows, false>;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
-    kernel<<<grid, H, smem, st>>>(xproj, resets, c0, h0, wh, whT, bh, hs, cs, ghs, dc0, dh0, gs,
-                                  T, B, H);
+    return (int)launch_columns(lstm_xp_bwd_kernel<kBwdRows, true>, lstm_xp_bwd_wide_kernel<kBwdRows / 2, true>,
+                               kBwdRows, G, B, H, 5 * H, st, xproj, resets, c0, h0, wh, whT, bh, hs, cs, ghs,
+                               dc0, dh0, gs, T, B, H);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_columns(lstm_xp_bwd_kernel<kBwdRows, false>, lstm_xp_bwd_wide_kernel<kBwdRows / 2, false>,
+                             kBwdRows, G, B, H, 5 * H, st, xproj, resets, c0, h0, wh, whT, bh, hs, cs, ghs,
+                             dc0, dh0, gs, T, B, H);
 }
 
 // The weight-gradient reduction of rnn_wgrad.cuh with no x columns and one

@@ -43,15 +43,23 @@ and ``dgates @ Whᵀ`` are ``T`` dependent steps of ``[B,H] x [H,3H]`` in IEEE
 fp32 on the CUDA cores (no TF32), so the floor is operations at the fp32
 non-tensor peak. The TPU kernels keep ``Wh`` resident in VMEM; in fp32 it is
 ``H*3H*4`` bytes (768 KiB at H=256), more than the 227 KB of shared memory a
-block can have. So each block owns a tile of ``BB`` batch rows of one stream,
-keeps its hidden tile in shared memory and its own hidden column in
-registers, and re-reads ``Wh`` from L2 (50 MB, where all blocks share one
-copy) at every step. The weight gradients, which the TPU accumulates in a
-scratch carried across its sequential grid, come from a separate
-deterministic pass: every block of the reduction owns one output tile and
-one split of the ``T*B`` rows and sums them in order into its own partial
-tile; a second kernel adds the partials in split order. No atomics, so the
-gradients are the same on every run.
+block can have. The forwards give each block a tile of ``BB`` batch rows of
+one stream, keep its hidden tile in shared memory and its own hidden column
+in registers (above H=256 two columns a thread, half the rows a block), and
+re-read ``Wh`` from L2 (50 MB, where all blocks share one copy) at every step.
+``gru_x_bwd`` takes out of the serial chain what does not depend on the
+carried gradients, in the three phases of ``csrc/rnn_bwd.cuh``: the gate
+quantities ``r | z | a_n | u`` of all steps in one tiled GEMM over the
+``T*B`` rows (skipping the zero blocks of ``[Wh; Wx]`` in that layout), then
+per step one launch of ``(g*z + [dr|dz|du] @ Whᵀ) * keep`` tiled over the
+whole card (each ``Whᵀ`` element read from L2 serves 64 rows) with the cell's
+gradient in its epilogue, then ``dx`` for all steps at once; in bf16 mode its
+products run on the tensor cores. The weight gradients, which the TPU
+accumulates in a scratch carried across its sequential grid, come from a
+separate deterministic pass: every block of the reduction owns one output
+tile and one split of the ``T*B`` rows and sums them in order into its own
+partial tile; a second kernel adds the partials in split order. No atomics,
+so the gradients are the same on every run.
 
 On a CPU tensor the wrappers take the plain PyTorch version; on a CUDA tensor
 they launch the kernels or raise. There is no fallback between the two.
@@ -131,26 +139,28 @@ def gru_xp_plain_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False
 
     Returns ``(dcarry0, gscratch)`` with ``gscratch [G,T,B,4H]`` holding each
     step's ``dr | dz | dn | du``; its first 3H columns are the gradient of
-    ``xproj``. Gate activations are recomputed from ``hs[t-1]`` (``carry0``
-    at t=0) with the forward's operand rounding.
+    ``xproj``. In the phases of ``gru_x_bwd``: the gates of every step at
+    once, recomputed from ``hs[t-1]`` (``carry0`` at t=0) with the forward's
+    operand rounding; then the chain, whose only product is ``[dr|dz|du] @
+    Whᵀ``.
     """
     G, T, B, _ = xproj.shape
     H = carry0.shape[-1]
-    keep = 1.0 - resets
+    keep = (1.0 - resets)[..., None]
+    h_prev = torch.cat([carry0[:, None], hs[:, :-1]], dim=1) * keep
+    r, z, u, n = _gates(xproj.reshape(G, T * B, 3 * H), wh, bhn, h_prev.reshape(G, T * B, H), bf16)
+    r, z, u, n = (v.reshape(G, T, B, H) for v in (r, z, u, n))
     gscratch = torch.empty((G, T, B, 4 * H), dtype=xproj.dtype, device=xproj.device)
     dh = torch.zeros_like(carry0)
     for t in reversed(range(T)):
-        k = keep[:, t, :, None]
-        h = (carry0 if t == 0 else hs[:, t - 1]) * k
-        r, z, u, n = _gates(xproj[:, t], wh, bhn, h, bf16)
         g = ghs[:, t] + dh
-        dz = g * (h - n) * z * (1.0 - z)
-        dn = g * (1.0 - z) * (1.0 - n * n)
-        du = dn * r
-        dr = dn * u * r * (1.0 - r)
+        dz = g * (h_prev[:, t] - n[:, t]) * z[:, t] * (1.0 - z[:, t])
+        dn = g * (1.0 - z[:, t]) * (1.0 - n[:, t] * n[:, t])
+        du = dn * r[:, t]
+        dr = dn * u[:, t] * r[:, t] * (1.0 - r[:, t])
         gscratch[:, t] = torch.cat([dr, dz, dn, du], dim=-1)
         dgates = torch.cat([dr, dz, du], dim=-1)
-        dh = (g * z + mm(dgates, wh.transpose(-1, -2), bf16)) * k
+        dh = (g * z[:, t] + mm(dgates, wh.transpose(-1, -2), bf16)) * keep[:, t]
     return dh, gscratch
 
 
@@ -179,7 +189,8 @@ def gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = F
     gradient ``ghs`` (the plain version of ``gru_x_bwd``).
 
     Returns ``(dx, dcarry0, gscratch)`` with ``gscratch [S,T,B,4H]`` holding
-    each step's ``dr | dz | dn | du``, and ``dx = [dr|dz|dn] Wxᵀ``.
+    each step's ``dr | dz | dn | du``, and ``dx = [dr|dz|dn] Wxᵀ``, the third
+    phase, over all steps at once.
     """
     H = carry0.shape[-1]
     xproj = input_projection(wx, bx, xs, bf16)
@@ -210,7 +221,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gru_x": {
         "gru_x_fwd": [_P] * 8 + [_I] * 6 + [_P],
-        "gru_x_bwd": [_P] * 13 + [_I] * 6 + [_P],
+        "gru_x_bwd": [_P] * 13 + [_I] * 6 + [_P] * 2,
         "gru_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     },
     "gru_xp": {
@@ -253,12 +264,7 @@ def gru_x_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16: bool = False) -> torch.
     return hs
 
 
-def gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
-    """Launch the reverse-time BPTT kernel.
-
-    Returns ``(dx, dcarry0, gscratch)``; ``gscratch [S,T,B,4H]`` holds each
-    step's ``dr | dz | dn | du`` rows for :func:`gru_x_wgrad`.
-    """
+def _gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16, phase_ms):
     S, T, B, D, H = _dims(wx, xs)
     whT = wh.transpose(-1, -2).contiguous()  # [S,3H,H]: coalesced dgates @ Whᵀ
     ptrs = [
@@ -277,9 +283,27 @@ def gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
     dcarry0 = torch.empty_like(carry0)
     gscratch = torch.empty((S, T, B, 4 * H), dtype=torch.float32, device=xs.device)
     out = [dx.data_ptr(), dcarry0.data_ptr(), gscratch.data_ptr()]
-    raise_on("gru_x_bwd", _lib().gru_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream()))
+    raise_on("gru_x_bwd", _lib().gru_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream(), phase_ms))
     launch_counts.bwd_launches += 1
     return dx, dcarry0, gscratch
+
+
+def gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
+    """Launch the reverse-time BPTT kernels (the three phases of
+    ``csrc/rnn_bwd.cuh``).
+
+    Returns ``(dx, dcarry0, gscratch)``; ``gscratch [S,T,B,4H]`` holds each
+    step's ``dr | dz | dn | du`` rows for :func:`gru_x_wgrad`.
+    """
+    return _gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16, None)
+
+
+def gru_x_bwd_phase_ms(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16: bool = False):
+    """One :func:`gru_x_bwd` call timed by CUDA events between its phases
+    (waits for the stream): ``(gates ms, chain ms, dx ms)``."""
+    ms = (ctypes.c_float * 3)()
+    _gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16, ctypes.addressof(ms))
+    return tuple(ms)
 
 
 def gru_wgrad_dropped(H: int, D: int):
@@ -310,6 +334,7 @@ def gru_x_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
     """
     S, T, B, D = xs.shape
     H = carry0.shape[-1]
+    check_hidden("GRU", H)
     ptrs = [
         check("xs", xs, (S, T, B, D)),
         check("resets", resets, (T, B)),
@@ -378,6 +403,7 @@ def gru_xp_wgrad(resets, carry0, hs, gscratch, bf16: bool = False):
     """
     G, T, B = resets.shape
     H = carry0.shape[-1]
+    check_hidden("GRU", H)
     ptrs = [
         check("resets", resets, (G, T, B)),
         check("carry0", carry0, (G, B, H)),

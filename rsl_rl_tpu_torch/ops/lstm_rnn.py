@@ -36,19 +36,28 @@ Two kernel sets, one CUDA launch each, as in the JAX package:
   ``torch.func.vmap``, the seed axis of multi-seed training: the x-streaming
   replay's vmap rule folds the seed and stream axes into G and takes them.
 
-What bounds the forwards on an H100 is what bounds the GRU kernels
+What bounds the kernels on an H100 is what bounds the GRU kernels
 (``ops/gru_rnn.py``): ``T`` dependent steps of ``[B,H] x [H,4H]`` in IEEE
-fp32 on the CUDA cores, with ``Wh`` (1 MiB in fp32 at H=256, more than a
-block's 227 KB of shared memory) re-read from L2 at every step. Each block
-owns a tile of ``BB`` batch rows of one stream, keeps its hidden tile in
-shared memory and its own ``c`` and ``h`` columns in registers. So does the
-xproj backward. ``lstm_x_bwd`` takes out of the serial chain what does not
-depend on the carried gradients: the gates of all steps in one tiled GEMM
-over the ``T*B`` rows, then per step one launch of ``dgates @ Whᵀ`` tiled
-over the whole card (each ``Whᵀ`` element read from L2 serves 64 rows) with
-the cell's elementwise gradient in its epilogue, then ``dx`` for all
-steps at once (the design note is in ``csrc/lstm_x.cu``). In bf16 mode its
-products and the reduction's run on the tensor cores.
+fp32 on the CUDA cores, with ``Wh`` 1 MiB in fp32 at H=256, more than a
+block's 227 KB of shared memory. ``lstm_x_fwd`` spreads it over a
+thread-block cluster of 8 CTAs instead: each CTA keeps the four gates of its
+H/8 hidden columns of ``[Wh; Wx]`` in shared memory for the whole window
+(bf16 mode: rounded once when staged), computes its rows' gates at each step
+as one tiled product (tensor cores in bf16 mode), keeps ``c`` to itself and
+exchanges ``h`` through ``hs`` with a cluster barrier between steps; the grid
+takes as many clusters as the card runs at once (the design note is in
+``csrc/lstm_x.cu``). Where the slice does not fit (H > 256) the same kernel
+streams it from L2 at every step. The xproj kernels keep one block
+per ``BB`` batch rows of one stream, its hidden tile in shared memory and
+its own ``c`` and ``h`` columns in registers (above H=256 two columns a
+thread), re-reading ``Wh`` from L2 at every step. ``lstm_x_bwd`` takes out
+of the serial chain what does not depend on the carried gradients, in the
+three phases of ``csrc/rnn_bwd.cuh``: the gates of all steps in one tiled
+GEMM over the ``T*B`` rows, then per step one launch of ``dgates @ Whᵀ``
+tiled over the whole card (each ``Whᵀ`` element read from L2 serves 64 rows)
+with the cell's elementwise gradient in its epilogue, then ``dx`` for all
+steps at once. In bf16 mode its products and the reduction's run on the
+tensor cores.
 
 On a CPU tensor the wrappers take the plain PyTorch version; on a CUDA tensor
 they launch the kernels or raise. There is no fallback between the two.
@@ -216,7 +225,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lstm_x": {
         "lstm_x_fwd": [_P] * 9 + [_I] * 6 + [_P],
-        "lstm_x_bwd": [_P] * 15 + [_I] * 6 + [_P],
+        "lstm_x_bwd": [_P] * 15 + [_I] * 6 + [_P] * 2,
+        "lstm_x_fwd_plan": [_I] * 5 + [_P],
         "lstm_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     },
     "lstm_xp": {
@@ -266,12 +276,18 @@ def lstm_x_fwd(wx, wh, bh, c0, h0, xs, resets, bf16: bool = False):
     return hs, cs
 
 
-def lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = False):
-    """Launch the reverse-time BPTT kernel.
+def lstm_x_fwd_plan(S: int, B: int, D: int, H: int, bf16: bool = False) -> dict:
+    """The grid :func:`lstm_x_fwd` chooses on the current card for these
+    shapes: the clusters the card runs at once, the batch rows of a cluster,
+    the clusters launched, and whether the weight slices stay in shared
+    memory."""
+    check_hidden("LSTM", H)
+    out = (ctypes.c_int * 4)()
+    raise_on("lstm_x_fwd_plan", _lib().lstm_x_fwd_plan(S, B, D, H, int(bf16), ctypes.addressof(out)))
+    return {"active_clusters": out[0], "rows_per_cluster": out[1], "clusters": out[2], "resident": bool(out[3])}
 
-    Returns ``(dx, dc0, dh0, gscratch)``; ``gscratch [S,T,B,4H]`` holds each
-    step's ``di | df | dg | do`` rows for :func:`lstm_x_wgrad`.
-    """
+
+def _lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16, phase_ms):
     S, T, B, D, H = _dims(wx, xs)
     whT = wh.transpose(-1, -2).contiguous()  # [S,4H,H]: coalesced dgates @ Whᵀ
     ptrs = _input_ptrs(wx, wh, bh, c0, h0, xs, resets) + [
@@ -286,9 +302,27 @@ def lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = False):
     dh0 = torch.empty_like(h0)
     gscratch = torch.empty((S, T, B, 4 * H), dtype=torch.float32, device=xs.device)
     out = [dx.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), gscratch.data_ptr()]
-    raise_on("lstm_x_bwd", _lib().lstm_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream()))
+    raise_on("lstm_x_bwd", _lib().lstm_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream(), phase_ms))
     launch_counts.bwd_launches += 1
     return dx, dc0, dh0, gscratch
+
+
+def lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = False):
+    """Launch the reverse-time BPTT kernels (the three phases of
+    ``csrc/rnn_bwd.cuh``).
+
+    Returns ``(dx, dc0, dh0, gscratch)``; ``gscratch [S,T,B,4H]`` holds each
+    step's ``di | df | dg | do`` rows for :func:`lstm_x_wgrad`.
+    """
+    return _lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16, None)
+
+
+def lstm_x_bwd_phase_ms(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16: bool = False):
+    """One :func:`lstm_x_bwd` call timed by CUDA events between its phases
+    (waits for the stream): ``(gates ms, chain ms, dx ms)``."""
+    ms = (ctypes.c_float * 3)()
+    _lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16, ctypes.addressof(ms))
+    return tuple(ms)
 
 
 def lstm_x_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
@@ -299,6 +333,7 @@ def lstm_x_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
     """
     S, T, B, D = xs.shape
     H = h0.shape[-1]
+    check_hidden("LSTM", H)
     ptrs = [
         check("xs", xs, (S, T, B, D)),
         check("resets", resets, (T, B)),
@@ -373,6 +408,7 @@ def lstm_xp_wgrad(resets, h0, hs, gscratch, bf16: bool = False):
     """
     G, T, B = resets.shape
     H = h0.shape[-1]
+    check_hidden("LSTM", H)
     ptrs = [
         check("resets", resets, (G, T, B)),
         check("h0", h0, (G, B, H)),

@@ -11,8 +11,10 @@ from dataclasses import dataclass
 
 import torch
 
-#: the kernels run one thread per hidden column of a block
-KERNEL_MAX_HIDDEN = 256
+#: the most hidden columns the kernels take, as the JAX package's
+#: single-stream kernels take within their VMEM budget (``csrc/rnn_common.cuh``
+#: ``kMaxHidden``)
+KERNEL_MAX_HIDDEN = 512
 #: inputs wider than this take the xproj replay (the input projection as one
 #: bulk product outside the kernels), as in the JAX package (``_X_STREAM_MAX_D``)
 X_STREAM_MAX_D = 512

@@ -480,11 +480,75 @@ def test_lstm_phased_plain_backward_is_autograd(S, T, bf16):
             torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, msg=name)
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,T", [(1, 1), (1, 5), (2, 1), (2, 5)], ids=["S1T1", "S1T5", "S2T1", "S2T5"])
+def test_gru_phased_plain_backward_is_autograd(S, T, bf16):
+    """The plain GRU backward, in the kernel's phases (all gates at once, the
+    chain, dx at once), equals autograd through the plain forward: fp32 to
+    summation order; in bf16 mode within the bf16 bars, since the chain rounds
+    the gate gradients it multiplies, where autograd does not."""
+    (wx, bx, wh, bhn, carry0, xs, resets), ghs = _inputs(S, T, 16, 6, 8, seed=S * 10 + T + 9)
+    resets[0, :4] = 1.0  # resets at t=0 too
+    leaves = [t.clone().requires_grad_(True) for t in (wx, bx, wh, bhn, carry0, xs)]
+    hs = gru_rnn.gru_x_plain_fwd(*leaves, resets, bf16)
+    want = torch.autograd.grad(hs, leaves, ghs)
+    hs = hs.detach()
+    dx, dcarry0, gs = gru_rnn.gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16)
+    dwx, dbx, dwh, dbhn = gru_rnn.gru_x_plain_wgrad(xs, resets, carry0, hs, gs, bf16)
+    for name, got, ref in zip(("dwx", "dbx", "dwh", "dbhn", "dcarry0", "dx"),
+                              (dwx, dbx, dwh, dbhn, dcarry0, dx), want):
+        if bf16:
+            _close(got, ref, TOL[True][2], TOL[True][3], name)
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, msg=name)
+
+
+#: every kernel entry point: (name, cell, kernel set)
+ENTRY_POINTS = [(f"{cell}_{kind}_{part}", cell, kind)
+                for cell in ("gru", "lstm") for kind in ("x", "xp") for part in ("fwd", "bwd", "wgrad")]
+
+
+def _wrapper_args(name, cell, kind, H):
+    """Zero CPU inputs of hidden width H for a kernel wrapper (S=1, T=1, B=2, D=3)."""
+    S, T, B, D = 1, 1, 2, 3
+    gates = 3 if cell == "gru" else 4
+    z = torch.zeros
+    carries = (z(S, B, H),) if cell == "gru" else (z(S, B, H), z(S, B, H))
+    state = (z(S, T, B, H),) if cell == "gru" else (z(S, T, B, H), z(S, T, B, H))
+    gs = z(S, T, B, 4 * H)
+    if kind == "x":
+        weights = (z(S, D, 3 * H), z(S, 3 * H), z(S, H, 3 * H), z(S, H)) if cell == "gru" else (
+            z(S, D, 4 * H), z(S, H, 4 * H), z(S, 4 * H))
+        w = (*weights, *carries, z(S, T, B, D), z(T, B))
+        rows = (w[-2], w[-1], carries[-1], state[0], gs)
+    else:
+        weights = (z(S, H, 3 * H), z(S, H)) if cell == "gru" else (z(S, H, 4 * H), z(S, 4 * H))
+        w = (*weights, *carries, z(S, T, B, gates * H), z(S, T, B))
+        rows = (w[-1], carries[-1], state[0], gs)
+    part = name.rsplit("_", 1)[1]
+    return {"fwd": w, "bwd": (*w, *state, z(S, T, B, H)), "wgrad": rows}[part]
+
+
+@pytest.mark.parametrize("name,cell,kind", ENTRY_POINTS, ids=[e[0] for e in ENTRY_POINTS])
+def test_kernel_wrappers_take_hidden_up_to_512(name, cell, kind):
+    """Every entry point's checks take H=512, the widest the JAX package's
+    single-stream kernels take (here they go on to refuse the CPU tensors),
+    and refuse H=513: there is no fallback above it."""
+    fn = getattr(gru_rnn if cell == "gru" else lstm_rnn, name)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        fn(*_wrapper_args(name, cell, kind, 512))
+    with pytest.raises(ValueError, match="H <= 512, got H=513"):
+        fn(*_wrapper_args(name, cell, kind, 513))
+
+
 # -------------------- the redesigned kernels on the card: edges, repeatability
 
 #: (family, streams, T, B, D, H): H that the 128- and 64-wide tiles do not
-#: divide, a ragged batch, one-step windows, per-stream resets for the xproj
-#: reductions
+#: divide (and, at H=200, 25 hidden columns a CTA of lstm_x_fwd's clusters), a
+#: ragged batch (203 rows: no whole number of a cluster's rows), one-step
+#: windows, per-stream resets for the xproj families, and the hidden states
+#: above 256 (two columns a thread in the one-thread-per-column kernels, the
+#: weights streamed from L2 in lstm_x_fwd)
 EDGE_CASES = [
     ("lstm", 2, 5, 200, 15, 200),
     ("lstm", 1, 1, 200, 15, 128),
@@ -492,6 +556,16 @@ EDGE_CASES = [
     ("gru", 1, 1, 200, 15, 128),
     ("gru_xp", 3, 5, 200, 0, 200),
     ("lstm_xp", 3, 5, 200, 0, 128),
+    ("lstm", 1, 5, 203, 15, 200),
+    ("gru", 1, 5, 203, 15, 200),
+    ("lstm", 2, 3, 64, 15, 384),
+    ("lstm", 1, 2, 48, 15, 512),
+    ("gru", 2, 3, 64, 15, 384),
+    ("gru", 1, 2, 48, 15, 512),
+    ("gru_xp", 2, 3, 64, 0, 384),
+    ("gru_xp", 1, 2, 48, 0, 512),
+    ("lstm_xp", 2, 3, 64, 0, 384),
+    ("lstm_xp", 1, 2, 48, 0, 512),
 ]
 
 
@@ -513,53 +587,53 @@ def _edge_case(family, S, T, B, D, H, seed):
 @pytest.mark.parametrize("family,S,T,B,D,H", EDGE_CASES,
                          ids=[f"{c[0]}-S{c[1]}T{c[2]}B{c[3]}H{c[5]}" for c in EDGE_CASES])
 def test_redesigned_kernels_edge_shapes_on_card(family, S, T, B, D, H, bf16):
-    """``lstm_x_bwd`` and the weight-gradient reductions against their plain
-    versions at edge shapes."""
+    """The family's three kernels (the redesigned ``lstm_x_fwd``,
+    ``gru_x_bwd``, ``lstm_x_bwd`` and weight-gradient reductions among them)
+    against their plain versions at edge shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     cell, w, ghs = _edge_case(family, S, T, B, D, H, seed=S * 1000 + T * 10 + H)
-    _, _, bwd_rtol, bwd_atol_rel = TOL[bf16]
+    fwd_rtol, fwd_atol, bwd_rtol, bwd_atol_rel = TOL[bf16]
     mod = gru_rnn if cell == "gru" else lstm_rnn
-    if family.endswith("_xp"):
-        out = getattr(mod, f"{cell}_xp_plain_fwd")(*w, bf16)
-        state = (out,) if cell == "gru" else out
-        gs = getattr(mod, f"{cell}_xp_plain_bwd")(*w, *state, ghs, bf16)[-1]
-        rows = _xp_wgrad_rows(cell, w, state, gs)
-        name = f"{cell}_xp_wgrad"
+    kind = "xp" if family.endswith("_xp") else "x"
+    fwd, bwd, wgrad = (getattr(mod, f"{cell}_{kind}_{p}") for p in ("fwd", "bwd", "wgrad"))
+    plain_fwd, plain_bwd, plain_wgrad = (getattr(mod, f"{cell}_{kind}_plain_{p}") for p in ("fwd", "bwd", "wgrad"))
+    out = plain_fwd(*w, bf16)
+    state = (out,) if cell == "gru" else out
+    got = fwd(*w, bf16)
+    for part, a, b in zip(("hs", "cs"), (got,) if cell == "gru" else got, state):
+        torch.testing.assert_close(a, b, rtol=fwd_rtol, atol=fwd_atol, msg=f"{family} fwd {part}")
+    want = plain_bwd(*w, *state, ghs, bf16)
+    for i, (a, b) in enumerate(zip(bwd(*w, *state, ghs, bf16), want)):
+        _close(a, b, bwd_rtol, bwd_atol_rel, f"{family} bwd output {i}")
+    if kind == "xp":
+        rows = _xp_wgrad_rows(cell, w, state, want[-1])
     else:
-        out = getattr(mod, f"{cell}_x_plain_fwd")(*w, bf16)
-        state = (out,) if cell == "gru" else out
-        want = getattr(mod, f"{cell}_x_plain_bwd")(*w, *state, ghs, bf16)
-        if cell == "lstm":
-            got = lstm_rnn.lstm_x_bwd(*w, *state, ghs, bf16)
-            for part, a, b in zip(("dx", "dc0", "dh0", "gscratch"), got, want):
-                _close(a, b, bwd_rtol, bwd_atol_rel, part)
-        gs = want[-1]
-        carry0 = w[4]  # the GRU's carry0, the LSTM's h0
-        rows = (w[5], w[6], carry0, state[0], gs)
-        name = f"{cell}_x_wgrad"
-    plain_wgrad = getattr(mod, name.replace("_wgrad", "_plain_wgrad"))
-    for i, (a, b) in enumerate(zip(getattr(mod, name)(*rows, bf16), plain_wgrad(*rows, bf16))):
-        _close(a, b, bwd_rtol, bwd_atol_rel, f"{name} output {i}")
+        rows = (w[5], w[6], w[4], state[0], want[-1])  # w[4]: the GRU's carry0, the LSTM's h0
+    for i, (a, b) in enumerate(zip(wgrad(*rows, bf16), plain_wgrad(*rows, bf16))):
+        _close(a, b, bwd_rtol, bwd_atol_rel, f"{family} wgrad output {i}")
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
-    """Two calls give the same bits: ``lstm_x_bwd``'s outputs and every
-    weight-gradient reduction, at the main paths' shapes."""
+    """Two calls give the same bits: ``lstm_x_fwd``'s, ``lstm_x_bwd``'s and
+    ``gru_x_bwd``'s outputs and every weight-gradient reduction, at the main
+    paths' shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     calls = {}
     w, ghs = _lstm_inputs(2, 24, 1024, 15, 256, seed=21, device="cuda")
     hs, cs = lstm_rnn.lstm_x_plain_fwd(*w, bf16)
+    calls["lstm_x_fwd"] = lambda: lstm_rnn.lstm_x_fwd(*w, bf16)
     calls["lstm_x_bwd"] = lambda: lstm_rnn.lstm_x_bwd(*w, hs, cs, ghs, bf16)
     gs = lstm_rnn.lstm_x_plain_bwd(*w, hs, cs, ghs, bf16)[-1]
     calls["lstm_x_wgrad"] = lambda: lstm_rnn.lstm_x_wgrad(w[5], w[6], w[4], hs, gs, bf16)
     gw, gghs = _inputs(2, 24, 1024, 15, 256, seed=22, device="cuda")
     ghs_ = gru_rnn.gru_x_plain_fwd(*gw, bf16)
+    calls["gru_x_bwd"] = lambda: gru_rnn.gru_x_bwd(*gw, ghs_, gghs, bf16)
     ggs = gru_rnn.gru_x_plain_bwd(*gw, ghs_, gghs, bf16)[-1]
     calls["gru_x_wgrad"] = lambda: gru_rnn.gru_x_wgrad(gw[5], gw[6], gw[4], ghs_, ggs, bf16)
     for cell in ("gru", "lstm"):

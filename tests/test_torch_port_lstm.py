@@ -106,6 +106,35 @@ def test_values_and_grads_match_pallas(t):
         _assert_close(g, w, 2e-4, 2e-5, name)
 
 
+def test_wide_hidden_matches_pallas():
+    """H=384, above the 256 the port's kernels once took: the x-streaming
+    replay's values and gradients against the Pallas LSTM kernel, at the fp32
+    bars of test_values_and_grads_match_pallas."""
+    h, t = 384, 4
+    mem = JaxMemory(hidden_size=h, rnn_type="lstm")
+    cell = mem.init(jax.random.PRNGKey(30), mem.initialize_carry(B), jnp.zeros((B, D)))["params"]["cell_0"]
+    rng = np.random.default_rng(31)
+    xs = rng.normal(size=(t, B, D)).astype(np.float32)
+    resets = rng.random((t, B)) < 0.15
+    resets[0] = False
+    carry = (rng.normal(size=(B, h)).astype(np.float32), (0.5 * rng.normal(size=(B, h))).astype(np.float32))
+
+    def jax_loss(cell, carry, xs):
+        return _loss_jax(pallas_rnn.lstm_sequence(cell, carry, xs, jnp.asarray(resets)))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_rnn.lstm_sequence(cell, _jax_carry(carry), jnp.asarray(xs), jnp.asarray(resets))
+        gcell, gcarry, gxs = jax.grad(jax_loss, argnums=(0, 1, 2))(cell, _jax_carry(carry), jnp.asarray(xs))
+
+    p, tc = _torch_params(cell), _torch_carry(carry)
+    x = torch.tensor(xs, requires_grad=True)
+    got = lstm_rnn.lstm_sequence_x(p, tc, x, torch.tensor(resets))
+    _assert_close(got, want, 1e-5, 1e-5, "hs")
+    _loss_torch(got).backward()
+    for name, (g, w) in _grads(p, tc, x, gcell, gcarry, gxs).items():
+        _assert_close(g, w, 2e-4, 2e-5, name)
+
+
 def test_pair_matches_pallas_pair():
     """The stream-paired replay: values and gradients of both streams."""
     _, pa = _jax_cells(2)
