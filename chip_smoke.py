@@ -18,8 +18,9 @@ Phases, each fatal on failure:
    and 200, B=200 and 203, T=1 and 5, resets at t=0 and mid-window,
    per-stream resets for the xproj families, and H=384 and 512 for all four
    families), in both modes; two calls of each kernel redesigned for Hopper
-   (``lstm_x_fwd``, ``gru_x_bwd``, ``lstm_x_bwd`` and the four
-   weight-gradient reductions) must give the same bits.
+   (``gru_x_fwd``, ``lstm_x_fwd``, ``gru_x_bwd``, ``lstm_x_bwd``,
+   ``lstm_xp_bwd`` and the four weight-gradient reductions) must give the
+   same bits.
 4. The slices, each trained for 3 iterations with every kernel launch
    counter set to 0 just before and read just after: through
    ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
@@ -42,8 +43,9 @@ Phases, each fatal on failure:
    whole xproj replay (outside projection included) at G=1 beside cuDNN on
    the raw wide input. Also the phase split (gates / chain / dx, CUDA events
    between the phases of a dedicated timing call) of ``gru_x_bwd`` and
-   ``lstm_x_bwd`` at S=2 and S=1, and the grid ``lstm_x_fwd`` chose (the
-   clusters the card runs at once, the batch rows of a cluster).
+   ``lstm_x_bwd`` at S=2 and S=1 and of ``lstm_xp_bwd`` (gates / chain) at
+   G=16, and the grid the cluster forwards ``gru_x_fwd`` and ``lstm_x_fwd``
+   chose (the clusters the card runs at once, the batch rows of a cluster).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -167,8 +169,8 @@ PEAKS = {
 }
 #: the kernels redesigned for Hopper after their bring-up, held for
 #: bitwise-repeatable outputs in phase 3
-REDESIGNED = ("lstm_x_fwd", "gru_x_bwd", "lstm_x_bwd", "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad",
-              "lstm_xp_wgrad")
+REDESIGNED = ("gru_x_fwd", "lstm_x_fwd", "gru_x_bwd", "lstm_x_bwd", "lstm_xp_bwd", "gru_x_wgrad", "lstm_x_wgrad",
+              "gru_xp_wgrad", "lstm_xp_wgrad")
 #: (family, streams, T, B, H): H that the 128- and 64-wide tiles do not divide
 #: (at H=200, 25 hidden columns a CTA of lstm_x_fwd's clusters), a ragged batch
 #: (203 rows: no whole number of a cluster's rows), one-step windows, and the
@@ -815,11 +817,11 @@ def main() -> None:
         for S_, x_ in ((S, x), (1, x1)):
             for bf16 in (False, True):
                 print(f"phases {bwd} S={S_} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x_, bf16)}")
-        if family == "lstm":
-            for S_ in (S, 1):
-                for bf16 in (False, True):
-                    print(f"grid {fwd} S={S_} B={B} H={H} {'bf16' if bf16 else 'fp32'}:"
-                          f" {json.dumps(lstm_rnn.lstm_x_fwd_plan(S_, B, D, H, bf16))}")
+        fwd_plan = getattr(FAMILIES[family]["module"], f"{fwd}_plan")
+        for S_ in (S, 1):
+            for bf16 in (False, True):
+                print(f"grid {fwd} S={S_} B={B} H={H} {'bf16' if bf16 else 'fp32'}:"
+                      f" {json.dumps(fwd_plan(S_, B, D, H, bf16))}")
     for seed, family in ((11, "gru_xp"), (13, "lstm_xp")):
         x = make_inputs(family, G, T, B_seed, D, H, seed=seed)
         times, rows = mode_times(family, x)
@@ -829,6 +831,9 @@ def main() -> None:
         for name, (ops, nbytes) in work(family, G, T, B_seed, D, H).items():
             kernels.append(kernel_entry(name, family, launches, max_abs, passed, times, library[name],
                                         ops, nbytes, peaks))
+        if family == "lstm_xp":
+            for bf16 in (False, True):
+                print(f"phases {bwd} G={G} B={B_seed} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x, bf16)}")
         # G=1 at the wide-input shape: the kernels alone, the port's whole
         # replay (outside projection included) and cuDNN on the raw input
         x1 = make_inputs(family, 1, T, B, WIDE_D, H, seed=seed + 1)

@@ -85,6 +85,28 @@ class StackedTrainState:
 
 ACC_KEYS = ("ep_reward_sum", "ep_length_sum", "ep_ereward_sum", "ep_ireward_sum", "ep_count")
 
+#: rows (env-steps) a minibatch at most, the target of ``num_mini_batches="auto"``
+#: (the JAX package's ``ROWS_PER_MINIBATCH_TARGET``)
+ROWS_PER_MINIBATCH_TARGET = 24576
+
+
+def resolve_num_mini_batches(setting, num_steps: int, num_envs: int, recurrent: bool) -> int:
+    """``num_mini_batches`` for a window of ``num_steps x num_envs``: an integer
+    passes through; ``"auto"`` is the smallest power of two >= 4 that keeps
+    every minibatch at or under :data:`ROWS_PER_MINIBATCH_TARGET` rows, as far
+    as the count divides the envs (recurrent: minibatches slice the env axis)
+    or the rows (feedforward)."""
+    if setting != "auto":
+        return int(setting)
+
+    def divides(n: int) -> bool:
+        return (num_envs % n == 0) if recurrent else ((num_steps * num_envs) % n == 0)
+
+    nb = 4
+    while num_steps * num_envs // nb > ROWS_PER_MINIBATCH_TARGET and divides(nb * 2):
+        nb *= 2
+    return nb
+
 
 def init_episode_stats(num_envs: int, device) -> EpisodeStats:
     return EpisodeStats(*(torch.zeros(num_envs, device=device) for _ in range(4)))
@@ -175,7 +197,7 @@ class PPO:
         self,
         policy,
         num_learning_epochs: int = 5,
-        num_mini_batches: int = 4,
+        num_mini_batches: int | str = 4,  # or "auto", resolved at update time
         clip_param: float = 0.2,
         gamma: float = 0.99,
         lam: float = 0.95,
@@ -216,7 +238,7 @@ class PPO:
         self.policy = policy
         self.device = policy.device
         self.num_learning_epochs = num_learning_epochs
-        self.num_mini_batches = int(num_mini_batches)
+        self.num_mini_batches = num_mini_batches if num_mini_batches == "auto" else int(num_mini_batches)
         self.clip_param = clip_param
         self.gamma = gamma
         self.lam = lam
@@ -315,9 +337,10 @@ class PPO:
             )
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
         data = update_data(rollout, returns, advantages)
-        nb = N // self.num_mini_batches
+        num_mini_batches = resolve_num_mini_batches(self.num_mini_batches, rollout.num_steps, N, True)
+        nb = N // num_mini_batches
         outs: dict[str, list] = {}
-        for start in recurrent_minibatch_starts(N, self.num_mini_batches, self.num_learning_epochs):
+        for start in recurrent_minibatch_starts(N, num_mini_batches, self.num_learning_epochs):
             batch = slice_envs(data, start, nb)
             carry0 = slice_envs(rollout.carry0, start, nb, axis=0)
             loss, aux = self._loss(batch, carry0)
@@ -429,9 +452,10 @@ class PPO:
         data = update_data(rollout, returns, advantages)
         names = list(ts.params)
         step = vmap(partial(clip_adam, max_grad_norm=self.max_grad_norm))
-        nb = N // self.num_mini_batches
+        num_mini_batches = resolve_num_mini_batches(self.num_mini_batches, rollout.num_steps, N, True)
+        nb = N // num_mini_batches
         outs: dict[str, list] = {}
-        for start in recurrent_minibatch_starts(N, self.num_mini_batches, self.num_learning_epochs):
+        for start in recurrent_minibatch_starts(N, num_mini_batches, self.num_learning_epochs):
             batch = slice_envs(data, start, nb, axis=2)
             carry0 = slice_envs(rollout.carry0, start, nb, axis=1)
             loss, aux = vmap(self._seed_loss)(ts.params, ts.buffers, batch, carry0)

@@ -1,7 +1,8 @@
 // GRU window replay with done-masked resets, for Hopper (sm_90a).
 //
 // Replaces the Pallas x-streaming GRU kernels of rsl_rl_tpu/ops/pallas_rnn.py:
-//   gru_x_fwd    <- _fwd_kernel_x_pair (S=2) and _fwd_kernel_x (S=1)
+//   gru_x_fwd    <- _fwd_kernel_x_pair (S=2) and _fwd_kernel_x (S=1): the
+//                   cluster forward of rnn_fwd.cuh with the GRU cell
 //   gru_x_bwd    <- _bwd_kernel_x_pair / _bwd_kernel_x: the BPTT chain, in
 //                   the three phases of rnn_bwd.cuh with the GRU cell
 //   gru_x_wgrad  <- the weight-gradient accumulation of the same backward
@@ -16,8 +17,8 @@
 // With bf16 != 0 every matmul operand is rounded to bf16 (round to nearest
 // even) and the product accumulates in fp32, like the JAX package's _mm; the
 // state, gate math and bias sums stay fp32. Otherwise all math is IEEE fp32
-// on the CUDA cores; the backward's bf16-mode products run on the tensor
-// cores (mma.m16n8k16).
+// on the CUDA cores; bf16-mode products run on the tensor cores
+// (mma.m16n8k16).
 //
 // Each entry point launches its kernels on the given stream (gru_x_fwd one,
 // gru_x_bwd T+3, gru_x_wgrad one or two: the split-K products, then their
@@ -25,342 +26,189 @@
 // launches (0 on success).
 
 #include "rnn_bwd.cuh"
+#include "rnn_fwd.cuh"
 #include "rnn_wgrad.cuh"
 
 namespace {
 
-constexpr int kFwdRows = 16;  // batch rows per forward block (H <= 256)
-
-// The six gate projections of BB rows for hidden column j: a* = x_t Wx
-// (without bias), c* = h Wh (without bias). hT [H][BB] and xT [D][BB] hold
-// the operands in shared memory; the weights are read from global memory
-// (L2), one coalesced row of Wx / Wh per k across the block's threads.
-template <int BB, bool BF16>
-__device__ __forceinline__ void gate_projections(
-    const float* __restrict__ wx_s, const float* __restrict__ wh_s,
-    const float* hT, const float* xT, int D, int H, int j,
-    float (&ar)[BB], float (&az)[BB], float (&an)[BB],
-    float (&cr)[BB], float (&cz)[BB], float (&cn)[BB]) {
-  const int G3 = 3 * H;
-#pragma unroll
-  for (int b = 0; b < BB; ++b) {
-    ar[b] = az[b] = an[b] = 0.0f;
-    cr[b] = cz[b] = cn[b] = 0.0f;
-  }
-  for (int k = 0; k < D; ++k) {
-    const float* w = wx_s + (size_t)k * G3;
-    const float wr = op<BF16>(__ldg(w + j));
-    const float wz = op<BF16>(__ldg(w + H + j));
-    const float wn = op<BF16>(__ldg(w + 2 * H + j));
-    float v[BB];
-    load_rows<BB>(xT + k * BB, v);
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      ar[b] = fmaf(v[b], wr, ar[b]);
-      az[b] = fmaf(v[b], wz, az[b]);
-      an[b] = fmaf(v[b], wn, an[b]);
-    }
-  }
-#pragma unroll 2
-  for (int k = 0; k < H; ++k) {
-    const float* w = wh_s + (size_t)k * G3;
-    const float wr = op<BF16>(__ldg(w + j));
-    const float wz = op<BF16>(__ldg(w + H + j));
-    const float wn = op<BF16>(__ldg(w + 2 * H + j));
-    float v[BB];
-    load_rows<BB>(hT + k * BB, v);
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      cr[b] = fmaf(v[b], wr, cr[b]);
-      cz[b] = fmaf(v[b], wz, cz[b]);
-      cn[b] = fmaf(v[b], wn, cn[b]);
-    }
-  }
-}
-
-
-// Grid (ceil(B/BB), S), one thread per hidden column j (blockDim.x == H).
-// The block runs the whole window for its BB rows of stream s; thread j keeps
-// h[:, j] in registers and publishes the (rounded) operand tile in shared.
-template <int BB, bool BF16>
-__global__ void __launch_bounds__(256) gru_x_fwd_kernel(
-    const float* __restrict__ xs, const float* __restrict__ resets,
-    const float* __restrict__ carry0, const float* __restrict__ wx,
-    const float* __restrict__ bx, const float* __restrict__ wh,
-    const float* __restrict__ bhn, float* __restrict__ hs,
-    int T, int B, int D, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;           // [H][BB]
-  float* xT = smem + H * BB;  // [D][BB]
-  const int j = threadIdx.x;
-  const int s = blockIdx.y;
-  const int b0 = blockIdx.x * BB;
-  const int G3 = 3 * H;
-  const float* wx_s = wx + (size_t)s * D * G3;
-  const float* wh_s = wh + (size_t)s * H * G3;
-  const float bxr = bx[(size_t)s * G3 + j];
-  const float bxz = bx[(size_t)s * G3 + H + j];
-  const float bxn = bx[(size_t)s * G3 + 2 * H + j];
-  const float bn = bhn[(size_t)s * H + j];
-
-  float h[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) {
-    const int row = b0 + b;
-    h[b] = row < B ? carry0[((size_t)s * B + row) * H + j] : 0.0f;
-  }
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      const float keep = row < B ? 1.0f - resets[(size_t)t * B + row] : 0.0f;
-      h[b] *= keep;
-      hT[j * BB + b] = op<BF16>(h[b]);
-    }
-    load_x<BB, BF16>(xs + ((size_t)s * T + t) * B * D, xT, b0, B, D);
-    __syncthreads();
-
-    float ar[BB], az[BB], an[BB], cr[BB], cz[BB], cn[BB];
-    gate_projections<BB, BF16>(wx_s, wh_s, hT, xT, D, H, j, ar, az, an, cr, cz, cn);
-
-    float* hs_t = hs + ((size_t)s * T + t) * B * H;
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const float r = sigmoid(ar[b] + bxr + cr[b]);
-      const float z = sigmoid(az[b] + bxz + cz[b]);
-      const float u = cn[b] + bn;
-      const float n = tanhf(an[b] + bxn + r * u);
-      h[b] = (1.0f - z) * n + z * h[b];
-      if (b0 + b < B) hs_t[(size_t)(b0 + b) * H + j] = h[b];
-    }
-    __syncthreads();  // hT / xT are rewritten next step
-  }
-}
-
-// The six gate projections of BB rows for the thread's kWideCols hidden
-// columns j:
-// a* = x_t Wx (without bias), c* = h Wh (without bias). hT [H][BB] and xT
-// [D][BB] hold the operands in shared memory; the weights are read from
-// global memory (L2), one coalesced row of Wx / Wh per k across the block's
-// threads.
-template <int BB, bool BF16>
-__device__ __forceinline__ void gate_projections_wide(
-    const float* __restrict__ wx_s, const float* __restrict__ wh_s,
-    const float* hT, const float* xT, int D, int H, const int (&j)[kWideCols],
-    float (&ar)[kWideCols][BB], float (&az)[kWideCols][BB], float (&an)[kWideCols][BB],
-    float (&cr)[kWideCols][BB], float (&cz)[kWideCols][BB], float (&cn)[kWideCols][BB]) {
-  const int G3 = 3 * H;
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      ar[c][b] = az[c][b] = an[c][b] = 0.0f;
-      cr[c][b] = cz[c][b] = cn[c][b] = 0.0f;
-    }
-  for (int k = 0; k < D; ++k) {
-    const float* w = wx_s + (size_t)k * G3;
-    float wq[kWideCols][3];
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) wq[c][q] = op<BF16>(__ldg(w + q * H + j[c]));
-    float v[BB];
-    load_rows<BB>(xT + k * BB, v);
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        ar[c][b] = fmaf(v[b], wq[c][0], ar[c][b]);
-        az[c][b] = fmaf(v[b], wq[c][1], az[c][b]);
-        an[c][b] = fmaf(v[b], wq[c][2], an[c][b]);
-      }
-  }
-#pragma unroll 2
-  for (int k = 0; k < H; ++k) {
-    const float* w = wh_s + (size_t)k * G3;
-    float wq[kWideCols][3];
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) wq[c][q] = op<BF16>(__ldg(w + q * H + j[c]));
-    float v[BB];
-    load_rows<BB>(hT + k * BB, v);
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        cr[c][b] = fmaf(v[b], wq[c][0], cr[c][b]);
-        cz[c][b] = fmaf(v[b], wq[c][1], cz[c][b]);
-        cn[c][b] = fmaf(v[b], wq[c][2], cn[c][b]);
-      }
-  }
-}
-
-// H > 256: the kernel above with kWideCols hidden columns a thread (see
-// wide_columns) and half the rows a block.
-template <int BB, bool BF16>
-__global__ void __launch_bounds__(256) gru_x_fwd_wide_kernel(
-    const float* __restrict__ xs, const float* __restrict__ resets,
-    const float* __restrict__ carry0, const float* __restrict__ wx,
-    const float* __restrict__ bx, const float* __restrict__ wh,
-    const float* __restrict__ bhn, float* __restrict__ hs,
-    int T, int B, int D, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;           // [H][BB]
-  float* xT = smem + H * BB;  // [D][BB]
-  const int s = blockIdx.y;
-  const int b0 = blockIdx.x * BB;
-  const int G3 = 3 * H;
-  const float* wx_s = wx + (size_t)s * D * G3;
-  const float* wh_s = wh + (size_t)s * H * G3;
-  int j[kWideCols];
-  bool on[kWideCols];
-  wide_columns(H, j, on);
-  float bxr[kWideCols], bxz[kWideCols], bxn[kWideCols], bn[kWideCols];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c) {
-    bxr[c] = bx[(size_t)s * G3 + j[c]];
-    bxz[c] = bx[(size_t)s * G3 + H + j[c]];
-    bxn[c] = bx[(size_t)s * G3 + 2 * H + j[c]];
-    bn[c] = bhn[(size_t)s * H + j[c]];
-  }
-
-  float h[kWideCols][BB];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      h[c][b] = row < B ? carry0[((size_t)s * B + row) * H + j[c]] : 0.0f;
-    }
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      const float keep = row < B ? 1.0f - resets[(size_t)t * B + row] : 0.0f;
-#pragma unroll
-      for (int c = 0; c < kWideCols; ++c) {
-        h[c][b] *= keep;
-        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
-      }
-    }
-    load_x<BB, BF16>(xs + ((size_t)s * T + t) * B * D, xT, b0, B, D);
-    __syncthreads();
-
-    float ar[kWideCols][BB], az[kWideCols][BB], an[kWideCols][BB], cr[kWideCols][BB], cz[kWideCols][BB], cn[kWideCols][BB];
-    gate_projections_wide<BB, BF16>(wx_s, wh_s, hT, xT, D, H, j, ar, az, an, cr, cz, cn);
-
-    float* hs_t = hs + ((size_t)s * T + t) * B * H;
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        const float r = sigmoid(ar[c][b] + bxr[c] + cr[c][b]);
-        const float z = sigmoid(az[c][b] + bxz[c] + cz[c][b]);
-        const float u = cn[c][b] + bn[c];
-        const float n = tanhf(an[c][b] + bxn[c] + r * u);
-        h[c][b] = (1.0f - z) * n + z * h[c][b];
-        if (on[c] && b0 + b < B) hs_t[(size_t)(b0 + b) * H + j[c]] = h[c][b];
-      }
-    __syncthreads();  // hT / xT are rewritten next step
-  }
-}
-
-// ------------------------------------------------------------------ backward
+// ------------------------------------------------------------------ forward
 //
-// The GRU cell of rnn_bwd.cuh's three phases. Phase 1 writes r|z|a_n|u into
-// gs: r and z activated, a_n = x Wx_n + bx_n and u = h Wh_n + bhn as they
-// are; the chain's epilogue finishes n = tanh(a_n + r*u) at its cell and
-// writes dr|dz|dn|du over them. The carry is g*z.
-struct GruCell {
-  static constexpr int kGates = 3;  // gate blocks of Wx (dx takes dr|dz|dn)
+// The GRU cell of rnn_fwd.cuh's cluster forward. Each hidden column has
+// three product columns, r | z | n, over [Wh; Wx] as they are (no zero
+// block): a tile's 96 columns hold 32 hidden columns in blocks of 8, column
+// blk*24 + q*8 + c being quantity q of hidden column blk*8 + c, so that an
+// fp32 thread's three float2 loads of a weight row and a bf16 warp's three n8
+// tiles each take one quantity of the same hidden columns, and every thread
+// ends with all three of its cells. The n column must give u = h Wh_n + bhn
+// and a_n = x Wx_n + bx_n apart (n = tanh(a_n + r*u)): x starts at the
+// k-tile after h (H rounded up to 16), and at the first x k-tile the tile
+// stashes the n column's sum over h (u) and restarts it, so it ends with the
+// sum over x (a_n). Against interleaving four quantities with zero blocks
+// (u has no x rows, a_n no h rows), that saves the quarter of the h-product
+// that would multiply zeros. The epilogue re-reads the h it wrote a step
+// earlier: h' = (1 - z) * n + z * h * keep.
+struct GruFwdCell {
+  static constexpr int kTileCols = 3 * kFwdTileHidden;
+  static constexpr bool kOneTile = true;  // a cluster's rows in one 96- or 160-row tile where they fit
 
-  __device__ __forceinline__ static int chain_k(int H) { return 3 * H; }
-  // the chain's k-th column is gs column k of dr|dz, then du (dn is skipped)
-  __device__ __forceinline__ static int chain_col(int c, int H) { return c < 2 * H ? c : c + H; }
-  // four gs columns from a multiple of 4 lie in one gate block, 16-byte aligned
-  __device__ __forceinline__ static bool vec4(int H) { return (H & 3) == 0; }
-  // a tile of a_n columns needs only the x rows, one of u columns only the h rows
-  __device__ __forceinline__ static void k_range(int n0, int n_end, int H, int D, int& lo, int& hi) {
-    const int q0 = n0 / H, q1 = (n_end - 1) / H;
-    lo = q0 == 2 && q1 == 2 ? H : 0;
-    hi = q0 == 3 && q1 == 3 ? H : H + D;
-  }
-  // W[k][col] of phase 1: h rows [Wh_r | Wh_z | 0 | Wh_n], x rows [Wx_r | Wx_z | Wx_n | 0]
-  __device__ __forceinline__ static const float* gate_weight(const RnnBwdArgs& a, int s, int k, int col) {
-    const int H = a.H, G3 = 3 * H, q = col / H, jj = col - q * H;
-    if (k < H) return q == 2 ? nullptr : a.wh + ((size_t)s * H + k) * G3 + (q == 3 ? 2 * H : q * H) + jj;
-    return q == 3 ? nullptr : a.wx + ((size_t)s * a.D + k - H) * G3 + q * H + jj;
-  }
-  __device__ __forceinline__ static float gate_out(const RnnBwdArgs& a, int s, int col, float v) {
-    const int H = a.H, q = col / H;
-    if (q == 3) return v + a.bias2[(size_t)s * H + col - 3 * H];
-    v += a.bias[(size_t)s * 3 * H + col];
-    return q < 2 ? sigmoid(v) : v;
+  __host__ __device__ static int x_start(int H) { return (H + kGateK - 1) / kGateK * kGateK; }
+
+  // Operand row k (h rows, then x rows from x_start) at product column n of
+  // the CTA whose hidden columns start at j0, or nullptr where the value is
+  // zero (past the CTA's columns, between h and x, past the operand rows).
+  __device__ __forceinline__ static const float* weight(const RnnFwdArgs& a, int s, int j0, int hc, int k, int n) {
+    const int nt = n / kTileCols, nl = n - nt * kTileCols, blk = nl / 24;
+    const int jj = nt * kFwdTileHidden + blk * 8 + (nl & 7), q = (nl - blk * 24) >> 3;
+    const int H = a.H, x0 = x_start(H);
+    if (jj >= hc) return nullptr;
+    const int col = q * H + j0 + jj;
+    if (k < H) return a.wh + ((size_t)s * H + k) * 3 * H + col;
+    if (k < x0 || k >= x0 + a.D) return nullptr;
+    return a.wx + ((size_t)s * a.D + k - x0) * 3 * H + col;
   }
 
-  // The cell's gradient at step t, row b, hidden columns j..j+3: the load
-  // half (r|z|a_n|u from gs, the masked h entering step t, ghs) and the
-  // compute-and-store half (dr|dz|dn|du over them, and g*z into the carry).
-  struct State4 {
-    float r[4], z[4], an[4], u[4], h[4], gh[4];
+  // The bias a tile stages (128 floats): bx_r | bx_z | bhn | bx_n of its 32
+  // hidden columns.
+  __device__ __forceinline__ static float bias(const RnnFwdArgs& a, int s, int j0, int hc, int n) {
+    const int q = (n >> 5) & 3, jj = (n >> 7) * kFwdTileHidden + (n & 31), H = a.H;
+    if (jj >= hc) return 0.0f;
+    const int j = j0 + jj;
+    return q == 2 ? a.bias2[(size_t)s * H + j] : a.bias[(size_t)s * 3 * H + (q == 3 ? 2 : q) * H + j];
+  }
+
+  // fp32: thread (ty, tx) owns the rows gate_row_of(ty, i) and hidden columns
+  // cb + e (cb = (tx/4)*8 + (tx%4)*2, e = 0, 1): acc[i][2q + e] is quantity q,
+  // u[i][e] the stash. A cell c is (i, e) = (c/2, c%2).
+  template <int kTM>
+  struct TileF32 {
+    float acc[kTM / 16][6];
+    float u[kTM / 16][2];
+
+    __device__ __forceinline__ void at_x() {
+#pragma unroll
+      for (int i = 0; i < kTM / 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          u[i][e] = acc[i][4 + e];
+          acc[i][4 + e] = 0.0f;
+        }
+    }
+
+    template <class Bt>
+    __device__ __forceinline__ void step(const float* As, const Bt& bt) {
+      constexpr int kLdA = gate_lda<false>();
+      const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+      const int cb = (tx >> 2) * 24 + (tx & 3) * 2;
+#pragma unroll
+      for (int kk = 0; kk < kGateK; ++kk) {
+        float av[kTM / 16];
+#pragma unroll
+        for (int i = 0; i < kTM / 16; ++i) av[i] = As[gate_row_of<kTM>(ty, i) * kLdA + kk];
+        const float* br = bt.row(kk) + cb;
+        const float2 b0 = *reinterpret_cast<const float2*>(br);
+        const float2 b1 = *reinterpret_cast<const float2*>(br + 8);
+        const float2 b2 = *reinterpret_cast<const float2*>(br + 16);
+        const float bv[6] = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+#pragma unroll
+        for (int i = 0; i < kTM / 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 6; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+
+    __device__ __forceinline__ void cell(int c, int& row, int& jj) const {
+      const int tx = threadIdx.x & 15;
+      row = gate_row_of<kTM>(threadIdx.x >> 4, c >> 1);
+      jj = (tx >> 2) * 8 + (tx & 3) * 2 + (c & 1);
+    }
+    __device__ __forceinline__ float quantity(int c, int q) const { return acc[c >> 1][2 * q + (c & 1)]; }
+    __device__ __forceinline__ float stashed(int c) const { return u[c >> 1][c & 1]; }
   };
 
-  __device__ __forceinline__ static State4 load4(const RnnBwdArgs& a, int s, int t, int b, int j) {
-    const int H = a.H;
-    const int n = min(4, H - j);
-    const bool vec = n == 4 && (H & 3) == 0;
-    const size_t row = ((size_t)s * a.T + t) * a.B + b;
-    const float* g = a.gs + row * 4 * H + j;
-    State4 x;
-    load_cols4(g, vec, n, x.r);
-    load_cols4(g + H, vec, n, x.z);
-    load_cols4(g + 2 * H, vec, n, x.an);
-    load_cols4(g + 3 * H, vec, n, x.u);
-    load_cols4(t == 0 ? a.h0 + ((size_t)s * a.B + b) * H + j : a.hs + (row - a.B) * H + j, vec, n, x.h);
-    load_cols4(a.ghs + row * H + j, vec, n, x.gh);
-    const float keep = 1.0f - a.resets[(size_t)t * a.B + b];
+  // bf16: warp (wm, wn) owns rows wm*kTM/2.. (kTM/32 m16 tiles) and hidden
+  // columns wn*8..wn*8+7, its n8 tile q being quantity q of them (mma's C
+  // layout: lane (g, l) holds rows g, g+8 x hidden columns 2l, 2l+1):
+  // acc[i][q][v], u[i][v] the stash. A cell c is (i, v) = (c/4, c%4).
+  template <int kTM>
+  struct TileB16 {
+    float acc[kTM / 32][3][4];
+    float u[kTM / 32][4];
+
+    __device__ __forceinline__ void at_x() {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) x.h[e] *= keep;
-    return x;
-  }
-
-  __device__ __forceinline__ static void no_carry(State4&) {}
-
-  __device__ __forceinline__ static void store4(const RnnBwdArgs& a, int s, int t, int b, int j,
-                                                const State4& x, const float (&dh)[4]) {
-    const int H = a.H;
-    const size_t row = ((size_t)s * a.T + t) * a.B + b;
-    float* g = a.gs + row * 4 * H + j;
-    float* gz = a.carry + ((size_t)s * a.B + b) * H + j;
-    for (int e = 0; e < min(4, H - j); ++e) {
-      const float r = x.r[e], z = x.z[e], u = x.u[e];
-      const float n = tanhf(x.an[e] + r * u);
-      const float gg = x.gh[e] + dh[e];
-      const float dn = gg * (1.0f - z) * (1.0f - n * n);
-      g[e] = dn * u * r * (1.0f - r);
-      g[H + e] = gg * (x.h[e] - n) * z * (1.0f - z);
-      g[2 * H + e] = dn;
-      g[3 * H + e] = dn * r;
-      gz[e] = gg * z;
+      for (int i = 0; i < kTM / 32; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          u[i][v] = acc[i][2][v];
+          acc[i][2][v] = 0.0f;
+        }
     }
-  }
 
-  // dh_prev = (g*z + [dr|dz|du]_t Whᵀ) * keep_t
-  __device__ __forceinline__ static void dh_prev(const RnnBwdArgs& a, int s, int t, int b, int j,
-                                                 const float (&prod)[4], float (&dh)[4]) {
-    const int n = min(4, a.H - j);
-    float gz[4];
-    load_cols4(a.carry + ((size_t)s * a.B + b) * a.H + j, n == 4 && (a.H & 3) == 0, n, gz);
-    const float keep = 1.0f - a.resets[(size_t)t * a.B + b];
+    template <class Bt>
+    __device__ __forceinline__ void step(const float* As, const Bt& bt) {
+      constexpr int kLdA = gate_lda<true>();
+      const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, l = threadIdx.x & 3;
+      const int wm = warp >> 2, wn = warp & 3;
+      uint32_t b[3][2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dh[e] = (gz[e] + prod[e]) * keep;
-  }
+      for (int q = 0; q < 3; ++q) bt.frag(l, wn * 24 + 8 * q + g, b[q][0], b[q][1]);
+#pragma unroll
+      for (int i = 0; i < kTM / 32; ++i) {
+        const float* ar0 = As + (wm * (kTM / 2) + 16 * i + g) * kLdA + 2 * l;
+        const float2 x0 = *reinterpret_cast<const float2*>(ar0);
+        const float2 x1 = *reinterpret_cast<const float2*>(ar0 + 8 * kLdA);
+        const float2 x2 = *reinterpret_cast<const float2*>(ar0 + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(ar0 + 8 * kLdA + 8);
+        const uint32_t af[4] = {pack_bf16(x0.x, x0.y), pack_bf16(x1.x, x1.y), pack_bf16(x2.x, x2.y),
+                                pack_bf16(x3.x, x3.y)};
+#pragma unroll
+        for (int q = 0; q < 3; ++q) mma_bf16(acc[i][q], af, b[q][0], b[q][1]);
+      }
+    }
 
-  // t = 0: dcarry0, over the carry buffer
-  __device__ __forceinline__ static void finish(const RnnBwdArgs& a, int s, int b, int j, const float (&dh)[4]) {
-    for (int e = 0; e < min(4, a.H - j); ++e) a.carry[((size_t)s * a.B + b) * a.H + j + e] = dh[e];
-  }
+    __device__ __forceinline__ void cell(int c, int& row, int& jj) const {
+      const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, l = threadIdx.x & 3;
+      row = (warp >> 2) * (kTM / 2) + 16 * (c >> 2) + g + 8 * ((c & 3) >> 1);
+      jj = (warp & 3) * 8 + 2 * l + (c & 1);
+    }
+    __device__ __forceinline__ float quantity(int c, int q) const { return acc[c >> 2][q][c & 3]; }
+    __device__ __forceinline__ float stashed(int c) const { return u[c >> 2][c & 3]; }
+  };
+
+  template <int kTM, bool BF16>
+  struct Tile : std::conditional<BF16, TileB16<kTM>, TileF32<kTM>>::type {
+    // the cell update at the thread's cells, written to hs[t]: the carried h
+    // and keep are loaded here, not ahead of the product
+    __device__ __forceinline__ void epilogue(const RnnFwdArgs& a, const FwdCta& c, int t, int m0, int nt) const {
+      constexpr int kCells = kTM / 8;
+      const int H = a.H, B = a.B;
+      float h_prev[kCells];
+#pragma unroll
+      for (int e = 0; e < kCells; ++e) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row, j = c.j0 + nt * kFwdTileHidden + jj;
+        const bool on = b < c.rb1 && nt * kFwdTileHidden + jj < c.hc;
+        const float keep = on ? 1.0f - a.resets[(size_t)t * B + b] : 0.0f;
+        h_prev[e] = !on ? 0.0f
+                        : keep * (t == 0 ? a.h0[((size_t)c.s * B + b) * H + j]
+                                         : a.hs[(((size_t)c.s * a.T + t - 1) * B + b) * H + j]);
+      }
+      const float* bias = c.bias + nt * kGateCols;
+#pragma unroll
+      for (int e = 0; e < kCells; ++e) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row;
+        if (b >= c.rb1 || nt * kFwdTileHidden + jj >= c.hc) continue;
+        const float r = sigmoid(this->quantity(e, 0) + bias[jj]);
+        const float z = sigmoid(this->quantity(e, 1) + bias[32 + jj]);
+        const float u = this->stashed(e) + bias[64 + jj];
+        const float n = tanhf(this->quantity(e, 2) + bias[96 + jj] + r * u);
+        a.hs[(((size_t)c.s * a.T + t) * B + b) * H + c.j0 + nt * kFwdTileHidden + jj] = (1.0f - z) * n + z * h_prev[e];
+      }
+    }
+  };
 };
 
 }  // namespace
@@ -370,15 +218,17 @@ extern "C" int gru_x_fwd(const float* xs, const float* resets, const float* carr
                          float* hs, int S, int T, int B, int D, int H, int bf16, void* stream) {
   if (bad_dims(S, T, B, D, H)) return (int)cudaErrorInvalidValue;
   if (S == 0 || T == 0 || B == 0) return 0;
+  const RnnFwdArgs a{xs, resets, nullptr, carry0, wx, wh, bx, bhn, hs, nullptr, T, B, D, H, 0, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return (int)launch_columns(gru_x_fwd_kernel<kFwdRows, true>, gru_x_fwd_wide_kernel<kFwdRows / 2, true>,
-                               kFwdRows, S, B, H, H + D, st, xs, resets, carry0, wx, bx, wh, bhn, hs, T, B,
-                               D, H);
-  }
-  return (int)launch_columns(gru_x_fwd_kernel<kFwdRows, false>, gru_x_fwd_wide_kernel<kFwdRows / 2, false>,
-                             kFwdRows, S, B, H, H + D, st, xs, resets, carry0, wx, bx, wh, bhn, hs, T, B, D,
-                             H);
+  return (int)(bf16 ? rnn_x_fwd_launch<GruFwdCell, true>(a, S, st) : rnn_x_fwd_launch<GruFwdCell, false>(a, S, st));
+}
+
+// The forward's grid for these shapes on the current card: out[0] clusters
+// the card runs at once, out[1] batch rows a cluster owns, out[2] clusters
+// launched, out[3] 1 where the weight slices stay in shared memory, out[4]
+// the rows of the tiles past a cluster's full 128-row ones.
+extern "C" int gru_x_fwd_plan(int S, int B, int D, int H, int bf16, int* out) {
+  return rnn_x_fwd_plan<GruFwdCell>(S, B, D, H, bf16, out);
 }
 
 // phase_ms: nullptr, or three floats that receive the milliseconds of the
@@ -391,7 +241,7 @@ extern "C" int gru_x_bwd(const float* xs, const float* resets, const float* carr
   if (bad_dims(S, T, B, D, H)) return (int)cudaErrorInvalidValue;
   if (S == 0 || T == 0 || B == 0) return 0;
   const RnnBwdArgs a{xs, resets, nullptr, carry0, wx, wh, whT, bx, bhn, hs, nullptr, ghs, dx, dcarry0, nullptr,
-                     gs, T, B, D, H};
+                     gs, T, B, D, H, 0, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(bf16 ? rnn_bwd_launch<GruCell, true>(a, S, st, phase_ms)
                     : rnn_bwd_launch<GruCell, false>(a, S, st, phase_ms));

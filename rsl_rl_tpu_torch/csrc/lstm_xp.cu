@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas xproj-streaming LSTM kernels of rsl_rl_tpu/ops/pallas_rnn.py:
 //   lstm_xp_fwd    <- _lstm_fwd_kernel / _lstm_core_fwd_impl
-//   lstm_xp_bwd    <- _lstm_bwd_kernel / _lstm_core_bwd_impl: the BPTT chain
+//   lstm_xp_bwd    <- _lstm_bwd_kernel / _lstm_core_bwd_impl: the BPTT chain, in
+//                     the three phases of rnn_bwd.cuh with the LSTM xproj cell
 //   lstm_xp_wgrad  <- the dWh / dbh accumulation of the same backward (the
 //                     shared reduction of rnn_wgrad.cuh, with no x columns)
 // The input projection xproj = x Wx (flax OptimizedLSTMCell has no input
@@ -19,18 +20,19 @@
 // With bf16 != 0 the operands of h Wh and dgates Whᵀ are rounded to bf16
 // (round to nearest even) and the products accumulate in fp32, like the JAX
 // package's _mm; xproj, the cell and hidden state and the gate math stay
-// fp32. Otherwise all math is IEEE fp32 on the CUDA cores.
+// fp32. Otherwise all math is IEEE fp32 on the CUDA cores; lstm_xp_bwd's
+// bf16-mode products run on the tensor cores (mma.m16n8k16).
 //
-// Each entry point launches its kernel on the given stream (lstm_xp_wgrad
-// two), allocates nothing, and returns the cudaError_t of the launch (0 on
-// success).
+// Each entry point launches its kernels on the given stream (lstm_xp_fwd one,
+// lstm_xp_bwd T+2, lstm_xp_wgrad one or two), allocates nothing, and returns
+// the cudaError_t of the launches (0 on success).
 
+#include "rnn_bwd.cuh"
 #include "rnn_wgrad.cuh"
 
 namespace {
 
 constexpr int kFwdRows = 8;  // batch rows per forward block (H <= 256)
-constexpr int kBwdRows = 8;  // batch rows per backward block (H <= 256)
 
 // Grid (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H).
 // The block runs the whole window for its BB rows of stream s; thread j keeps
@@ -99,112 +101,6 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_kernel(
       }
     }
     __syncthreads();  // hT is rewritten next step
-  }
-}
-
-// Reverse-time BPTT. Same grid and thread mapping as the forward; thread j
-// carries dh[:, j] and dc[:, j] in registers. Each step recomputes the gates
-// from (c, h) = (t == 0 ? (c0, h0) : (cs, hs)[t-1]) * (1 - reset) and
-// xproj[t], takes the new cell state from cs[t], writes di|df|dg|do to gs,
-// and forms dh_prev = (dgates Whᵀ) * keep and dc_prev = gc * f * keep (whT is
-// Wh transposed so that thread j reads a coalesced row per c).
-// At most 128 registers a thread, so two blocks share an SM and the 256
-// blocks of the multi-seed shape (G=16, B=128) run in one wave. The
-// gate loads stay after the h Wh chain here: what bounds this kernel is
-// each SM's shared and L2 load throughput, not their latency.
-template <int BB, bool BF16>
-__global__ void __launch_bounds__(256, 2) lstm_xp_bwd_kernel(
-    const float* __restrict__ xproj, const float* __restrict__ resets,
-    const float* __restrict__ c0, const float* __restrict__ h0,
-    const float* __restrict__ wh, const float* __restrict__ whT,
-    const float* __restrict__ bh, const float* __restrict__ hs,
-    const float* __restrict__ cs, const float* __restrict__ ghs, float* __restrict__ dc0,
-    float* __restrict__ dh0, float* __restrict__ gs, int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;          // [H][BB]  h operand
-  float* dgT = hT + H * BB;  // [4H][BB] di | df | dg | do operands
-  const int j = threadIdx.x;
-  const int s = blockIdx.y;
-  const int b0 = blockIdx.x * BB;
-  const int G4 = 4 * H;
-  const float* wh_s = wh + (size_t)s * H * G4;
-  const float* whT_s = whT + (size_t)s * G4 * H;
-  float bias[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bias[q] = bh[(size_t)s * G4 + q * H + j];
-
-  float dh[BB], dc[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) dh[b] = dc[b] = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t st = (size_t)s * T + t;
-    float cp[BB], keep[BB];
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      float hp = 0.0f, cv = 0.0f;
-      keep[b] = 0.0f;
-      if (row < B) {
-        keep[b] = 1.0f - resets[st * B + row];
-        const size_t prev = t == 0 ? ((size_t)s * B + row) * H + j : ((st - 1) * B + row) * H + j;
-        hp = t == 0 ? h0[prev] : hs[prev];
-        cv = t == 0 ? c0[prev] : cs[prev];
-      }
-      cp[b] = cv * keep[b];
-      hT[j * BB + b] = op<BF16>(hp * keep[b]);
-    }
-    __syncthreads();
-
-    float a[4][BB];
-    gate_matvec<4, BB, BF16>(wh_s, hT, H, H, j, a);
-
-    const float* xp_t = xproj + st * B * G4;
-    const size_t cur = st * B * H;
-    float* gs_t = gs + st * B * G4;
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      float d_i = 0.0f, d_f = 0.0f, d_g = 0.0f, d_o = 0.0f;
-      if (row < B) {
-        const float* xp = xp_t + (size_t)row * G4;
-        const float i = sigmoid(xp[j] + a[0][b] + bias[0]);
-        const float f = sigmoid(xp[H + j] + a[1][b] + bias[1]);
-        const float g = tanhf(xp[2 * H + j] + a[2][b] + bias[2]);
-        const float o = sigmoid(xp[3 * H + j] + a[3][b] + bias[3]);
-        const float tc = tanhf(cs[cur + (size_t)row * H + j]);
-        const float gh = ghs[cur + (size_t)row * H + j] + dh[b];
-        const float gc = dc[b] + gh * o * (1.0f - tc * tc);
-        d_o = gh * tc * o * (1.0f - o);
-        d_f = gc * cp[b] * f * (1.0f - f);
-        d_i = gc * g * i * (1.0f - i);
-        d_g = gc * i * (1.0f - g * g);
-        dc[b] = gc * f * keep[b];
-        float* grow = gs_t + (size_t)row * G4;
-        grow[j] = d_i;
-        grow[H + j] = d_f;
-        grow[2 * H + j] = d_g;
-        grow[3 * H + j] = d_o;
-      }
-      dgT[j * BB + b] = op<BF16>(d_i);
-      dgT[(H + j) * BB + b] = op<BF16>(d_f);
-      dgT[(2 * H + j) * BB + b] = op<BF16>(d_g);
-      dgT[(3 * H + j) * BB + b] = op<BF16>(d_o);
-    }
-    __syncthreads();
-
-    // dh_prev[:, j] = (Σ_c dgates[:, c] Wh[j, c]) * keep
-    float acc[1][BB];
-    gate_matvec<1, BB, BF16>(whT_s, dgT, G4, H, j, acc);
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      dh[b] = acc[0][b] * keep[b];
-      if (t == 0 && b0 + b < B) {
-        dh0[((size_t)s * B + b0 + b) * H + j] = dh[b];
-        dc0[((size_t)s * B + b0 + b) * H + j] = dc[b];
-      }
-    }
-    __syncthreads();  // hT / dgT are rewritten next step
   }
 }
 
@@ -289,120 +185,6 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_wide_kernel(
   }
 }
 
-// H > 256: the backward above with kWideCols hidden columns a thread (see
-// wide_columns) and half the rows a block.
-template <int BB, bool BF16>
-__global__ void __launch_bounds__(256, 2) lstm_xp_bwd_wide_kernel(
-    const float* __restrict__ xproj, const float* __restrict__ resets,
-    const float* __restrict__ c0, const float* __restrict__ h0,
-    const float* __restrict__ wh, const float* __restrict__ whT,
-    const float* __restrict__ bh, const float* __restrict__ hs,
-    const float* __restrict__ cs, const float* __restrict__ ghs, float* __restrict__ dc0,
-    float* __restrict__ dh0, float* __restrict__ gs, int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;          // [H][BB]  h operand
-  float* dgT = hT + H * BB;  // [4H][BB] di | df | dg | do operands
-  const int s = blockIdx.y;
-  const int b0 = blockIdx.x * BB;
-  const int G4 = 4 * H;
-  const float* wh_s = wh + (size_t)s * H * G4;
-  const float* whT_s = whT + (size_t)s * G4 * H;
-  int j[kWideCols];
-  bool on[kWideCols];
-  wide_columns(H, j, on);
-  float bias[kWideCols][4];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) bias[c][q] = bh[(size_t)s * G4 + q * H + j[c]];
-
-  float dh[kWideCols][BB], dc[kWideCols][BB];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-    for (int b = 0; b < BB; ++b) dh[c][b] = dc[c][b] = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t st = (size_t)s * T + t;
-    float cp[kWideCols][BB], keep[BB];
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      keep[b] = row < B ? 1.0f - resets[st * B + row] : 0.0f;
-#pragma unroll
-      for (int c = 0; c < kWideCols; ++c) {
-        float hp = 0.0f, cv = 0.0f;
-        if (row < B) {
-          const size_t prev = t == 0 ? ((size_t)s * B + row) * H + j[c] : ((st - 1) * B + row) * H + j[c];
-          hp = t == 0 ? h0[prev] : hs[prev];
-          cv = t == 0 ? c0[prev] : cs[prev];
-        }
-        cp[c][b] = cv * keep[b];
-        if (on[c]) hT[j[c] * BB + b] = op<BF16>(hp * keep[b]);
-      }
-    }
-    __syncthreads();
-
-    float a[kWideCols][4][BB];
-    gate_matvec_wide<4, BB, BF16>(wh_s, hT, H, H, j, a);
-
-    const float* xp_t = xproj + st * B * G4;
-    const size_t cur = st * B * H;
-    float* gs_t = gs + st * B * G4;
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        const int row = b0 + b;
-        float d_i = 0.0f, d_f = 0.0f, d_g = 0.0f, d_o = 0.0f;
-        if (row < B) {
-          const float* xp = xp_t + (size_t)row * G4;
-          const float i = sigmoid(xp[j[c]] + a[c][0][b] + bias[c][0]);
-          const float f = sigmoid(xp[H + j[c]] + a[c][1][b] + bias[c][1]);
-          const float g = tanhf(xp[2 * H + j[c]] + a[c][2][b] + bias[c][2]);
-          const float o = sigmoid(xp[3 * H + j[c]] + a[c][3][b] + bias[c][3]);
-          const float tc = tanhf(cs[cur + (size_t)row * H + j[c]]);
-          const float gh = ghs[cur + (size_t)row * H + j[c]] + dh[c][b];
-          const float gc = dc[c][b] + gh * o * (1.0f - tc * tc);
-          d_o = gh * tc * o * (1.0f - o);
-          d_f = gc * cp[c][b] * f * (1.0f - f);
-          d_i = gc * g * i * (1.0f - i);
-          d_g = gc * i * (1.0f - g * g);
-          dc[c][b] = gc * f * keep[b];
-          if (on[c]) {
-            float* grow = gs_t + (size_t)row * G4;
-            grow[j[c]] = d_i;
-            grow[H + j[c]] = d_f;
-            grow[2 * H + j[c]] = d_g;
-            grow[3 * H + j[c]] = d_o;
-          }
-        }
-        if (on[c]) {
-          dgT[j[c] * BB + b] = op<BF16>(d_i);
-          dgT[(H + j[c]) * BB + b] = op<BF16>(d_f);
-          dgT[(2 * H + j[c]) * BB + b] = op<BF16>(d_g);
-          dgT[(3 * H + j[c]) * BB + b] = op<BF16>(d_o);
-        }
-      }
-    __syncthreads();
-
-    // dh_prev[:, j] = (Σ_c dgates[:, c] Wh[j, c]) * keep
-    float acc[kWideCols][1][BB];
-    gate_matvec_wide<1, BB, BF16>(whT_s, dgT, G4, H, j, acc);
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        dh[c][b] = acc[c][0][b] * keep[b];
-        if (t == 0 && on[c] && b0 + b < B) {
-          dh0[((size_t)s * B + b0 + b) * H + j[c]] = dh[c][b];
-          dc0[((size_t)s * B + b0 + b) * H + j[c]] = dc[c][b];
-        }
-      }
-    __syncthreads();  // hT / dgT are rewritten next step
-  }
-}
-
 }  // namespace
 
 extern "C" int lstm_xp_fwd(const float* xproj, const float* resets, const float* c0,
@@ -419,22 +201,23 @@ extern "C" int lstm_xp_fwd(const float* xproj, const float* resets, const float*
                              kFwdRows, G, B, H, H, st, xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
 }
 
+// The three phases of rnn_bwd.cuh over the G streams, each with its own reset
+// mask: the gates GEMM over the G*T*B rows adding xproj, then one chain launch
+// a step; gs is the gradient of xproj. phase_ms: nullptr, or three floats
+// that receive the milliseconds of the phases (gates, chain, and 0 for the dx
+// phase the xproj backward does not have; the call then waits for the stream).
 extern "C" int lstm_xp_bwd(const float* xproj, const float* resets, const float* c0,
                            const float* h0, const float* wh, const float* whT, const float* bh,
                            const float* hs, const float* cs, const float* ghs, float* dc0,
                            float* dh0, float* gs, int G, int T, int B, int H, int bf16,
-                           void* stream) {
+                           void* stream, float* phase_ms) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
+  const RnnBwdArgs a{nullptr, resets, c0, h0, nullptr, wh, whT, bh, nullptr, hs, cs, ghs, nullptr, dc0, dh0,
+                     gs, T, B, 0, H, T * B, xproj};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return (int)launch_columns(lstm_xp_bwd_kernel<kBwdRows, true>, lstm_xp_bwd_wide_kernel<kBwdRows / 2, true>,
-                               kBwdRows, G, B, H, 5 * H, st, xproj, resets, c0, h0, wh, whT, bh, hs, cs, ghs,
-                               dc0, dh0, gs, T, B, H);
-  }
-  return (int)launch_columns(lstm_xp_bwd_kernel<kBwdRows, false>, lstm_xp_bwd_wide_kernel<kBwdRows / 2, false>,
-                             kBwdRows, G, B, H, 5 * H, st, xproj, resets, c0, h0, wh, whT, bh, hs, cs, ghs,
-                             dc0, dh0, gs, T, B, H);
+  return (int)(bf16 ? rnn_bwd_launch<LstmXpCell, true>(a, G, st, phase_ms)
+                    : rnn_bwd_launch<LstmXpCell, false>(a, G, st, phase_ms));
 }
 
 // The weight-gradient reduction of rnn_wgrad.cuh with no x columns and one

@@ -1,5 +1,5 @@
-// The three-phase BPTT backward shared by the GRU and LSTM x-streaming
-// replays (sm_90a): gru_x_bwd (gru_x.cu) and lstm_x_bwd (lstm_x.cu).
+// The three-phase BPTT backward shared by the GRU and LSTM replays (sm_90a):
+// gru_x_bwd (gru_x.cu), lstm_x_bwd (lstm_x.cu) and lstm_xp_bwd (lstm_xp.cu).
 //
 // Reverse-time BPTT for the output gradient ghs, in three phases, each kernel
 // on the caller's stream:
@@ -27,10 +27,10 @@
 //    gate gradients @ Wxᵀ over the T*B rows, tall and skinny (N = D = 15):
 //    bound by reading gs once.
 //
-// The cell is the template policy (LstmCell in lstm_x.cu, GruCell in
-// gru_x.cu): the columns of phase 1's W and bias, its activations and the
-// zero blocks it skips, the chain's K and how its columns lie in gs, and the
-// epilogue's cell gradient with its carry.
+// The cell is the template policy (LstmCell, LstmXpCell and GruCell, at the
+// end of this header): the columns of phase 1's W and bias, what it adds
+// before the activation and the zero blocks it skips, the chain's K and how
+// its columns lie in gs, and the epilogue's cell gradient with its carry.
 // - LSTM: gs = i|f|g|o (activated), W = [Wh; Wx], K = 4H (di|df|dg|do),
 //   carry dc, dh_prev = (dgates Whᵀ) * keep; dx over all 4H columns.
 // - GRU: gs = r|z|a_n|u with r, z activated, a_n = x Wx_n + bx_n and u = h Wh_n
@@ -41,9 +41,12 @@
 //   3H is dr|dz|du (gs columns 0..2H-1 and 3H..4H-1; dn does not enter), the
 //   carry is g*z, dh_prev = (g*z + [dr|dz|du] Whᵀ) * keep; dx over dr|dz|dn.
 //
-// The xproj backwards (gru_xp_bwd, lstm_xp_bwd) have the same structure and
-// will take this header: phase 1 adds the stored projection instead of x Wx,
-// and they have no dx phase.
+// - xproj (LstmXpCell): G streams, each with its own reset mask (a stride of
+//   T*B between streams, 0 for the x kernels, whose streams share one). Phase
+//   1 is the GEMM over the G*T*B rows with K = H (no x rows), its
+//   accumulators starting at the stored projection row (and bias) in place
+//   of x Wx; there is no dx phase: the gate gradients in gs are the gradient
+//   of xproj.
 #pragma once
 
 #include "rnn_common.cuh"
@@ -81,6 +84,8 @@ struct RnnBwdArgs {
   float* dh0;    // LSTM: the gradient of h0
   float* gs;
   int T, B, D, H;
+  int reset_stride;     // floats between the streams' reset masks (0: one shared mask)
+  const float* xproj;   // xproj cells: the stored input projection
 };
 
 // Four floats of gs-like rows at p: a 16-byte load where vec, else the first
@@ -91,6 +96,49 @@ __device__ __forceinline__ void load_cols4(const float* p, bool vec, int n, floa
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e) v[e] = e < n ? p[e] : 0.0f;
+  }
+}
+
+// The xproj cells' phase 1 starts each accumulator at the cell's stored input
+// (Cell::input4: the projection row plus the bias, four adjacent columns),
+// loaded ahead of the k-loop so that the loads' latency hides behind it; in
+// the epilogue, after the product, each load would wait behind the stores
+// before it (the compiler may not move a load above a store that may alias).
+template <class Cell, bool BF16>
+__device__ __forceinline__ void gate_acc_input(const RnnBwdArgs& a, int s, int r0, int n0, int R, int N,
+                                               GateAcc<128, BF16>& acc) {
+  const int tid = threadIdx.x;
+  if constexpr (BF16) {
+    const int warp = tid >> 5, g = (tid & 31) >> 2, q = tid & 3;
+    const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + wm * 64 + 16 * i + g + 8 * h, col = n0 + wn * 32 + 8 * j + 2 * q;
+          if (row < R && col < N) {
+            const float2 v = Cell::input2(a, s, row, col);
+            acc[i][j][2 * h] = v.x;
+            acc[i][j][2 * h + 1] = v.y;
+          }
+        }
+  } else {
+    const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + tile8_index(ty, i), col = n0 + 64 * h + tx * 4;
+        if (row < R && col < N) {
+          const float4 v = Cell::input4(a, s, row, col);
+          acc[i][4 * h] = v.x;
+          acc[i][4 * h + 1] = v.y;
+          acc[i][4 * h + 2] = v.z;
+          acc[i][4 * h + 3] = v.w;
+        }
+      }
   }
 }
 
@@ -115,7 +163,8 @@ __global__ void __launch_bounds__(256, 2) rnn_gates_kernel(const RnnBwdArgs a) {
     const int row = r0 + (tid >> 2) + 64 * r;
     const int rr = row < R ? row : R - 1;
     const int t = rr / a.B;
-    rows.set(r, row < R, s, t, rr - t * a.B, a.h0, a.hs, a.xs, a.resets, a.T, a.B, D, H);
+    rows.set(r, row < R, s, t, rr - t * a.B, a.h0, a.hs, a.xs, a.resets + (size_t)s * a.reset_stride, a.T, a.B,
+             D, H);
   }
   // the k-tiles this tile needs (the GRU skips its zero blocks)
   int k_lo, k_hi;
@@ -153,6 +202,7 @@ __global__ void __launch_bounds__(256, 2) rnn_gates_kernel(const RnnBwdArgs a) {
     cp_async_commit();
   }
   GateAcc<kTM, BF16> acc = {};
+  if constexpr (Cell::kStoredInput) gate_acc_input<Cell, BF16>(a, s, r0, n0, R, N, acc);
   for (int i = 0; i < n_kt; ++i) {
     cp_async_wait<kGateStages - 2>();
     float* As = gate_smem + (i % kGateStages) * kStageFloats;
@@ -176,7 +226,7 @@ __global__ void __launch_bounds__(256, 2) rnn_gates_kernel(const RnnBwdArgs a) {
         for (int e = 0; e < 4; ++e) {
           const int row = r0 + wm * 64 + 16 * i + g + (e >= 2 ? 8 : 0);
           const int col = n0 + wn * 32 + 8 * j + 2 * q + (e & 1);
-          if (row < R && col < N) out[(size_t)row * N + col] = Cell::gate_out(a, s, col, acc[i][j][e]);
+          if (row < R && col < N) out[(size_t)row * N + col] = Cell::gate_out(a, s, row, col, acc[i][j][e]);
         }
   } else {
     const int ty = tid >> 4, tx = tid & 15;
@@ -187,7 +237,7 @@ __global__ void __launch_bounds__(256, 2) rnn_gates_kernel(const RnnBwdArgs a) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = n0 + tile8_index(tx, j);
-        if (col < N) out[(size_t)row * N + col] = Cell::gate_out(a, s, col, acc[i][j]);
+        if (col < N) out[(size_t)row * N + col] = Cell::gate_out(a, s, row, col, acc[i][j]);
       }
     }
   }
@@ -492,9 +542,225 @@ cudaError_t rnn_bwd_launch(const RnnBwdArgs& a, int S, cudaStream_t st, float* p
     cudaEventRecord(ev[3], st);
     if ((err = cudaEventSynchronize(ev[3])) != cudaSuccess) return err;
     for (int p = 0; p < 3; ++p) cudaEventElapsedTime(phase_ms + p, ev[p], ev[p + 1]);
+    if (a.D == 0) phase_ms[2] = 0.0f;  // no dx phase
     for (auto& e : ev) cudaEventDestroy(e);
   }
   return cudaSuccess;
 }
+
+// ---------------------------------------------------------------- the cells
+//
+// The LSTM cell of the three phases (lstm_x_bwd): gs holds i|f|g|o after phase
+// 1 and di|df|dg|do after the chain; the carry is dc.
+struct LstmCell {
+  static constexpr int kGates = 4;  // gate blocks of Wx (dx takes all 4H columns)
+  static constexpr bool kStoredInput = false;  // phase 1's accumulators start at zero
+
+  __device__ __forceinline__ static int chain_k(int H) { return 4 * H; }
+  __device__ __forceinline__ static int chain_col(int c, int) { return c; }
+  __device__ __forceinline__ static bool vec4(int) { return true; }
+  __device__ __forceinline__ static void k_range(int, int, int H, int D, int& lo, int& hi) {
+    lo = 0;
+    hi = H + D;
+  }
+  __device__ __forceinline__ static const float* gate_weight(const RnnBwdArgs& a, int s, int k, int col) {
+    const int H = a.H, N = 4 * H;
+    return k < H ? a.wh + ((size_t)s * H + k) * N + col : a.wx + ((size_t)s * a.D + k - H) * N + col;
+  }
+  __device__ __forceinline__ static float gate_out(const RnnBwdArgs& a, int s, int, int col, float v) {
+    v += a.bias[(size_t)s * 4 * a.H + col];
+    return col / a.H == 2 ? tanhf(v) : sigmoid(v);
+  }
+
+  // The cell's gradient at step t, row b, hidden columns j..j+3, from the
+  // activations i|f|g|o that gs holds there, cs, ghs, and the carried dh
+  // (entering from step t+1) and dc: store4 writes di|df|dg|do over the
+  // activations and the dc leaving step t. Split into a load half and a
+  // compute-and-store half, so that a thread can have the loads of several
+  // rows in flight before its first store (the compiler may not move a load
+  // above a store to the same arrays).
+  struct State4 {
+    float i[4], f[4], g[4], o[4], c[4], c_prev[4], gh[4], dc[4];
+    float keep;
+  };
+
+  __device__ __forceinline__ static State4 load4(const RnnBwdArgs& a, int s, int t, int b, int j) {
+    const int H = a.H;
+    const int n = min(4, H - j);
+    const bool vec = n == 4 && (H & 3) == 0;
+    const size_t row = ((size_t)s * a.T + t) * a.B + b;
+    const float* g = a.gs + row * 4 * H + j;
+    State4 x;
+    load_cols4(g, vec, n, x.i);
+    load_cols4(g + H, vec, n, x.f);
+    load_cols4(g + 2 * H, vec, n, x.g);
+    load_cols4(g + 3 * H, vec, n, x.o);
+    load_cols4(a.cs + row * H + j, vec, n, x.c);
+    load_cols4(t == 0 ? a.c0 + ((size_t)s * a.B + b) * H + j : a.cs + (row - a.B) * H + j, vec, n, x.c_prev);
+    load_cols4(a.ghs + row * H + j, vec, n, x.gh);
+    load_cols4(a.carry + ((size_t)s * a.B + b) * H + j, vec, n, x.dc);
+    x.keep = 1.0f - a.resets[(size_t)s * a.reset_stride + (size_t)t * a.B + b];
+    return x;
+  }
+
+  __device__ __forceinline__ static void no_carry(State4& x) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x.dc[k] = 0.0f;
+  }
+
+  __device__ __forceinline__ static void store4(const RnnBwdArgs& a, int s, int t, int b, int j,
+                                                const State4& x, const float (&dh)[4]) {
+    const int H = a.H;
+    const size_t row = ((size_t)s * a.T + t) * a.B + b;
+    float* g = a.gs + row * 4 * H + j;
+    float* dc = a.carry + ((size_t)s * a.B + b) * H + j;
+    for (int e = 0; e < min(4, H - j); ++e) {
+      const float i = x.i[e], f = x.f[e], gg = x.g[e], o = x.o[e];
+      const float tc = tanhf(x.c[e]);
+      const float gh = x.gh[e] + dh[e];
+      const float gc = x.dc[e] + gh * o * (1.0f - tc * tc);
+      g[e] = gc * gg * i * (1.0f - i);
+      g[H + e] = gc * x.c_prev[e] * x.keep * f * (1.0f - f);
+      g[2 * H + e] = gc * i * (1.0f - gg * gg);
+      g[3 * H + e] = gh * tc * o * (1.0f - o);
+      dc[e] = gc * f * x.keep;
+    }
+  }
+
+  // dh_prev = (dgates_t Whᵀ) * keep_t
+  __device__ __forceinline__ static void dh_prev(const RnnBwdArgs& a, int s, int t, int b, int,
+                                                 const float (&prod)[4], float (&dh)[4]) {
+    const float keep = 1.0f - a.resets[(size_t)s * a.reset_stride + (size_t)t * a.B + b];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh[e] = prod[e] * keep;
+  }
+
+  // t = 0: dh0 (dc0 is the carry buffer already)
+  __device__ __forceinline__ static void finish(const RnnBwdArgs& a, int s, int b, int j, const float (&dh)[4]) {
+    for (int e = 0; e < min(4, a.H - j); ++e) a.dh0[((size_t)s * a.B + b) * a.H + j + e] = dh[e];
+  }
+};
+
+// The LSTM cell of the xproj backward (lstm_xp_bwd): phase 1 takes the
+// stored projection xproj [G,T,B,4H] in place of x Wx (no x rows: D = 0),
+// starting each accumulator at its row of xproj plus bh (gate_acc_input), so
+// the epilogue applies the activation alone; the rest is LstmCell's. A GRU
+// cell takes the same phase 1 with its own input4 / input2 (its xproj holds
+// r|z|n with bx, so a_n takes xproj's n columns and u starts at bhn).
+struct LstmXpCell : LstmCell {
+  static constexpr bool kStoredInput = true;
+
+  __device__ __forceinline__ static float4 input4(const RnnBwdArgs& a, int s, int row, int col) {
+    const size_t N = 4 * a.H;
+    const float4 x = __ldg(reinterpret_cast<const float4*>(a.xproj + ((size_t)s * a.T * a.B + row) * N + col));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(a.bias + s * N + col));
+    return make_float4(x.x + b.x, x.y + b.y, x.z + b.z, x.w + b.w);
+  }
+  __device__ __forceinline__ static float2 input2(const RnnBwdArgs& a, int s, int row, int col) {
+    const size_t N = 4 * a.H;
+    const float2 x = __ldg(reinterpret_cast<const float2*>(a.xproj + ((size_t)s * a.T * a.B + row) * N + col));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(a.bias + s * N + col));
+    return make_float2(x.x + b.x, x.y + b.y);
+  }
+  __device__ __forceinline__ static float gate_out(const RnnBwdArgs& a, int, int, int col, float v) {
+    return col / a.H == 2 ? tanhf(v) : sigmoid(v);
+  }
+};
+
+// The GRU cell of the three phases (gru_x_bwd). Phase 1 writes r|z|a_n|u into
+// gs: r and z activated, a_n = x Wx_n + bx_n and u = h Wh_n + bhn as they
+// are; the chain's epilogue finishes n = tanh(a_n + r*u) at its cell and
+// writes dr|dz|dn|du over them. The carry is g*z.
+struct GruCell {
+  static constexpr int kGates = 3;  // gate blocks of Wx (dx takes dr|dz|dn)
+  static constexpr bool kStoredInput = false;  // phase 1's accumulators start at zero
+
+  __device__ __forceinline__ static int chain_k(int H) { return 3 * H; }
+  // the chain's k-th column is gs column k of dr|dz, then du (dn is skipped)
+  __device__ __forceinline__ static int chain_col(int c, int H) { return c < 2 * H ? c : c + H; }
+  // four gs columns from a multiple of 4 lie in one gate block, 16-byte aligned
+  __device__ __forceinline__ static bool vec4(int H) { return (H & 3) == 0; }
+  // a tile of a_n columns needs only the x rows, one of u columns only the h rows
+  __device__ __forceinline__ static void k_range(int n0, int n_end, int H, int D, int& lo, int& hi) {
+    const int q0 = n0 / H, q1 = (n_end - 1) / H;
+    lo = q0 == 2 && q1 == 2 ? H : 0;
+    hi = q0 == 3 && q1 == 3 ? H : H + D;
+  }
+  // W[k][col] of phase 1: h rows [Wh_r | Wh_z | 0 | Wh_n], x rows [Wx_r | Wx_z | Wx_n | 0]
+  __device__ __forceinline__ static const float* gate_weight(const RnnBwdArgs& a, int s, int k, int col) {
+    const int H = a.H, G3 = 3 * H, q = col / H, jj = col - q * H;
+    if (k < H) return q == 2 ? nullptr : a.wh + ((size_t)s * H + k) * G3 + (q == 3 ? 2 * H : q * H) + jj;
+    return q == 3 ? nullptr : a.wx + ((size_t)s * a.D + k - H) * G3 + q * H + jj;
+  }
+  __device__ __forceinline__ static float gate_out(const RnnBwdArgs& a, int s, int, int col, float v) {
+    const int H = a.H, q = col / H;
+    if (q == 3) return v + a.bias2[(size_t)s * H + col - 3 * H];
+    v += a.bias[(size_t)s * 3 * H + col];
+    return q < 2 ? sigmoid(v) : v;
+  }
+
+  // The cell's gradient at step t, row b, hidden columns j..j+3: the load
+  // half (r|z|a_n|u from gs, the masked h entering step t, ghs) and the
+  // compute-and-store half (dr|dz|dn|du over them, and g*z into the carry).
+  struct State4 {
+    float r[4], z[4], an[4], u[4], h[4], gh[4];
+  };
+
+  __device__ __forceinline__ static State4 load4(const RnnBwdArgs& a, int s, int t, int b, int j) {
+    const int H = a.H;
+    const int n = min(4, H - j);
+    const bool vec = n == 4 && (H & 3) == 0;
+    const size_t row = ((size_t)s * a.T + t) * a.B + b;
+    const float* g = a.gs + row * 4 * H + j;
+    State4 x;
+    load_cols4(g, vec, n, x.r);
+    load_cols4(g + H, vec, n, x.z);
+    load_cols4(g + 2 * H, vec, n, x.an);
+    load_cols4(g + 3 * H, vec, n, x.u);
+    load_cols4(t == 0 ? a.h0 + ((size_t)s * a.B + b) * H + j : a.hs + (row - a.B) * H + j, vec, n, x.h);
+    load_cols4(a.ghs + row * H + j, vec, n, x.gh);
+    const float keep = 1.0f - a.resets[(size_t)s * a.reset_stride + (size_t)t * a.B + b];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x.h[e] *= keep;
+    return x;
+  }
+
+  __device__ __forceinline__ static void no_carry(State4&) {}
+
+  __device__ __forceinline__ static void store4(const RnnBwdArgs& a, int s, int t, int b, int j,
+                                                const State4& x, const float (&dh)[4]) {
+    const int H = a.H;
+    const size_t row = ((size_t)s * a.T + t) * a.B + b;
+    float* g = a.gs + row * 4 * H + j;
+    float* gz = a.carry + ((size_t)s * a.B + b) * H + j;
+    for (int e = 0; e < min(4, H - j); ++e) {
+      const float r = x.r[e], z = x.z[e], u = x.u[e];
+      const float n = tanhf(x.an[e] + r * u);
+      const float gg = x.gh[e] + dh[e];
+      const float dn = gg * (1.0f - z) * (1.0f - n * n);
+      g[e] = dn * u * r * (1.0f - r);
+      g[H + e] = gg * (x.h[e] - n) * z * (1.0f - z);
+      g[2 * H + e] = dn;
+      g[3 * H + e] = dn * r;
+      gz[e] = gg * z;
+    }
+  }
+
+  // dh_prev = (g*z + [dr|dz|du]_t Whᵀ) * keep_t
+  __device__ __forceinline__ static void dh_prev(const RnnBwdArgs& a, int s, int t, int b, int j,
+                                                 const float (&prod)[4], float (&dh)[4]) {
+    const int n = min(4, a.H - j);
+    float gz[4];
+    load_cols4(a.carry + ((size_t)s * a.B + b) * a.H + j, n == 4 && (a.H & 3) == 0, n, gz);
+    const float keep = 1.0f - a.resets[(size_t)s * a.reset_stride + (size_t)t * a.B + b];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh[e] = (gz[e] + prod[e]) * keep;
+  }
+
+  // t = 0: dcarry0, over the carry buffer
+  __device__ __forceinline__ static void finish(const RnnBwdArgs& a, int s, int b, int j, const float (&dh)[4]) {
+    for (int e = 0; e < min(4, a.H - j); ++e) a.carry[((size_t)s * a.B + b) * a.H + j + e] = dh[e];
+  }
+};
 
 }  // namespace

@@ -1,6 +1,6 @@
 // Device helpers shared by the recurrent replay kernels (gru_x.cu, lstm_x.cu,
 // gru_xp.cu, lstm_xp.cu): operand rounding, cp.async and mma steps, the gate
-// tile of the backwards' phase 1 and of lstm_x_fwd, the launch of the
+// tile of the backwards' phase 1 and of the cluster forward, the launch of the
 // kernels that keep one thread per hidden column, and the shape checks.
 #pragma once
 
@@ -35,16 +35,6 @@ __device__ __forceinline__ void load_rows(const float* p, float (&v)[BB]) {
     v[4 * q + 1] = f.y;
     v[4 * q + 2] = f.z;
     v[4 * q + 3] = f.w;
-  }
-}
-
-// x_t of the block's BB rows into xT [D][BB] (operand-rounded, zero past B).
-template <int BB, bool BF16>
-__device__ __forceinline__ void load_x(const float* __restrict__ x_t, float* xT,
-                                       int b0, int B, int D) {
-  for (int e = threadIdx.x; e < D * BB; e += blockDim.x) {
-    const int d = e / BB, b = e % BB, row = b0 + b;
-    xT[e] = row < B ? op<BF16>(x_t[(size_t)row * D + d]) : 0.0f;
   }
 }
 
@@ -252,11 +242,14 @@ struct GateB16 {
 };
 
 // The [h | x] rows a thread copies into the ring: rows ar + 64*r of the tile
-// (ar = tid / 4), operand columns (tid % 4)*4.. of each k-tile. A 32-row
-// tile's copies fill 64 rows of a stage, the last 32 with zeros.
+// (ar = tid / 4), operand columns (tid % 4)*4.. of each k-tile. The copies
+// fill whole groups of 64 rows of a stage: a 32-row tile's 64 (the last 32
+// zeros), a 96-row tile's 128 and a 160-row tile's 192 (kPartial: the rows
+// past the tile are none).
 template <int kTM>
 struct GateRows {
-  static constexpr int kN = kTM >= 64 ? kTM / 64 : 1;
+  static constexpr int kN = kTM >= 64 ? (kTM + 63) / 64 : 1;
+  static constexpr bool kPartial = kTM > 64 && kTM % 64 != 0;
   const float* hrow[kN];
   const float* xrow[kN];
   float keep[kN];
@@ -271,11 +264,12 @@ struct GateRows {
   }
 };
 
-// The copies of k-tile kt into As (zero past the operand columns and the
-// rows; dummy is any valid address, never read).
+// The copies of k-tile kt into As: operand columns [0, H) from the h row and
+// [x0, x1) from the x row (x0 >= H), zero between and past them and past the
+// rows (dummy is any valid address, never read).
 template <int kTM, bool BF16>
-__device__ __forceinline__ void gate_issue_a(const GateRows<kTM>& rows, float* As, int kt, int H, int K,
-                                             const float* dummy) {
+__device__ __forceinline__ void gate_issue_a(const GateRows<kTM>& rows, float* As, int kt, int H, int x0,
+                                             int x1, const float* dummy) {
   constexpr int kLdA = gate_lda<BF16>();
   const int ar = threadIdx.x >> 2, ak = (threadIdx.x & 3) * 4;
   const int k = kt * kGateK + ak;
@@ -289,11 +283,18 @@ __device__ __forceinline__ void gate_issue_a(const GateRows<kTM>& rows, float* A
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kc = k + i;
-        const bool is_h = rows.valid[r] && kc < H, is_x = rows.valid[r] && kc >= H && kc < K;
-        cp_async4(dst + i, is_h ? rows.hrow[r] + kc : is_x ? rows.xrow[r] + (kc - H) : dummy, is_h || is_x);
+        const bool is_h = rows.valid[r] && kc < H, is_x = rows.valid[r] && kc >= x0 && kc < x1;
+        cp_async4(dst + i, is_h ? rows.hrow[r] + kc : is_x ? rows.xrow[r] + (kc - x0) : dummy, is_h || is_x);
       }
     }
   }
+}
+
+// The operand columns [h | x] with x right after h: K = H + D.
+template <int kTM, bool BF16>
+__device__ __forceinline__ void gate_issue_a(const GateRows<kTM>& rows, float* As, int kt, int H, int K,
+                                             const float* dummy) {
+  gate_issue_a<kTM, BF16>(rows, As, kt, H, H, K, dummy);
 }
 
 // The h this thread copied into k-tile kt, times its row's keep (after the

@@ -8,7 +8,11 @@
   version on the CPU), with the carry zeroed where ``resets[t]`` is set. A
   layer whose input is wider than ``X_STREAM_MAX_D`` takes the xproj replay,
   as do all replays under ``torch.func.vmap`` (the seed axis of multi-seed
-  training; the x-streaming replays' vmap rules route there).
+  training; the x-streaming replays' vmap rules route there). A memory wider
+  than ``KERNEL_MAX_HIDDEN`` replays one :meth:`Memory.step` at a time
+  (:func:`memory_sequence_with_carry`, plain PyTorch on every device), as the
+  JAX package's replay takes its scan where the kernels' shape gate says no;
+  the route is chosen by shape before any launch.
 
 Each layer ``cell_{i}`` holds the packed weights of the JAX package's
 ``_gru_pack`` (``wx [D,3H]``, ``bx [3H]``, ``wh [H,3H]``, ``bhn [H]``, gates
@@ -26,7 +30,7 @@ from torch import nn
 
 from rsl_rl_tpu_torch.ops.gru_rnn import gru_sequence, gru_sequence_pair, gru_step
 from rsl_rl_tpu_torch.ops.lstm_rnn import lstm_sequence_pair, lstm_sequence_with_carry, lstm_step
-from rsl_rl_tpu_torch.ops.rnn_common import X_STREAM_MAX_D
+from rsl_rl_tpu_torch.ops.rnn_common import KERNEL_MAX_HIDDEN, X_STREAM_MAX_D
 
 _CELL_SHAPES = {
     "gru": lambda d, h: {"wx": (d, 3 * h), "bx": (3 * h,), "wh": (h, 3 * h), "bhn": (h,)},
@@ -110,6 +114,9 @@ class Memory(nn.Module):
         The returned carry is value-only (detached): it serves truncated-BPTT
         replay, which cuts the gradient at segment boundaries.
         """
+        if self.hidden_size > KERNEL_MAX_HIDDEN:
+            out, final = memory_sequence_with_carry(self, carry0, xs, resets)
+            return out, _detach(final)
         out = xs
         finals = []
         for layer in range(self.num_layers):
@@ -129,9 +136,9 @@ def paired_sequence(mem_a: Memory, carry0_a, xs_a: torch.Tensor,
     """Replay two memories over the same window and resets (the actor and
     critic of a recurrent PPO minibatch), each layer's two replays in one
     stream-paired launch when the memories are twins, the inputs have one
-    shape and every layer's input is at most ``X_STREAM_MAX_D`` wide (the
-    JAX package's pair gate); otherwise two :meth:`Memory.sequence` calls.
-    Same result either way."""
+    shape, every layer's input is at most ``X_STREAM_MAX_D`` wide and the
+    hidden size at most ``KERNEL_MAX_HIDDEN`` (the JAX package's pair gate);
+    otherwise two :meth:`Memory.sequence` calls. Same result either way."""
     twins = (
         mem_a.rnn_type == mem_b.rnn_type
         and mem_a.hidden_size == mem_b.hidden_size
@@ -141,7 +148,7 @@ def paired_sequence(mem_a: Memory, carry0_a, xs_a: torch.Tensor,
     )
     # layer 0 takes D, deeper layers H: every layer must pass the gate
     widths = {xs_a.shape[-1]} | ({mem_a.hidden_size} if mem_a.num_layers > 1 else set())
-    if not (twins and max(widths) <= X_STREAM_MAX_D):
+    if not (twins and max(widths) <= X_STREAM_MAX_D and mem_a.hidden_size <= KERNEL_MAX_HIDDEN):
         return mem_a.sequence(carry0_a, xs_a, resets), mem_b.sequence(carry0_b, xs_b, resets)
     pair_fn = gru_sequence_pair if mem_a.rnn_type == "gru" else lstm_sequence_pair
     out_a, out_b = xs_a, xs_b
@@ -164,13 +171,27 @@ def mask_carry(carry, reset_mask: torch.Tensor):
     return tuple(mask_carry(c, reset_mask) for c in carry)
 
 
-def memory_sequence(mem: Memory, carry0, xs: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
+def _detach(carry):
+    if isinstance(carry, torch.Tensor):
+        return carry.detach()
+    return tuple(_detach(c) for c in carry)
+
+
+def memory_sequence_with_carry(mem: Memory, carry0, xs: torch.Tensor, resets: torch.Tensor):
     """Replay a window one :meth:`Memory.step` at a time (the acting math),
-    zeroing the carry where ``resets[t]`` is set: the reference that the fused
-    replay must reproduce."""
+    zeroing the carry where ``resets[t]`` is set: ``(outs [T,B,H], the carry
+    after the last step)``. The replay of memories wider than the kernels
+    take (the JAX package's ``memory_sequence_with_carry``), and the reference
+    that the kernel replay must reproduce. Plain PyTorch, so it also runs
+    under ``torch.func.vmap``."""
     carry = carry0
     outs = []
     for t in range(xs.shape[0]):
         carry, out = mem.step(mask_carry(carry, resets[t]), xs[t])
         outs.append(out)
-    return torch.stack(outs)
+    return torch.stack(outs), carry
+
+
+def memory_sequence(mem: Memory, carry0, xs: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
+    """:func:`memory_sequence_with_carry`'s outputs alone."""
+    return memory_sequence_with_carry(mem, carry0, xs, resets)[0]

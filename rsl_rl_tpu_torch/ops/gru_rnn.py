@@ -43,10 +43,19 @@ and ``dgates @ Whᵀ`` are ``T`` dependent steps of ``[B,H] x [H,3H]`` in IEEE
 fp32 on the CUDA cores (no TF32), so the floor is operations at the fp32
 non-tensor peak. The TPU kernels keep ``Wh`` resident in VMEM; in fp32 it is
 ``H*3H*4`` bytes (768 KiB at H=256), more than the 227 KB of shared memory a
-block can have. The forwards give each block a tile of ``BB`` batch rows of
-one stream, keep its hidden tile in shared memory and its own hidden column
-in registers (above H=256 two columns a thread, half the rows a block), and
-re-read ``Wh`` from L2 (50 MB, where all blocks share one copy) at every step.
+block can have. ``gru_x_fwd`` runs the cluster forward of
+``csrc/rnn_fwd.cuh``, which it shares with ``lstm_x_fwd``: a cluster of 8
+CTAs owns a tile of batch rows for the whole window, each CTA the product
+columns ``r | z | n`` of its H/8 hidden columns, whose slice of ``[Wh; Wx]``
+stays in its shared memory (bf16 mode: rounded once when staged; streamed
+from L2 at every step where it does not fit), and ``h`` goes between the CTAs
+through ``hs`` with a cluster barrier a step. The ``n`` column's sums over
+``h`` (``u``) and over ``x`` (``a_n``) are kept apart by stashing the first
+when the ``x`` rows begin, so no product multiplies a zero block. The xproj
+forward gives each block a tile of ``BB`` batch rows of one stream, keeps its
+hidden tile in shared memory and its own hidden column in registers (above
+H=256 two columns a thread, half the rows a block), and re-reads ``Wh`` from
+L2 (50 MB, where all blocks share one copy) at every step.
 ``gru_x_bwd`` takes out of the serial chain what does not depend on the
 carried gradients, in the three phases of ``csrc/rnn_bwd.cuh``: the gate
 quantities ``r | z | a_n | u`` of all steps in one tiled GEMM over the
@@ -222,6 +231,7 @@ _SIGNATURES = {
     "gru_x": {
         "gru_x_fwd": [_P] * 8 + [_I] * 6 + [_P],
         "gru_x_bwd": [_P] * 13 + [_I] * 6 + [_P] * 2,
+        "gru_x_fwd_plan": [_I] * 5 + [_P],
         "gru_x_wgrad": [_P] * 7 + [_I] * 7 + [_P],
     },
     "gru_xp": {
@@ -262,6 +272,19 @@ def gru_x_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16: bool = False) -> torch.
     raise_on("gru_x_fwd", _lib().gru_x_fwd(*ptrs, hs.data_ptr(), S, T, B, D, H, int(bf16), stream()))
     launch_counts.fwd_launches += 1
     return hs
+
+
+def gru_x_fwd_plan(S: int, B: int, D: int, H: int, bf16: bool = False) -> dict:
+    """The grid :func:`gru_x_fwd` chooses on the current card for these
+    shapes: the clusters the card runs at once, the batch rows of a cluster,
+    the clusters launched, whether the weight slices stay in shared memory,
+    and the rows of the tiles that take a cluster's rows past its full
+    128-row tiles (96 or 160: one tile takes them all)."""
+    check_hidden("GRU", H)
+    out = (ctypes.c_int * 5)()
+    raise_on("gru_x_fwd_plan", _lib().gru_x_fwd_plan(S, B, D, H, int(bf16), ctypes.addressof(out)))
+    return {"active_clusters": out[0], "rows_per_cluster": out[1], "clusters": out[2], "resident": bool(out[3]),
+            "tail_rows": out[4]}
 
 
 def _gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16, phase_ms):

@@ -45,19 +45,22 @@ H/8 hidden columns of ``[Wh; Wx]`` in shared memory for the whole window
 (bf16 mode: rounded once when staged), computes its rows' gates at each step
 as one tiled product (tensor cores in bf16 mode), keeps ``c`` to itself and
 exchanges ``h`` through ``hs`` with a cluster barrier between steps; the grid
-takes as many clusters as the card runs at once (the design note is in
-``csrc/lstm_x.cu``). Where the slice does not fit (H > 256) the same kernel
-streams it from L2 at every step. The xproj kernels keep one block
-per ``BB`` batch rows of one stream, its hidden tile in shared memory and
-its own ``c`` and ``h`` columns in registers (above H=256 two columns a
-thread), re-reading ``Wh`` from L2 at every step. ``lstm_x_bwd`` takes out
-of the serial chain what does not depend on the carried gradients, in the
-three phases of ``csrc/rnn_bwd.cuh``: the gates of all steps in one tiled
-GEMM over the ``T*B`` rows, then per step one launch of ``dgates @ Whᵀ``
-tiled over the whole card (each ``Whᵀ`` element read from L2 serves 64 rows)
-with the cell's elementwise gradient in its epilogue, then ``dx`` for all
-steps at once. In bf16 mode its products and the reduction's run on the
-tensor cores.
+takes as many clusters as the card runs at once (the cluster forward of
+``csrc/rnn_fwd.cuh``, shared with ``gru_x_fwd``). Where the slice does not
+fit (H > 256) the same kernel streams it from L2 at every step. The xproj
+forward keeps one block per ``BB`` batch rows of one stream, its hidden tile
+in shared memory and its own ``c`` and ``h`` columns in registers (above
+H=256 two columns a thread), re-reading ``Wh`` from L2 at every step.
+``lstm_x_bwd`` and ``lstm_xp_bwd`` take out of the serial chain what does
+not depend on the carried gradients, in the three phases of
+``csrc/rnn_bwd.cuh``: the gates of all steps in one tiled GEMM over the
+``T*B`` rows (``lstm_xp_bwd``: over all ``G*T*B`` rows, adding the stored
+``xproj`` row where ``lstm_x_bwd`` multiplies ``x Wx``), then per step one
+launch of ``dgates @ Whᵀ`` tiled over the whole card (each ``Whᵀ`` element
+read from L2 serves 64 rows) with the cell's elementwise gradient in its
+epilogue, then ``dx`` for all steps at once (``lstm_xp_bwd`` has no such
+phase: its gate gradients are the gradient of ``xproj``). In bf16 mode their
+products and the reduction's run on the tensor cores.
 
 On a CPU tensor the wrappers take the plain PyTorch version; on a CUDA tensor
 they launch the kernels or raise. There is no fallback between the two.
@@ -231,7 +234,7 @@ _SIGNATURES = {
     },
     "lstm_xp": {
         "lstm_xp_fwd": [_P] * 8 + [_I] * 5 + [_P],
-        "lstm_xp_bwd": [_P] * 13 + [_I] * 5 + [_P],
+        "lstm_xp_bwd": [_P] * 13 + [_I] * 5 + [_P] * 2,
         "lstm_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
     },
 }
@@ -279,12 +282,14 @@ def lstm_x_fwd(wx, wh, bh, c0, h0, xs, resets, bf16: bool = False):
 def lstm_x_fwd_plan(S: int, B: int, D: int, H: int, bf16: bool = False) -> dict:
     """The grid :func:`lstm_x_fwd` chooses on the current card for these
     shapes: the clusters the card runs at once, the batch rows of a cluster,
-    the clusters launched, and whether the weight slices stay in shared
-    memory."""
+    the clusters launched, whether the weight slices stay in shared memory,
+    and the rows of the tiles that take a cluster's rows past its full
+    128-row tiles (96 or 160: one tile takes them all)."""
     check_hidden("LSTM", H)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     raise_on("lstm_x_fwd_plan", _lib().lstm_x_fwd_plan(S, B, D, H, int(bf16), ctypes.addressof(out)))
-    return {"active_clusters": out[0], "rows_per_cluster": out[1], "clusters": out[2], "resident": bool(out[3])}
+    return {"active_clusters": out[0], "rows_per_cluster": out[1], "clusters": out[2], "resident": bool(out[3]),
+            "tail_rows": out[4]}
 
 
 def _lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16, phase_ms):
@@ -379,9 +384,7 @@ def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
     return hs, cs
 
 
-def lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = False):
-    """Launch the xproj BPTT kernel; returns ``(dc0, dh0, gscratch)`` as
-    :func:`lstm_xp_plain_bwd`."""
+def _lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16, phase_ms):
     G, T, B, H = _xp_dims(wh, xproj)
     whT = wh.transpose(-1, -2).contiguous()  # [G,4H,H]: coalesced dgates @ Whᵀ
     ptrs = _xp_input_ptrs(wh, bh, c0, h0, xproj, resets) + [
@@ -395,9 +398,25 @@ def lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = False):
     dh0 = torch.empty_like(h0)
     gscratch = torch.empty((G, T, B, 4 * H), dtype=torch.float32, device=xproj.device)
     out = [dc0.data_ptr(), dh0.data_ptr(), gscratch.data_ptr()]
-    raise_on("lstm_xp_bwd", _lib("lstm_xp").lstm_xp_bwd(*ptrs, *out, G, T, B, H, int(bf16), stream()))
+    raise_on("lstm_xp_bwd", _lib("lstm_xp").lstm_xp_bwd(*ptrs, *out, G, T, B, H, int(bf16), stream(), phase_ms))
     xp_launch_counts.bwd_launches += 1
     return dc0, dh0, gscratch
+
+
+def lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = False):
+    """Launch the xproj BPTT kernels (the gates and chain phases of
+    ``csrc/rnn_bwd.cuh``); returns ``(dc0, dh0, gscratch)`` as
+    :func:`lstm_xp_plain_bwd`."""
+    return _lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16, None)
+
+
+def lstm_xp_bwd_phase_ms(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16: bool = False):
+    """One :func:`lstm_xp_bwd` call timed by CUDA events between its phases
+    (waits for the stream): ``(gates ms, chain ms, 0.0)``; the xproj backward
+    has no dx phase."""
+    ms = (ctypes.c_float * 3)()
+    _lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16, ctypes.addressof(ms))
+    return tuple(ms)
 
 
 def lstm_xp_wgrad(resets, h0, hs, gscratch, bf16: bool = False):

@@ -13,7 +13,7 @@ import torch
 
 #: the most hidden columns the kernels take, as the JAX package's
 #: single-stream kernels take within their VMEM budget (``csrc/rnn_common.cuh``
-#: ``kMaxHidden``)
+#: ``kMaxHidden``); ``Memory`` replays wider memories with its plain step loop
 KERNEL_MAX_HIDDEN = 512
 #: inputs wider than this take the xproj replay (the input projection as one
 #: bulk product outside the kernels), as in the JAX package (``_X_STREAM_MAX_D``)

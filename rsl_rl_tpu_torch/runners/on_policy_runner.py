@@ -4,12 +4,17 @@ registered name, then ``learn(n)`` alternates a collection window and an
 update and prints the console log.
 
 Logging writers, checkpoints, evaluation and multi-iteration dispatch are not
-ported yet; passing a ``log_dir`` raises.
+ported yet; passing a ``log_dir``, or setting one of the runner keys in
+:data:`UNPORTED_KEYS` to anything but the JAX package's default, raises. The
+deprecated ``empirical_normalization`` key maps onto the policy's
+``actor_obs_normalization`` / ``critic_obs_normalization`` where those are
+unset, with a ``DeprecationWarning``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 
 import torch
@@ -19,6 +24,48 @@ import rsl_rl_tpu_torch.modules  # noqa: F401  (registers the policies)
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.registry import resolve
 from rsl_rl_tpu_torch.utils.resolvers import resolve_obs_groups
+
+#: runner keys the JAX package reads that the port does not implement, with
+#: the JAX package's default (``fuse_iteration``'s is False off the TPU; unset
+#: or None counts as the default)
+UNPORTED_KEYS = {
+    "fuse_iteration": False,
+    "iterations_per_dispatch": 1,
+    "eval_interval": 0,
+    "model_parallel_size": 1,
+    "profiler_trace_iterations": None,
+    "logger": "tensorboard",
+}
+
+
+def check_unported_keys(cfg: dict) -> None:
+    """Raise ``NotImplementedError`` for a runner key of :data:`UNPORTED_KEYS`
+    set to anything but its default."""
+    for key, default in UNPORTED_KEYS.items():
+        value = cfg.get(key)
+        if value is not None and value != default:
+            raise NotImplementedError(
+                f"runner key {key}={value!r} is not ported yet (ROADMAP.md Queue 1); leave it unset"
+                f" or at {default!r}"
+            )
+
+
+def map_empirical_normalization(cfg: dict, policy_cfg: dict) -> None:
+    """The deprecated ``empirical_normalization`` runner key: fills the policy's
+    ``actor_obs_normalization`` / ``critic_obs_normalization`` where they are
+    unset, with a ``DeprecationWarning`` (the JAX package's
+    ``OnPolicyRunner._construct_algorithm``)."""
+    if cfg.get("empirical_normalization") is None:
+        return
+    warnings.warn(
+        "The `empirical_normalization` parameter is deprecated. Please set `actor_obs_normalization`"
+        " and `critic_obs_normalization` as part of the `policy` configuration instead.",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+    for key in ("actor_obs_normalization", "critic_obs_normalization"):
+        if policy_cfg.get(key) is None:
+            policy_cfg[key] = cfg["empirical_normalization"]
 
 
 class OnPolicyRunner:
@@ -37,8 +84,10 @@ class OnPolicyRunner:
                 " 'Runner and utils'); pass log_dir=None"
             )
         self.cfg = dict(train_cfg)
+        check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
         self.policy_cfg = dict(train_cfg["policy"])
+        map_empirical_normalization(self.cfg, self.policy_cfg)
         self.env = env
         self.num_steps_per_env = self.cfg["num_steps_per_env"]
         seed = int(self.cfg.get("seed", 1))

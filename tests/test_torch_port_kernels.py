@@ -619,9 +619,10 @@ def test_redesigned_kernels_edge_shapes_on_card(family, S, T, B, D, H, bf16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
-    """Two calls give the same bits: ``lstm_x_fwd``'s, ``lstm_x_bwd``'s and
-    ``gru_x_bwd``'s outputs and every weight-gradient reduction, at the main
-    paths' shapes."""
+    """Two calls give the same bits: the outputs of the cluster forwards
+    ``gru_x_fwd`` and ``lstm_x_fwd``, of the three-phase backwards
+    ``gru_x_bwd``, ``lstm_x_bwd`` and ``lstm_xp_bwd``, and of every
+    weight-gradient reduction, at the main paths' shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     calls = {}
@@ -633,6 +634,7 @@ def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
     calls["lstm_x_wgrad"] = lambda: lstm_rnn.lstm_x_wgrad(w[5], w[6], w[4], hs, gs, bf16)
     gw, gghs = _inputs(2, 24, 1024, 15, 256, seed=22, device="cuda")
     ghs_ = gru_rnn.gru_x_plain_fwd(*gw, bf16)
+    calls["gru_x_fwd"] = lambda: (gru_rnn.gru_x_fwd(*gw, bf16),)
     calls["gru_x_bwd"] = lambda: gru_rnn.gru_x_bwd(*gw, ghs_, gghs, bf16)
     ggs = gru_rnn.gru_x_plain_bwd(*gw, ghs_, gghs, bf16)[-1]
     calls["gru_x_wgrad"] = lambda: gru_rnn.gru_x_wgrad(gw[5], gw[6], gw[4], ghs_, ggs, bf16)
@@ -643,6 +645,8 @@ def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
         state = (out,) if cell == "gru" else out
         xgs = getattr(mod, f"{cell}_xp_plain_bwd")(*xw, *state, xghs, bf16)[-1]
         rows = _xp_wgrad_rows(cell, xw, state, xgs)
+        if cell == "lstm":
+            calls["lstm_xp_bwd"] = lambda xw=xw, state=state, xghs=xghs: lstm_rnn.lstm_xp_bwd(*xw, *state, xghs, bf16)
         calls[f"{cell}_xp_wgrad"] = lambda mod=mod, cell=cell, rows=rows: getattr(mod, f"{cell}_xp_wgrad")(*rows, bf16)
     for name, call in calls.items():
         first = [t.clone() for t in call()]
@@ -650,3 +654,52 @@ def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(first, second)):
             assert torch.equal(a, b), f"{name} output {i} differs between two calls"
+
+
+# -------------------------------- gru_x_fwd (cluster forward) and lstm_xp_bwd
+
+#: (S, H, B, T) of the GRU cluster forward: both stream counts, hidden sizes
+#: that fill a CTA's 32-column tiles or not (H=200: 25 hidden columns a CTA)
+#: and whose weight slices stay in shared memory or stream from L2 (384, 512),
+#: batches below, across and at the main path's rows (48, 203, 1024), and
+#: windows of 1, 5 and 24 steps
+GRU_FWD_CASES = [(S, H, B, T) for S in (1, 2) for H in (128, 200, 256, 384, 512) for B in (48, 203, 1024)
+                 for T in (1, 5, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,H,B,T", GRU_FWD_CASES, ids=[f"S{c[0]}H{c[1]}B{c[2]}T{c[3]}" for c in GRU_FWD_CASES])
+def test_gru_x_fwd_shapes_on_card(S, H, B, T, bf16):
+    """``gru_x_fwd`` against its plain version (D=15, a third of the rows reset
+    at t=0 and 15% of them later)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, _ = _inputs(S, T, B, 15, H, seed=S * 100000 + H * 100 + T, device="cuda")
+    w[-1][0, : B // 3] = 1.0
+    fwd_rtol, fwd_atol = TOL[bf16][:2]
+    torch.testing.assert_close(gru_rnn.gru_x_fwd(*w, bf16), gru_rnn.gru_x_plain_fwd(*w, bf16),
+                               rtol=fwd_rtol, atol=fwd_atol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("G,T,B", [(1, 24, 203), (2, 5, 128), (16, 24, 128)], ids=["G1", "G2", "G16"])
+def test_lstm_xp_bwd_per_stream_resets_on_card(G, T, B, bf16):
+    """``lstm_xp_bwd`` against its plain version where every stream has its
+    own reset mask: stream g also resets the rows b = g (mod 3) at t=0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w, ghs = _xp_inputs("lstm", G, T, B, 256, seed=G * 10 + T, device="cuda")
+    for g in range(G):
+        w[-1][g, 0, g % 3 :: 3] = 1.0
+    bwd_rtol, bwd_atol_rel = TOL[bf16][2:]
+    hs, cs = lstm_rnn.lstm_xp_plain_fwd(*w, bf16)
+    got = lstm_rnn.lstm_xp_bwd(*w, hs, cs, ghs, bf16)
+    want = lstm_rnn.lstm_xp_plain_bwd(*w, hs, cs, ghs, bf16)
+    for name, a, b in zip(("dc0", "dh0", "gscratch"), got, want):
+        _close(a, b, bwd_rtol, bwd_atol_rel, name)
+    torch.cuda.synchronize()

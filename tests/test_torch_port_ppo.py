@@ -247,3 +247,90 @@ def _check_update(policy_kw):
     want = _port_policy(cs1.obs, ts2.policy, policy_kw)
     for (name, got_p), (_, want_p) in zip(policy.named_parameters(), want.named_parameters()):
         _close(got_p, want_p.detach(), 3e-4, 3e-5, f"updated {name}")
+
+
+# ------------------------------------------------------- runner config keys
+
+from rsl_rl_tpu.algorithms.ppo import resolve_num_mini_batches as jax_resolve_num_mini_batches  # noqa: E402
+from rsl_rl_tpu.runners import OnPolicyRunner as JaxRunner  # noqa: E402
+from rsl_rl_tpu_torch.algorithms.ppo import resolve_num_mini_batches  # noqa: E402
+from rsl_rl_tpu_torch.runners import OnPolicyRunner  # noqa: E402
+from rsl_rl_tpu_torch.runners.on_policy_runner import UNPORTED_KEYS  # noqa: E402
+
+
+def _runner_cfg(**overrides):
+    cfg = {
+        "num_steps_per_env": 2,
+        "save_interval": 50,
+        "seed": 3,
+        "obs_groups": GROUPS,
+        "policy": {"class_name": "ActorCriticRecurrent", "rnn_type": "gru", "rnn_hidden_dim": 8,
+                   "actor_hidden_dims": [8], "critic_hidden_dims": [8]},
+        "algorithm": {"class_name": "PPO", "num_learning_epochs": 1, "num_mini_batches": 2},
+    }
+    cfg.update(overrides)
+    return cfg
+
+
+def test_empirical_normalization_maps_like_jax():
+    """A config that sets only the deprecated ``empirical_normalization``
+    normalizes the actor and critic observations in both packages, and the
+    port warns as the JAX package does."""
+    cfg = _runner_cfg(empirical_normalization=True)
+    with pytest.warns(DeprecationWarning, match="empirical_normalization"):
+        jrunner = JaxRunner(JaxNLink(8, LINKS), cfg, log_dir=None)
+    with pytest.warns(DeprecationWarning, match="empirical_normalization"):
+        runner = OnPolicyRunner(NLinkPendulum(8, LINKS, device="cpu"), cfg, device="cpu")
+    jpolicy, policy = jrunner.alg.policy, runner.alg.policy
+    assert jpolicy.actor_obs_normalization and jpolicy.critic_obs_normalization
+    assert policy.norm_actor is not None and policy.norm_critic is not None
+    assert "actor_obs_normalization" not in cfg["policy"]  # the caller's config is not changed
+
+
+def test_empirical_normalization_leaves_set_keys():
+    """Keys the policy config sets win over the deprecated one."""
+    cfg = _runner_cfg(empirical_normalization=True)
+    cfg["policy"] = dict(cfg["policy"], critic_obs_normalization=False)
+    with pytest.warns(DeprecationWarning):
+        runner = OnPolicyRunner(NLinkPendulum(8, LINKS, device="cpu"), cfg, device="cpu")
+    assert runner.alg.policy.norm_actor is not None and runner.alg.policy.norm_critic is None
+
+
+UNPORTED_SETTINGS = {"fuse_iteration": True, "iterations_per_dispatch": 4, "eval_interval": 10,
+                     "model_parallel_size": 2, "profiler_trace_iterations": [1, 2], "logger": "wandb"}
+
+
+@pytest.mark.parametrize("key", sorted(UNPORTED_KEYS))
+def test_unported_runner_key_raises(key):
+    """A runner key the port does not implement raises unless it holds the JAX
+    package's default; at the default it is accepted."""
+    env = NLinkPendulum(8, LINKS, device="cpu")
+    with pytest.raises(NotImplementedError, match=key):
+        OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_SETTINGS[key]}), device="cpu")
+    OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_KEYS[key]}), device="cpu")
+
+
+@pytest.mark.parametrize("recurrent", [True, False], ids=["recurrent", "feedforward"])
+@pytest.mark.parametrize("setting,steps,envs", [
+    ("auto", 24, 4096), ("auto", 24, 512), ("auto", 24, 16384), ("auto", 24, 65536), ("auto", 8, 16),
+    ("auto", 24, 3000), ("auto", 7, 12288), ("auto", 100, 1000), (6, 24, 4096), ("8", 24, 512),
+])
+def test_resolve_num_mini_batches_matches_jax(setting, steps, envs, recurrent):
+    got = resolve_num_mini_batches(setting, steps, envs, recurrent)
+    assert got == jax_resolve_num_mini_batches(setting, steps, envs, recurrent)
+
+
+def test_auto_minibatches_update_like_the_resolved_count():
+    """``num_mini_batches="auto"`` resolves at update time (here to 4) and the
+    recurrent update then equals one configured with 4."""
+    histories = []
+    for setting in ("auto", 4):
+        cfg = _runner_cfg()
+        cfg["algorithm"] = dict(cfg["algorithm"], num_mini_batches=setting)
+        runner = OnPolicyRunner(NLinkPendulum(8, LINKS, device="cpu"), cfg, device="cpu")
+        assert runner.alg.num_mini_batches == setting
+        runner.learn(1)
+        histories.append(runner.history[0]["metrics"])
+    assert histories[0].keys() == histories[1].keys()
+    for k in histories[0]:
+        assert histories[0][k] == pytest.approx(histories[1][k], rel=1e-6, abs=1e-7), k
