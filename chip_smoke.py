@@ -17,10 +17,12 @@ Phases, each fatal on failure:
    in bf16-operand mode, and at T=1. Every kernel also at edge shapes (H=128
    and 200, B=200 and 203, T=1 and 5, resets at t=0 and mid-window,
    per-stream resets for the xproj families, and H=384 and 512 for all four
-   families), in both modes; two calls of each kernel redesigned for Hopper
-   (``gru_x_fwd``, ``lstm_x_fwd``, ``gru_x_bwd``, ``lstm_x_bwd``,
-   ``lstm_xp_bwd`` and the four weight-gradient reductions) must give the
-   same bits.
+   families; the xproj families also at G=17, B=130, H=36, at B=1 and 7, at
+   H=1, and in more waves than the card runs clusters at once), in both
+   modes; two calls of each kernel redesigned for Hopper (``gru_x_fwd``,
+   ``lstm_x_fwd``, ``lstm_xp_fwd``, ``gru_x_bwd``, ``lstm_x_bwd``,
+   ``gru_xp_bwd``, ``lstm_xp_bwd`` and the four weight-gradient reductions)
+   must give the same bits.
 4. The slices, each trained for 3 iterations with every kernel launch
    counter set to 0 just before and read just after: through
    ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
@@ -43,9 +45,11 @@ Phases, each fatal on failure:
    whole xproj replay (outside projection included) at G=1 beside cuDNN on
    the raw wide input. Also the phase split (gates / chain / dx, CUDA events
    between the phases of a dedicated timing call) of ``gru_x_bwd`` and
-   ``lstm_x_bwd`` at S=2 and S=1 and of ``lstm_xp_bwd`` (gates / chain) at
-   G=16, and the grid the cluster forwards ``gru_x_fwd`` and ``lstm_x_fwd``
-   chose (the clusters the card runs at once, the batch rows of a cluster).
+   ``lstm_x_bwd`` at S=2 and S=1 and of ``gru_xp_bwd`` and ``lstm_xp_bwd``
+   (gates / chain) at G=16, the grid the cluster forwards ``gru_x_fwd``,
+   ``lstm_x_fwd`` and ``lstm_xp_fwd`` chose (the clusters the card runs at
+   once, the batch rows of a cluster, the clusters launched, the streams a
+   cluster's rows touch, the waves).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -169,20 +173,26 @@ PEAKS = {
 }
 #: the kernels redesigned for Hopper after their bring-up, held for
 #: bitwise-repeatable outputs in phase 3
-REDESIGNED = ("gru_x_fwd", "lstm_x_fwd", "gru_x_bwd", "lstm_x_bwd", "lstm_xp_bwd", "gru_x_wgrad", "lstm_x_wgrad",
-              "gru_xp_wgrad", "lstm_xp_wgrad")
+REDESIGNED = ("gru_x_fwd", "lstm_x_fwd", "lstm_xp_fwd", "gru_x_bwd", "lstm_x_bwd", "gru_xp_bwd", "lstm_xp_bwd",
+              "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad", "lstm_xp_wgrad")
 #: (family, streams, T, B, H): H that the 128- and 64-wide tiles do not divide
 #: (at H=200, 25 hidden columns a CTA of lstm_x_fwd's clusters), a ragged batch
 #: (203 rows: no whole number of a cluster's rows), one-step windows, and the
 #: hidden states above 256 (two columns a thread in the one-thread-per-column
-#: kernels; the weights streamed from L2 in lstm_x_fwd); D = 15 (the xproj
-#: families project it)
+#: kernels; the weights streamed from L2 in the cluster forwards); for the
+#: xproj families also one stream more than the multi-seed path's 16 with
+#: 130 rows at H=36 (no multiple of 4), a batch of 1 and of 7, H=1, and 40
+#: streams, at H=64 (a cluster serves the weight slices of several) and at
+#: H=384 (the slices streamed from L2, a cluster a stream: more clusters than
+#: the card runs at once); D = 15 (the xproj families project it)
 EDGE_CASES = [("lstm", 2, 5, 200, 200), ("lstm", 1, 1, 200, 128), ("gru", 2, 5, 200, 200),
               ("gru", 1, 1, 200, 128), ("gru_xp", 3, 5, 200, 200), ("lstm_xp", 3, 5, 200, 128),
               ("lstm", 1, 5, 203, 200), ("gru", 1, 5, 203, 200),
               ("lstm", 2, 3, 64, 384), ("lstm", 1, 2, 48, 512), ("gru", 2, 3, 64, 384), ("gru", 1, 2, 48, 512),
               ("gru_xp", 2, 3, 64, 384), ("gru_xp", 1, 2, 48, 512), ("lstm_xp", 2, 3, 64, 384),
-              ("lstm_xp", 1, 2, 48, 512)]
+              ("lstm_xp", 1, 2, 48, 512), ("gru_xp", 17, 24, 130, 36), ("lstm_xp", 17, 24, 130, 36),
+              ("gru_xp", 16, 24, 1, 256), ("lstm_xp", 16, 24, 1, 256), ("gru_xp", 3, 1, 7, 1),
+              ("lstm_xp", 3, 1, 7, 1), ("lstm_xp", 40, 5, 16, 64), ("lstm_xp", 40, 5, 16, 384)]
 
 
 def fail(msg: str) -> None:
@@ -831,9 +841,14 @@ def main() -> None:
         for name, (ops, nbytes) in work(family, G, T, B_seed, D, H).items():
             kernels.append(kernel_entry(name, family, launches, max_abs, passed, times, library[name],
                                         ops, nbytes, peaks))
+        for bf16 in (False, True):
+            print(f"phases {bwd} G={G} B={B_seed} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x, bf16)}")
         if family == "lstm_xp":
-            for bf16 in (False, True):
-                print(f"phases {bwd} G={G} B={B_seed} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x, bf16)}")
+            # the grid the cluster forward chose
+            for g, b in ((G, B_seed), (1, B)):
+                for bf16 in (False, True):
+                    print(f"grid {fwd} G={g} B={b} H={H} {'bf16' if bf16 else 'fp32'}:"
+                          f" {json.dumps(lstm_rnn.lstm_xp_fwd_plan(g, b, H, bf16))}")
         # G=1 at the wide-input shape: the kernels alone, the port's whole
         # replay (outside projection included) and cuDNN on the raw input
         x1 = make_inputs(family, 1, T, B, WIDE_D, H, seed=seed + 1)

@@ -2,15 +2,20 @@
 """Time the port's kernels from two source trees on one card, in turns.
 
     python3 kernel_ab.py BASE_ROOT [--reps 20]
+    python3 kernel_ab.py --variant cluster-a-stream [--reps 20]
 
 ``BASE_ROOT`` is the root of another checkout of the repository (for example
-the parent commit unpacked with ``git archive`` into ``build/base``). Its
+the parent commit unpacked with ``git archive`` into ``build/base``). With
+``--variant NAME`` the base is instead a copy of this tree's sources under
+``build/variant/NAME/`` with the edits of ``VARIANTS[NAME]`` applied: a design
+the sources do not ship, timed against the one they do. Its
 ``rsl_rl_tpu_torch/csrc/*.cu`` build with the flags of
 ``rsl_rl_tpu_torch/utils/cuda_build.py`` into ``build/ab/``, one ``nvcc`` per
 source, in parallel; this tree's own kernels build as usual. Every kernel entry
 point then runs at its main-path shape (``chip_smoke.py``'s inputs: the x
 kernels at T=24, B=1024, D=15, H=256, S=2 and S=1; the xproj kernels at G=16,
-B=128) in fp32 and in bf16-operand mode, timed with CUDA events in the order
+B=128, and at G=1, B=1024, the wide-input path's shape) in fp32 and in
+bf16-operand mode, timed with CUDA events in the order
 base, this, this, base, so that a drift of the card during the run shows. One
 line a kernel, shape and mode, with the four times and the ratio of this
 tree's mean to the base's; the card's name and power limit first. Both trees'
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import shutil
 import subprocess
 import sys
 import time
@@ -32,9 +38,24 @@ import torch
 import chip_smoke as cs
 from rsl_rl_tpu_torch.utils import cuda_build
 
+#: source edits (file in csrc/, text, replacement; each text occurs once) of
+#: each variant. cluster-a-stream: lstm_xp_fwd on the cluster forward in both
+#: modes (fp32 ships one thread a hidden column), with a cluster a stream
+#: where the streams outnumber the clusters at once (bf16 ships whole streams
+#: and a share of the rest a cluster, in one wave)
+VARIANTS = {
+    "cluster-a-stream": [
+        ("lstm_xp.cu", "if (!bf16) {", "if (false) {"),
+        ("lstm_xp.cu", "return (int)rnn_x_fwd_launch<LstmXpFwdCell, true>(a, G, st);",
+         "return (int)(bf16 ? rnn_x_fwd_launch<LstmXpFwdCell, true>(a, G, st)"
+         " : rnn_x_fwd_launch<LstmXpFwdCell, false>(a, G, st));"),
+        ("rnn_fwd.cuh", "if (S > p.clusters && p.resident && fwd_whole_streams", "if (false && fwd_whole_streams"),
+    ],
+}
+
 #: (family, streams, B) of each timed shape
 SHAPES = [("gru", 2, 1024), ("gru", 1, 1024), ("lstm", 2, 1024), ("lstm", 1, 1024),
-          ("gru_xp", 16, 128), ("lstm_xp", 16, 128)]
+          ("gru_xp", 16, 128), ("lstm_xp", 16, 128), ("gru_xp", 1, 1024), ("lstm_xp", 1, 1024)]
 
 
 def lib_name(family: str) -> str:
@@ -60,6 +81,20 @@ def build_base(root: Path) -> dict[str, ctypes.CDLL]:
     return libs
 
 
+def make_variant(name: str) -> Path:
+    """A copy of this tree's sources with the edits of ``VARIANTS[name]``."""
+    root = cuda_build.BUILD_DIR / "variant" / name
+    csrc = root / "rsl_rl_tpu_torch" / "csrc"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    for file, old, new in VARIANTS[name]:
+        text = (csrc / file).read_text()
+        if text.count(old) != 1:
+            cs.fail(f"variant {name}: {old!r} occurs {text.count(old)} times in {file}")
+        (csrc / file).write_text(text.replace(old, new))
+    return root
+
+
 def bind(lib: ctypes.CDLL, module, name: str) -> ctypes.CDLL:
     for fn, argtypes in module._SIGNATURES[name].items():
         if hasattr(lib, fn):
@@ -70,9 +105,12 @@ def bind(lib: ctypes.CDLL, module, name: str) -> ctypes.CDLL:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("base_root", type=Path)
+    parser.add_argument("base_root", type=Path, nargs="?")
+    parser.add_argument("--variant", choices=sorted(VARIANTS))
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
+    if (args.base_root is None) == (args.variant is None):
+        parser.error("give BASE_ROOT or --variant")
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,7 +118,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     start = time.perf_counter()
     cuda_build.build_all()
-    base_libs = build_base(args.base_root)
+    base_libs = build_base(args.base_root or make_variant(args.variant))
     print(f"build: {time.perf_counter() - start:.1f} s")
     D, H, T = 15, 256, 24
     for seed, (family, S, B) in enumerate(SHAPES):

@@ -50,6 +50,8 @@ namespace {
 struct GruFwdCell {
   static constexpr int kTileCols = 3 * kFwdTileHidden;
   static constexpr bool kOneTile = true;  // a cluster's rows in one 96- or 160-row tile where they fit
+  static constexpr bool kXproj = false;
+  using Args = RnnFwdArgs;
 
   __host__ __device__ static int x_start(int H) { return (H + kGateK - 1) / kGateK * kGateK; }
 
@@ -223,12 +225,10 @@ extern "C" int gru_x_fwd(const float* xs, const float* resets, const float* carr
   return (int)(bf16 ? rnn_x_fwd_launch<GruFwdCell, true>(a, S, st) : rnn_x_fwd_launch<GruFwdCell, false>(a, S, st));
 }
 
-// The forward's grid for these shapes on the current card: out[0] clusters
-// the card runs at once, out[1] batch rows a cluster owns, out[2] clusters
-// launched, out[3] 1 where the weight slices stay in shared memory, out[4]
-// the rows of the tiles past a cluster's full 128-row ones.
+// The forward's grid for these shapes on the current card: seven ints, as
+// rnn_x_fwd_plan (rnn_fwd.cuh) gives them.
 extern "C" int gru_x_fwd_plan(int S, int B, int D, int H, int bf16, int* out) {
-  return rnn_x_fwd_plan<GruFwdCell>(S, B, D, H, bf16, out);
+  return bf16 ? rnn_x_fwd_plan<GruFwdCell, true>(S, B, D, H, out) : rnn_x_fwd_plan<GruFwdCell, false>(S, B, D, H, out);
 }
 
 // phase_ms: nullptr, or three floats that receive the milliseconds of the

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas xproj-streaming GRU kernels of rsl_rl_tpu/ops/pallas_rnn.py:
 //   gru_xp_fwd    <- _fwd_kernel / _gru_core_fwd_impl
-//   gru_xp_bwd    <- _bwd_kernel / _gru_core_bwd_impl: the BPTT chain
+//   gru_xp_bwd    <- _bwd_kernel / _gru_core_bwd_impl: the BPTT chain, in the
+//                    three phases of rnn_bwd.cuh with the GRU xproj cell
 //   gru_xp_wgrad  <- the dWh / dbhn accumulation of the same backward (the
 //                    shared reduction of rnn_wgrad.cuh, with no x columns)
 // The input projection xproj = x Wx + bx is one bulk product outside the
@@ -21,18 +22,20 @@
 // With bf16 != 0 the operands of h Wh and dgates Whᵀ are rounded to bf16
 // (round to nearest even) and the products accumulate in fp32, like the JAX
 // package's _mm; xproj, the state and the gate math stay fp32. Otherwise all
-// math is IEEE fp32 on the CUDA cores.
+// math is IEEE fp32 on the CUDA cores; gru_xp_bwd's bf16-mode products run on
+// the tensor cores (mma.m16n8k16).
 //
-// Each entry point launches its kernel on the given stream (gru_xp_wgrad two:
-// the split-K products, then their fixed-order sum), allocates nothing, and
-// returns the cudaError_t of the launch (0 on success).
+// Each entry point launches its kernels on the given stream (gru_xp_fwd one,
+// gru_xp_bwd T+2, gru_xp_wgrad one or two: the split-K products, then their
+// fixed-order sum), allocates nothing, and returns the cudaError_t of the
+// launches (0 on success).
 
+#include "rnn_bwd.cuh"
 #include "rnn_wgrad.cuh"
 
 namespace {
 
 constexpr int kFwdRows = 16;  // batch rows per forward block (H <= 256)
-constexpr int kBwdRows = 8;   // batch rows per backward block (H <= 256)
 
 // Grid (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H).
 // The block runs the whole window for its BB rows of stream s; thread j keeps
@@ -92,100 +95,6 @@ __global__ void __launch_bounds__(256) gru_xp_fwd_kernel(
       if (b0 + b < B) hs_t[(size_t)(b0 + b) * H + j] = h[b];
     }
     __syncthreads();  // hT is rewritten next step
-  }
-}
-
-// Reverse-time BPTT. Same grid and thread mapping as the forward; thread j
-// carries dh[:, j] in registers. Each step recomputes the gates from
-// h = (t == 0 ? carry0 : hs[t-1]) * (1 - reset) and xproj[t], writes
-// dr|dz|dn|du to gs, and forms dh_prev = (g*z + [dr|dz|du] Whᵀ) * keep
-// (whT is Wh transposed so that thread j reads a coalesced row per c).
-// At most 128 registers a thread, so two blocks share an SM and the 256
-// blocks of the multi-seed shape (G=16, B=128) run in one wave. The
-// gate loads stay after the h Wh chain here: what bounds this kernel is
-// each SM's shared and L2 load throughput, not their latency.
-template <int BB, bool BF16>
-__global__ void __launch_bounds__(256, 2) gru_xp_bwd_kernel(
-    const float* __restrict__ xproj, const float* __restrict__ resets,
-    const float* __restrict__ carry0, const float* __restrict__ wh,
-    const float* __restrict__ whT, const float* __restrict__ bhn,
-    const float* __restrict__ hs, const float* __restrict__ ghs,
-    float* __restrict__ dcarry0, float* __restrict__ gs, int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;          // [H][BB]  h operand
-  float* dgT = hT + H * BB;  // [3H][BB] dr | dz | du operands
-  const int j = threadIdx.x;
-  const int s = blockIdx.y;
-  const int b0 = blockIdx.x * BB;
-  const int G3 = 3 * H;
-  const float* wh_s = wh + (size_t)s * H * G3;
-  const float* whT_s = whT + (size_t)s * G3 * H;
-  const float bn = bhn[(size_t)s * H + j];
-
-  float dh[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) dh[b] = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t st = (size_t)s * T + t;
-    float h[BB], keep[BB];
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      float hp = 0.0f;
-      keep[b] = 0.0f;
-      if (row < B) {
-        keep[b] = 1.0f - resets[st * B + row];
-        hp = t == 0 ? carry0[((size_t)s * B + row) * H + j] : hs[((st - 1) * B + row) * H + j];
-      }
-      h[b] = hp * keep[b];
-      hT[j * BB + b] = op<BF16>(h[b]);
-    }
-    __syncthreads();
-
-    float c[3][BB];
-    gate_matvec<3, BB, BF16>(wh_s, hT, H, H, j, c);
-
-    const float* xp_t = xproj + st * B * G3;
-    const float* g_t = ghs + st * B * H;
-    float* gs_t = gs + st * B * 4 * H;
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      float dr = 0.0f, dz = 0.0f, dn = 0.0f, du = 0.0f;
-      if (row < B) {
-        const float* xp = xp_t + (size_t)row * G3;
-        const float r = sigmoid(xp[j] + c[0][b]);
-        const float z = sigmoid(xp[H + j] + c[1][b]);
-        const float u = c[2][b] + bn;
-        const float n = tanhf(xp[2 * H + j] + r * u);
-        const float g = g_t[(size_t)row * H + j] + dh[b];
-        dz = g * (h[b] - n) * z * (1.0f - z);
-        dn = g * (1.0f - z) * (1.0f - n * n);
-        du = dn * r;
-        dr = dn * u * r * (1.0f - r);
-        dh[b] = g * z;
-        float* grow = gs_t + (size_t)row * 4 * H;
-        grow[j] = dr;
-        grow[H + j] = dz;
-        grow[2 * H + j] = dn;
-        grow[3 * H + j] = du;
-      }
-      dgT[j * BB + b] = op<BF16>(dr);
-      dgT[(H + j) * BB + b] = op<BF16>(dz);
-      dgT[(2 * H + j) * BB + b] = op<BF16>(du);
-    }
-    __syncthreads();
-
-    // dh_prev[:, j] = (g*z + Σ_c dgates[:, c] Wh[j, c]) * keep
-    float acc[1][BB];
-    gate_matvec<1, BB, BF16>(whT_s, dgT, G3, H, j, acc);
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      dh[b] = (dh[b] + acc[0][b]) * keep[b];
-      if (t == 0 && b0 + b < B) dcarry0[((size_t)s * B + b0 + b) * H + j] = dh[b];
-    }
-    __syncthreads();  // hT / dgT are rewritten next step
   }
 }
 
@@ -262,108 +171,6 @@ __global__ void __launch_bounds__(256) gru_xp_fwd_wide_kernel(
   }
 }
 
-// H > 256: the backward above with kWideCols hidden columns a thread (see
-// wide_columns) and half the rows a block.
-template <int BB, bool BF16>
-__global__ void __launch_bounds__(256, 2) gru_xp_bwd_wide_kernel(
-    const float* __restrict__ xproj, const float* __restrict__ resets,
-    const float* __restrict__ carry0, const float* __restrict__ wh,
-    const float* __restrict__ whT, const float* __restrict__ bhn,
-    const float* __restrict__ hs, const float* __restrict__ ghs,
-    float* __restrict__ dcarry0, float* __restrict__ gs, int T, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;          // [H][BB]  h operand
-  float* dgT = hT + H * BB;  // [3H][BB] dr | dz | du operands
-  const int s = blockIdx.y;
-  const int b0 = blockIdx.x * BB;
-  const int G3 = 3 * H;
-  const float* wh_s = wh + (size_t)s * H * G3;
-  const float* whT_s = whT + (size_t)s * G3 * H;
-  int j[kWideCols];
-  bool on[kWideCols];
-  wide_columns(H, j, on);
-  float bn[kWideCols];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c) bn[c] = bhn[(size_t)s * H + j[c]];
-
-  float dh[kWideCols][BB];
-#pragma unroll
-  for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-    for (int b = 0; b < BB; ++b) dh[c][b] = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t st = (size_t)s * T + t;
-    float h[kWideCols][BB], keep[BB];
-#pragma unroll
-    for (int b = 0; b < BB; ++b) {
-      const int row = b0 + b;
-      keep[b] = row < B ? 1.0f - resets[st * B + row] : 0.0f;
-#pragma unroll
-      for (int c = 0; c < kWideCols; ++c) {
-        const float hp = row >= B ? 0.0f
-                         : t == 0 ? carry0[((size_t)s * B + row) * H + j[c]]
-                                  : hs[((st - 1) * B + row) * H + j[c]];
-        h[c][b] = hp * keep[b];
-        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
-      }
-    }
-    __syncthreads();
-
-    float acc[kWideCols][3][BB];
-    gate_matvec_wide<3, BB, BF16>(wh_s, hT, H, H, j, acc);
-
-    const float* xp_t = xproj + st * B * G3;
-    const float* g_t = ghs + st * B * H;
-    float* gs_t = gs + st * B * 4 * H;
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        const int row = b0 + b;
-        float dr = 0.0f, dz = 0.0f, dn = 0.0f, du = 0.0f;
-        if (row < B) {
-          const float* xp = xp_t + (size_t)row * G3;
-          const float r = sigmoid(xp[j[c]] + acc[c][0][b]);
-          const float z = sigmoid(xp[H + j[c]] + acc[c][1][b]);
-          const float u = acc[c][2][b] + bn[c];
-          const float n = tanhf(xp[2 * H + j[c]] + r * u);
-          const float g = g_t[(size_t)row * H + j[c]] + dh[c][b];
-          dz = g * (h[c][b] - n) * z * (1.0f - z);
-          dn = g * (1.0f - z) * (1.0f - n * n);
-          du = dn * r;
-          dr = dn * u * r * (1.0f - r);
-          dh[c][b] = g * z;
-          if (on[c]) {
-            float* grow = gs_t + (size_t)row * 4 * H;
-            grow[j[c]] = dr;
-            grow[H + j[c]] = dz;
-            grow[2 * H + j[c]] = dn;
-            grow[3 * H + j[c]] = du;
-          }
-        }
-        if (on[c]) {
-          dgT[j[c] * BB + b] = op<BF16>(dr);
-          dgT[(H + j[c]) * BB + b] = op<BF16>(dz);
-          dgT[(2 * H + j[c]) * BB + b] = op<BF16>(du);
-        }
-      }
-    __syncthreads();
-
-    // dh_prev[:, j] = (g*z + Σ_c dgates[:, c] Wh[j, c]) * keep
-    float acc1[kWideCols][1][BB];
-    gate_matvec_wide<1, BB, BF16>(whT_s, dgT, G3, H, j, acc1);
-#pragma unroll
-    for (int c = 0; c < kWideCols; ++c)
-#pragma unroll
-      for (int b = 0; b < BB; ++b) {
-        dh[c][b] = (dh[c][b] + acc1[c][0][b]) * keep[b];
-        if (t == 0 && on[c] && b0 + b < B) dcarry0[((size_t)s * B + b0 + b) * H + j[c]] = dh[c][b];
-      }
-    __syncthreads();  // hT / dgT are rewritten next step
-  }
-}
-
 }  // namespace
 
 extern "C" int gru_xp_fwd(const float* xproj, const float* resets, const float* carry0,
@@ -380,21 +187,23 @@ extern "C" int gru_xp_fwd(const float* xproj, const float* resets, const float* 
                              kFwdRows, G, B, H, H, st, xproj, resets, carry0, wh, bhn, hs, T, B, H);
 }
 
+// The three phases of rnn_bwd.cuh over the G streams, each with its own reset
+// mask: the gates GEMM over the G*T*B rows starting at xproj (and bhn), then
+// one chain launch a step; gs's first 3H columns are the gradient of xproj.
+// phase_ms: nullptr, or three floats that receive the milliseconds of the
+// phases (gates, chain, and 0 for the dx phase the xproj backward does not
+// have; the call then waits for the stream).
 extern "C" int gru_xp_bwd(const float* xproj, const float* resets, const float* carry0,
                           const float* wh, const float* whT, const float* bhn, const float* hs,
                           const float* ghs, float* dcarry0, float* gs, int G, int T, int B,
-                          int H, int bf16, void* stream) {
+                          int H, int bf16, void* stream, float* phase_ms) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
+  const RnnBwdArgs a{nullptr, resets, nullptr, carry0, nullptr, wh, whT, nullptr, bhn, hs, nullptr, ghs, nullptr,
+                     dcarry0, nullptr, gs, T, B, 0, H, T * B, xproj};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return (int)launch_columns(gru_xp_bwd_kernel<kBwdRows, true>, gru_xp_bwd_wide_kernel<kBwdRows / 2, true>,
-                               kBwdRows, G, B, H, 4 * H, st, xproj, resets, carry0, wh, whT, bhn, hs, ghs,
-                               dcarry0, gs, T, B, H);
-  }
-  return (int)launch_columns(gru_xp_bwd_kernel<kBwdRows, false>, gru_xp_bwd_wide_kernel<kBwdRows / 2, false>,
-                             kBwdRows, G, B, H, 4 * H, st, xproj, resets, carry0, wh, whT, bhn, hs, ghs,
-                             dcarry0, gs, T, B, H);
+  return (int)(bf16 ? rnn_bwd_launch<GruXpCell, true>(a, G, st, phase_ms)
+                    : rnn_bwd_launch<GruXpCell, false>(a, G, st, phase_ms));
 }
 
 // The weight-gradient reduction of rnn_wgrad.cuh with no x columns and one

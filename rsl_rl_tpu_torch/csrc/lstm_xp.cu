@@ -1,7 +1,9 @@
 // LSTM window replay over precomputed input projections, for Hopper (sm_90a).
 //
 // Replaces the Pallas xproj-streaming LSTM kernels of rsl_rl_tpu/ops/pallas_rnn.py:
-//   lstm_xp_fwd    <- _lstm_fwd_kernel / _lstm_core_fwd_impl
+//   lstm_xp_fwd    <- _lstm_fwd_kernel / _lstm_core_fwd_impl: in bf16 mode the
+//                     cluster forward of rnn_fwd.cuh with the LSTM xproj cell,
+//                     in fp32 mode one thread a hidden column
 //   lstm_xp_bwd    <- _lstm_bwd_kernel / _lstm_core_bwd_impl: the BPTT chain, in
 //                     the three phases of rnn_bwd.cuh with the LSTM xproj cell
 //   lstm_xp_wgrad  <- the dWh / dbh accumulation of the same backward (the
@@ -20,25 +22,30 @@
 // With bf16 != 0 the operands of h Wh and dgates Whᵀ are rounded to bf16
 // (round to nearest even) and the products accumulate in fp32, like the JAX
 // package's _mm; xproj, the cell and hidden state and the gate math stay
-// fp32. Otherwise all math is IEEE fp32 on the CUDA cores; lstm_xp_bwd's
-// bf16-mode products run on the tensor cores (mma.m16n8k16).
+// fp32. Otherwise all math is IEEE fp32 on the CUDA cores; bf16-mode
+// products of lstm_xp_fwd's cluster forward and of lstm_xp_bwd run on the
+// tensor cores (mma.m16n8k16).
 //
 // Each entry point launches its kernels on the given stream (lstm_xp_fwd one,
 // lstm_xp_bwd T+2, lstm_xp_wgrad one or two), allocates nothing, and returns
 // the cudaError_t of the launches (0 on success).
 
 #include "rnn_bwd.cuh"
+#include "rnn_fwd.cuh"
 #include "rnn_wgrad.cuh"
 
 namespace {
 
 constexpr int kFwdRows = 8;  // batch rows per forward block (H <= 256)
 
-// Grid (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H).
-// The block runs the whole window for its BB rows of stream s; thread j keeps
-// c[:, j] and h[:, j] in registers and publishes the (rounded) h tile in
-// shared memory; the gates add the streamed xproj row and the bias to h Wh.
-template <int BB, bool BF16>
+// fp32 mode: the one-thread-per-column forward, which the cluster forward
+// does not beat there (at G=16 it needs two waves, or two fp32 weight slices
+// a CTA, 278 KB, that do not fit; the times are in PERF.md). Grid (ceil(B/BB),
+// G), one thread per hidden column j (blockDim.x == H). The block runs the
+// whole window for its BB rows of stream s; thread j keeps c[:, j] and
+// h[:, j] in registers and publishes the h tile in shared memory; the gates
+// add the streamed xproj row and the bias to h Wh.
+template <int BB>
 __global__ void __launch_bounds__(256) lstm_xp_fwd_kernel(
     const float* __restrict__ xproj, const float* __restrict__ resets,
     const float* __restrict__ c0, const float* __restrict__ h0,
@@ -78,12 +85,12 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_kernel(
       const float keep = in ? 1.0f - resets[st * B + row] : 0.0f;
       c[b] *= keep;
       h[b] *= keep;
-      hT[j * BB + b] = op<BF16>(h[b]);
+      hT[j * BB + b] = h[b];
     }
     __syncthreads();
 
     float a[4][BB];  // h Wh for i, f, g, o
-    gate_matvec<4, BB, BF16>(wh_s, hT, H, H, j, a);
+    gate_matvec<4, BB, false>(wh_s, hT, H, H, j, a);
 
     const size_t out = st * B * H;
 #pragma unroll
@@ -106,7 +113,7 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_kernel(
 
 // H > 256: the forward above with kWideCols hidden columns a thread (see
 // wide_columns) and half the rows a block.
-template <int BB, bool BF16>
+template <int BB>
 __global__ void __launch_bounds__(256) lstm_xp_fwd_wide_kernel(
     const float* __restrict__ xproj, const float* __restrict__ resets,
     const float* __restrict__ c0, const float* __restrict__ h0,
@@ -156,13 +163,13 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_wide_kernel(
       for (int c = 0; c < kWideCols; ++c) {
         cc[c][b] *= keep;
         h[c][b] *= keep;
-        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
+        if (on[c]) hT[j[c] * BB + b] = h[c][b];
       }
     }
     __syncthreads();
 
     float a[kWideCols][4][BB];  // h Wh for i, f, g, o
-    gate_matvec_wide<4, BB, BF16>(wh_s, hT, H, H, j, a);
+    gate_matvec_wide<4, BB, false>(wh_s, hT, H, H, j, a);
 
     const size_t out = st * B * H;
 #pragma unroll
@@ -187,18 +194,30 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_wide_kernel(
 
 }  // namespace
 
+// bf16 mode: the cluster forward of rnn_fwd.cuh with LstmXpFwdCell over the G
+// streams, each with its own weights and reset mask (where the streams
+// outnumber the clusters the card runs at once, a cluster serves whole
+// streams and a share of the rest); fp32 mode: the one-thread-per-column
+// kernels above.
 extern "C" int lstm_xp_fwd(const float* xproj, const float* resets, const float* c0,
                            const float* h0, const float* wh, const float* bh, float* hs,
                            float* cs, int G, int T, int B, int H, int bf16, void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return (int)launch_columns(lstm_xp_fwd_kernel<kFwdRows, true>, lstm_xp_fwd_wide_kernel<kFwdRows / 2, true>,
+  if (!bf16) {
+    return (int)launch_columns(lstm_xp_fwd_kernel<kFwdRows>, lstm_xp_fwd_wide_kernel<kFwdRows / 2>,
                                kFwdRows, G, B, H, H, st, xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
   }
-  return (int)launch_columns(lstm_xp_fwd_kernel<kFwdRows, false>, lstm_xp_fwd_wide_kernel<kFwdRows / 2, false>,
-                             kFwdRows, G, B, H, H, st, xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
+  const RnnXpFwdArgs a{{nullptr, resets, c0, h0, nullptr, wh, bh, nullptr, hs, cs, T, B, 0, H, 0, 0, 0, 0},
+                       G, 1, 0, T * B, xproj};
+  return (int)rnn_x_fwd_launch<LstmXpFwdCell, true>(a, G, st);
+}
+
+// The bf16-mode cluster forward's grid for these shapes on the current card:
+// seven ints, as rnn_x_fwd_plan (rnn_fwd.cuh) gives them.
+extern "C" int lstm_xp_fwd_plan(int G, int B, int H, int* out) {
+  return rnn_x_fwd_plan<LstmXpFwdCell, true>(G, B, 0, H, out);
 }
 
 // The three phases of rnn_bwd.cuh over the G streams, each with its own reset

@@ -1,5 +1,6 @@
 // The three-phase BPTT backward shared by the GRU and LSTM replays (sm_90a):
-// gru_x_bwd (gru_x.cu), lstm_x_bwd (lstm_x.cu) and lstm_xp_bwd (lstm_xp.cu).
+// gru_x_bwd (gru_x.cu), lstm_x_bwd (lstm_x.cu), gru_xp_bwd (gru_xp.cu) and
+// lstm_xp_bwd (lstm_xp.cu).
 //
 // Reverse-time BPTT for the output gradient ghs, in three phases, each kernel
 // on the caller's stream:
@@ -27,8 +28,8 @@
 //    gate gradients @ Wxᵀ over the T*B rows, tall and skinny (N = D = 15):
 //    bound by reading gs once.
 //
-// The cell is the template policy (LstmCell, LstmXpCell and GruCell, at the
-// end of this header): the columns of phase 1's W and bias, what it adds
+// The cell is the template policy (LstmCell, LstmXpCell, GruCell and
+// GruXpCell, at the end of this header): the columns of phase 1's W and bias, what it adds
 // before the activation and the zero blocks it skips, the chain's K and how
 // its columns lie in gs, and the epilogue's cell gradient with its carry.
 // - LSTM: gs = i|f|g|o (activated), W = [Wh; Wx], K = 4H (di|df|dg|do),
@@ -644,9 +645,7 @@ struct LstmCell {
 // The LSTM cell of the xproj backward (lstm_xp_bwd): phase 1 takes the
 // stored projection xproj [G,T,B,4H] in place of x Wx (no x rows: D = 0),
 // starting each accumulator at its row of xproj plus bh (gate_acc_input), so
-// the epilogue applies the activation alone; the rest is LstmCell's. A GRU
-// cell takes the same phase 1 with its own input4 / input2 (its xproj holds
-// r|z|n with bx, so a_n takes xproj's n columns and u starts at bhn).
+// the epilogue applies the activation alone; the rest is LstmCell's.
 struct LstmXpCell : LstmCell {
   static constexpr bool kStoredInput = true;
 
@@ -760,6 +759,47 @@ struct GruCell {
   // t = 0: dcarry0, over the carry buffer
   __device__ __forceinline__ static void finish(const RnnBwdArgs& a, int s, int b, int j, const float (&dh)[4]) {
     for (int e = 0; e < min(4, a.H - j); ++e) a.carry[((size_t)s * a.B + b) * a.H + j + e] = dh[e];
+  }
+};
+
+// The GRU cell of the xproj backward (gru_xp_bwd): phase 1 takes the stored
+// projection xproj [G,T,B,3H] (x Wx + bx, r|z|n: its row stride is 3H, not
+// gs's 4H) in place of x Wx + bx, with no x rows (D = 0). gs columns r|z|a_n
+// start at xproj's columns and u at bhn (gate_acc_input), so the epilogue
+// activates r and z and adds nothing. GruCell::k_range gives the a_n tiles
+// no k rows (their gs columns are xproj's n columns as they are) and the u
+// tiles the h rows, so GruCell::gate_weight serves as it is; the chain is
+// GruCell's.
+struct GruXpCell : GruCell {
+  static constexpr bool kStoredInput = true;
+
+  // gs column col of row (s, row) before the product: xproj's r|z|n, or bhn
+  __device__ __forceinline__ static float input1(const RnnBwdArgs& a, int s, int row, int col) {
+    const int H = a.H;
+    return col < 3 * H ? __ldg(a.xproj + ((size_t)s * a.T * a.B + row) * 3 * H + col)
+                       : __ldg(a.bias2 + (size_t)s * H + col - 3 * H);
+  }
+  // w consecutive columns from col (a multiple of w) in one load where they
+  // lie in one block of xproj or bhn and the load is aligned, else one by one
+  template <int w>
+  __device__ __forceinline__ static bool vec(const RnnBwdArgs& a) {
+    return a.H % w == 0 && ((reinterpret_cast<uintptr_t>(a.xproj) | reinterpret_cast<uintptr_t>(a.bias2)) & (4 * w - 1)) == 0;
+  }
+  __device__ __forceinline__ static const float* input_ptr(const RnnBwdArgs& a, int s, int row, int col) {
+    const int H = a.H;
+    return col < 3 * H ? a.xproj + ((size_t)s * a.T * a.B + row) * 3 * H + col : a.bias2 + (size_t)s * H + col - 3 * H;
+  }
+  __device__ __forceinline__ static float4 input4(const RnnBwdArgs& a, int s, int row, int col) {
+    if (vec<4>(a)) return __ldg(reinterpret_cast<const float4*>(input_ptr(a, s, row, col)));
+    return make_float4(input1(a, s, row, col), input1(a, s, row, col + 1), input1(a, s, row, col + 2),
+                       input1(a, s, row, col + 3));
+  }
+  __device__ __forceinline__ static float2 input2(const RnnBwdArgs& a, int s, int row, int col) {
+    if (vec<2>(a)) return __ldg(reinterpret_cast<const float2*>(input_ptr(a, s, row, col)));
+    return make_float2(input1(a, s, row, col), input1(a, s, row, col + 1));
+  }
+  __device__ __forceinline__ static float gate_out(const RnnBwdArgs& a, int, int, int col, float v) {
+    return col < 2 * a.H ? sigmoid(v) : v;
   }
 };
 

@@ -1,5 +1,5 @@
-// The cluster forward shared by the GRU and LSTM x-streaming replays
-// (sm_90a): gru_x_fwd (gru_x.cu) and lstm_x_fwd (lstm_x.cu).
+// The cluster forward shared by the GRU and LSTM replays (sm_90a): gru_x_fwd
+// (gru_x.cu), lstm_x_fwd (lstm_x.cu) and lstm_xp_fwd (lstm_xp.cu).
 //
 // One persistent kernel over thread-block clusters of kCluster CTAs. A
 // cluster owns a tile of batch rows of one stream for the whole window; each
@@ -9,11 +9,11 @@
 // one-column kernels this replaces was re-reading Wh (768 KiB fp32 for the
 // GRU, 1 MiB for the LSTM at H=256) from L2 at every step for a few rows a
 // block; here the CTA's slice of [Wh; Wx] stays in shared memory for all T
-// steps (fp32 at H=256: 272 rows of 128 LSTM or 96 GRU columns, 148 / 113
-// KB; bf16 mode: k-pairs rounded once when staged, half that), and its
-// product at each step is a gate tile (rnn_common.cuh): fp32 register tiles
-// on the CUDA cores, IEEE; bf16 mma.m16n8k16 with fp32 accumulation. Step t's
-// h is exchanged through hs itself: every CTA writes its columns of hs[t], a
+// steps (fp32 at H=256: 272 rows of 128 LSTM or 96 GRU columns, 148 / 113 KB;
+// bf16 mode: k-pairs rounded once when staged, half that), and its product at
+// each step is a gate tile (rnn_common.cuh): fp32 register tiles on the CUDA
+// cores, IEEE; bf16 mma.m16n8k16 with fp32 accumulation. Step t's h is
+// exchanged through hs itself: every CTA writes its columns of hs[t], a
 // cluster barrier (arrive.release / wait.acquire) orders the steps, and step
 // t+1 streams its rows back from L2 through the tile's cp.async ring, masked
 // by keep. Clusters never wait for each other, so correctness does not
@@ -31,21 +31,39 @@
 // does not fit a CTA's shared memory (the LSTM above H=256, the GRU's fp32
 // mode above 256) the same kernel streams it from L2 through the ring at
 // every step, chosen by shape; the streamed weights take 128-row tiles only.
-// Bound: 2*T*S*B*
-// (H+D)*G*H operations over the card (fp32 CUDA cores; in bf16 mode the
-// tensor cores, where the h loads from L2 and the T barriers bound a step
-// instead).
+// Bound: 2*T*S*B*(H+D)*G*H operations over the card (fp32 CUDA cores; in bf16
+// mode the tensor cores, where the h loads from L2 and the T barriers bound a
+// step instead).
 //
-// The cell is the template policy (LstmFwdCell in lstm_x.cu, GruFwdCell in
-// gru_x.cu): the width of a tile's product columns and how they map onto
-// [Wh; Wx], where the x rows start, the bias a tile stages, and its Tile: the
-// accumulators, the product of one k-tile, a hook at the first x k-tile and
-// the epilogue's cell update.
+// Many streams (kXproj: the G = 16 streams of a multi-seed study, 8 seeds x
+// actor and critic, each with its own weights; rnn_xp_fwd_kernel): with a
+// cluster of its own for each stream, 16 clusters on a card that runs 15
+// take two waves, the second a whole pass for one cluster. Clusters of 4 CTAs
+// do not help (the card runs 30 of them, fewer than two a stream, and a CTA
+// of one runs two 32-column tiles a step), nor do the streams' rows laid end
+// to end over the 15 clusters (137 rows each, mostly two parts of 60-70 rows,
+// two 128-row tiles a step: a tile's cost hardly falls with its rows). So
+// where the streams outnumber the Q clusters at once, each cluster serves
+// S / Q whole streams and a share of the rest's rows (G=16: stream c and 9
+// rows of stream 15), its CTAs holding the weight slice of each (bf16 at
+// H=256: two of 70 KB); a step runs a 128-row and a 32-row tile, one wave.
+// Where the slices do not fit (three at H=256, or any above H=256, where the
+// slice is streamed from L2), a cluster a stream, in several waves. The xproj
+// cell runs in bf16 mode only (fp32: see lstm_xp.cu).
+//
+// The cell is the template policy (LstmFwdCell, LstmXpFwdCell below,
+// GruFwdCell in gru_x.cu): the width of a tile's product columns and how they
+// map onto [Wh; Wx], where the x rows start, the bias a tile stages, and its
+// Tile: the accumulators, the product of one k-tile, a hook at the first x
+// k-tile and the epilogue's cell update.
 // - LSTM: 128 columns a tile, the four gates of 32 hidden columns
 //   interleaved (n = jj*4 + q), x right after h.
 // - GRU: 96 columns a tile, r | z | n of 32 hidden columns; x starts at the
 //   k-tile after h, and the n column's h part (u) is stashed when the x
 //   k-tiles begin, so [Wh; Wx] has no zero block (see gru_x.cu).
+// - LSTM xproj (kXproj): the LSTM's h rows alone (D = 0), the accumulators
+//   starting at the stored projection row plus bh (Tile::start, before the
+//   k-loop), and a reset mask a stream (RnnXpFwdArgs::reset_stride).
 #pragma once
 
 #include "rnn_common.cuh"
@@ -74,6 +92,16 @@ struct RnnFwdArgs {
   int hc;       // hidden columns of a CTA (the last ones may own fewer)
   int n_tiles;  // tiles of kFwdTileHidden hidden columns a CTA
   int kp;       // operand rows (h, then x from Cell::x_start(H)), rounded up to k-tiles
+};
+
+// The xproj cell's (kXproj) inputs besides: G streams with a reset mask each
+// over the stored projection. The x cells' kernels take RnnFwdArgs alone.
+struct RnnXpFwdArgs : RnnFwdArgs {
+  int streams;         // the streams S
+  int parts;           // the streams a cluster serves at most (the weight slices a CTA holds)
+  int whole;           // whole streams a cluster serves (0: a.rows rows of one stream)
+  int reset_stride;    // floats between the streams' reset masks
+  const float* xproj;  // the stored input projection
 };
 
 __device__ __forceinline__ void cluster_sync() {
@@ -115,17 +143,19 @@ struct FwdCta {
 // over a ring of kRows-row stages: the product over the ring, then the cell
 // update at the thread's cells.
 template <class Cell, int kTM, bool BF16, bool kResident, int kRows>
-__device__ __forceinline__ void fwd_tile(const RnnFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
+__device__ __forceinline__ void fwd_tile(const typename Cell::Args& a, const FwdCta& c, int t, int m0, int nt) {
   constexpr int kStage = fwd_stage_floats<Cell, BF16, kResident>(kRows);
   constexpr int kStageA = kRows * gate_lda<BF16>();
   constexpr int kLdBs = Cell::kTileCols + kFwdPad;  // a streamed weight tile's row
   const int tid = threadIdx.x, H = a.H, B = a.B, x0 = Cell::x_start(H);
+  const float* resets = a.resets;
+  if constexpr (Cell::kXproj) resets += (size_t)c.s * a.reset_stride;
   GateRows<kTM> rows;
 #pragma unroll
   for (int r = 0; r < GateRows<kTM>::kN; ++r) {
     const int rr = (tid >> 2) + 64 * r, b = m0 + rr;
     const bool ok = b < c.rb1 && (!GateRows<kTM>::kPartial || rr < kTM);
-    rows.set(r, ok, c.s, t, ok ? b : c.rb0, a.h0, a.hs, a.xs, a.resets, a.T, B, a.D, H);
+    rows.set(r, ok, c.s, t, ok ? b : c.rb0, a.h0, a.hs, a.xs, resets, a.T, B, a.D, H);
   }
   auto issue = [&](int kt) {
     float* As = c.ring + (kt % kFwdStages) * kStage;
@@ -145,6 +175,7 @@ __device__ __forceinline__ void fwd_tile(const RnnFwdArgs& a, const FwdCta& c, i
     cp_async_commit();
   }
   typename Cell::template Tile<kTM, BF16> tile = {};
+  if constexpr (Cell::kXproj) tile.start(a, c, t, m0, nt);
   for (int kt = 0; kt < c.n_kt; ++kt) {
     cp_async_wait<kFwdStages - 2>();
     float* As = c.ring + (kt % kFwdStages) * kStage;
@@ -168,6 +199,43 @@ __device__ __forceinline__ void fwd_tile(const RnnFwdArgs& a, const FwdCta& c, i
   __syncthreads();  // the ring is refilled by the next tile
 }
 
+// The CTA's hidden columns and k-tiles; the stream and rows are the kernel's.
+template <class Cell>
+__device__ __forceinline__ FwdCta fwd_cta(const RnnFwdArgs& a) {
+  FwdCta c;
+  c.j0 = (blockIdx.x % kCluster) * a.hc;
+  c.hc = max(0, min(a.H - c.j0, a.hc));
+  c.ld = a.n_tiles * Cell::kTileCols + kFwdPad;
+  c.n_kt = a.kp / kGateK;
+  c.kt_x = Cell::x_start(a.H) / kGateK;
+  return c;
+}
+
+// Stage stream c.s's bias (a.n_tiles * kGateCols floats at bias) and,
+// resident, its slice of [Wh; Wx] (fp32 rows or bf16 k-pairs of c.ld at w) for
+// the CTA's columns, once; the first barrier of the k-loop orders these stores
+// before any read.
+template <class Cell, bool BF16, bool kResident>
+__device__ __forceinline__ void fwd_stage_slice(const typename Cell::Args& a, const FwdCta& c, float* w, float* bias) {
+  const int s = c.s;
+  const int tid = threadIdx.x;
+  for (int n = tid; n < a.n_tiles * kGateCols; n += 256) bias[n] = Cell::bias(a, s, c.j0, c.hc, n);
+  if constexpr (kResident) {
+    const int rows_w = BF16 ? a.kp / 2 : a.kp;
+    for (int e = tid; e < rows_w * c.ld; e += 256) {
+      const int r = e / c.ld, n = e - r * c.ld;
+      if constexpr (BF16) {
+        const float* lo = Cell::weight(a, s, c.j0, c.hc, 2 * r, n);
+        const float* hi = Cell::weight(a, s, c.j0, c.hc, 2 * r + 1, n);
+        reinterpret_cast<uint32_t*>(w)[e] = pack_bf16(lo ? *lo : 0.0f, hi ? *hi : 0.0f);
+      } else {
+        const float* wk = Cell::weight(a, s, c.j0, c.hc, r, n);
+        w[e] = wk ? *wk : 0.0f;
+      }
+    }
+  }
+}
+
 // Grid (clusters * kCluster), clusters of kCluster along x, 256 threads. A
 // cluster's rows go through 128-row tiles and the rows past the last full one
 // through tiles of kTail rows (128, 64 or 32, chosen by the launcher from the
@@ -176,46 +244,22 @@ __device__ __forceinline__ void fwd_tile(const RnnFwdArgs& a, const FwdCta& c, i
 // costs registers and spills). kTail = 96 or 160 (kOneTile cells): all the
 // cluster's rows in one tile of kTail rows.
 template <class Cell, bool BF16, bool kResident, int kTail>
-__global__ void __launch_bounds__(256, 1) rnn_x_fwd_kernel(const RnnFwdArgs a) {
+__global__ void __launch_bounds__(256, 1) rnn_x_fwd_kernel(const typename Cell::Args a) {
   constexpr int kRows = fwd_stage_rows(kTail);
   constexpr bool kOne = kTail == 96 || kTail == 160;
   extern __shared__ __align__(16) float fwd_smem[];
-  const int tid = threadIdx.x;
-  const int rank = blockIdx.x % kCluster, cluster = blockIdx.x / kCluster;
-  const int H = a.H, B = a.B;
-  const int per_stream = (B + a.rows - 1) / a.rows;
-  FwdCta c;
+  const int cluster = blockIdx.x / kCluster;
+  const int per_stream = (a.B + a.rows - 1) / a.rows;
+  FwdCta c = fwd_cta<Cell>(a);
   c.s = cluster / per_stream;
   c.rb0 = (cluster - c.s * per_stream) * a.rows;
-  c.rb1 = min(B, c.rb0 + a.rows);
-  c.j0 = rank * a.hc;
-  c.hc = max(0, min(H - c.j0, a.hc));
-  c.ld = a.n_tiles * Cell::kTileCols + kFwdPad;
-  c.n_kt = a.kp / kGateK;
-  c.kt_x = Cell::x_start(H) / kGateK;
+  c.rb1 = min(a.B, c.rb0 + a.rows);
   float* bias_s = fwd_smem + (kResident ? (BF16 ? a.kp / 2 : a.kp) * c.ld : 0);
   c.w = fwd_smem;
   c.bias = bias_s;
   c.ring = bias_s + a.n_tiles * kGateCols;
   const int n_tiles = c.hc > 0 ? a.n_tiles : 0;
-
-  // stage the CTA's bias and (resident) its slice of [Wh; Wx] once; the first
-  // barrier of the k-loop orders these stores before any read
-  for (int n = tid; n < a.n_tiles * kGateCols; n += 256) bias_s[n] = Cell::bias(a, c.s, c.j0, c.hc, n);
-  if constexpr (kResident) {
-    const int rows_w = BF16 ? a.kp / 2 : a.kp;
-    for (int e = tid; e < rows_w * c.ld; e += 256) {
-      const int r = e / c.ld, n = e - r * c.ld;
-      if constexpr (BF16) {
-        const float* lo = Cell::weight(a, c.s, c.j0, c.hc, 2 * r, n);
-        const float* hi = Cell::weight(a, c.s, c.j0, c.hc, 2 * r + 1, n);
-        reinterpret_cast<uint32_t*>(fwd_smem)[e] = pack_bf16(lo ? *lo : 0.0f, hi ? *hi : 0.0f);
-      } else {
-        const float* w = Cell::weight(a, c.s, c.j0, c.hc, r, n);
-        fwd_smem[e] = w ? *w : 0.0f;
-      }
-    }
-  }
+  fwd_stage_slice<Cell, BF16, kResident>(a, c, fwd_smem, bias_s);
 
   for (int t = 0; t < a.T; ++t) {
     if constexpr (kOne) {
@@ -233,13 +277,95 @@ __global__ void __launch_bounds__(256, 1) rnn_x_fwd_kernel(const RnnFwdArgs a) {
   }
 }
 
+// The xproj cell's kernel: rnn_x_fwd_kernel's steps, where a cluster may
+// serve several streams. With a.whole = 0 a cluster owns a.rows rows of one
+// stream, as above. With a.whole = w > 0 (more streams than the Q clusters
+// the card runs at once) cluster c owns the whole streams c*w .. c*w+w-1 and
+// a.rows of the remaining streams' rows laid end to end after them (G=16,
+// Q=15: stream c, and 9 rows of stream 15). Each stream a cluster serves is a
+// part: its CTAs hold the part's weight slice and bias, and a step runs the
+// part's rows through 128-row tiles until the rest fits one kTail-row tile.
+// The x cells keep a kernel and an argument of their own: compiled through
+// this one, or given RnnXpFwdArgs, their forwards ran 6-15% slower.
+template <class Cell, bool BF16, bool kResident, int kTail>
+__global__ void __launch_bounds__(256, 1) rnn_xp_fwd_kernel(const RnnXpFwdArgs a) {
+  constexpr int kRows = fwd_stage_rows(kTail);
+  extern __shared__ __align__(16) float fwd_smem[];
+  const int cluster = blockIdx.x / kCluster;
+  const int B = a.B;
+  FwdCta c = fwd_cta<Cell>(a);
+  const int slice = kResident ? (BF16 ? a.kp / 2 : a.kp) * c.ld : 0;  // floats of a weight slice
+  const int bias_n = a.n_tiles * kGateCols;
+  float* bias_s = fwd_smem + a.parts * slice;
+  c.ring = bias_s + a.parts * bias_n;
+  const int n_tiles = c.hc > 0 ? a.n_tiles : 0;
+  // the rows [lo, hi) of the streams laid end to end that follow the whole streams
+  int lo, hi;
+  if (a.whole == 0) {
+    const int per_stream = (B + a.rows - 1) / a.rows;
+    const int s = cluster / per_stream;
+    lo = s * B + (cluster - s * per_stream) * a.rows;
+    hi = min(s * B + B, lo + a.rows);
+  } else {
+    lo = a.whole * (int)(gridDim.x / kCluster) * B + cluster * a.rows;
+    hi = min(lo + a.rows, a.streams * B);
+  }
+  const int n_parts = a.whole + (hi > lo ? (hi - 1) / B - lo / B + 1 : 0);
+  auto part = [&](int p) {
+    FwdCta q = c;
+    if (p < a.whole) {
+      q.s = cluster * a.whole + p;
+      q.rb0 = 0;
+      q.rb1 = B;
+    } else {
+      q.s = lo / B + p - a.whole;
+      q.rb0 = max(lo - q.s * B, 0);
+      q.rb1 = min(hi - q.s * B, B);
+    }
+    q.w = fwd_smem + p * slice;
+    q.bias = bias_s + p * bias_n;
+    return q;
+  };
+
+  for (int p = 0; p < n_parts; ++p)
+    fwd_stage_slice<Cell, BF16, kResident>(a, part(p), fwd_smem + p * slice, bias_s + p * bias_n);
+
+  for (int t = 0; t < a.T; ++t) {
+    for (int p = 0; p < n_parts; ++p) {
+      const FwdCta q = part(p);
+      for (int m0 = q.rb0; m0 < q.rb1;) {
+        if (q.rb1 - m0 > kTail) {
+          for (int nt = 0; nt < n_tiles; ++nt) fwd_tile<Cell, 128, BF16, kResident, kRows>(a, q, t, m0, nt);
+          m0 += 128;
+        } else {
+          for (int nt = 0; nt < n_tiles; ++nt) fwd_tile<Cell, kTail, BF16, kResident, kRows>(a, q, t, m0, nt);
+          m0 += kTail;
+        }
+      }
+    }
+    if (t + 1 < a.T) cluster_sync();  // hs[t] of the whole cluster is in before step t+1 reads it
+  }
+}
+
+// The kernel of a cell.
+template <class Cell, bool BF16, bool kResident, int kTail>
+constexpr auto fwd_kernel() {
+  if constexpr (Cell::kXproj) {
+    return rnn_xp_fwd_kernel<Cell, BF16, kResident, kTail>;
+  } else {
+    return rnn_x_fwd_kernel<Cell, BF16, kResident, kTail>;
+  }
+}
+
 // The grid of a forward launch, chosen from the card (see the note above).
 struct FwdPlan {
   int clusters;  // clusters the card runs at once
   int rows;      // batch rows of a cluster
   int grid;      // clusters launched
+  int waves;     // ceil(grid / clusters)
   int resident;  // the [Wh; Wx] slices stay in shared memory
   int tail;      // rows of the tiles past the last full 128-row one (96, 160: of the one tile)
+  int parts;     // the streams a cluster serves at most (the weight slices a CTA holds)
   size_t smem;
 };
 
@@ -260,7 +386,7 @@ cudaLaunchConfig_t cluster_config(unsigned clusters, size_t smem, cudaStream_t s
 
 template <class Cell, bool BF16, bool kResident>
 cudaError_t fwd_active_clusters(size_t smem, int* clusters) {
-  auto kernel = rnn_x_fwd_kernel<Cell, BF16, kResident, 128>;
+  auto kernel = fwd_kernel<Cell, BF16, kResident, 128>();
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
@@ -268,8 +394,37 @@ cudaError_t fwd_active_clusters(size_t smem, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
+// The xproj cell's layout where S streams outnumber the Q clusters at once:
+// w = S / Q whole streams a cluster and ceil((S % Q) * B / Q) rows of the
+// rest; the streams a cluster serves at most. Returns false where their
+// weight slices do not fit a CTA's shared memory (the plan then keeps a
+// cluster a stream, in several waves).
 template <class Cell, bool BF16>
-cudaError_t fwd_plan(int S, int B, int D, int H, RnnFwdArgs& a, FwdPlan& p) {
+bool fwd_whole_streams(int S, int B, int max_smem, RnnXpFwdArgs& a, FwdPlan& p) {
+  const int Q = p.clusters, w = S / Q, r = S - w * Q;
+  const int rest = (r * B + Q - 1) / Q;
+  int parts = w;
+  for (int c = 0; c < Q && r > 0; ++c) {
+    const int lo = c * rest, hi = min(lo + rest, r * B);
+    if (hi > lo) parts = max(parts, w + (hi - 1) / B - lo / B + 1);
+  }
+  const size_t extra = (size_t)(parts - 1) *
+                       ((BF16 ? a.kp / 2 : a.kp) * (a.n_tiles * Cell::kTileCols + kFwdPad) + a.n_tiles * kGateCols);
+  const size_t smem = p.smem + extra * sizeof(float);
+  if (smem > (size_t)max_smem) return false;
+  a.whole = w;
+  a.rows = rest;
+  p.rows = w * B + rest;
+  p.grid = Q;
+  p.parts = a.parts = parts;
+  p.smem = smem;
+  const int tail = (r > 0 ? rest : B) % 128;
+  p.tail = tail == 0 || tail > 64 ? 128 : tail > 32 ? 64 : 32;
+  return true;
+}
+
+template <class Cell, bool BF16>
+cudaError_t fwd_plan(int S, int B, int D, int H, typename Cell::Args& a, FwdPlan& p) {
   a.hc = (H + kCluster - 1) / kCluster;
   a.n_tiles = (a.hc + kFwdTileHidden - 1) / kFwdTileHidden;
   a.kp = (Cell::x_start(H) + D + kGateK - 1) / kGateK * kGateK;
@@ -285,9 +440,20 @@ cudaError_t fwd_plan(int S, int B, int D, int H, RnnFwdArgs& a, FwdPlan& p) {
                    : fwd_active_clusters<Cell, BF16, false>(p.smem, &p.clusters);
   if (err != cudaSuccess) return err;
   if (p.clusters < 1) return cudaErrorInvalidConfiguration;
+  p.parts = 1;
+  if constexpr (Cell::kXproj) {
+    a.parts = 1;
+    a.whole = 0;
+    a.streams = S;
+    if (S > p.clusters && p.resident && fwd_whole_streams<Cell, BF16>(S, B, max_smem, a, p)) {
+      p.waves = 1;
+      return cudaSuccess;
+    }
+  }
   const int per_stream = max(1, p.clusters / S);
   a.rows = p.rows = (B + per_stream - 1) / per_stream;
   p.grid = S * ((B + p.rows - 1) / p.rows);
+  p.waves = (p.grid + p.clusters - 1) / p.clusters;
   const int tail = p.rows % 128;
   p.tail = tail == 0 || tail > 64 ? 128 : tail > 32 ? 64 : 32;
   if (Cell::kOneTile && p.resident && p.rows > 64 && p.rows <= 160) {
@@ -308,8 +474,8 @@ cudaError_t fwd_plan(int S, int B, int D, int H, RnnFwdArgs& a, FwdPlan& p) {
 }
 
 template <class Cell, bool BF16, bool kResident, int kTail>
-cudaError_t fwd_run(const RnnFwdArgs& a, const FwdPlan& p, cudaStream_t st) {
-  auto kernel = rnn_x_fwd_kernel<Cell, BF16, kResident, kTail>;
+cudaError_t fwd_run(const typename Cell::Args& a, const FwdPlan& p, cudaStream_t st) {
+  auto kernel = fwd_kernel<Cell, BF16, kResident, kTail>();
   cudaError_t err = allow_smem(kernel, p.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
@@ -318,7 +484,7 @@ cudaError_t fwd_run(const RnnFwdArgs& a, const FwdPlan& p, cudaStream_t st) {
 }
 
 template <class Cell, bool BF16>
-cudaError_t rnn_x_fwd_launch(RnnFwdArgs a, int S, cudaStream_t st) {
+cudaError_t rnn_x_fwd_launch(typename Cell::Args a, int S, cudaStream_t st) {
   FwdPlan p;
   cudaError_t err = fwd_plan<Cell, BF16>(S, a.B, a.D, a.H, a, p);
   if (err != cudaSuccess) return err;
@@ -336,20 +502,219 @@ cudaError_t rnn_x_fwd_launch(RnnFwdArgs a, int S, cudaStream_t st) {
 // the card runs at once, out[1] batch rows a cluster owns, out[2] clusters
 // launched, out[3] 1 where the weight slices stay in shared memory, out[4]
 // the rows of the tiles past the last full 128-row one (96, 160: of the one
-// tile that takes a cluster's rows).
-template <class Cell>
-int rnn_x_fwd_plan(int S, int B, int D, int H, int bf16, int* out) {
+// tile that takes a cluster's rows), out[5] the streams a cluster serves at
+// most (the weight slices a CTA holds), out[6] the waves (clusters launched
+// over clusters at once, rounded up).
+template <class Cell, bool BF16>
+int rnn_x_fwd_plan(int S, int B, int D, int H, int* out) {
   if (bad_dims(S, 1, B, D, H) || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  RnnFwdArgs a{};
+  typename Cell::Args a{};
   FwdPlan p;
-  const cudaError_t err = bf16 ? fwd_plan<Cell, true>(S, B, D, H, a, p) : fwd_plan<Cell, false>(S, B, D, H, a, p);
+  const cudaError_t err = fwd_plan<Cell, BF16>(S, B, D, H, a, p);
   if (err != cudaSuccess) return (int)err;
   out[0] = p.clusters;
   out[1] = p.rows;
   out[2] = p.grid;
   out[3] = p.resident;
   out[4] = p.tail;
+  out[5] = p.parts;
+  out[6] = p.waves;
   return 0;
 }
+
+// ------------------------------------------------------------ the LSTM cells
+//
+// A tile's 128 product columns are the four gates of 32 hidden columns,
+// interleaved (n = jj*4 + q), over [Wh; Wx] with x right after h.
+
+// Cell c of a thread's part of the gate tile: its tile row and hidden column
+// (of the tile's 32). fp32: rows gate_row_of(ty, c/2), hidden columns tx and
+// 16 + tx, gates acc[c/2][4*(c%2) + q]; bf16: of n8 tile c%4 of m16 tile c/4,
+// row g (even lanes) or g + 8 (odd lanes), gates acc[c/4][c%4][q] once the
+// lane pairs have swapped halves (fwd_gather_gates).
+template <int kTM, bool BF16>
+__device__ __forceinline__ void fwd_cell(int c, int& row, int& jj) {
+  const int tid = threadIdx.x;
+  if constexpr (BF16) {
+    const int warp = tid >> 5, g = (tid & 31) >> 2, q = tid & 3;
+    row = (warp >> 2) * (kTM / 2) + 16 * (c >> 2) + g + 8 * (q & 1);
+    jj = (warp & 3) * 8 + 2 * (c & 3) + (q >> 1);
+  } else {
+    row = gate_row_of<kTM>(tid >> 4, c >> 1);
+    jj = (c & 1) * 16 + (tid & 15);
+  }
+}
+
+// bf16: lane pairs (q, q^1) hold gates 0,1 and 2,3 of the same hidden column
+// for rows g and g + 8; they swap halves so that each holds all four gates of
+// one row.
+template <int kTM>
+__device__ __forceinline__ void fwd_gather_gates(GateAcc<kTM, true>& acc) {
+  const bool odd = threadIdx.x & 1;
+#pragma unroll
+  for (int i = 0; i < kTM / 32; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* v = acc[i][j];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? v[1] : v[3], 1);
+      if (odd) {
+        v[0] = r0;
+        v[1] = r1;
+      } else {
+        v[2] = r0;
+        v[3] = r1;
+      }
+    }
+}
+
+template <int kTM, bool BF16>
+__device__ __forceinline__ float fwd_gate(const GateAcc<kTM, BF16>& acc, int c, int q) {
+  if constexpr (BF16) {
+    return acc[c >> 2][c & 3][q];
+  } else {
+    return acc[c >> 1][4 * (c & 1) + q];
+  }
+}
+
+// The LSTM cell update at the thread's cells, written to hs[t] and cs[t]: the
+// carried c and keep are loaded here, not ahead of the product, where they
+// would hold registers through it. kStored (the xproj cell): the
+// accumulators already hold the input projection and bias, and keep comes
+// from the stream's own reset mask.
+template <int kTM, bool BF16, bool kStored, class Args>
+__device__ __forceinline__ void lstm_fwd_update(GateAcc<kTM, BF16>& acc, const Args& a, const FwdCta& c, int t,
+                                                int m0, int nt) {
+  constexpr int kCells = kTM / 8;
+  const int H = a.H, B = a.B;
+  size_t reset0 = 0;
+  if constexpr (kStored) reset0 = (size_t)c.s * a.reset_stride;
+  float c_prev[kCells], keep[kCells];
+#pragma unroll
+  for (int e = 0; e < kCells; ++e) {
+    int row, jj;
+    fwd_cell<kTM, BF16>(e, row, jj);
+    const int b = m0 + row, j = c.j0 + nt * 32 + jj;
+    const bool on = b < c.rb1 && nt * 32 + jj < c.hc;
+    keep[e] = on ? 1.0f - a.resets[reset0 + (size_t)t * B + b] : 0.0f;
+    c_prev[e] = !on ? 0.0f
+                    : t == 0 ? a.c0[((size_t)c.s * B + b) * H + j]
+                             : a.cs[(((size_t)c.s * a.T + t - 1) * B + b) * H + j];
+  }
+  if constexpr (BF16) fwd_gather_gates<kTM>(acc);
+  const float* bias = c.bias + nt * kGateCols;
+  auto gate = [&](int e, int jj, int q) {
+    const float v = fwd_gate<kTM, BF16>(acc, e, q);
+    if constexpr (kStored) {
+      return v;
+    } else {
+      return v + bias[jj * 4 + q];
+    }
+  };
+#pragma unroll
+  for (int e = 0; e < kCells; ++e) {
+    int row, jj;
+    fwd_cell<kTM, BF16>(e, row, jj);
+    const int b = m0 + row;
+    if (b >= c.rb1 || nt * 32 + jj >= c.hc) continue;
+    const float i = sigmoid(gate(e, jj, 0));
+    const float f = sigmoid(gate(e, jj, 1));
+    const float g = tanhf(gate(e, jj, 2));
+    const float o = sigmoid(gate(e, jj, 3));
+    const float cell = f * (c_prev[e] * keep[e]) + i * g;
+    const size_t out = (((size_t)c.s * a.T + t) * B + b) * H + c.j0 + nt * 32 + jj;
+    a.cs[out] = cell;
+    a.hs[out] = o * tanhf(cell);
+  }
+}
+
+// The LSTM cell of lstm_x_fwd.
+struct LstmFwdCell {
+  static constexpr int kTileCols = kGateCols;
+  static constexpr bool kOneTile = false;  // 128-row tiles and one tail size (its kernels spill at 255 registers)
+  static constexpr bool kXproj = false;
+  using Args = RnnFwdArgs;
+
+  __host__ __device__ static int x_start(int H) { return H; }
+
+  // Operand row k of [Wh; Wx] at gate column n of the CTA whose hidden columns
+  // start at j0 (gate q = n % 4 of hidden column j0 + n / 4), or nullptr where
+  // the value is zero (past the CTA's columns or the operand rows).
+  __device__ __forceinline__ static const float* weight(const RnnFwdArgs& a, int s, int j0, int hc, int k, int n) {
+    const int jj = n >> 2, H = a.H;
+    if (jj >= hc || k >= H + a.D) return nullptr;
+    const int col = (n & 3) * H + j0 + jj;
+    return k < H ? a.wh + ((size_t)s * H + k) * 4 * H + col : a.wx + ((size_t)s * a.D + k - H) * 4 * H + col;
+  }
+
+  // bh at gate column n
+  __device__ __forceinline__ static float bias(const RnnFwdArgs& a, int s, int j0, int hc, int n) {
+    return (n >> 2) < hc ? a.bias[(size_t)s * 4 * a.H + (n & 3) * a.H + j0 + (n >> 2)] : 0.0f;
+  }
+
+  template <int kTM, bool BF16>
+  struct Tile {
+    GateAcc<kTM, BF16> acc;
+
+    __device__ __forceinline__ void at_x() {}
+
+    template <class Bt>
+    __device__ __forceinline__ void step(const float* As, const Bt& bt) {
+      gate_tile_step<kTM, BF16>(acc, As, bt);
+    }
+
+    __device__ __forceinline__ void epilogue(const RnnFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
+      lstm_fwd_update<kTM, BF16, false>(acc, a, c, t, m0, nt);
+    }
+  };
+};
+
+// The LSTM cell of lstm_xp_fwd: over the stored projection xproj [G,T,B,4H]
+// (x Wx, gates i|f|g|o) with D = 0, so its weight map (LstmFwdCell's) has the
+// h rows alone; each accumulator starts at its xproj element plus bh, loaded
+// before the k-loop so that the loads' latency hides behind the ring's first
+// copies (after the product each would wait behind the epilogue's stores,
+// which may alias), and each stream has its own reset mask.
+struct LstmXpFwdCell : LstmFwdCell {
+  static constexpr bool kXproj = true;
+  using Args = RnnXpFwdArgs;
+
+  template <int kTM, bool BF16>
+  struct Tile : LstmFwdCell::Tile<kTM, BF16> {
+    __device__ __forceinline__ void start(const RnnXpFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
+      const int H = a.H;
+      const float* bias = c.bias + nt * kGateCols;
+      const float* xp = a.xproj + (((size_t)c.s * a.T + t) * a.B) * 4 * H + c.j0 + nt * kFwdTileHidden;
+      // tile row `row` at product column n (gate n % 4 of hidden column n / 4)
+      auto input = [&](int row, int n) {
+        const int b = m0 + row, jj = n >> 2;
+        if (b >= c.rb1 || nt * kFwdTileHidden + jj >= c.hc) return 0.0f;
+        return __ldg(xp + (size_t)b * 4 * H + (n & 3) * H + jj) + bias[n];
+      };
+      const int tid = threadIdx.x;
+      if constexpr (BF16) {
+        const int warp = tid >> 5, g = (tid & 31) >> 2, q = tid & 3;
+        const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+        for (int i = 0; i < kTM / 32; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              this->acc[i][j][e] = input(wm * (kTM / 2) + 16 * i + g + 8 * (e >> 1), wn * 32 + 8 * j + 2 * q + (e & 1));
+      } else {
+        const int ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+        for (int i = 0; i < kTM / 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) this->acc[i][j] = input(gate_row_of<kTM>(ty, i), (j & 4) * 16 + tx * 4 + (j & 3));
+      }
+    }
+
+    __device__ __forceinline__ void epilogue(const RnnXpFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
+      lstm_fwd_update<kTM, BF16, true>(this->acc, a, c, t, m0, nt);
+    }
+  };
+};
 
 }  // namespace

@@ -56,14 +56,16 @@ forward gives each block a tile of ``BB`` batch rows of one stream, keeps its
 hidden tile in shared memory and its own hidden column in registers (above
 H=256 two columns a thread, half the rows a block), and re-reads ``Wh`` from
 L2 (50 MB, where all blocks share one copy) at every step.
-``gru_x_bwd`` takes out of the serial chain what does not depend on the
-carried gradients, in the three phases of ``csrc/rnn_bwd.cuh``: the gate
-quantities ``r | z | a_n | u`` of all steps in one tiled GEMM over the
-``T*B`` rows (skipping the zero blocks of ``[Wh; Wx]`` in that layout), then
-per step one launch of ``(g*z + [dr|dz|du] @ Whᵀ) * keep`` tiled over the
-whole card (each ``Whᵀ`` element read from L2 serves 64 rows) with the cell's
-gradient in its epilogue, then ``dx`` for all steps at once; in bf16 mode its
-products run on the tensor cores. The weight gradients, which the TPU
+``gru_x_bwd`` and ``gru_xp_bwd`` take out of the serial chain what does not
+depend on the carried gradients, in the three phases of ``csrc/rnn_bwd.cuh``:
+the gate quantities ``r | z | a_n | u`` of all steps in one tiled GEMM over
+the ``T*B`` rows (skipping the zero blocks of ``[Wh; Wx]`` in that layout;
+``gru_xp_bwd``: over all ``G*T*B`` rows, starting at the stored ``xproj``
+row and ``bhn`` where ``gru_x_bwd`` multiplies ``x Wx``), then per step one
+launch of ``(g*z + [dr|dz|du] @ Whᵀ) * keep`` tiled over the whole card
+(each ``Whᵀ`` element read from L2 serves 64 rows) with the cell's gradient
+in its epilogue, then ``dx`` for all steps at once (``gru_xp_bwd`` has no
+such phase); in bf16 mode their products run on the tensor cores. The weight gradients, which the TPU
 accumulates in a scratch carried across its sequential grid, come from a
 separate deterministic pass: every block of the reduction owns one output
 tile and one split of the ``T*B`` rows and sums them in order into its own
@@ -88,6 +90,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     check_hidden,
     check_replay_inputs,
     check_resets,
+    fwd_plan,
     is_bf16,
     load_kernels,
     merge_streams,
@@ -236,7 +239,7 @@ _SIGNATURES = {
     },
     "gru_xp": {
         "gru_xp_fwd": [_P] * 6 + [_I] * 5 + [_P],
-        "gru_xp_bwd": [_P] * 10 + [_I] * 5 + [_P],
+        "gru_xp_bwd": [_P] * 10 + [_I] * 5 + [_P] * 2,
         "gru_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
     },
 }
@@ -278,13 +281,11 @@ def gru_x_fwd_plan(S: int, B: int, D: int, H: int, bf16: bool = False) -> dict:
     """The grid :func:`gru_x_fwd` chooses on the current card for these
     shapes: the clusters the card runs at once, the batch rows of a cluster,
     the clusters launched, whether the weight slices stay in shared memory,
-    and the rows of the tiles that take a cluster's rows past its full
-    128-row tiles (96 or 160: one tile takes them all)."""
+    the rows of the tiles that take a cluster's rows past its full 128-row
+    tiles (96 or 160: one tile takes them all), the CTAs of a cluster and the
+    waves."""
     check_hidden("GRU", H)
-    out = (ctypes.c_int * 5)()
-    raise_on("gru_x_fwd_plan", _lib().gru_x_fwd_plan(S, B, D, H, int(bf16), ctypes.addressof(out)))
-    return {"active_clusters": out[0], "rows_per_cluster": out[1], "clusters": out[2], "resident": bool(out[3]),
-            "tail_rows": out[4]}
+    return fwd_plan("gru_x_fwd_plan", _lib().gru_x_fwd_plan, S, B, D, H, int(bf16))
 
 
 def _gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16, phase_ms):
@@ -395,9 +396,7 @@ def gru_xp_fwd(wh, bhn, carry0, xproj, resets, bf16: bool = False) -> torch.Tens
     return hs
 
 
-def gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False):
-    """Launch the xproj BPTT kernel; returns ``(dcarry0, gscratch)`` as
-    :func:`gru_xp_plain_bwd`."""
+def _gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16, phase_ms):
     G, T, B, H = _xp_dims(wh, xproj)
     whT = wh.transpose(-1, -2).contiguous()  # [G,3H,H]: coalesced dgates @ Whᵀ
     ptrs = [
@@ -413,9 +412,25 @@ def gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False):
     dcarry0 = torch.empty_like(carry0)
     gscratch = torch.empty((G, T, B, 4 * H), dtype=torch.float32, device=xproj.device)
     raise_on("gru_xp_bwd", _lib("gru_xp").gru_xp_bwd(*ptrs, dcarry0.data_ptr(), gscratch.data_ptr(),
-                                                      G, T, B, H, int(bf16), stream()))
+                                                      G, T, B, H, int(bf16), stream(), phase_ms))
     xp_launch_counts.bwd_launches += 1
     return dcarry0, gscratch
+
+
+def gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False):
+    """Launch the xproj BPTT kernels (the gates and chain phases of
+    ``csrc/rnn_bwd.cuh``); returns ``(dcarry0, gscratch)`` as
+    :func:`gru_xp_plain_bwd`."""
+    return _gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16, None)
+
+
+def gru_xp_bwd_phase_ms(wh, bhn, carry0, xproj, resets, hs, ghs, bf16: bool = False):
+    """One :func:`gru_xp_bwd` call timed by CUDA events between its phases
+    (waits for the stream): ``(gates ms, chain ms, 0.0)``; the xproj backward
+    has no dx phase."""
+    ms = (ctypes.c_float * 3)()
+    _gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16, ctypes.addressof(ms))
+    return tuple(ms)
 
 
 def gru_xp_wgrad(resets, carry0, hs, gscratch, bf16: bool = False):

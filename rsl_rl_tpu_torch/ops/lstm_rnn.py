@@ -47,10 +47,18 @@ as one tiled product (tensor cores in bf16 mode), keeps ``c`` to itself and
 exchanges ``h`` through ``hs`` with a cluster barrier between steps; the grid
 takes as many clusters as the card runs at once (the cluster forward of
 ``csrc/rnn_fwd.cuh``, shared with ``gru_x_fwd``). Where the slice does not
-fit (H > 256) the same kernel streams it from L2 at every step. The xproj
-forward keeps one block per ``BB`` batch rows of one stream, its hidden tile
-in shared memory and its own ``c`` and ``h`` columns in registers (above
-H=256 two columns a thread), re-reading ``Wh`` from L2 at every step.
+fit (H > 256) the same kernel streams it from L2 at every step.
+In bf16 mode ``lstm_xp_fwd`` runs the same cluster forward over the stored
+``xproj`` (the ``Wh`` rows alone, each gate's accumulator starting at its
+``xproj`` element and ``bh``) with a reset mask a stream; where the streams
+outnumber the clusters the card runs at once, a cluster serves whole streams
+and a share of the rest, its CTAs holding each one's weight slice, so G=16
+streams run in one wave (with a cluster a stream, 16 clusters on a card that
+runs 15 would take two). In fp32 mode, where that does not pay (two fp32
+slices do not fit a CTA), it keeps one block per ``BB`` batch rows of one
+stream, its hidden tile in shared memory and its own ``c`` and ``h`` columns
+in registers (above H=256 two columns a thread), re-reading ``Wh`` from L2 at
+every step.
 ``lstm_x_bwd`` and ``lstm_xp_bwd`` take out of the serial chain what does
 not depend on the carried gradients, in the three phases of
 ``csrc/rnn_bwd.cuh``: the gates of all steps in one tiled GEMM over the
@@ -80,6 +88,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     check_hidden,
     check_replay_inputs,
     check_resets,
+    fwd_plan,
     is_bf16,
     load_kernels,
     merge_streams,
@@ -234,6 +243,7 @@ _SIGNATURES = {
     },
     "lstm_xp": {
         "lstm_xp_fwd": [_P] * 8 + [_I] * 5 + [_P],
+        "lstm_xp_fwd_plan": [_I] * 3 + [_P],
         "lstm_xp_bwd": [_P] * 13 + [_I] * 5 + [_P] * 2,
         "lstm_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
     },
@@ -283,13 +293,10 @@ def lstm_x_fwd_plan(S: int, B: int, D: int, H: int, bf16: bool = False) -> dict:
     """The grid :func:`lstm_x_fwd` chooses on the current card for these
     shapes: the clusters the card runs at once, the batch rows of a cluster,
     the clusters launched, whether the weight slices stay in shared memory,
-    and the rows of the tiles that take a cluster's rows past its full
-    128-row tiles (96 or 160: one tile takes them all)."""
+    the rows of the tiles that take a cluster's rows past its full 128-row
+    tiles, the CTAs of a cluster and the waves."""
     check_hidden("LSTM", H)
-    out = (ctypes.c_int * 5)()
-    raise_on("lstm_x_fwd_plan", _lib().lstm_x_fwd_plan(S, B, D, H, int(bf16), ctypes.addressof(out)))
-    return {"active_clusters": out[0], "rows_per_cluster": out[1], "clusters": out[2], "resident": bool(out[3]),
-            "tail_rows": out[4]}
+    return fwd_plan("lstm_x_fwd_plan", _lib().lstm_x_fwd_plan, S, B, D, H, int(bf16))
 
 
 def _lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16, phase_ms):
@@ -373,7 +380,9 @@ def _xp_input_ptrs(wh, bh, c0, h0, xproj, resets):
 
 def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
     """Launch the xproj forward kernel; shapes as :func:`lstm_xp_plain_fwd`.
-    Returns ``(hs, cs)``."""
+    Returns ``(hs, cs)``. bf16 mode runs the cluster forward of
+    ``csrc/rnn_fwd.cuh``, fp32 mode one thread a hidden column (the faster
+    there)."""
     G, T, B, H = _xp_dims(wh, xproj)
     ptrs = _xp_input_ptrs(wh, bh, c0, h0, xproj, resets) + [check("bh", bh, (G, 4 * H))]
     hs = torch.empty((G, T, B, H), dtype=torch.float32, device=xproj.device)
@@ -382,6 +391,19 @@ def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
                                                          G, T, B, H, int(bf16), stream()))
     xp_launch_counts.fwd_launches += 1
     return hs, cs
+
+
+def lstm_xp_fwd_plan(G: int, B: int, H: int, bf16: bool = False) -> dict:
+    """The grid :func:`lstm_xp_fwd` chooses on the current card for G streams
+    of B rows: in bf16 mode the cluster forward's (``"kernel": "cluster"``,
+    keys as :func:`lstm_x_fwd_plan`; ``parts``: the streams a cluster serves
+    at most, whose weight slices its CTAs hold), in fp32 mode
+    ``{"kernel": "columns"}``."""
+    check_hidden("LSTM", H)
+    if not bf16:
+        return {"kernel": "columns"}
+    plan = fwd_plan("lstm_xp_fwd_plan", _lib("lstm_xp").lstm_xp_fwd_plan, G, B, H)
+    return {"kernel": "cluster", **plan}
 
 
 def _lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16, phase_ms):

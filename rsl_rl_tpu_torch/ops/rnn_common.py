@@ -93,6 +93,20 @@ def raise_on(fn: str, err: int) -> None:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
 
 
+#: what the cluster forwards' plan entry points report, in order
+#: (``csrc/rnn_fwd.cuh`` ``rnn_x_fwd_plan``)
+FWD_PLAN_KEYS = ("active_clusters", "rows_per_cluster", "clusters", "resident", "tail_rows", "parts", "waves")
+
+
+def fwd_plan(name: str, fn, *args) -> dict:
+    """The grid a cluster forward chooses, from its plan entry point ``fn(*args, out)``."""
+    out = (ctypes.c_int * len(FWD_PLAN_KEYS))()
+    raise_on(name, fn(*args, ctypes.addressof(out)))
+    plan = dict(zip(FWD_PLAN_KEYS, out))
+    plan["resident"] = bool(plan["resident"])
+    return plan
+
+
 def check_hidden(kind: str, H: int) -> None:
     if not 1 <= H <= KERNEL_MAX_HIDDEN:
         raise ValueError(f"{kind} kernels take 1 <= H <= {KERNEL_MAX_HIDDEN}, got H={H}")

@@ -620,9 +620,10 @@ def test_redesigned_kernels_edge_shapes_on_card(family, S, T, B, D, H, bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
     """Two calls give the same bits: the outputs of the cluster forwards
-    ``gru_x_fwd`` and ``lstm_x_fwd``, of the three-phase backwards
-    ``gru_x_bwd``, ``lstm_x_bwd`` and ``lstm_xp_bwd``, and of every
-    weight-gradient reduction, at the main paths' shapes."""
+    ``gru_x_fwd``, ``lstm_x_fwd`` and ``lstm_xp_fwd``, of the three-phase
+    backwards ``gru_x_bwd``, ``lstm_x_bwd``, ``gru_xp_bwd`` and
+    ``lstm_xp_bwd``, and of every weight-gradient reduction, at the main
+    paths' shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     calls = {}
@@ -645,9 +646,11 @@ def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
         state = (out,) if cell == "gru" else out
         xgs = getattr(mod, f"{cell}_xp_plain_bwd")(*xw, *state, xghs, bf16)[-1]
         rows = _xp_wgrad_rows(cell, xw, state, xgs)
-        if cell == "lstm":
-            calls["lstm_xp_bwd"] = lambda xw=xw, state=state, xghs=xghs: lstm_rnn.lstm_xp_bwd(*xw, *state, xghs, bf16)
+        calls[f"{cell}_xp_bwd"] = (lambda mod=mod, cell=cell, xw=xw, state=state, xghs=xghs:
+                                   getattr(mod, f"{cell}_xp_bwd")(*xw, *state, xghs, bf16))
         calls[f"{cell}_xp_wgrad"] = lambda mod=mod, cell=cell, rows=rows: getattr(mod, f"{cell}_xp_wgrad")(*rows, bf16)
+        if cell == "lstm":
+            calls["lstm_xp_fwd"] = lambda xw=xw: lstm_rnn.lstm_xp_fwd(*xw, bf16)
     for name, call in calls.items():
         first = [t.clone() for t in call()]
         second = call()
@@ -702,4 +705,88 @@ def test_lstm_xp_bwd_per_stream_resets_on_card(G, T, B, bf16):
     want = lstm_rnn.lstm_xp_plain_bwd(*w, hs, cs, ghs, bf16)
     for name, a, b in zip(("dc0", "dh0", "gscratch"), got, want):
         _close(a, b, bwd_rtol, bwd_atol_rel, name)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["gru_x_bwd_phase_ms", "lstm_x_bwd_phase_ms", "gru_xp_bwd_phase_ms",
+                                  "lstm_xp_bwd_phase_ms"])
+def test_phase_timing_wrappers_refuse_cpu_tensors(name):
+    """The backwards' phase-timing calls launch the kernels too: CUDA tensors only."""
+    cell, kind = name.split("_")[:2]
+    fn = getattr(gru_rnn if cell == "gru" else lstm_rnn, name)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        fn(*_wrapper_args(f"{cell}_{kind}_bwd", cell, kind, 8))
+
+
+# ------------- gru_xp_bwd (three phases) and lstm_xp_fwd (cluster forward)
+
+#: (G, B, H) of the redesigned xproj kernels: one stream, three, the
+#: multi-seed path's 16 and one more than that; batches of 1, 7, 128 and 130
+#: rows; hidden sizes from 1 to 512 (36: no multiple of 4 nor of a CTA's
+#: 32-column tiles; 384 and 512: the forward's weight slices stream from L2)
+XP_REDESIGNED_CASES = [(G, B, H) for G in (1, 3, 16, 17) for B in (1, 7, 128, 130) for H in (1, 36, 256, 384, 512)]
+
+
+def _xp_per_stream_resets(cell, G, T, B, H, seed):
+    """xproj inputs on the card where every stream has its own weights and
+    reset mask: 15% of the rows, and at t=0 the rows b = g (mod 3) of stream g."""
+    w, ghs = _xp_inputs(cell, G, T, B, H, seed, device="cuda")
+    for g in range(G):
+        w[-1][g, 0, g % 3 :: 3] = 1.0
+    return w, ghs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("T", [1, 24], ids=["T1", "T24"])
+@pytest.mark.parametrize("G,B,H", XP_REDESIGNED_CASES, ids=[f"G{c[0]}B{c[1]}H{c[2]}" for c in XP_REDESIGNED_CASES])
+def test_redesigned_xp_kernels_on_card(G, B, H, T, bf16):
+    """``lstm_xp_fwd`` and ``gru_xp_bwd`` against their plain versions at the
+    phase-3 bars of ``chip_smoke.py``, per-stream weights and resets; two
+    calls of each give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fwd_rtol, fwd_atol, bwd_rtol, bwd_atol_rel = TOL[bf16]
+    w, _ = _xp_per_stream_resets("lstm", G, T, B, H, seed=G * 1000 + B * 10 + H + T)
+    want = lstm_rnn.lstm_xp_plain_fwd(*w, bf16)
+    got = [t.clone() for t in lstm_rnn.lstm_xp_fwd(*w, bf16)]
+    for part, a, b in zip(("hs", "cs"), got, want):
+        torch.testing.assert_close(a, b, rtol=fwd_rtol, atol=fwd_atol, msg=f"lstm_xp_fwd {part}")
+    assert all(torch.equal(a, b) for a, b in zip(got, lstm_rnn.lstm_xp_fwd(*w, bf16))), "lstm_xp_fwd not repeatable"
+
+    w, ghs = _xp_per_stream_resets("gru", G, T, B, H, seed=G * 1000 + B * 10 + H + T + 1)
+    hs = gru_rnn.gru_xp_plain_fwd(*w, bf16)
+    want = gru_rnn.gru_xp_plain_bwd(*w, hs, ghs, bf16)
+    got = [t.clone() for t in gru_rnn.gru_xp_bwd(*w, hs, ghs, bf16)]
+    for part, a, b in zip(("dcarry0", "gscratch"), got, want):
+        _close(a, b, bwd_rtol, bwd_atol_rel, f"gru_xp_bwd {part}")
+    assert all(torch.equal(a, b) for a, b in zip(got, gru_rnn.gru_xp_bwd(*w, hs, ghs, bf16))), "gru_xp_bwd not repeatable"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,H,waves", [(40, 16, 64, "one"), (40, 16, 384, "several"), (16, 128, 256, "one"),
+                                         (24, 64, 384, "several"), (17, 130, 256, "any"), (17, 130, 36, "any")],
+                         ids=["G40-plan", "G40H384-waves", "G16-plan", "G24H384-waves", "G17-plan", "G17H36-plan"])
+def test_lstm_xp_fwd_layouts_on_card(G, B, H, waves):
+    """``lstm_xp_fwd``'s cluster forward (bf16 mode) where the streams
+    outnumber the clusters the card runs at once: in one wave, each cluster
+    serving whole streams and a share of the rest, and above H=256, where the
+    weight slices are streamed from L2 and each stream takes a cluster of its
+    own, in more waves than the card runs (clusters never wait for each
+    other, so the result must not depend on the waves)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = lstm_rnn.lstm_xp_fwd_plan(G, B, H, True)
+    if waves == "one":
+        assert G > plan["active_clusters"] and plan["parts"] > 1 and plan["waves"] == 1, plan
+    elif waves == "several":
+        assert not plan["resident"] and plan["parts"] == 1 and plan["waves"] > 1, plan
+    fwd_rtol, fwd_atol = TOL[True][:2]
+    w, _ = _xp_per_stream_resets("lstm", G, 24, B, H, seed=G + B + H)
+    for part, a, b in zip(("hs", "cs"), lstm_rnn.lstm_xp_fwd(*w, True),
+                          lstm_rnn.lstm_xp_plain_fwd(*w, True)):
+        torch.testing.assert_close(a, b, rtol=fwd_rtol, atol=fwd_atol, msg=part)
     torch.cuda.synchronize()

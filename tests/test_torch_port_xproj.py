@@ -247,3 +247,94 @@ class _Pair(torch.nn.Module):
     def forward(self, carry0, xs, resets):
         a, b = self.mems
         return paired_sequence(a, carry0, xs, b, carry0, 2 * xs, resets)
+
+
+# ------------------------- the plain xproj cores against the Pallas cores
+
+XP_G, XP_B, XP_H = 3, 5, 36
+#: the JAX cores tile the batch in blocks of 128 rows (``_pick_block_b``)
+JAX_BLOCK_B = 128
+
+
+def _xp_core_inputs(family, t, seed):
+    """Numpy inputs of G xproj replays, each stream its own weights, carry and
+    reset mask (15% of the rows, and at t=0 the rows b = g mod 3 of stream g)."""
+    rng = np.random.default_rng(seed)
+    gates = 3 if family == "gru" else 4
+    bound = 1.0 / np.sqrt(XP_H)
+    f32 = np.float32
+    wh = rng.uniform(-bound, bound, (XP_G, XP_H, gates * XP_H)).astype(f32)
+    bias = rng.uniform(-bound, bound, (XP_G, XP_H if family == "gru" else 4 * XP_H)).astype(f32)
+    carries = [rng.normal(size=(XP_G, XP_B, XP_H)).astype(f32) for _ in range(1 if family == "gru" else 2)]
+    xproj = rng.normal(size=(XP_G, t, XP_B, gates * XP_H)).astype(f32)
+    resets = rng.random((XP_G, t, XP_B)) < 0.15
+    for g in range(XP_G):
+        resets[g, 0] = np.arange(XP_B) % 3 == g
+    ghs = rng.normal(size=(XP_G, t, XP_B, XP_H)).astype(f32)
+    return wh, bias, carries, xproj, resets, ghs
+
+
+def _pad_rows(a, axis):
+    """``a`` with its batch axis padded by zero rows to the JAX cores' block."""
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, JAX_BLOCK_B - a.shape[axis])
+    return np.pad(a, pad)
+
+
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+@pytest.mark.parametrize("t,bf16", [(6, False), (1, False), (6, True), (1, True)],
+                         ids=["T6-fp32", "T1-fp32", "T6-bf16", "T1-bf16"])
+def test_plain_xproj_cores_match_pallas_per_stream(family, t, bf16):
+    """The plain xproj forward, backward and weight-gradient reduction (what
+    the xproj kernels are held to on the card) against ``_gru_core`` /
+    ``_lstm_core`` in interpret mode, stream by stream: G=3 streams of B=5 rows
+    at H=36 with per-stream weights, carries and reset masks. Each stream goes
+    to the JAX core padded to its 128-row block with rows whose output
+    gradient is zero, so they add nothing to the weight gradients. Values,
+    and the gradients of the recurrent weights, the bias, the carry and
+    xproj (fp32 and same-scheme bf16 bars)."""
+    wh, bias, carries, xproj, resets, ghs = _xp_core_inputs(family, t, seed=40 + t + 2 * bf16)
+    dt = jnp.bfloat16 if bf16 else None
+
+    def jax_core(wh, bias, carries, xp, rf, ghs):
+        if family == "gru":
+            hs, vjp = jax.vjp(lambda w, b, c, x: pallas_rnn._gru_core(dt, w, b, c, x, rf), wh, bias, *carries, xp)
+            return hs, vjp(ghs)
+        (hs, ct), vjp = jax.vjp(lambda w, b, c, h, x: pallas_rnn._lstm_core(dt, w, b, c, h, x, rf), wh, bias,
+                                *carries, xp)
+        return hs, vjp((ghs, jnp.zeros_like(ct)))
+
+    wants = []
+    with pltpu.force_tpu_interpret_mode():
+        core = jax.jit(jax_core)
+        for g in range(XP_G):
+            rf = jnp.asarray(_pad_rows(resets[g], 1).astype(np.float32)[:, None, :])
+            wants.append(core(wh[g], bias[g][None], [_pad_rows(c[g], 0) for c in carries], _pad_rows(xproj[g], 1),
+                              rf, _pad_rows(ghs[g], 1)))
+
+    tw = [torch.tensor(a) for a in (wh, bias, *carries, xproj)]
+    tr, tg = torch.tensor(resets).float(), torch.tensor(ghs)
+    H = XP_H
+    if family == "gru":
+        hs = gru_rnn.gru_xp_plain_fwd(*tw, tr, bf16)
+        dcarry0, gs = gru_rnn.gru_xp_plain_bwd(*tw, tr, hs, tg, bf16)
+        dwh, dbias = gru_rnn.gru_xp_plain_wgrad(tr, tw[2], hs, gs, bf16)
+        got = (dwh, dbias, dcarry0, gs[..., : 3 * H])
+        names = ("dwh", "dbhn", "dcarry0", "dxproj")
+    else:
+        hs, cs = lstm_rnn.lstm_xp_plain_fwd(*tw, tr, bf16)
+        dc0, dh0, gs = lstm_rnn.lstm_xp_plain_bwd(*tw, tr, hs, cs, tg, bf16)
+        dwh, dbias = lstm_rnn.lstm_xp_plain_wgrad(tr, tw[3], hs, gs, bf16)
+        got = (dwh, dbias, dc0, dh0, gs)
+        names = ("dwh", "dbh", "dc0", "dh0", "dxproj")
+    for g, (want_hs, want_grads) in enumerate(wants):
+        _check(hs[g], np.asarray(want_hs)[:, :XP_B], bf16, f"stream {g} hs")
+        for name, a, w in zip(names, got, want_grads):
+            w = np.asarray(w)
+            if name == "dxproj":
+                w = w[:, :XP_B]
+            elif name.startswith(("dc", "dh0")):
+                w = w[:XP_B]
+            elif name.startswith("db"):
+                w = w[0]
+            _check(a[g], w, bf16, f"stream {g} {name}", grad=True)
