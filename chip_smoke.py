@@ -18,11 +18,11 @@ Phases, each fatal on failure:
    and 200, B=200 and 203, T=1 and 5, resets at t=0 and mid-window,
    per-stream resets for the xproj families, and H=384 and 512 for all four
    families; the xproj families also at G=17, B=130, H=36, at B=1 and 7, at
-   H=1, and in more waves than the card runs clusters at once), in both
-   modes; two calls of each kernel redesigned for Hopper (``gru_x_fwd``,
-   ``lstm_x_fwd``, ``lstm_xp_fwd``, ``gru_x_bwd``, ``lstm_x_bwd``,
-   ``gru_xp_bwd``, ``lstm_xp_bwd`` and the four weight-gradient reductions)
-   must give the same bits.
+   H=1, at G=40 with H=64 and 384, and in more waves than the card runs
+   clusters at once), in both modes; two calls of each kernel redesigned for
+   Hopper (``gru_x_fwd``, ``lstm_x_fwd``, ``gru_xp_fwd``, ``lstm_xp_fwd``,
+   ``gru_x_bwd``, ``lstm_x_bwd``, ``gru_xp_bwd``, ``lstm_xp_bwd`` and the
+   four weight-gradient reductions) must give the same bits.
 4. The slices, each trained for 3 iterations with every kernel launch
    counter set to 0 just before and read just after: through
    ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
@@ -35,6 +35,8 @@ Phases, each fatal on failure:
    the same policies for 8 seeds of 512 envs each (4096 in all). After each,
    check finite (and, across seeds, distinct) metrics, and that the kernel
    replay of a collected window reproduces the acting-time policy, per seed.
+   First, the env's random draws (per-env keys in its state) on the card
+   must equal the CPU's bit for bit, through a reset and a step.
 5. Time each kernel, in fp32 and in bf16-operand mode, at its main-path
    shape beside its plain version, a PyTorch yardstick the port never calls
    (cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM``; one ``torch.bmm`` for the
@@ -47,9 +49,11 @@ Phases, each fatal on failure:
    between the phases of a dedicated timing call) of ``gru_x_bwd`` and
    ``lstm_x_bwd`` at S=2 and S=1 and of ``gru_xp_bwd`` and ``lstm_xp_bwd``
    (gates / chain) at G=16, the grid the cluster forwards ``gru_x_fwd``,
-   ``lstm_x_fwd`` and ``lstm_xp_fwd`` chose (the clusters the card runs at
-   once, the batch rows of a cluster, the clusters launched, the streams a
-   cluster's rows touch, the waves).
+   ``lstm_x_fwd``, ``gru_xp_fwd`` and ``lstm_xp_fwd`` chose (the clusters the
+   card runs at once, the batch rows of a cluster, the clusters launched, the
+   streams a cluster's rows touch, the waves, the streams whose weight slices
+   stream from L2), and how many clusters of 16 CTAs the card runs at once
+   with the shared memory a 16-CTA layout of the xproj forwards would need.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -173,18 +177,20 @@ PEAKS = {
 }
 #: the kernels redesigned for Hopper after their bring-up, held for
 #: bitwise-repeatable outputs in phase 3
-REDESIGNED = ("gru_x_fwd", "lstm_x_fwd", "lstm_xp_fwd", "gru_x_bwd", "lstm_x_bwd", "gru_xp_bwd", "lstm_xp_bwd",
-              "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad", "lstm_xp_wgrad")
+REDESIGNED = ("gru_x_fwd", "lstm_x_fwd", "gru_xp_fwd", "lstm_xp_fwd", "gru_x_bwd", "lstm_x_bwd", "gru_xp_bwd",
+              "lstm_xp_bwd", "gru_x_wgrad", "lstm_x_wgrad", "gru_xp_wgrad", "lstm_xp_wgrad")
 #: (family, streams, T, B, H): H that the 128- and 64-wide tiles do not divide
 #: (at H=200, 25 hidden columns a CTA of lstm_x_fwd's clusters), a ragged batch
 #: (203 rows: no whole number of a cluster's rows), one-step windows, and the
 #: hidden states above 256 (two columns a thread in the one-thread-per-column
 #: kernels; the weights streamed from L2 in the cluster forwards); for the
 #: xproj families also one stream more than the multi-seed path's 16 with
-#: 130 rows at H=36 (no multiple of 4), a batch of 1 and of 7, H=1, and 40
-#: streams, at H=64 (a cluster serves the weight slices of several) and at
-#: H=384 (the slices streamed from L2, a cluster a stream: more clusters than
-#: the card runs at once); D = 15 (the xproj families project it)
+#: 130 rows at H=36 (no multiple of 4), a batch of 1 and of 7, H=1, 16 GRU
+#: streams at H=288 (bf16: two weight slices do not fit a CTA, so a cluster
+#: a stream in two waves, its slice resident), and 40 streams, at H=64 (a
+#: cluster serves the weight slices of several) and at H=384 (a cluster a
+#: stream: more clusters than the card runs at once); D = 15 (the xproj
+#: families project it)
 EDGE_CASES = [("lstm", 2, 5, 200, 200), ("lstm", 1, 1, 200, 128), ("gru", 2, 5, 200, 200),
               ("gru", 1, 1, 200, 128), ("gru_xp", 3, 5, 200, 200), ("lstm_xp", 3, 5, 200, 128),
               ("lstm", 1, 5, 203, 200), ("gru", 1, 5, 203, 200),
@@ -192,7 +198,8 @@ EDGE_CASES = [("lstm", 2, 5, 200, 200), ("lstm", 1, 1, 200, 128), ("gru", 2, 5, 
               ("gru_xp", 2, 3, 64, 384), ("gru_xp", 1, 2, 48, 512), ("lstm_xp", 2, 3, 64, 384),
               ("lstm_xp", 1, 2, 48, 512), ("gru_xp", 17, 24, 130, 36), ("lstm_xp", 17, 24, 130, 36),
               ("gru_xp", 16, 24, 1, 256), ("lstm_xp", 16, 24, 1, 256), ("gru_xp", 3, 1, 7, 1),
-              ("lstm_xp", 3, 1, 7, 1), ("lstm_xp", 40, 5, 16, 64), ("lstm_xp", 40, 5, 16, 384)]
+              ("lstm_xp", 3, 1, 7, 1), ("gru_xp", 16, 3, 64, 288), ("gru_xp", 40, 5, 16, 64), ("lstm_xp", 40, 5, 16, 64),
+              ("gru_xp", 40, 5, 16, 384), ("lstm_xp", 40, 5, 16, 384)]
 
 
 def fail(msg: str) -> None:
@@ -599,6 +606,27 @@ def check_replay(label, outputs, mu, values, bf16) -> bool:
     return ok and err_mu < mu_bound and err_v < v_bound
 
 
+def env_draws(device: str) -> list[torch.Tensor]:
+    """The env's reset state on ``device`` and, after a step in which half
+    the envs reset, every key and the reset envs' fresh states (the other
+    envs' physics may round differently on two devices), on the CPU."""
+    env = NLinkPendulum(NUM_ENVS, NUM_LINKS, max_episode_length=2, device=device)
+    state, _ = env.reset(3)
+    first = [v.cpu().clone() for v in vars(state).values()]
+    state.episode_length[::2] = 1  # these envs reset in the step
+    state, *_ = env.step(state, torch.zeros(NUM_ENVS, NUM_LINKS, device=device))
+    return first + [state.rng.cpu(), state.theta[::2].cpu(), state.omega[::2].cpu()]
+
+
+def check_env_draws() -> None:
+    """The env's random draws on the card give the CPU's bits: they come from
+    per-env keys in the state (integer hashing), not from a device generator."""
+    same = all(torch.equal(a, b) for a, b in zip(env_draws("cpu"), env_draws("cuda")))
+    print(f"env draws on the card equal the CPU's through a reset and a step: {same}")
+    if not same:
+        fail("the env's random draws differ between the card and the CPU")
+
+
 def run_slice(name, family, cfg, T, B):
     """Train ``cfg`` for ITERATIONS through ``OnPolicyRunner.learn`` with the
     launch counters zeroed just before and read just after; then hold the
@@ -786,6 +814,7 @@ def main() -> None:
         fail(f"redesigned kernel not bitwise repeatable: {repeatable}")
 
     # ---- 4. the slices
+    check_env_draws()
     launches = {}
     for name, (family, cfg) in SLICES.items():
         launches.update(run_slice(name, family, cfg, T, B))
@@ -843,12 +872,12 @@ def main() -> None:
                                         ops, nbytes, peaks))
         for bf16 in (False, True):
             print(f"phases {bwd} G={G} B={B_seed} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x, bf16)}")
-        if family == "lstm_xp":
-            # the grid the cluster forward chose
-            for g, b in ((G, B_seed), (1, B)):
-                for bf16 in (False, True):
-                    print(f"grid {fwd} G={g} B={b} H={H} {'bf16' if bf16 else 'fp32'}:"
-                          f" {json.dumps(lstm_rnn.lstm_xp_fwd_plan(g, b, H, bf16))}")
+        # the grid the cluster forward chose
+        fwd_plan = getattr(FAMILIES[family]["module"], f"{fwd}_plan")
+        for g, b in ((G, B_seed), (1, B)):
+            for bf16 in (False, True):
+                print(f"grid {fwd} G={g} B={b} H={H} {'bf16' if bf16 else 'fp32'}:"
+                      f" {json.dumps(fwd_plan(g, b, H, bf16))}")
         # G=1 at the wide-input shape: the kernels alone, the port's whole
         # replay (outside projection included) and cuDNN on the raw input
         x1 = make_inputs(family, 1, T, B, WIDE_D, H, seed=seed + 1)

@@ -1,7 +1,9 @@
 // GRU window replay over precomputed input projections, for Hopper (sm_90a).
 //
 // Replaces the Pallas xproj-streaming GRU kernels of rsl_rl_tpu/ops/pallas_rnn.py:
-//   gru_xp_fwd    <- _fwd_kernel / _gru_core_fwd_impl
+//   gru_xp_fwd    <- _fwd_kernel / _gru_core_fwd_impl: the cluster forward of
+//                    rnn_fwd.cuh with the GRU xproj cell (fp32 mode where it
+//                    costs more: one thread a column)
 //   gru_xp_bwd    <- _bwd_kernel / _gru_core_bwd_impl: the BPTT chain, in the
 //                    three phases of rnn_bwd.cuh with the GRU xproj cell
 //   gru_xp_wgrad  <- the dWh / dbhn accumulation of the same backward (the
@@ -22,8 +24,8 @@
 // With bf16 != 0 the operands of h Wh and dgates Whᵀ are rounded to bf16
 // (round to nearest even) and the products accumulate in fp32, like the JAX
 // package's _mm; xproj, the state and the gate math stay fp32. Otherwise all
-// math is IEEE fp32 on the CUDA cores; gru_xp_bwd's bf16-mode products run on
-// the tensor cores (mma.m16n8k16).
+// math is IEEE fp32 on the CUDA cores; bf16-mode products run on the tensor
+// cores (mma.m16n8k16).
 //
 // Each entry point launches its kernels on the given stream (gru_xp_fwd one,
 // gru_xp_bwd T+2, gru_xp_wgrad one or two: the split-K products, then their
@@ -31,17 +33,22 @@
 // launches (0 on success).
 
 #include "rnn_bwd.cuh"
+#include "rnn_fwd.cuh"
 #include "rnn_wgrad.cuh"
 
 namespace {
 
 constexpr int kFwdRows = 16;  // batch rows per forward block (H <= 256)
+// a fp32 step of the cluster forward's tiles and of the kernel below
+constexpr XpFp32Cost kFp32Cost = {3.5f, 0.30f, kFwdRows, 52.0f, 52.0f};
 
-// Grid (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H).
-// The block runs the whole window for its BB rows of stream s; thread j keeps
-// h[:, j] in registers and publishes the (rounded) operand tile in shared
-// memory; the gates add the streamed xproj row to h Wh.
-template <int BB, bool BF16>
+// fp32 mode where the cluster forward costs more (xp_fwd_columns,
+// rnn_fwd.cuh): the one-thread-per-column forward. Grid
+// (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H). The
+// block runs the whole window for its BB rows of stream s; thread j keeps
+// h[:, j] in registers and publishes the operand tile in shared memory; the
+// gates add the streamed xproj row to h Wh.
+template <int BB>
 __global__ void __launch_bounds__(256) gru_xp_fwd_kernel(
     const float* __restrict__ xproj, const float* __restrict__ resets,
     const float* __restrict__ carry0, const float* __restrict__ wh,
@@ -77,12 +84,12 @@ __global__ void __launch_bounds__(256) gru_xp_fwd_kernel(
       xn[b] = in ? __ldg(xp + 2 * H + j) : 0.0f;
       const float keep = in ? 1.0f - resets[st * B + row] : 0.0f;
       h[b] *= keep;
-      hT[j * BB + b] = op<BF16>(h[b]);
+      hT[j * BB + b] = h[b];
     }
     __syncthreads();
 
     float c[3][BB];  // h Wh for r, z, n
-    gate_matvec<3, BB, BF16>(wh_s, hT, H, H, j, c);
+    gate_matvec<3, BB, false>(wh_s, hT, H, H, j, c);
 
     float* hs_t = hs + st * B * H;
 #pragma unroll
@@ -100,7 +107,7 @@ __global__ void __launch_bounds__(256) gru_xp_fwd_kernel(
 
 // H > 256: the forward above with kWideCols hidden columns a thread (see
 // wide_columns) and half the rows a block.
-template <int BB, bool BF16>
+template <int BB>
 __global__ void __launch_bounds__(256) gru_xp_fwd_wide_kernel(
     const float* __restrict__ xproj, const float* __restrict__ resets,
     const float* __restrict__ carry0, const float* __restrict__ wh,
@@ -147,13 +154,13 @@ __global__ void __launch_bounds__(256) gru_xp_fwd_wide_kernel(
 #pragma unroll
       for (int c = 0; c < kWideCols; ++c) {
         h[c][b] *= keep;
-        if (on[c]) hT[j[c] * BB + b] = op<BF16>(h[c][b]);
+        if (on[c]) hT[j[c] * BB + b] = h[c][b];
       }
     }
     __syncthreads();
 
     float acc[kWideCols][3][BB];  // h Wh for r, z, n
-    gate_matvec_wide<3, BB, BF16>(wh_s, hT, H, H, j, acc);
+    gate_matvec_wide<3, BB, false>(wh_s, hT, H, H, j, acc);
 
     float* hs_t = hs + st * B * H;
 #pragma unroll
@@ -173,18 +180,34 @@ __global__ void __launch_bounds__(256) gru_xp_fwd_wide_kernel(
 
 }  // namespace
 
+// The cluster forward of rnn_fwd.cuh with GruXpFwdCell over the G streams,
+// each with its own weights and reset mask (where the streams outnumber the
+// clusters the card runs at once, a cluster serves whole streams and a share
+// of the rest), or in fp32 mode where xp_fwd_columns says so the kernels
+// above.
 extern "C" int gru_xp_fwd(const float* xproj, const float* resets, const float* carry0,
                           const float* wh, const float* bhn, float* hs, int G, int T, int B,
                           int H, int bf16, void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return (int)launch_columns(gru_xp_fwd_kernel<kFwdRows, true>, gru_xp_fwd_wide_kernel<kFwdRows / 2, true>,
-                               kFwdRows, G, B, H, H, st, xproj, resets, carry0, wh, bhn, hs, T, B, H);
+  bool columns = false;
+  cudaError_t err = xp_fwd_columns<GruXpFwdCell>(bf16, G, B, H, kFp32Cost, &columns);
+  if (err != cudaSuccess) return (int)err;
+  if (columns) {
+    return (int)launch_columns(gru_xp_fwd_kernel<kFwdRows>, gru_xp_fwd_wide_kernel<kFwdRows / 2>, kFwdRows, G, B,
+                               H, H, st, xproj, resets, carry0, wh, bhn, hs, T, B, H);
   }
-  return (int)launch_columns(gru_xp_fwd_kernel<kFwdRows, false>, gru_xp_fwd_wide_kernel<kFwdRows / 2, false>,
-                             kFwdRows, G, B, H, H, st, xproj, resets, carry0, wh, bhn, hs, T, B, H);
+  const RnnXpFwdArgs a{{nullptr, resets, nullptr, carry0, nullptr, wh, nullptr, bhn, hs, nullptr, T, B, 0, H, 0, 0, 0, 0},
+                       G, 1, 0, T * B, xproj};
+  return (int)(bf16 ? rnn_x_fwd_launch<GruXpFwdCell, true>(a, G, st) : rnn_x_fwd_launch<GruXpFwdCell, false>(a, G, st));
+}
+
+// The cluster forward's grid for these shapes on the current card: seven
+// ints, as rnn_xp_fwd_plan (rnn_fwd.cuh) gives them, all zero where
+// gru_xp_fwd runs the one-thread-per-column kernels.
+extern "C" int gru_xp_fwd_plan(int G, int B, int H, int bf16, int* out) {
+  return rnn_xp_fwd_plan<GruXpFwdCell>(G, B, H, bf16, kFp32Cost, out);
 }
 
 // The three phases of rnn_bwd.cuh over the G streams, each with its own reset

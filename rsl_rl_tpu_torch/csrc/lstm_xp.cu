@@ -1,9 +1,9 @@
 // LSTM window replay over precomputed input projections, for Hopper (sm_90a).
 //
 // Replaces the Pallas xproj-streaming LSTM kernels of rsl_rl_tpu/ops/pallas_rnn.py:
-//   lstm_xp_fwd    <- _lstm_fwd_kernel / _lstm_core_fwd_impl: in bf16 mode the
-//                     cluster forward of rnn_fwd.cuh with the LSTM xproj cell,
-//                     in fp32 mode one thread a hidden column
+//   lstm_xp_fwd    <- _lstm_fwd_kernel / _lstm_core_fwd_impl: the cluster
+//                     forward of rnn_fwd.cuh with the LSTM xproj cell (fp32
+//                     mode where it costs more: one thread a column)
 //   lstm_xp_bwd    <- _lstm_bwd_kernel / _lstm_core_bwd_impl: the BPTT chain, in
 //                     the three phases of rnn_bwd.cuh with the LSTM xproj cell
 //   lstm_xp_wgrad  <- the dWh / dbh accumulation of the same backward (the
@@ -37,12 +37,13 @@
 namespace {
 
 constexpr int kFwdRows = 8;  // batch rows per forward block (H <= 256)
+// a fp32 step of the cluster forward's tiles and of the kernel below
+constexpr XpFp32Cost kFp32Cost = {3.2f, 0.43f, kFwdRows, 27.5f, 40.0f};
 
-// fp32 mode: the one-thread-per-column forward, which the cluster forward
-// does not beat there (at G=16 it needs two waves, or two fp32 weight slices
-// a CTA, 278 KB, that do not fit; the times are in PERF.md). Grid (ceil(B/BB),
-// G), one thread per hidden column j (blockDim.x == H). The block runs the
-// whole window for its BB rows of stream s; thread j keeps c[:, j] and
+// fp32 mode where the cluster forward costs more (xp_fwd_columns,
+// rnn_fwd.cuh): the one-thread-per-column forward. Grid
+// (ceil(B/BB), G), one thread per hidden column j (blockDim.x == H). The
+// block runs the whole window for its BB rows of stream s; thread j keeps c[:, j] and
 // h[:, j] in registers and publishes the h tile in shared memory; the gates
 // add the streamed xproj row and the bias to h Wh.
 template <int BB>
@@ -194,30 +195,34 @@ __global__ void __launch_bounds__(256) lstm_xp_fwd_wide_kernel(
 
 }  // namespace
 
-// bf16 mode: the cluster forward of rnn_fwd.cuh with LstmXpFwdCell over the G
-// streams, each with its own weights and reset mask (where the streams
-// outnumber the clusters the card runs at once, a cluster serves whole
-// streams and a share of the rest); fp32 mode: the one-thread-per-column
-// kernels above.
+// The cluster forward of rnn_fwd.cuh with LstmXpFwdCell over the G streams,
+// each with its own weights and reset mask (where the streams outnumber the
+// clusters the card runs at once, a cluster serves whole streams and a share
+// of the rest), or in fp32 mode where xp_fwd_columns says so the kernels
+// above.
 extern "C" int lstm_xp_fwd(const float* xproj, const float* resets, const float* c0,
                            const float* h0, const float* wh, const float* bh, float* hs,
                            float* cs, int G, int T, int B, int H, int bf16, void* stream) {
   if (bad_dims(G, T, B, 0, H)) return (int)cudaErrorInvalidValue;
   if (G == 0 || T == 0 || B == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16) {
+  bool columns = false;
+  cudaError_t err = xp_fwd_columns<LstmXpFwdCell>(bf16, G, B, H, kFp32Cost, &columns);
+  if (err != cudaSuccess) return (int)err;
+  if (columns) {
     return (int)launch_columns(lstm_xp_fwd_kernel<kFwdRows>, lstm_xp_fwd_wide_kernel<kFwdRows / 2>,
                                kFwdRows, G, B, H, H, st, xproj, resets, c0, h0, wh, bh, hs, cs, T, B, H);
   }
   const RnnXpFwdArgs a{{nullptr, resets, c0, h0, nullptr, wh, bh, nullptr, hs, cs, T, B, 0, H, 0, 0, 0, 0},
                        G, 1, 0, T * B, xproj};
-  return (int)rnn_x_fwd_launch<LstmXpFwdCell, true>(a, G, st);
+  return (int)(bf16 ? rnn_x_fwd_launch<LstmXpFwdCell, true>(a, G, st) : rnn_x_fwd_launch<LstmXpFwdCell, false>(a, G, st));
 }
 
-// The bf16-mode cluster forward's grid for these shapes on the current card:
-// seven ints, as rnn_x_fwd_plan (rnn_fwd.cuh) gives them.
-extern "C" int lstm_xp_fwd_plan(int G, int B, int H, int* out) {
-  return rnn_x_fwd_plan<LstmXpFwdCell, true>(G, B, 0, H, out);
+// The cluster forward's grid for these shapes on the current card: seven
+// ints, as rnn_xp_fwd_plan (rnn_fwd.cuh) gives them, all zero where
+// lstm_xp_fwd runs the one-thread-per-column kernels.
+extern "C" int lstm_xp_fwd_plan(int G, int B, int H, int bf16, int* out) {
+  return rnn_xp_fwd_plan<LstmXpFwdCell>(G, B, H, bf16, kFp32Cost, out);
 }
 
 // The three phases of rnn_bwd.cuh over the G streams, each with its own reset

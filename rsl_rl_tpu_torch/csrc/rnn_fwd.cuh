@@ -23,7 +23,7 @@
 // fill one wave; the rows go through 128-row tiles and those past the last
 // full one through a 64- or 32-row tile where that wastes less (an H100 runs
 // 15 clusters of 8: 147 rows a cluster at S=2, B=1024, one 128-row and one
-// 32-row tile; 69 at S=1, one 128-row tile). A cell with kOneTile (the GRU)
+// 32-row tile; 69 at S=1, one 128-row tile). A cell with one_tile (the GRU)
 // takes a cluster's rows in one tile of 96 or 160 rows where they fit one
 // (69 rows: 96; 147: 160), since each tile of a step pays the step's latency
 // again (its k-loop's barriers, the ring's first copies, the epilogue's round
@@ -46,25 +46,32 @@
 // where the streams outnumber the Q clusters at once, each cluster serves
 // S / Q whole streams and a share of the rest's rows (G=16: stream c and 9
 // rows of stream 15), its CTAs holding the weight slice of each (bf16 at
-// H=256: two of 70 KB); a step runs a 128-row and a 32-row tile, one wave.
-// Where the slices do not fit (three at H=256, or any above H=256, where the
-// slice is streamed from L2), a cluster a stream, in several waves. The xproj
-// cell runs in bf16 mode only (fp32: see lstm_xp.cu).
+// H=256: two of 70 KB for the LSTM, 53 KB for the GRU); a step runs a
+// 128-row and a 32-row tile, one wave. Where the slices do not fit (fp32 at
+// H=256: 106 KB a GRU slice, 139 KB an LSTM one; bf16 above H=256), a
+// cluster a stream, in several waves; in fp32 mode the one-thread-per-column
+// kernels serve instead where they win (xp_fwd_columns).
 //
-// The cell is the template policy (LstmFwdCell, LstmXpFwdCell below,
-// GruFwdCell in gru_x.cu): the width of a tile's product columns and how they
-// map onto [Wh; Wx], where the x rows start, the bias a tile stages, and its
-// Tile: the accumulators, the product of one k-tile, a hook at the first x
-// k-tile and the epilogue's cell update.
+// The cell is the template policy (GruFwdCell, LstmFwdCell and their xproj
+// cells below): the width of a tile's product columns and how they map onto
+// [Wh; Wx], where the x rows start, the bias a tile stages, and its Tile: the
+// accumulators, the product of one k-tile, a hook at the first x k-tile and
+// the epilogue's cell update.
 // - LSTM: 128 columns a tile, the four gates of 32 hidden columns
 //   interleaved (n = jj*4 + q), x right after h.
 // - GRU: 96 columns a tile, r | z | n of 32 hidden columns; x starts at the
 //   k-tile after h, and the n column's h part (u) is stashed when the x
-//   k-tiles begin, so [Wh; Wx] has no zero block (see gru_x.cu).
-// - LSTM xproj (kXproj): the LSTM's h rows alone (D = 0), the accumulators
-//   starting at the stored projection row plus bh (Tile::start, before the
-//   k-loop), and a reset mask a stream (RnnXpFwdArgs::reset_stride).
+//   k-tiles begin, so [Wh; Wx] has no zero block.
+// - The xproj cells (kXproj): the h rows alone (D = 0), the accumulators
+//   starting at the stored projection row plus the bias (Tile::start, before
+//   the k-loop), and a reset mask a stream (RnnXpFwdArgs::reset_stride). The
+//   GRU's n accumulator starts at bhn and ends as u; its xproj column a_n is
+//   loaded beside the others and kept apart for the epilogue.
 #pragma once
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "rnn_common.cuh"
 
@@ -98,7 +105,7 @@ struct RnnFwdArgs {
 // over the stored projection. The x cells' kernels take RnnFwdArgs alone.
 struct RnnXpFwdArgs : RnnFwdArgs {
   int streams;         // the streams S
-  int parts;           // the streams a cluster serves at most (the weight slices a CTA holds)
+  int parts;           // the streams a cluster serves at most
   int whole;           // whole streams a cluster serves (0: a.rows rows of one stream)
   int reset_stride;    // floats between the streams' reset masks
   const float* xproj;  // the stored input projection
@@ -241,7 +248,7 @@ __device__ __forceinline__ void fwd_stage_slice(const typename Cell::Args& a, co
 // through tiles of kTail rows (128, 64 or 32, chosen by the launcher from the
 // rows of a cluster), so that a share of the batch that is no multiple of 128
 // wastes little of a step; one kernel holds at most two tile sizes (each more
-// costs registers and spills). kTail = 96 or 160 (kOneTile cells): all the
+// costs registers and spills). kTail = 96 or 160 (one_tile cells): all the
 // cluster's rows in one tile of kTail rows.
 template <class Cell, bool BF16, bool kResident, int kTail>
 __global__ void __launch_bounds__(256, 1) rnn_x_fwd_kernel(const typename Cell::Args a) {
@@ -277,16 +284,31 @@ __global__ void __launch_bounds__(256, 1) rnn_x_fwd_kernel(const typename Cell::
   }
 }
 
+// Step t of a part q of an xproj cluster: its rows through 128-row tiles
+// until the rest fits one kTail-row tile.
+template <class Cell, bool BF16, bool kResident, int kTail, int kRows>
+__device__ __forceinline__ void fwd_part_step(const RnnXpFwdArgs& a, const FwdCta& q, int t, int n_tiles) {
+  for (int m0 = q.rb0; m0 < q.rb1;) {
+    if (q.rb1 - m0 > kTail) {
+      for (int nt = 0; nt < n_tiles; ++nt) fwd_tile<Cell, 128, BF16, kResident, kRows>(a, q, t, m0, nt);
+      m0 += 128;
+    } else {
+      for (int nt = 0; nt < n_tiles; ++nt) fwd_tile<Cell, kTail, BF16, kResident, kRows>(a, q, t, m0, nt);
+      m0 += kTail;
+    }
+  }
+}
+
 // The xproj cell's kernel: rnn_x_fwd_kernel's steps, where a cluster may
 // serve several streams. With a.whole = 0 a cluster owns a.rows rows of one
 // stream, as above. With a.whole = w > 0 (more streams than the Q clusters
 // the card runs at once) cluster c owns the whole streams c*w .. c*w+w-1 and
 // a.rows of the remaining streams' rows laid end to end after them (G=16,
 // Q=15: stream c, and 9 rows of stream 15). Each stream a cluster serves is a
-// part: its CTAs hold the part's weight slice and bias, and a step runs the
-// part's rows through 128-row tiles until the rest fits one kTail-row tile.
-// The x cells keep a kernel and an argument of their own: compiled through
-// this one, or given RnnXpFwdArgs, their forwards ran 6-15% slower.
+// part: its CTAs hold the part's weight slice and bias, and a step runs each
+// part's rows (fwd_part_step). The x cells keep a kernel and an argument of
+// their own: compiled through this one, or given RnnXpFwdArgs, their
+// forwards ran 6-15% slower.
 template <class Cell, bool BF16, bool kResident, int kTail>
 __global__ void __launch_bounds__(256, 1) rnn_xp_fwd_kernel(const RnnXpFwdArgs a) {
   constexpr int kRows = fwd_stage_rows(kTail);
@@ -331,18 +353,7 @@ __global__ void __launch_bounds__(256, 1) rnn_xp_fwd_kernel(const RnnXpFwdArgs a
     fwd_stage_slice<Cell, BF16, kResident>(a, part(p), fwd_smem + p * slice, bias_s + p * bias_n);
 
   for (int t = 0; t < a.T; ++t) {
-    for (int p = 0; p < n_parts; ++p) {
-      const FwdCta q = part(p);
-      for (int m0 = q.rb0; m0 < q.rb1;) {
-        if (q.rb1 - m0 > kTail) {
-          for (int nt = 0; nt < n_tiles; ++nt) fwd_tile<Cell, 128, BF16, kResident, kRows>(a, q, t, m0, nt);
-          m0 += 128;
-        } else {
-          for (int nt = 0; nt < n_tiles; ++nt) fwd_tile<Cell, kTail, BF16, kResident, kRows>(a, q, t, m0, nt);
-          m0 += kTail;
-        }
-      }
-    }
+    for (int p = 0; p < n_parts; ++p) fwd_part_step<Cell, BF16, kResident, kTail, kRows>(a, part(p), t, n_tiles);
     if (t + 1 < a.T) cluster_sync();  // hs[t] of the whole cluster is in before step t+1 reads it
   }
 }
@@ -365,7 +376,7 @@ struct FwdPlan {
   int waves;     // ceil(grid / clusters)
   int resident;  // the [Wh; Wx] slices stay in shared memory
   int tail;      // rows of the tiles past the last full 128-row one (96, 160: of the one tile)
-  int parts;     // the streams a cluster serves at most (the weight slices a CTA holds)
+  int parts;     // the streams a cluster serves at most
   size_t smem;
 };
 
@@ -384,21 +395,35 @@ cudaLaunchConfig_t cluster_config(unsigned clusters, size_t smem, cudaStream_t s
   return cfg;
 }
 
+// The clusters the card runs at once with smem bytes a CTA. The plan runs
+// before every launch, so the occupancy query runs once per device and size.
 template <class Cell, bool BF16, bool kResident>
 cudaError_t fwd_active_clusters(size_t smem, int* clusters) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = known.find({dev, smem});
+  if (hit != known.end()) {
+    *clusters = hit->second;
+    return cudaSuccess;
+  }
   auto kernel = fwd_kernel<Cell, BF16, kResident, 128>();
-  cudaError_t err = allow_smem(kernel, smem);
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(1, smem, nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err == cudaSuccess) known[{dev, smem}] = *clusters;
+  return err;
 }
 
 // The xproj cell's layout where S streams outnumber the Q clusters at once:
 // w = S / Q whole streams a cluster and ceil((S % Q) * B / Q) rows of the
-// rest; the streams a cluster serves at most. Returns false where their
-// weight slices do not fit a CTA's shared memory (the plan then keeps a
-// cluster a stream, in several waves).
+// rest; the streams a cluster serves at most, whose weight slices its CTAs
+// hold. Returns false where they do not fit a CTA's shared memory.
 template <class Cell, bool BF16>
 bool fwd_whole_streams(int S, int B, int max_smem, RnnXpFwdArgs& a, FwdPlan& p) {
   const int Q = p.clusters, w = S / Q, r = S - w * Q;
@@ -408,9 +433,9 @@ bool fwd_whole_streams(int S, int B, int max_smem, RnnXpFwdArgs& a, FwdPlan& p) 
     const int lo = c * rest, hi = min(lo + rest, r * B);
     if (hi > lo) parts = max(parts, w + (hi - 1) / B - lo / B + 1);
   }
-  const size_t extra = (size_t)(parts - 1) *
-                       ((BF16 ? a.kp / 2 : a.kp) * (a.n_tiles * Cell::kTileCols + kFwdPad) + a.n_tiles * kGateCols);
-  const size_t smem = p.smem + extra * sizeof(float);
+  const size_t slice = (size_t)(BF16 ? a.kp / 2 : a.kp) * (a.n_tiles * Cell::kTileCols + kFwdPad);
+  const size_t smem =
+      (parts * (slice + a.n_tiles * kGateCols) + kFwdStages * fwd_stage_floats<Cell, BF16, true>(128)) * sizeof(float);
   if (smem > (size_t)max_smem) return false;
   a.whole = w;
   a.rows = rest;
@@ -456,12 +481,14 @@ cudaError_t fwd_plan(int S, int B, int D, int H, typename Cell::Args& a, FwdPlan
   p.waves = (p.grid + p.clusters - 1) / p.clusters;
   const int tail = p.rows % 128;
   p.tail = tail == 0 || tail > 64 ? 128 : tail > 32 ? 64 : 32;
-  if (Cell::kOneTile && p.resident && p.rows > 64 && p.rows <= 160) {
+  if (Cell::one_tile(BF16) && p.resident && p.rows > 64 && p.rows <= 160) {
     // one tile takes the cluster's rows (the weights streamed from L2 take
     // 128-row tiles only); 160 rows need 192-row stages, where they fit
     const size_t wide = (size_t)fwd_smem_floats<Cell, BF16, true>(a.kp, a.n_tiles, 192) * sizeof(float);
     int wide_clusters = 0;
-    if (p.rows <= 96) {
+    if (Cell::kXproj && !BF16 && p.rows <= 80) {
+      p.tail = 80;  // fp32 tiles take multiples of 16 rows: 69 rows ran 14-17% faster in 80 than in 96 on an H100
+    } else if (p.rows <= 96) {
       p.tail = 96;
     } else if (p.rows > 128 && wide <= (size_t)max_smem &&
                fwd_active_clusters<Cell, BF16, true>(wide, &wide_clusters) == cudaSuccess &&
@@ -489,7 +516,10 @@ cudaError_t rnn_x_fwd_launch(typename Cell::Args a, int S, cudaStream_t st) {
   cudaError_t err = fwd_plan<Cell, BF16>(S, a.B, a.D, a.H, a, p);
   if (err != cudaSuccess) return err;
   if (!p.resident) return fwd_run<Cell, BF16, false, 128>(a, p, st);
-  if constexpr (Cell::kOneTile) {
+  if constexpr (Cell::one_tile(BF16)) {
+    if constexpr (Cell::kXproj && !BF16) {
+      if (p.tail == 80) return fwd_run<Cell, BF16, true, 80>(a, p, st);
+    }
     if (p.tail == 96) return fwd_run<Cell, BF16, true, 96>(a, p, st);
     if (p.tail == 160) return fwd_run<Cell, BF16, true, 160>(a, p, st);
   }
@@ -503,8 +533,8 @@ cudaError_t rnn_x_fwd_launch(typename Cell::Args a, int S, cudaStream_t st) {
 // launched, out[3] 1 where the weight slices stay in shared memory, out[4]
 // the rows of the tiles past the last full 128-row one (96, 160: of the one
 // tile that takes a cluster's rows), out[5] the streams a cluster serves at
-// most (the weight slices a CTA holds), out[6] the waves (clusters launched
-// over clusters at once, rounded up).
+// most, out[6] the waves (clusters launched over clusters at once, rounded
+// up).
 template <class Cell, bool BF16>
 int rnn_x_fwd_plan(int S, int B, int D, int H, int* out) {
   if (bad_dims(S, 1, B, D, H) || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
@@ -520,6 +550,69 @@ int rnn_x_fwd_plan(int S, int B, int D, int H, int* out) {
   out[5] = p.parts;
   out[6] = p.waves;
   return 0;
+}
+
+// What a step of the xproj forwards costs in fp32 mode, in microseconds on an
+// H100 at H=256 (PERF.md: kernel_ab.py --variant fp32-cluster fp32-columns
+// --shapes, G from 1 to 15 and B from 128 to 1024): a tile of the cluster
+// forward of m rows tile_us + row_us * m; the one-thread-per-column kernels
+// wave_us for each wave of their blocks of block_rows rows over the SMs, and
+// at least floor_us.
+struct XpFp32Cost {
+  float tile_us, row_us;
+  int block_rows;
+  float wave_us, floor_us;
+};
+
+// A step of a part's n rows through the tiles fwd_part_step takes.
+inline float xp_part_us(const XpFp32Cost& k, int n, int tail) {
+  float us = 0.0f;
+  for (int m = 0; m < n;) {
+    const int tile = n - m > tail ? 128 : tail;
+    us += k.tile_us + k.row_us * tile;
+    m += tile;
+  }
+  return us;
+}
+
+// The xproj forwards keep one thread a hidden column (gru_xp.cu, lstm_xp.cu)
+// in fp32 mode where the cluster forward's step (each part's tiles, in every
+// wave) costs more than the column kernels' by k, and where its weight slices
+// would stream from L2 (fp32 above H=256, not timed against them). Elsewhere,
+// and in bf16 mode, the cluster forward.
+template <class Cell>
+cudaError_t xp_fwd_columns(int bf16, int G, int B, int H, const XpFp32Cost& k, bool* columns) {
+  *columns = false;
+  if (bf16) return cudaSuccess;
+  RnnXpFwdArgs a{};
+  FwdPlan p;
+  int dev = 0, sms = 0;
+  cudaError_t err = fwd_plan<Cell, false>(G, B, 0, H, a, p);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  float step = xp_part_us(k, a.whole > 0 ? B : p.rows, p.tail) * max(a.whole, 1);
+  const int share = p.parts - a.whole;
+  if (a.whole > 0 && share > 0) step += share * xp_part_us(k, (a.rows + share - 1) / share, p.tail);
+  const int waves = (G * ((B + k.block_rows - 1) / k.block_rows) + sms - 1) / sms;
+  const float cols = k.wave_us * waves > k.floor_us ? k.wave_us * waves : k.floor_us;
+  *columns = !p.resident || p.waves * step > cols;
+  return cudaSuccess;
+}
+
+// The xproj forward's plan (rnn_x_fwd_plan's seven ints), all zero where it
+// runs the one-thread-per-column kernels.
+template <class Cell>
+int rnn_xp_fwd_plan(int G, int B, int H, int bf16, const XpFp32Cost& k, int* out) {
+  if (bad_dims(G, 1, B, 0, H) || G < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  bool columns = false;
+  const cudaError_t err = xp_fwd_columns<Cell>(bf16, G, B, H, k, &columns);
+  if (err != cudaSuccess) return (int)err;
+  if (columns) {
+    for (int i = 0; i < 7; ++i) out[i] = 0;
+    return 0;
+  }
+  return bf16 ? rnn_x_fwd_plan<Cell, true>(G, B, 0, H, out) : rnn_x_fwd_plan<Cell, false>(G, B, 0, H, out);
 }
 
 // ------------------------------------------------------------ the LSTM cells
@@ -631,8 +724,9 @@ __device__ __forceinline__ void lstm_fwd_update(GateAcc<kTM, BF16>& acc, const A
 // The LSTM cell of lstm_x_fwd.
 struct LstmFwdCell {
   static constexpr int kTileCols = kGateCols;
-  static constexpr bool kOneTile = false;  // 128-row tiles and one tail size (its kernels spill at 255 registers)
   static constexpr bool kXproj = false;
+  // 128-row tiles and one tail size (its kernels spill at 255 registers)
+  __host__ __device__ static constexpr bool one_tile(bool) { return false; }
   using Args = RnnFwdArgs;
 
   __host__ __device__ static int x_start(int H) { return H; }
@@ -678,6 +772,9 @@ struct LstmFwdCell {
 struct LstmXpFwdCell : LstmFwdCell {
   static constexpr bool kXproj = true;
   using Args = RnnXpFwdArgs;
+  // fp32: a cluster's rows in one 96- or 160-row tile where they fit (G=1:
+  // 69 rows in a 96-row tile); bf16 keeps 128-row tiles
+  __host__ __device__ static constexpr bool one_tile(bool bf16) { return !bf16; }
 
   template <int kTM, bool BF16>
   struct Tile : LstmFwdCell::Tile<kTM, BF16> {
@@ -713,6 +810,292 @@ struct LstmXpFwdCell : LstmFwdCell {
 
     __device__ __forceinline__ void epilogue(const RnnXpFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
       lstm_fwd_update<kTM, BF16, true>(this->acc, a, c, t, m0, nt);
+    }
+  };
+};
+
+// ------------------------------------------------------------- the GRU cells
+//
+// The GRU cell of gru_x_fwd. Each hidden column has
+// three product columns, r | z | n, over [Wh; Wx] as they are (no zero
+// block): a tile's 96 columns hold 32 hidden columns in blocks of 8, column
+// blk*24 + q*8 + c being quantity q of hidden column blk*8 + c, so that an
+// fp32 thread's three float2 loads of a weight row and a bf16 warp's three n8
+// tiles each take one quantity of the same hidden columns, and every thread
+// ends with all three of its cells. The n column must give u = h Wh_n + bhn
+// and a_n = x Wx_n + bx_n apart (n = tanh(a_n + r*u)): x starts at the
+// k-tile after h (H rounded up to 16), and at the first x k-tile the tile
+// stashes the n column's sum over h (u) and restarts it, so it ends with the
+// sum over x (a_n). Against interleaving four quantities with zero blocks
+// (u has no x rows, a_n no h rows), that saves the quarter of the h-product
+// that would multiply zeros. The epilogue re-reads the h it wrote a step
+// earlier: h' = (1 - z) * n + z * h * keep.
+struct GruFwdCell {
+  static constexpr int kTileCols = 3 * kFwdTileHidden;
+  static constexpr bool kXproj = false;
+  // a cluster's rows in one 96- or 160-row tile where they fit
+  __host__ __device__ static constexpr bool one_tile(bool) { return true; }
+  using Args = RnnFwdArgs;
+
+  __host__ __device__ static int x_start(int H) { return (H + kGateK - 1) / kGateK * kGateK; }
+
+  // Operand row k (h rows, then x rows from x_start) at product column n of
+  // the CTA whose hidden columns start at j0, or nullptr where the value is
+  // zero (past the CTA's columns, between h and x, past the operand rows).
+  __device__ __forceinline__ static const float* weight(const RnnFwdArgs& a, int s, int j0, int hc, int k, int n) {
+    const int nt = n / kTileCols, nl = n - nt * kTileCols, blk = nl / 24;
+    const int jj = nt * kFwdTileHidden + blk * 8 + (nl & 7), q = (nl - blk * 24) >> 3;
+    const int H = a.H, x0 = x_start(H);
+    if (jj >= hc) return nullptr;
+    const int col = q * H + j0 + jj;
+    if (k < H) return a.wh + ((size_t)s * H + k) * 3 * H + col;
+    if (k < x0 || k >= x0 + a.D) return nullptr;
+    return a.wx + ((size_t)s * a.D + k - x0) * 3 * H + col;
+  }
+
+  // The bias a tile stages (128 floats): bx_r | bx_z | bhn | bx_n of its 32
+  // hidden columns.
+  __device__ __forceinline__ static float bias(const RnnFwdArgs& a, int s, int j0, int hc, int n) {
+    const int q = (n >> 5) & 3, jj = (n >> 7) * kFwdTileHidden + (n & 31), H = a.H;
+    if (jj >= hc) return 0.0f;
+    const int j = j0 + jj;
+    return q == 2 ? a.bias2[(size_t)s * H + j] : a.bias[(size_t)s * 3 * H + (q == 3 ? 2 : q) * H + j];
+  }
+
+  // fp32: thread (ty, tx) owns the rows gate_row_of(ty, i) and hidden columns
+  // cb + e (cb = (tx/4)*8 + (tx%4)*2, e = 0, 1): acc[i][2q + e] is quantity q,
+  // u[i][e] the stash. A cell c is (i, e) = (c/2, c%2).
+  template <int kTM>
+  struct TileF32 {
+    float acc[kTM / 16][6];
+    float u[kTM / 16][2];
+
+    __device__ __forceinline__ void at_x() {
+#pragma unroll
+      for (int i = 0; i < kTM / 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          u[i][e] = acc[i][4 + e];
+          acc[i][4 + e] = 0.0f;
+        }
+    }
+
+    template <class Bt>
+    __device__ __forceinline__ void step(const float* As, const Bt& bt) {
+      constexpr int kLdA = gate_lda<false>();
+      const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+      const int cb = (tx >> 2) * 24 + (tx & 3) * 2;
+#pragma unroll
+      for (int kk = 0; kk < kGateK; ++kk) {
+        float av[kTM / 16];
+#pragma unroll
+        for (int i = 0; i < kTM / 16; ++i) av[i] = As[gate_row_of<kTM>(ty, i) * kLdA + kk];
+        const float* br = bt.row(kk) + cb;
+        const float2 b0 = *reinterpret_cast<const float2*>(br);
+        const float2 b1 = *reinterpret_cast<const float2*>(br + 8);
+        const float2 b2 = *reinterpret_cast<const float2*>(br + 16);
+        const float bv[6] = {b0.x, b0.y, b1.x, b1.y, b2.x, b2.y};
+#pragma unroll
+        for (int i = 0; i < kTM / 16; ++i)
+#pragma unroll
+          for (int j = 0; j < 6; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+
+    __device__ __forceinline__ void cell(int c, int& row, int& jj) const {
+      const int tx = threadIdx.x & 15;
+      row = gate_row_of<kTM>(threadIdx.x >> 4, c >> 1);
+      jj = (tx >> 2) * 8 + (tx & 3) * 2 + (c & 1);
+    }
+    __device__ __forceinline__ float quantity(int c, int q) const { return acc[c >> 1][2 * q + (c & 1)]; }
+    __device__ __forceinline__ float stashed(int c) const { return u[c >> 1][c & 1]; }
+  };
+
+  // bf16: warp (wm, wn) owns rows wm*kTM/2.. (kTM/32 m16 tiles) and hidden
+  // columns wn*8..wn*8+7, its n8 tile q being quantity q of them (mma's C
+  // layout: lane (g, l) holds rows g, g+8 x hidden columns 2l, 2l+1):
+  // acc[i][q][v], u[i][v] the stash. A cell c is (i, v) = (c/4, c%4).
+  template <int kTM>
+  struct TileB16 {
+    float acc[kTM / 32][3][4];
+    float u[kTM / 32][4];
+
+    __device__ __forceinline__ void at_x() {
+#pragma unroll
+      for (int i = 0; i < kTM / 32; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          u[i][v] = acc[i][2][v];
+          acc[i][2][v] = 0.0f;
+        }
+    }
+
+    template <class Bt>
+    __device__ __forceinline__ void step(const float* As, const Bt& bt) {
+      constexpr int kLdA = gate_lda<true>();
+      const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, l = threadIdx.x & 3;
+      const int wm = warp >> 2, wn = warp & 3;
+      uint32_t b[3][2];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) bt.frag(l, wn * 24 + 8 * q + g, b[q][0], b[q][1]);
+#pragma unroll
+      for (int i = 0; i < kTM / 32; ++i) {
+        const float* ar0 = As + (wm * (kTM / 2) + 16 * i + g) * kLdA + 2 * l;
+        const float2 x0 = *reinterpret_cast<const float2*>(ar0);
+        const float2 x1 = *reinterpret_cast<const float2*>(ar0 + 8 * kLdA);
+        const float2 x2 = *reinterpret_cast<const float2*>(ar0 + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(ar0 + 8 * kLdA + 8);
+        const uint32_t af[4] = {pack_bf16(x0.x, x0.y), pack_bf16(x1.x, x1.y), pack_bf16(x2.x, x2.y),
+                                pack_bf16(x3.x, x3.y)};
+#pragma unroll
+        for (int q = 0; q < 3; ++q) mma_bf16(acc[i][q], af, b[q][0], b[q][1]);
+      }
+    }
+
+    __device__ __forceinline__ void cell(int c, int& row, int& jj) const {
+      const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, l = threadIdx.x & 3;
+      row = (warp >> 2) * (kTM / 2) + 16 * (c >> 2) + g + 8 * ((c & 3) >> 1);
+      jj = (warp & 3) * 8 + 2 * l + (c & 1);
+    }
+    __device__ __forceinline__ float quantity(int c, int q) const { return acc[c >> 2][q][c & 3]; }
+    __device__ __forceinline__ float stashed(int c) const { return u[c >> 2][c & 3]; }
+  };
+
+  template <int kTM, bool BF16>
+  struct Tile : std::conditional<BF16, TileB16<kTM>, TileF32<kTM>>::type {
+    // the cell update at the thread's cells, written to hs[t]: the carried h
+    // and keep are loaded here, not ahead of the product
+    __device__ __forceinline__ void epilogue(const RnnFwdArgs& a, const FwdCta& c, int t, int m0, int nt) const {
+      constexpr int kCells = kTM / 8;
+      const int H = a.H, B = a.B;
+      float h_prev[kCells];
+#pragma unroll
+      for (int e = 0; e < kCells; ++e) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row, j = c.j0 + nt * kFwdTileHidden + jj;
+        const bool on = b < c.rb1 && nt * kFwdTileHidden + jj < c.hc;
+        const float keep = on ? 1.0f - a.resets[(size_t)t * B + b] : 0.0f;
+        h_prev[e] = !on ? 0.0f
+                        : keep * (t == 0 ? a.h0[((size_t)c.s * B + b) * H + j]
+                                         : a.hs[(((size_t)c.s * a.T + t - 1) * B + b) * H + j]);
+      }
+      const float* bias = c.bias + nt * kGateCols;
+#pragma unroll
+      for (int e = 0; e < kCells; ++e) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row;
+        if (b >= c.rb1 || nt * kFwdTileHidden + jj >= c.hc) continue;
+        const float r = sigmoid(this->quantity(e, 0) + bias[jj]);
+        const float z = sigmoid(this->quantity(e, 1) + bias[32 + jj]);
+        const float u = this->stashed(e) + bias[64 + jj];
+        const float n = tanhf(this->quantity(e, 2) + bias[96 + jj] + r * u);
+        a.hs[(((size_t)c.s * a.T + t) * B + b) * H + c.j0 + nt * kFwdTileHidden + jj] = (1.0f - z) * n + z * h_prev[e];
+      }
+    }
+  };
+};
+
+
+// The GRU cell of gru_xp_fwd: over the stored projection xproj [G,T,B,3H]
+// (x Wx + bx, r | z | n) with D = 0, so GruFwdCell's weight map has the h
+// rows alone and no k-tile is an x one (no stash). Before the k-loop the r
+// and z accumulators load their xproj columns and the n accumulator bhn, so
+// that it ends as u = h Wh_n + bhn; a_n, xproj's n column, is loaded beside
+// them into registers of its own (the loads' latency hides behind the ring's
+// first copies, as LstmXpFwdCell's). xproj's rows are 3H apart: a thread's
+// two neighbouring hidden columns come in one 8-byte load where they are
+// aligned, else one by one (odd H or j0). Each stream has its own reset mask.
+struct GruXpFwdCell : GruFwdCell {
+  static constexpr bool kXproj = true;
+  using Args = RnnXpFwdArgs;
+
+  // the bias a tile stages: bhn in GruFwdCell's u slot (64 + jj), zero elsewhere
+  __device__ __forceinline__ static float bias(const RnnFwdArgs& a, int s, int j0, int hc, int n) {
+    const int jj = (n >> 7) * kFwdTileHidden + (n & 31);
+    return ((n >> 5) & 3) == 2 && jj < hc ? a.bias2[(size_t)s * a.H + j0 + jj] : 0.0f;
+  }
+
+  template <int kTM, bool BF16>
+  struct Tile : GruFwdCell::Tile<kTM, BF16> {
+    float an[kTM / 8];  // a_n at the thread's cells
+
+    __device__ __forceinline__ void at_x() {}
+
+    // the accumulator of quantity q (r, z, u) at cell c
+    __device__ __forceinline__ float& slot(int c, int q) {
+      if constexpr (BF16) {
+        return this->acc[c >> 2][q][c & 3];
+      } else {
+        return this->acc[c >> 1][2 * q + (c & 1)];
+      }
+    }
+
+    __device__ __forceinline__ void start(const RnnXpFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
+      const int H = a.H, j_tile = nt * kFwdTileHidden;
+      const float* bias = c.bias + nt * kGateCols;
+      const float* xp = a.xproj + ((size_t)c.s * a.T + t) * a.B * 3 * H + c.j0 + j_tile;
+      const bool vec = ((H | c.j0) & 1) == 0 && (reinterpret_cast<uintptr_t>(a.xproj) & 7) == 0;
+      // cells e and e + 1: one row, hidden columns jj and jj + 1
+#pragma unroll
+      for (int e = 0; e < kTM / 8; e += 2) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row;
+        const bool on0 = b < c.rb1 && j_tile + jj < c.hc, on1 = b < c.rb1 && j_tile + jj + 1 < c.hc;
+        const float* x = xp + (size_t)(on0 ? b : c.rb0) * 3 * H + jj;
+        float v[3][2];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          if (vec && on1) {
+            const float2 f = __ldg(reinterpret_cast<const float2*>(x + q * H));
+            v[q][0] = f.x;
+            v[q][1] = f.y;
+          } else {
+            v[q][0] = on0 ? __ldg(x + q * H) : 0.0f;
+            v[q][1] = on1 ? __ldg(x + q * H + 1) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          slot(e + d, 0) = v[0][d];
+          slot(e + d, 1) = v[1][d];
+          slot(e + d, 2) = bias[64 + jj + d];
+          an[e + d] = v[2][d];
+        }
+      }
+    }
+
+    // the cell update at the thread's cells, written to hs[t]: the carried h
+    // and keep (the stream's own mask) are loaded here, not ahead of the product
+    __device__ __forceinline__ void epilogue(const RnnXpFwdArgs& a, const FwdCta& c, int t, int m0, int nt) {
+      constexpr int kCells = kTM / 8;
+      const int H = a.H, B = a.B;
+      const float* resets = a.resets + (size_t)c.s * a.reset_stride;
+      float h_prev[kCells];
+#pragma unroll
+      for (int e = 0; e < kCells; ++e) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row, j = c.j0 + nt * kFwdTileHidden + jj;
+        const bool on = b < c.rb1 && nt * kFwdTileHidden + jj < c.hc;
+        const float keep = on ? 1.0f - resets[(size_t)t * B + b] : 0.0f;
+        h_prev[e] = !on ? 0.0f
+                        : keep * (t == 0 ? a.h0[((size_t)c.s * B + b) * H + j]
+                                         : a.hs[(((size_t)c.s * a.T + t - 1) * B + b) * H + j]);
+      }
+#pragma unroll
+      for (int e = 0; e < kCells; ++e) {
+        int row, jj;
+        this->cell(e, row, jj);
+        const int b = m0 + row;
+        if (b >= c.rb1 || nt * kFwdTileHidden + jj >= c.hc) continue;
+        const float r = sigmoid(slot(e, 0));
+        const float z = sigmoid(slot(e, 1));
+        const float n = tanhf(an[e] + r * slot(e, 2));
+        a.hs[(((size_t)c.s * a.T + t) * B + b) * H + c.j0 + nt * kFwdTileHidden + jj] = (1.0f - z) * n + z * h_prev[e];
+      }
     }
   };
 };

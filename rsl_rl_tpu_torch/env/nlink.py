@@ -11,10 +11,18 @@ system per substep with an unrolled Cholesky, exactly as the JAX env does:
 with ``K_ij = Σ_{k≥max(i,j)} m_k``, joint torques ``τ_i = u_i − u_{i+1}``,
 viscous damping and semi-implicit Euler over ``n_substeps``. Episodes end by
 time limit only, so every done is a timeout.
+
+Random draws live in the state, as the JAX env's per-env keys do
+(``NLinkState.rng``): each env carries a 64-bit key, and ``step`` derives
+that env's next key and its reset draws from it with a counter-based hash
+(:func:`hash_draws`), so ``step(state, a)`` is a function of its arguments
+and the rows of a stacked state step as the state made of those rows. The
+hash is not JAX's threefry, so the draws differ from the JAX env's.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -23,10 +31,54 @@ from rsl_rl_tpu_torch.env.vec_env import EnvState, VecEnv, as_episode_length, ch
 from rsl_rl_tpu_torch.utils.device import resolve_device
 
 
+def _int64(v: int) -> int:
+    """The signed int64 of a 64-bit pattern."""
+    v %= 2**64
+    return v - 2**64 if v >= 2**63 else v
+
+
+#: splitmix64's increment and finalizer multipliers (as signed int64)
+_GOLDEN = _int64(0x9E3779B97F4A7C15)
+_MIX1 = _int64(0xBF58476D1CE4E5B9)
+_MIX2 = _int64(0x94D049BB133111EB)
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns (torch's ``>>`` is arithmetic)."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix(z: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 bit patterns (products wrap mod 2^64)."""
+    z = (z ^ _shr(z, 30)) * _MIX1
+    z = (z ^ _shr(z, 27)) * _MIX2
+    return z ^ _shr(z, 31)
+
+
+@functools.lru_cache(maxsize=None)
+def _counters(n: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(1, n + 2, dtype=torch.int64, device=device) * _GOLDEN
+
+
+def hash_draws(keys: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(next_keys [N], bits [N, n])`` from per-env keys ``[N]`` int64: the
+    splitmix64 outputs of counters 1..n+1 past each key; the last becomes the
+    env's next key. Plain integer ops, the same bits on any device."""
+    z = _mix(keys[:, None] + _counters(n, keys.device))
+    return z[:, n], z[:, :n]
+
+
+def env_keys(seed: int, num_envs: int, device=None) -> torch.Tensor:
+    """The per-env keys ``[num_envs]`` int64 that ``reset(seed)`` starts from."""
+    root = _mix(torch.tensor([_int64(int(seed) * _GOLDEN)], dtype=torch.int64, device=device))
+    return _mix(root + torch.arange(1, num_envs + 1, dtype=torch.int64, device=device) * _GOLDEN)
+
+
 @dataclass
 class NLinkState(EnvState):
     theta: torch.Tensor  # [N, L] absolute link angles (0 = hanging down)
     omega: torch.Tensor  # [N, L] angular velocities
+    rng: torch.Tensor  # [N] int64 per-env keys of the reset draws
 
 
 class NLinkPendulum(VecEnv):
@@ -51,7 +103,6 @@ class NLinkPendulum(VecEnv):
         self.num_links = num_links
         self.num_actions = num_links
         self.max_episode_length = as_episode_length(max_episode_length, self.device)
-        self.generator = torch.Generator(device=self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.masses = torch.ones(num_links, **f32)
         self.lengths = torch.ones(num_links, **f32) / num_links
@@ -60,6 +111,9 @@ class NLinkPendulum(VecEnv):
         K = cummass[torch.maximum(idx[:, None], idx[None, :])]  # [L, L]
         self._coup = K * (self.lengths[:, None] * self.lengths[None, :])
         self._gdiag = self.g * self.lengths * torch.diagonal(K)
+        # the reset draws' ranges, theta in [-0.1, 0.1) then omega in [-0.05, 0.05)
+        self._draw_width = torch.tensor([0.2] * num_links + [0.1] * num_links, **f32)
+        self._draw_low = torch.tensor([-0.1] * num_links + [-0.05] * num_links, **f32)
         self._total_len = float(self.lengths.sum())
 
     # ------------------------------------------------------------- dynamics
@@ -125,24 +179,32 @@ class NLinkPendulum(VecEnv):
         )
         return {"policy": obs}
 
-    def _sample_init(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-        shape = (n, self.num_links)
-        kw = dict(dtype=torch.float32, device=self.device, generator=self.generator)
-        theta = torch.rand(shape, **kw) * 0.2 - 0.1
-        omega = torch.rand(shape, **kw) * 0.1 - 0.05
-        return theta, omega
+    def _sample_init(self, rng: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Each env's next key and a fresh ``(theta, omega)`` drawn from its
+        key: fp32 uniforms from the top 24 bits of each draw."""
+        rng, bits = hash_draws(rng, 2 * self.num_links)
+        draws = _shr(bits, 40).to(torch.float32) * self._draw_width / 2**24 + self._draw_low
+        return rng, draws[:, : self.num_links], draws[:, self.num_links :]
 
     def reset(self, seed: int = 0, num_envs: int | None = None) -> tuple[NLinkState, dict[str, torch.Tensor]]:
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        self.generator.manual_seed(int(seed))
-        theta, omega = self._sample_init(num_envs)
+        rng, theta, omega = self._sample_init(env_keys(seed, num_envs, self.device))
         state = NLinkState(
             episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
             theta=theta,
             omega=omega,
+            rng=rng,
         )
         return state, self._obs(state)
+
+    def randomize_episode_length(self, state: NLinkState) -> NLinkState:
+        """Scatter the episode lengths over ``[0, max_episode_length_i)``
+        (``init_at_random_ep_len``), drawn from each env's key, which advances."""
+        rng, bits = hash_draws(state.rng, 1)
+        maxlen = torch.as_tensor(self.max_episode_length, dtype=torch.int64, device=self.device)
+        lengths = (_shr(bits[:, 0], 33) * maxlen) >> 31  # exact integer bounds
+        return NLinkState(episode_length=lengths.to(torch.int32), theta=state.theta, omega=state.omega, rng=rng)
 
     def step(self, state: NLinkState, actions: torch.Tensor):
         u = torch.clamp(actions, -self.max_torque, self.max_torque)
@@ -163,14 +225,15 @@ class NLinkPendulum(VecEnv):
         time_out = episode_length >= self.max_episode_length
         done = time_out  # no terminal states, only truncation
 
-        # like the JAX env, draw reset states for every env and keep those of
-        # the done envs (no host sync on whether any env is done)
-        reset_theta, reset_omega = self._sample_init(theta.shape[0])
+        # like the JAX env, every env's key advances and draws reset states,
+        # kept where the env is done (no host sync on whether any env is done)
+        rng, reset_theta, reset_omega = self._sample_init(state.rng)
         done_col = done[:, None]
         state = NLinkState(
             episode_length=torch.where(done, torch.zeros_like(episode_length), episode_length),
             theta=torch.where(done_col, reset_theta, theta),
             omega=torch.where(done_col, reset_omega, omega),
+            rng=rng,
         )
         extras = {"time_outs": time_out, "log": {"nlink/tip_height": height}}
         return state, self._obs(state), reward, done, extras

@@ -13,8 +13,9 @@ Observations are a dict of named groups; ``extras["time_outs"]`` marks
 time-limit truncations (value bootstrap) and ``extras["log"]`` carries per-env
 scalars. Environments auto-reset: where ``dones[i]`` is set, the returned obs
 of env ``i`` is the first observation of a fresh episode. The random draws of
-those resets come from a ``torch.Generator`` the env owns, seeded by
-``reset``; they differ from the JAX package's threefry draws for the same seed.
+those resets come from per-env keys carried in the state (derived from
+``reset``'s seed), so ``step`` is a function of its arguments; they differ
+from the JAX package's threefry draws for the same seed.
 """
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ class VecEnv(abc.ABC):
 
     @abc.abstractmethod
     def reset(self, seed: int, num_envs: int | None = None) -> tuple[EnvState, dict[str, torch.Tensor]]:
-        """Seed the env's generator and initialize ``num_envs`` envs (default
-        ``self.num_envs``)."""
+        """Initialize ``num_envs`` envs (default ``self.num_envs``), their
+        random keys derived from ``seed``."""
 
     @abc.abstractmethod
     def step(

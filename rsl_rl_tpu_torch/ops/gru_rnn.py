@@ -51,11 +51,19 @@ stays in its shared memory (bf16 mode: rounded once when staged; streamed
 from L2 at every step where it does not fit), and ``h`` goes between the CTAs
 through ``hs`` with a cluster barrier a step. The ``n`` column's sums over
 ``h`` (``u``) and over ``x`` (``a_n``) are kept apart by stashing the first
-when the ``x`` rows begin, so no product multiplies a zero block. The xproj
-forward gives each block a tile of ``BB`` batch rows of one stream, keeps its
-hidden tile in shared memory and its own hidden column in registers (above
-H=256 two columns a thread, half the rows a block), and re-reads ``Wh`` from
-L2 (50 MB, where all blocks share one copy) at every step.
+when the ``x`` rows begin, so no product multiplies a zero block.
+``gru_xp_fwd`` runs the same cluster forward over the ``h`` rows alone: its
+accumulators start at the stored ``xproj`` row (r, z) and ``bhn`` (u), and
+``a_n`` comes straight from ``xproj``. Where its G streams outnumber the
+clusters the card runs at once (G=16 against 15), each cluster serves a
+whole stream and a share of the sixteenth's rows in one wave, its CTAs
+holding both bf16 weight slices. In fp32 mode a 128-row tile costs more
+(two fp32 slices do not fit a CTA, so G=16 takes two waves), and the plan
+keeps one thread a hidden column (a block a tile of ``BB`` rows of one
+stream, re-reading ``Wh`` from L2 at every step) where its step would cost
+less than the cluster forward's, by the costs timed on an H100
+(``XpFp32Cost``, ``csrc/rnn_fwd.cuh``): G=16 goes to the columns, one
+stream (the wide-input path) to the cluster forward.
 ``gru_x_bwd`` and ``gru_xp_bwd`` take out of the serial chain what does not
 depend on the carried gradients, in the three phases of ``csrc/rnn_bwd.cuh``:
 the gate quantities ``r | z | a_n | u`` of all steps in one tiled GEMM over
@@ -239,6 +247,7 @@ _SIGNATURES = {
     },
     "gru_xp": {
         "gru_xp_fwd": [_P] * 6 + [_I] * 5 + [_P],
+        "gru_xp_fwd_plan": [_I] * 4 + [_P],
         "gru_xp_bwd": [_P] * 10 + [_I] * 5 + [_P] * 2,
         "gru_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
     },
@@ -381,7 +390,9 @@ def _xp_dims(wh, xproj):
 
 
 def gru_xp_fwd(wh, bhn, carry0, xproj, resets, bf16: bool = False) -> torch.Tensor:
-    """Launch the xproj forward kernel; shapes as :func:`gru_xp_plain_fwd`."""
+    """Launch the xproj forward kernel (the cluster forward of
+    ``csrc/rnn_fwd.cuh``, or one thread a hidden column where
+    :func:`gru_xp_fwd_plan` says so); shapes as :func:`gru_xp_plain_fwd`."""
     G, T, B, H = _xp_dims(wh, xproj)
     ptrs = [
         check("xproj", xproj, (G, T, B, 3 * H)),
@@ -394,6 +405,16 @@ def gru_xp_fwd(wh, bhn, carry0, xproj, resets, bf16: bool = False) -> torch.Tens
     raise_on("gru_xp_fwd", _lib("gru_xp").gru_xp_fwd(*ptrs, hs.data_ptr(), G, T, B, H, int(bf16), stream()))
     xp_launch_counts.fwd_launches += 1
     return hs
+
+
+def gru_xp_fwd_plan(G: int, B: int, H: int, bf16: bool = False) -> dict:
+    """The grid :func:`gru_xp_fwd` chooses on the current card for G streams
+    of B rows: the cluster forward's (``"kernel": "cluster"``, keys as
+    :func:`gru_x_fwd_plan`; ``parts``: the streams a cluster serves at most),
+    or ``{"kernel": "columns"}`` (fp32 mode where one thread a column costs
+    less, or the weight slices would stream from L2)."""
+    check_hidden("GRU", H)
+    return fwd_plan("gru_xp_fwd_plan", _lib("gru_xp").gru_xp_fwd_plan, G, B, H, int(bf16))
 
 
 def _gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16, phase_ms):

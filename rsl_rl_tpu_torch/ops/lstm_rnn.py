@@ -48,17 +48,20 @@ exchanges ``h`` through ``hs`` with a cluster barrier between steps; the grid
 takes as many clusters as the card runs at once (the cluster forward of
 ``csrc/rnn_fwd.cuh``, shared with ``gru_x_fwd``). Where the slice does not
 fit (H > 256) the same kernel streams it from L2 at every step.
-In bf16 mode ``lstm_xp_fwd`` runs the same cluster forward over the stored
-``xproj`` (the ``Wh`` rows alone, each gate's accumulator starting at its
-``xproj`` element and ``bh``) with a reset mask a stream; where the streams
-outnumber the clusters the card runs at once, a cluster serves whole streams
-and a share of the rest, its CTAs holding each one's weight slice, so G=16
-streams run in one wave (with a cluster a stream, 16 clusters on a card that
-runs 15 would take two). In fp32 mode, where that does not pay (two fp32
-slices do not fit a CTA), it keeps one block per ``BB`` batch rows of one
-stream, its hidden tile in shared memory and its own ``c`` and ``h`` columns
-in registers (above H=256 two columns a thread), re-reading ``Wh`` from L2 at
-every step.
+``lstm_xp_fwd`` runs the same cluster forward over the stored ``xproj`` (the
+``Wh`` rows alone, each gate's accumulator starting at its ``xproj`` element
+and ``bh``) with a reset mask a stream; where the streams outnumber the
+clusters the card runs at once, a cluster serves whole streams and a share
+of the rest, its CTAs holding each one's weight slice, so G=16 streams run
+in one wave in bf16 mode (with a cluster a stream, 16 clusters on a card
+that runs 15 would take two). In fp32 mode the plan keeps one block per
+``BB`` batch rows of one stream, its hidden tile in shared memory and its
+own ``c`` and ``h`` columns in registers (above H=256 two columns a thread),
+re-reading ``Wh`` from L2 at every step, where its step would cost less than
+the cluster forward's, by the costs timed on an H100 (``XpFp32Cost``,
+``csrc/rnn_fwd.cuh``): G=16 (two fp32 slices do not fit a CTA) and any full
+128-row fp32 tile a cluster go to it; one stream (the wide-input path, 69
+rows a cluster in one 80-row tile) and small tiles to the cluster forward.
 ``lstm_x_bwd`` and ``lstm_xp_bwd`` take out of the serial chain what does
 not depend on the carried gradients, in the three phases of
 ``csrc/rnn_bwd.cuh``: the gates of all steps in one tiled GEMM over the
@@ -243,7 +246,7 @@ _SIGNATURES = {
     },
     "lstm_xp": {
         "lstm_xp_fwd": [_P] * 8 + [_I] * 5 + [_P],
-        "lstm_xp_fwd_plan": [_I] * 3 + [_P],
+        "lstm_xp_fwd_plan": [_I] * 4 + [_P],
         "lstm_xp_bwd": [_P] * 13 + [_I] * 5 + [_P] * 2,
         "lstm_xp_wgrad": [_P] * 6 + [_I] * 6 + [_P],
     },
@@ -379,10 +382,10 @@ def _xp_input_ptrs(wh, bh, c0, h0, xproj, resets):
 
 
 def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
-    """Launch the xproj forward kernel; shapes as :func:`lstm_xp_plain_fwd`.
-    Returns ``(hs, cs)``. bf16 mode runs the cluster forward of
-    ``csrc/rnn_fwd.cuh``, fp32 mode one thread a hidden column (the faster
-    there)."""
+    """Launch the xproj forward kernel (the cluster forward of
+    ``csrc/rnn_fwd.cuh``, or one thread a hidden column where
+    :func:`lstm_xp_fwd_plan` says so); shapes as :func:`lstm_xp_plain_fwd`.
+    Returns ``(hs, cs)``."""
     G, T, B, H = _xp_dims(wh, xproj)
     ptrs = _xp_input_ptrs(wh, bh, c0, h0, xproj, resets) + [check("bh", bh, (G, 4 * H))]
     hs = torch.empty((G, T, B, H), dtype=torch.float32, device=xproj.device)
@@ -395,15 +398,12 @@ def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
 
 def lstm_xp_fwd_plan(G: int, B: int, H: int, bf16: bool = False) -> dict:
     """The grid :func:`lstm_xp_fwd` chooses on the current card for G streams
-    of B rows: in bf16 mode the cluster forward's (``"kernel": "cluster"``,
-    keys as :func:`lstm_x_fwd_plan`; ``parts``: the streams a cluster serves
-    at most, whose weight slices its CTAs hold), in fp32 mode
-    ``{"kernel": "columns"}``."""
+    of B rows: the cluster forward's (``"kernel": "cluster"``, keys as
+    :func:`lstm_x_fwd_plan`; ``parts``: the streams a cluster serves at most),
+    or ``{"kernel": "columns"}`` (fp32 mode where one thread a column costs
+    less, or the weight slices would stream from L2)."""
     check_hidden("LSTM", H)
-    if not bf16:
-        return {"kernel": "columns"}
-    plan = fwd_plan("lstm_xp_fwd_plan", _lib("lstm_xp").lstm_xp_fwd_plan, G, B, H)
-    return {"kernel": "cluster", **plan}
+    return fwd_plan("lstm_xp_fwd_plan", _lib("lstm_xp").lstm_xp_fwd_plan, G, B, H, int(bf16))
 
 
 def _lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16, phase_ms):

@@ -99,12 +99,17 @@ FWD_PLAN_KEYS = ("active_clusters", "rows_per_cluster", "clusters", "resident", 
 
 
 def fwd_plan(name: str, fn, *args) -> dict:
-    """The grid a cluster forward chooses, from its plan entry point ``fn(*args, out)``."""
+    """The grid a cluster forward chooses, from its plan entry point ``fn(*args, out)``:
+    ``{"kernel": "cluster", ...}`` with the keys of :data:`FWD_PLAN_KEYS`, or
+    ``{"kernel": "columns"}`` where the entry point reports no clusters (the
+    xproj forwards' one-thread-per-column kernels)."""
     out = (ctypes.c_int * len(FWD_PLAN_KEYS))()
     raise_on(name, fn(*args, ctypes.addressof(out)))
     plan = dict(zip(FWD_PLAN_KEYS, out))
+    if plan["clusters"] == 0:
+        return {"kernel": "columns"}
     plan["resident"] = bool(plan["resident"])
-    return plan
+    return {"kernel": "cluster", **plan}
 
 
 def check_hidden(kind: str, H: int) -> None:

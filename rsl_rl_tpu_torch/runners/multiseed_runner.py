@@ -38,8 +38,8 @@ class MultiSeedRunner:
 
     The config schema is :class:`OnPolicyRunner`'s; ``cfg["seed"]`` seeds the
     whole study (each seed's policy init comes from :func:`seed_sequence`, the
-    env draws and the action noise from one generator each, drawn for all
-    seeds at once). ``env`` has ``num_envs`` envs per seed: the runner steps
+    env draws from per-env keys in the env state derived from it, the action
+    noise from one generator drawn for all seeds at once). ``env`` has ``num_envs`` envs per seed: the runner steps
     ``num_seeds * env.num_envs`` of them.
     """
 

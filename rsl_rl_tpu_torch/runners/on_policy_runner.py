@@ -114,10 +114,7 @@ class OnPolicyRunner:
 
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False) -> None:
         if init_at_random_ep_len:
-            state = self.collect_state.env_state
-            maxlen = torch.as_tensor(self.env.max_episode_length, device=self.device)
-            draw = torch.rand(self.env.num_envs, device=self.device, generator=self.env.generator)
-            state.episode_length = torch.floor(draw * maxlen).to(torch.int32)
+            self.collect_state.env_state = self.env.randomize_episode_length(self.collect_state.env_state)
 
         start_iter = self.current_learning_iteration
         tot_iter = start_iter + num_learning_iterations

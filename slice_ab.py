@@ -21,7 +21,8 @@ with ``torch.profiler`` (CPU and CUDA activity), each phase inside a
 ``record_function`` range that ends with a ``torch.cuda.synchronize()``. For
 the collection and the learning phase it prints the wall-clock seconds, the
 device busy share (the union of the device's kernel and copy intervals over
-the phase's wall-clock time), the share taken by the port's own kernels (the
+the phase's wall-clock time) and the device seconds it makes (busy share x
+wall clock), the share taken by the port's own kernels (the
 ``__global__`` functions of that tree's ``rsl_rl_tpu_torch/csrc``: a slice
 launches only its own three RNN entry points), and the learning phase's
 largest device kernels.
@@ -165,8 +166,9 @@ def main() -> None:
             if "trace" in row:
                 tr = row["trace"]
                 print(f"trace {label} {name}: {tr['device_events']} device events; " + "; ".join(
-                    f"{p} {tr[p]['wall_s']:.4f} s, device busy {tr[p]['busy']:.1%}, port kernels"
-                    f" {tr[p]['port_kernels']:.1%}" for p in PHASES if p in tr))
+                    f"{p} {tr[p]['wall_s']:.4f} s, device busy {tr[p]['busy']:.1%}"
+                    f" ({tr[p]['busy'] * tr[p]['wall_s']:.4f} s), port kernels {tr[p]['port_kernels']:.1%}"
+                    for p in PHASES if p in tr))
                 top = tr.get("learning", {}).get("top_ms", [])
                 print(f"trace {label} {name} learning, most device ms: "
                       + "; ".join(f"{n[:70]} {ms:.2f}" for n, ms in top))

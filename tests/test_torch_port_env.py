@@ -2,7 +2,7 @@
 states with identical actions.
 
 The physics is deterministic, so every step is compared. The reset draws
-differ by construction (threefry against a ``torch.Generator``), so for envs
+differ by construction (threefry against the port's per-env splitmix64 keys), so for envs
 that time out the test checks the reset itself (range of the fresh state,
 zeroed episode length) and then copies the JAX state over before the next
 step, so that every step starts from identical states.
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from rsl_rl_tpu.env.nlink import NLinkPendulum as JaxNLink
-from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState
+from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState, env_keys
 
 N, L, MAX_LEN, STEPS = 64, 5, 6, 8
 
@@ -23,6 +23,7 @@ def _to_port(state) -> NLinkState:
         episode_length=torch.tensor(np.asarray(state.episode_length)),
         theta=torch.tensor(np.asarray(state.theta)),
         omega=torch.tensor(np.asarray(state.omega)),
+        rng=env_keys(0, N),
     )
 
 

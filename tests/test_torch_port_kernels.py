@@ -620,7 +620,7 @@ def test_redesigned_kernels_edge_shapes_on_card(family, S, T, B, D, H, bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
 def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
     """Two calls give the same bits: the outputs of the cluster forwards
-    ``gru_x_fwd``, ``lstm_x_fwd`` and ``lstm_xp_fwd``, of the three-phase
+    ``gru_x_fwd``, ``lstm_x_fwd``, ``gru_xp_fwd`` and ``lstm_xp_fwd``, of the three-phase
     backwards ``gru_x_bwd``, ``lstm_x_bwd``, ``gru_xp_bwd`` and
     ``lstm_xp_bwd``, and of every weight-gradient reduction, at the main
     paths' shapes."""
@@ -651,6 +651,8 @@ def test_redesigned_kernels_are_bitwise_repeatable_on_card(bf16):
         calls[f"{cell}_xp_wgrad"] = lambda mod=mod, cell=cell, rows=rows: getattr(mod, f"{cell}_xp_wgrad")(*rows, bf16)
         if cell == "lstm":
             calls["lstm_xp_fwd"] = lambda xw=xw: lstm_rnn.lstm_xp_fwd(*xw, bf16)
+        else:
+            calls["gru_xp_fwd"] = lambda xw=xw: (gru_rnn.gru_xp_fwd(*xw, bf16),)
     for name, call in calls.items():
         first = [t.clone() for t in call()]
         second = call()
@@ -741,9 +743,9 @@ def _xp_per_stream_resets(cell, G, T, B, H, seed):
 @pytest.mark.parametrize("T", [1, 24], ids=["T1", "T24"])
 @pytest.mark.parametrize("G,B,H", XP_REDESIGNED_CASES, ids=[f"G{c[0]}B{c[1]}H{c[2]}" for c in XP_REDESIGNED_CASES])
 def test_redesigned_xp_kernels_on_card(G, B, H, T, bf16):
-    """``lstm_xp_fwd`` and ``gru_xp_bwd`` against their plain versions at the
-    phase-3 bars of ``chip_smoke.py``, per-stream weights and resets; two
-    calls of each give the same bits."""
+    """``lstm_xp_fwd``, ``gru_xp_fwd`` and ``gru_xp_bwd`` against their plain
+    versions at the phase-3 bars of ``chip_smoke.py``, per-stream weights and
+    resets; two calls of each give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -757,6 +759,9 @@ def test_redesigned_xp_kernels_on_card(G, B, H, T, bf16):
 
     w, ghs = _xp_per_stream_resets("gru", G, T, B, H, seed=G * 1000 + B * 10 + H + T + 1)
     hs = gru_rnn.gru_xp_plain_fwd(*w, bf16)
+    got = gru_rnn.gru_xp_fwd(*w, bf16).clone()
+    torch.testing.assert_close(got, hs, rtol=fwd_rtol, atol=fwd_atol, msg="gru_xp_fwd hs")
+    assert torch.equal(got, gru_rnn.gru_xp_fwd(*w, bf16)), "gru_xp_fwd not repeatable"
     want = gru_rnn.gru_xp_plain_bwd(*w, hs, ghs, bf16)
     got = [t.clone() for t in gru_rnn.gru_xp_bwd(*w, hs, ghs, bf16)]
     for part, a, b in zip(("dcarry0", "gscratch"), got, want):
@@ -790,3 +795,109 @@ def test_lstm_xp_fwd_layouts_on_card(G, B, H, waves):
                           lstm_rnn.lstm_xp_plain_fwd(*w, True)):
         torch.testing.assert_close(a, b, rtol=fwd_rtol, atol=fwd_atol, msg=part)
     torch.cuda.synchronize()
+
+
+# ------------------- gru_xp_fwd (cluster forward) and lstm_xp_fwd in fp32 mode
+
+#: (G, B, H, layout, fp32 kernel) of the xproj forwards where the streams
+#: outnumber the clusters the card runs at once, and at G=1, with the layout
+#: the cluster forward takes: "share" the multi-seed path's 16 streams in one
+#: wave (a cluster serves a whole stream and a share of the sixteenth's rows,
+#: holding both weight slices), "one" one wave where a cluster holds several
+#: streams' slices (G=40 at H=64), "several" a cluster a stream in several
+#: waves (two slices do not fit: the GRU's bf16 ones at H=288; G=40 at
+#: H=384), "any" G=17 at a ragged batch, "single" one stream of the
+#: wide-input path over the clusters in one wave (fp32: one 80-row tile of 69
+#: rows a cluster); and the kernel fp32 mode takes there ("columns": one
+#: thread a column, at G=16 and where the weight slices would stream from
+#: L2; "any" where the step costs of the two lie close or were not timed)
+XP_LAYOUT_CASES = [(16, 128, 256, "share", "columns"), (16, 64, 288, "several", "columns"),
+                   (17, 130, 256, "any", "any"), (17, 130, 36, "any", "any"), (40, 16, 64, "one", "any"),
+                   (40, 16, 384, "several", "columns"), (1, 1024, 256, "single", "cluster")]
+XP_LAYOUT_IDS = [f"G{g}B{b}H{h}" for g, b, h, _, _ in XP_LAYOUT_CASES]
+
+
+def _check_xp_fwd_layout(cell, G, B, H, layout, fp32_kernel, bf16):
+    """The xproj forward of ``cell`` against its plain version at the phase-3
+    bars, per-stream resets, and the plan's keys for the layout."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = _xp_module(cell)
+    plan = getattr(mod, f"{cell}_xp_fwd_plan")(G, B, H, bf16)
+    assert plan["kernel"] == ("cluster" if bf16 else fp32_kernel) or (not bf16 and fp32_kernel == "any"), plan
+    if plan["kernel"] == "columns":
+        pass  # no grid to check
+    elif layout == "share":
+        assert G > plan["active_clusters"] and plan["parts"] == 2 and plan["waves"] == 1, plan
+    elif layout == "one":
+        assert G > plan["active_clusters"] and plan["parts"] > 1 and plan["waves"] == 1, plan
+    elif layout == "several":
+        assert plan["parts"] == 1 and plan["waves"] > 1, plan
+    elif layout == "single":
+        assert plan["kernel"] == "cluster" and plan["clusters"] == plan["active_clusters"], plan
+        assert plan["waves"] == 1 and plan["parts"] == 1, plan
+        assert plan["tail_rows"] == (80 if not bf16 else 96 if cell == "gru" else 128), plan
+    fwd_rtol, fwd_atol = TOL[bf16][:2]
+    w, _ = _xp_per_stream_resets(cell, G, 24, B, H, seed=G + B + H + bf16)
+    got = getattr(mod, f"{cell}_xp_fwd")(*w, bf16)
+    want = getattr(mod, f"{cell}_xp_plain_fwd")(*w, bf16)
+    for part, a, b in zip(("hs", "cs"), (got,) if cell == "gru" else got, (want,) if cell == "gru" else want):
+        torch.testing.assert_close(a, b, rtol=fwd_rtol, atol=fwd_atol, msg=f"{cell}_xp_fwd {part}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("G,B,H,layout,fp32_kernel", XP_LAYOUT_CASES, ids=XP_LAYOUT_IDS)
+def test_gru_xp_fwd_layouts_on_card(G, B, H, layout, fp32_kernel, bf16):
+    """``gru_xp_fwd`` in both modes at the layouts of ``XP_LAYOUT_CASES``:
+    in bf16 mode the cluster forward, G=16 in one wave with a whole stream
+    and a share of the sixteenth a cluster, more streams in one or several
+    waves; in fp32 mode the case's kernel; and one stream of 1024 rows on the
+    cluster forward in both modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _check_xp_fwd_layout("gru", G, B, H, layout, fp32_kernel, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B,H,layout,fp32_kernel", XP_LAYOUT_CASES, ids=XP_LAYOUT_IDS)
+def test_lstm_xp_fwd_fp32_layouts_on_card(G, B, H, layout, fp32_kernel):
+    """``lstm_xp_fwd``'s fp32 mode at the shapes of
+    :func:`test_gru_xp_fwd_layouts_on_card`, on the case's kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _check_xp_fwd_layout("lstm", G, B, H, layout, fp32_kernel, False)
+
+
+#: (cell, G, B, kernel) where the kernel_ab.py sweep of fp32 mode at H=256
+#: timed one kernel faster than the other by 10% or more on an H100, and the
+#: plan's step costs agree: the kernel the plan must take
+XP_FP32_WINNERS = [("gru", 1, 1024, "cluster"), ("gru", 4, 1024, "columns"), ("gru", 8, 128, "cluster"),
+                   ("gru", 8, 512, "columns"), ("gru", 15, 1024, "cluster"), ("lstm", 1, 128, "cluster"),
+                   ("lstm", 2, 512, "cluster"), ("lstm", 8, 128, "columns"), ("lstm", 8, 512, "columns"),
+                   ("lstm", 15, 1024, "columns")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,G,B,kernel", XP_FP32_WINNERS,
+                         ids=[f"{c}-G{g}B{b}" for c, g, b, _ in XP_FP32_WINNERS])
+def test_xp_fwd_fp32_plan_takes_the_faster_kernel_on_card(cell, G, B, kernel):
+    """The xproj forwards' fp32 plan takes, at H=256, the kernel the card
+    timed faster there, and that kernel matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the sweep was timed on an H100 SXM (132 SMs)")
+    _check_xp_fwd_layout(cell, G, B, 256, "any", kernel, False)
+
+
+@pytest.mark.parametrize("plan", ["gru_xp_fwd_plan", "lstm_xp_fwd_plan"])
+def test_xp_fwd_plans_refuse_without_the_card(plan):
+    """A plan is the card's answer: it refuses H above 512 and, without a
+    card, raises rather than guess a grid."""
+    fn = getattr(gru_rnn if plan.startswith("gru") else lstm_rnn, plan)
+    with pytest.raises(ValueError, match="H <= 512, got H=513"):
+        fn(16, 128, 513)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            fn(16, 128, 256)

@@ -23,7 +23,7 @@ from rsl_rl_tpu.env.nlink import NLinkPendulum as JaxNLink
 from rsl_rl_tpu.modules import ActorCriticRecurrent as JaxACR
 from rsl_rl_tpu.runners.multiseed import make_multiseed_train as jax_make_multiseed_train
 from rsl_rl_tpu_torch.algorithms.ppo import PPO, CollectState, EpisodeStats
-from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState
+from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState, env_keys
 from rsl_rl_tpu_torch.modules import ActorCriticRecurrent
 from rsl_rl_tpu_torch.modules.policy import seed_call
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
@@ -144,7 +144,7 @@ def test_stacked_collect_matches_vmapped_jax(family):
     env = NLinkPendulum(N, LINKS, max_episode_length=1000, device="cpu")
     st = jax.device_get(cs0.env_state)
     flat = [_t(x).reshape(G * N, *np.shape(x)[2:]) for x in (st.episode_length, st.theta, st.omega)]
-    cs = ppo.init_stacked_collect_state(NLinkState(*flat), {k: _t(v) for k, v in cs0.obs.items()}, G)
+    cs = ppo.init_stacked_collect_state(NLinkState(*flat, env_keys(0, G * N)), {k: _t(v) for k, v in cs0.obs.items()}, G)
     noise = (np.asarray(rollout.actions) - np.asarray(rollout.mu)) / np.asarray(rollout.sigma)
     cs, got, metrics = ppo.collect_stacked(env, ts, cs, T, action_noise=torch.tensor(noise))
 
@@ -162,31 +162,12 @@ def test_stacked_collect_matches_vmapped_jax(family):
                    f"norm {role} {k}")
 
 
-class _SeedSliceEnv:
-    """Seed ``i``'s envs of a ``G*N``-env NLinkPendulum: steps the whole
-    batch (other seeds' actions zero) so the env's generator draws the same
-    reset states as in the multi-seed run, and returns seed ``i``'s slice."""
-
-    def __init__(self, env, full_state, i):
-        self.env, self.full, self.rows = env, full_state, slice(i * N, (i + 1) * N)
-        self.device, self.num_envs, self.num_actions = env.device, N, env.num_actions
-
-    def step(self, state, actions):
-        full = tree_map(lambda t: t.clone(), vars(self.full))
-        for k, v in vars(state).items():
-            full[k][self.rows] = v
-        action = torch.zeros(G * N, self.num_actions)
-        action[self.rows] = actions
-        self.full, obs, rew, done, extras = self.env.step(NLinkState(**full), action)
-        part = NLinkState(**{k: v[self.rows] for k, v in vars(self.full).items()})
-        return part, *tree_map(lambda t: t[self.rows], (obs, rew, done, extras))
-
-
 @pytest.mark.parametrize("family", ["gru", "lstm"])
 def test_each_seed_equals_its_standalone_run(family):
-    """Seed i of a G-seed run equals a single-seed port run from seed i's
-    state over 2 iterations (with dones), losses and final parameters: any
-    reduction across seeds would break it."""
+    """Seed i of a G-seed run equals a single-seed port run from seed i's rows
+    of the stacked state (its envs' keys included, so the resets draw the
+    same states) over 2 iterations (with dones), losses and final parameters:
+    any reduction across seeds would break it."""
     cfg = copy.deepcopy(CFG)
     cfg["policy"].update(KW[family])
     cfg["policy"]["class_name"] = "ActorCriticRecurrent"
@@ -198,7 +179,6 @@ def test_each_seed_equals_its_standalone_run(family):
     start_ts, start_cs = copy.deepcopy(ts), copy.deepcopy(cs)
     noise = torch.randn(2, G, T, N, LINKS, generator=torch.Generator().manual_seed(5))
     _, step = make_multiseed_train(alg, env, T, G, device="cpu")
-    env.reset(cfg["seed"], num_envs=G * N)  # the generator state the runner's init left
     batched = []
     for it in range(2):
         ts, cs, m = step(ts, cs, action_noise=noise[it])
@@ -214,16 +194,14 @@ def test_each_seed_equals_its_standalone_run(family):
                 b.copy_(start_ts.buffers[name][i])
         ppo = PPO(policy, **PPO_KW)
         ref_env = NLinkPendulum(N, LINKS, max_episode_length=6, device="cpu")
-        ref_env.reset(cfg["seed"], num_envs=G * N)
         pick = lambda tree: tree_map(lambda t: t[i], tree)  # noqa: E731
         rows = slice(i * N, (i + 1) * N)
         single = CollectState(
             env_state=NLinkState(**{k: v[rows] for k, v in vars(start_cs.env_state).items()}),
             obs=pick(start_cs.obs), carry=pick(start_cs.carry),
             stats=EpisodeStats(*(x[i] for x in vars(start_cs.stats).values())))
-        slice_env = _SeedSliceEnv(ref_env, start_cs.env_state, i)
         for it in range(2):
-            single, rollout, cm = ppo.collect(slice_env, single, T, action_noise=noise[it, i])
+            single, rollout, cm = ppo.collect(ref_env, single, T, action_noise=noise[it, i])
             single, um = ppo.update(single, rollout)
             for k, v in {**cm, **um}.items():
                 _close(batched[it][k][i], v, 1e-4, 1e-5, f"seed {i} iteration {it} {k}")

@@ -22,7 +22,7 @@ from rsl_rl_tpu.ops import distributions as jdist
 from rsl_rl_tpu.ops import gae as jgae
 from rsl_rl_tpu.ops import running_norm as jnorm
 from rsl_rl_tpu_torch.algorithms.ppo import PPO, CollectState, init_episode_stats
-from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState
+from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState, env_keys
 from rsl_rl_tpu_torch.modules import ActorCriticRecurrent
 from rsl_rl_tpu_torch.ops import distributions, gae, running_norm
 from rsl_rl_tpu_torch.storage.rollout import Rollout
@@ -189,7 +189,7 @@ def _check_collect_window(policy_kw):
     env = NLinkPendulum(N, LINKS, max_episode_length=1000, device="cpu")
     st = cs0.env_state
     cs = CollectState(
-        env_state=NLinkState(_t(st.episode_length), _t(st.theta), _t(st.omega)),
+        env_state=NLinkState(_t(st.episode_length), _t(st.theta), _t(st.omega), env_keys(0, N)),
         obs={k: _t(v) for k, v in cs0.obs.items()},
         carry=policy.initial_carry(N),
         stats=init_episode_stats(N, "cpu"),

@@ -256,7 +256,7 @@ XP_G, XP_B, XP_H = 3, 5, 36
 JAX_BLOCK_B = 128
 
 
-def _xp_core_inputs(family, t, seed):
+def _xp_core_inputs(family, t, seed, XP_G=XP_G, XP_B=XP_B):
     """Numpy inputs of G xproj replays, each stream its own weights, carry and
     reset mask (15% of the rows, and at t=0 the rows b = g mod 3 of stream g)."""
     rng = np.random.default_rng(seed)
@@ -275,9 +275,9 @@ def _xp_core_inputs(family, t, seed):
 
 
 def _pad_rows(a, axis):
-    """``a`` with its batch axis padded by zero rows to the JAX cores' block."""
+    """``a`` with its batch axis padded by zero rows to whole JAX core blocks."""
     pad = [(0, 0)] * a.ndim
-    pad[axis] = (0, JAX_BLOCK_B - a.shape[axis])
+    pad[axis] = (0, -a.shape[axis] % JAX_BLOCK_B)
     return np.pad(a, pad)
 
 
@@ -338,3 +338,30 @@ def test_plain_xproj_cores_match_pallas_per_stream(family, t, bf16):
             elif name.startswith("db"):
                 w = w[0]
             _check(a[g], w, bf16, f"stream {g} {name}", grad=True)
+
+
+@pytest.mark.parametrize("family", ["gru", "lstm"])
+def test_plain_xproj_forward_matches_pallas_at_kernel_edges(family):
+    """The plain xproj forward (what ``gru_xp_fwd`` / ``lstm_xp_fwd`` are held
+    to on the card) against ``_gru_core`` / ``_lstm_core`` in interpret mode,
+    stream by stream, at the kernels' edge shape: G=17 streams (more than the
+    clusters the card runs at once, with no whole number of them a cluster)
+    of B=130 rows (past one 128-row tile) at H=36 (no multiple of 4), each
+    with its own weights, carry and reset mask; fp32."""
+    G, B, t = 17, 130, 2
+    wh, bias, carries, xproj, resets, _ = _xp_core_inputs(family, t, seed=90, XP_G=G, XP_B=B)
+    if family == "gru":
+        core = jax.jit(lambda w, b, c, x, rf: pallas_rnn._gru_core(None, w, b, c[0], x, rf))
+    else:
+        core = jax.jit(lambda w, b, c, x, rf: pallas_rnn._lstm_core(None, w, b, c[0], c[1], x, rf))
+    with pltpu.force_tpu_interpret_mode():
+        wants = [core(wh[g], bias[g][None], [_pad_rows(c[g], 0) for c in carries], _pad_rows(xproj[g], 1),
+                      jnp.asarray(_pad_rows(resets[g], 1).astype(np.float32)[:, None, :])) for g in range(G)]
+    tw = [torch.tensor(a) for a in (wh, bias, *carries, xproj)]
+    fwd = gru_rnn.gru_xp_plain_fwd if family == "gru" else lstm_rnn.lstm_xp_plain_fwd
+    got = fwd(*tw, torch.tensor(resets).float())
+    for g, want in enumerate(wants):
+        if family == "gru":
+            _check(got[g], np.asarray(want)[:, :B], False, f"stream {g} hs")
+        else:
+            _check(got[0][g], np.asarray(want[0])[:, :B], False, f"stream {g} hs")
