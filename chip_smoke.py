@@ -23,20 +23,33 @@ Phases, each fatal on failure:
    Hopper (``gru_x_fwd``, ``lstm_x_fwd``, ``gru_xp_fwd``, ``lstm_xp_fwd``,
    ``gru_x_bwd``, ``lstm_x_bwd``, ``gru_xp_bwd``, ``lstm_xp_bwd`` and the
    four weight-gradient reductions) must give the same bits.
-4. The slices, each trained for 3 iterations with every kernel launch
-   counter set to 0 just before and read just after: through
-   ``OnPolicyRunner.learn``, ``recurrent_gru256`` (GRU-256 actor and critic
-   memories, [256, 256] MLPs, obs normalization, fp32) and
-   ``recurrent_lstm256_bf16`` (the same with LSTM-256 memories and
-   ``dtype=bfloat16``: bf16 MLP trunks with fp32 heads, bf16 memory matmul
-   operands), both on 4096 ``NLinkPendulum`` envs with 5 links, T=24, 5
-   epochs x 4 minibatches; through ``MultiSeedRunner.learn``,
-   ``multiseed8_recurrent_gru256`` and ``multiseed8_recurrent_lstm256_bf16``,
-   the same policies for 8 seeds of 512 envs each (4096 in all). After each,
-   check finite (and, across seeds, distinct) metrics, and that the kernel
-   replay of a collected window reproduces the acting-time policy, per seed.
-   First, the env's random draws (per-env keys in its state) on the card
-   must equal the CPU's bit for bit, through a reset and a step.
+   The x-streaming kernels also at one stream and the distillation
+   student's replay shapes (T=15 and the 9-step tail, B=4096), both modes.
+4. The slices, every kernel launch counter set to 0 just before each and
+   read just after: through ``OnPolicyRunner.learn`` (3 iterations),
+   ``recurrent_gru256`` (GRU-256 actor and critic memories, [256, 256] MLPs,
+   obs normalization, fp32) and ``recurrent_lstm256_bf16`` (the same with
+   LSTM-256 memories and ``dtype=bfloat16``: bf16 MLP trunks with fp32
+   heads, bf16 memory matmul operands), both on 4096 ``NLinkPendulum`` envs
+   with 5 links, T=24, 5 epochs x 4 minibatches; through
+   ``MultiSeedRunner.learn``, ``multiseed8_recurrent_gru256`` and
+   ``multiseed8_recurrent_lstm256_bf16``, the same policies for 8 seeds of
+   512 envs each (4096 in all); ``ppo_ff256x3_bf16``, the feedforward
+   headline (``ActorCritic`` [256, 256, 256], bf16 trunks, 4096 envs), which
+   launches no kernel; then the teacher -> student flow on 4096
+   ``DomainRandomizedNLink`` envs: the privileged teacher
+   (``ppo_ff256x3_bf16_dr``, 2 iterations) saved with
+   ``OnPolicyRunner.save`` and loaded into ``DistillationRunner`` (its
+   teacher must then act as the trained actor, bit for bit), the GRU-256
+   student ``distill_gru256_bf16`` (3 iterations: each replays the 15-step
+   segment and the 9-step tail through the x-streaming kernels at S=1,
+   ``gru_x_fwd`` twice and ``gru_x_bwd`` and ``gru_x_wgrad`` once) and the
+   LSTM-256 student (1 iteration, ``lstm_x_*``). After each, check finite
+   (and, across seeds, distinct) metrics, and that the kernel replay of a
+   collected window reproduces the acting-time policy (per seed; for the
+   students the replay of the update's chunks, for the headline the batched
+   MLPs). First, both envs' random draws (per-env keys in their state) on
+   the card must equal the CPU's bit for bit, through a reset and a step.
 5. Time each kernel, in fp32 and in bf16-operand mode, at its main-path
    shape beside its plain version, a PyTorch yardstick the port never calls
    (cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM``; one ``torch.bmm`` for the
@@ -54,6 +67,8 @@ Phases, each fatal on failure:
    streams a cluster's rows touch, the waves, the streams whose weight slices
    stream from L2), and how many clusters of 16 CTAs the card runs at once
    with the shared memory a 16-CTA layout of the xproj forwards would need.
+   The x-streaming kernels also at the GRU and LSTM students' shape (S=1,
+   T=15, B=4096), beside cuDNN and their bounds.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -65,18 +80,21 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
-from rsl_rl_tpu_torch.env import NLinkPendulum
+from rsl_rl_tpu_torch.algorithms.distillation import chunks_between
+from rsl_rl_tpu_torch.env import DomainRandomizedNLink, NLinkPendulum
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
-from rsl_rl_tpu_torch.runners import MultiSeedRunner, OnPolicyRunner
+from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
 from rsl_rl_tpu_torch.storage.rollout import slice_envs
 from rsl_rl_tpu_torch.utils import cuda_build
 
@@ -140,6 +158,49 @@ SLICES = {"recurrent_gru256": ("gru", RECURRENT_GRU256),
 # launch per kernel (G = 16 streams of 128 envs)
 MULTISEED_SLICES = {"multiseed8_recurrent_gru256": ("gru_xp", RECURRENT_GRU256),
                     "multiseed8_recurrent_lstm256_bf16": ("lstm_xp", RECURRENT_LSTM256_BF16)}
+# bench.py's headline (:75-88, :345): the feedforward ActorCritic [256, 256,
+# 256], bf16 trunks with fp32 heads, on 4096 NLinkPendulum envs
+PPO_FF256X3_BF16 = copy.deepcopy(RECURRENT_GRU256)
+PPO_FF256X3_BF16["policy"] = {
+    "class_name": "ActorCritic",
+    "actor_hidden_dims": [256, 256, 256],
+    "critic_hidden_dims": [256, 256, 256],
+    "actor_obs_normalization": True,
+    "critic_obs_normalization": True,
+    "dtype": torch.bfloat16,
+}
+# examples/distill_privileged.py:40-56: the headline policy, sigma-floored,
+# trained with PPO on the privileged obs of DomainRandomizedNLink
+PPO_FF256X3_BF16_DR = copy.deepcopy(PPO_FF256X3_BF16)
+PPO_FF256X3_BF16_DR["obs_groups"] = {"policy": ["privileged"], "critic": ["privileged"]}
+PPO_FF256X3_BF16_DR["policy"]["noise_std_floor"] = 0.01
+PPO_FF256X3_BF16_DR["algorithm"].update(schedule="adaptive", desired_kl=0.01)
+# the blind student of examples/distill_privileged.py:64-85 with a GRU-256
+# memory (StudentTeacherRecurrent), distilled from that teacher
+DISTILL_GRU256_BF16 = {
+    "num_steps_per_env": 24,
+    "save_interval": 50,
+    "seed": 2,
+    "obs_groups": {"policy": ["policy"], "teacher": ["privileged"]},
+    "policy": {
+        "class_name": "StudentTeacherRecurrent",
+        "rnn_type": "gru",
+        "rnn_hidden_dim": 256,
+        "student_obs_normalization": True,
+        "teacher_obs_normalization": True,
+        "student_hidden_dims": [256, 256, 256],
+        "teacher_hidden_dims": [256, 256, 256],
+        "dtype": torch.bfloat16,
+    },
+    "algorithm": {"class_name": "Distillation", "learning_rate": 1e-3, "gradient_length": 15,
+                  "num_learning_epochs": 1},
+}
+DISTILL_LSTM256_BF16 = copy.deepcopy(DISTILL_GRU256_BF16)
+DISTILL_LSTM256_BF16["policy"]["rnn_type"] = "lstm"
+#: the students: (family, config, iterations)
+DISTILL_SLICES = {"distill_gru256_bf16": ("gru", DISTILL_GRU256_BF16, 3),
+                  "distill_lstm256_bf16": ("lstm", DISTILL_LSTM256_BF16, 1)}
+TEACHER_ITERATIONS = 2
 NUM_ENVS, NUM_LINKS, ITERATIONS = 4096, 5, 3
 NUM_SEEDS, ENVS_PER_SEED = 8, 512
 WIDE_D = 520  # an input width beyond the x-streaming kernels' 512
@@ -538,14 +599,33 @@ def reset_counts() -> None:
         getattr(fam["module"], fam["counts"]).reset()
 
 
-def check_launches(name, family, cfg, counts) -> dict:
-    alg_cfg = cfg["algorithm"]
-    expected = ITERATIONS * alg_cfg["num_learning_epochs"] * alg_cfg["num_mini_batches"]
-    want = {k: expected if k in FAMILIES[family]["kernels"] else 0 for k in counts}
-    print(f"{name} launches: {counts} (expected {expected} of each {family} kernel, 0 of the others)")
+def check_launches(name, counts, expected: dict) -> dict:
+    """Fail unless the slice launched each kernel as often as ``expected``
+    says and no other; returns the kernels it launched."""
+    want = {k: expected.get(k, 0) for k in counts}
+    print(f"{name} launches: {counts} (expected {expected or 'none'}, 0 of the others)")
     if counts != want:
         fail(f"{name}: main path launches {counts}, expected {want}")
-    return {k: counts[k] for k in FAMILIES[family]["kernels"]}
+    return {k: v for k, v in counts.items() if v}
+
+
+def ppo_launches(family, cfg) -> dict:
+    """A PPO slice's launches: one of each of the family's kernels a minibatch."""
+    alg_cfg = cfg["algorithm"]
+    expected = ITERATIONS * alg_cfg["num_learning_epochs"] * alg_cfg["num_mini_batches"]
+    return {k: expected for k in FAMILIES[family]["kernels"]}
+
+
+def distill_launches(family, cfg, iterations) -> dict:
+    """A distillation slice's launches: an update replays each chunk of its
+    gradient segments forward and backward (one launch of each kernel), and
+    the chunks of the tail that fills no segment forward only."""
+    T, alg = cfg["num_steps_per_env"], cfg["algorithm"]
+    total, seg = alg["num_learning_epochs"] * T, alg["gradient_length"]
+    trained = len(chunks_between(0, total // seg * seg, T))
+    tail = len(chunks_between(total // seg * seg, total, T))
+    fwd, bwd, wgrad = FAMILIES[family]["kernels"]
+    return {fwd: iterations * (trained + tail), bwd: iterations * trained, wgrad: iterations * trained}
 
 
 def print_history(name, runner) -> None:
@@ -606,25 +686,29 @@ def check_replay(label, outputs, mu, values, bf16) -> bool:
     return ok and err_mu < mu_bound and err_v < v_bound
 
 
-def env_draws(device: str) -> list[torch.Tensor]:
+def env_draws(env_cls, device: str) -> list[torch.Tensor]:
     """The env's reset state on ``device`` and, after a step in which half
-    the envs reset, every key and the reset envs' fresh states (the other
+    the envs reset, every key and the reset envs' fresh draws (the other
     envs' physics may round differently on two devices), on the CPU."""
-    env = NLinkPendulum(NUM_ENVS, NUM_LINKS, max_episode_length=2, device=device)
+    env = env_cls(NUM_ENVS, NUM_LINKS, max_episode_length=2, device=device)
     state, _ = env.reset(3)
     first = [v.cpu().clone() for v in vars(state).values()]
     state.episode_length[::2] = 1  # these envs reset in the step
     state, *_ = env.step(state, torch.zeros(NUM_ENVS, NUM_LINKS, device=device))
-    return first + [state.rng.cpu(), state.theta[::2].cpu(), state.omega[::2].cpu()]
+    fresh = [v[::2].cpu() for k, v in vars(state).items() if k not in ("rng", "episode_length")]
+    return first + [state.rng.cpu()] + fresh
 
 
 def check_env_draws() -> None:
-    """The env's random draws on the card give the CPU's bits: they come from
-    per-env keys in the state (integer hashing), not from a device generator."""
-    same = all(torch.equal(a, b) for a, b in zip(env_draws("cpu"), env_draws("cuda")))
-    print(f"env draws on the card equal the CPU's through a reset and a step: {same}")
-    if not same:
-        fail("the env's random draws differ between the card and the CPU")
+    """Each env's random draws on the card give the CPU's bits (the domain-
+    randomized env's mass scales too): they come from per-env keys in the
+    state (integer hashing), not from a device generator."""
+    for env_cls in (NLinkPendulum, DomainRandomizedNLink):
+        cpu, card = env_draws(env_cls, "cpu"), env_draws(env_cls, "cuda")
+        same = len(cpu) == len(card) and all(torch.equal(a, b) for a, b in zip(cpu, card))
+        print(f"{env_cls.__name__} draws on the card equal the CPU's through a reset and a step: {same}")
+        if not same:
+            fail(f"{env_cls.__name__}'s random draws differ between the card and the CPU")
 
 
 def run_slice(name, family, cfg, T, B):
@@ -637,7 +721,7 @@ def run_slice(name, family, cfg, T, B):
     reset_counts()
     runner.learn(ITERATIONS)
     torch.cuda.synchronize()
-    launches = check_launches(name, family, cfg, all_counts())
+    launches = check_launches(name, all_counts(), ppo_launches(family, cfg))
     print_history(name, runner)
 
     # the kernel replay of a fresh window reproduces the acting-time outputs
@@ -668,7 +752,7 @@ def run_multiseed_slice(name, family, cfg, T, B):
     reset_counts()
     runner.learn(ITERATIONS)
     torch.cuda.synchronize()
-    launches = check_launches(name, family, cfg, all_counts())
+    launches = check_launches(name, all_counts(), ppo_launches(family, cfg))
     print_history(name, runner)
     for row in runner.history:
         for k in ("Loss/value_function", "Loss/surrogate"):
@@ -698,6 +782,126 @@ def run_multiseed_slice(name, family, cfg, T, B):
     return launches
 
 
+def freeze(norm) -> None:
+    """Stop a normalizer's updates, so a collected window and its replay see
+    the same moments."""
+    if norm is not None:
+        norm.until = float(norm.count)
+
+
+def run_ff_slice(name, cfg, T):
+    """Train the feedforward headline for ITERATIONS through
+    ``OnPolicyRunner.learn`` with the launch counters zeroed just before and
+    read just after (it launches no kernel); then hold the update's batched
+    MLPs over a collected window against the acting-time outputs."""
+    env = NLinkPendulum(NUM_ENVS, NUM_LINKS, device="cuda")
+    runner = OnPolicyRunner(env, cfg, device="cuda")
+    reset_counts()
+    runner.learn(ITERATIONS)
+    torch.cuda.synchronize()
+    check_launches(name, all_counts(), {})
+    print_history(name, runner)
+    policy = runner.alg.policy
+    freeze(policy.norm_actor)
+    freeze(policy.norm_critic)
+    _, rollout, _ = runner.alg.collect(env, runner.collect_state, T)
+    with torch.no_grad():
+        mean, _, value = policy.act_value_seq(rollout.obs, (), None)
+    mu_tol, _, v_tol = POLICY_TOL[True]
+    err_mu, err_v = float((mean - rollout.mu).abs().max()), float((value - rollout.values).abs().max())
+    mu_bound = mu_tol * max(1.0, float(rollout.mu.abs().max()))
+    v_bound = v_tol * max(1.0, float(rollout.values.abs().max()))
+    print(f"{name} update batch vs acting over a collected window ([T*N] rows at once): mean max_abs_err="
+          f"{err_mu:.3e} (bound {mu_bound:.3e}), value max_abs_err={err_v:.3e} (bound {v_bound:.3e})")
+    if not (err_mu < mu_bound and err_v < v_bound):
+        fail(f"{name}: the update's batched policy does not reproduce the acting-time outputs")
+
+
+def check_student_replay(name, runner, T) -> None:
+    """The kernel replay of a collected window in the update's chunks
+    (``student_seq``: the x-streaming kernels at S=1 over T=15, then the
+    9-step tail from the carry it leaves) against acting: the memory outputs
+    against one ``Memory.step`` at a time, the actions against the
+    acting-time means (the window is collected with zero noise)."""
+    policy, alg = runner.alg.policy, runner.alg
+    freeze(policy.norm_student)
+    noise = torch.zeros(T, NUM_ENVS, NUM_LINKS, device="cuda")
+    _, rollout, _ = alg.collect(runner.env, runner.collect_state, T, action_noise=noise)
+    resets = rollout.replay_resets()
+    x = policy._student_in(rollout.obs)
+    carry0 = rollout.carry0["student"]
+    chunks = [(0, alg.gradient_length), (alg.gradient_length, T)]
+    with torch.no_grad():
+        feats, actions, carry = [], [], rollout.carry0
+        for t0, t1 in chunks:
+            a, carry_next = policy.student_seq({k: v[t0:t1] for k, v in rollout.obs.items()}, carry, resets[t0:t1])
+            f, _ = policy.memory_s.sequence_with_carry(carry["student"], x[t0:t1], resets[t0:t1])
+            feats.append(f)
+            actions.append(a)
+            carry = carry_next
+        got, acting = torch.cat(feats), memory_sequence(policy.memory_s, carry0, x, resets)
+        replayed = torch.cat(actions)
+    err, scale, mem_ok = compare(got, acting, MEMORY_TOL["rtol"], MEMORY_TOL["atol"], False)
+    print(f"{name} replay vs acting in chunks {chunks}, student memory outputs: max_abs_err={err:.3e}"
+          f" (max |acting| {scale:.3g}; rtol {MEMORY_TOL['rtol']:g} atol {MEMORY_TOL['atol']:g})"
+          f" {'ok' if mem_ok else 'FAIL'}")
+    mu_tol = POLICY_TOL[True][0]
+    err_a = float((replayed - rollout.actions).abs().max())
+    bound = mu_tol * max(1.0, float(rollout.actions.abs().max()))
+    print(f"{name} replay vs acting, student actions: max_abs_err={err_a:.3e} (bound {bound:.3e})")
+    if not (mem_ok and err_a < bound):
+        fail(f"{name}: kernel replay does not reproduce the student's acting-time actions")
+
+
+def check_teacher(name, runner, teacher) -> None:
+    """After ``load``, the student's teacher is the trained actor: the same
+    fp32 parameters and normalizer on the card, and the same actions, bit
+    for bit."""
+    policy, actor = runner.alg.policy, teacher.alg.policy
+    pairs = [(policy.teacher, actor.actor), (policy.norm_teacher, actor.norm_actor)]
+    same = all(a.dtype == torch.float32 and a.is_cuda and torch.equal(a, b)
+               for mine, theirs in pairs for a, b in zip(mine.state_dict().values(), theirs.state_dict().values()))
+    obs = runner.collect_state.obs
+    with torch.no_grad():
+        got, _ = policy.evaluate(obs, policy.initial_carry(NUM_ENVS))
+        want, _ = actor.act_inference(obs)
+    same_actions = torch.equal(got, want)
+    print(f"{name}: teacher parameters equal the trained actor's: {same}; teacher actions equal the actor's"
+          f" on {NUM_ENVS} envs, bit for bit: {same_actions}")
+    if not (same and same_actions):
+        fail(f"{name}: the loaded teacher is not the trained actor")
+
+
+def run_distill_slices(T) -> dict:
+    """Train the privileged teacher, save it, and for each student load it
+    into ``DistillationRunner`` and train with the launch counters zeroed
+    just before and read just after; check the teacher and the student's
+    kernel replay. Returns ``{slice: {kernel: launches}}``."""
+    teacher = OnPolicyRunner(DomainRandomizedNLink(NUM_ENVS, NUM_LINKS, device="cuda"),
+                             copy.deepcopy(PPO_FF256X3_BF16_DR), device="cuda")
+    reset_counts()
+    teacher.learn(TEACHER_ITERATIONS)
+    torch.cuda.synchronize()
+    check_launches("ppo_ff256x3_bf16_dr", all_counts(), {})
+    print_history("ppo_ff256x3_bf16_dr", teacher)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"model_{teacher.current_learning_iteration}.pt")
+        teacher.save(path)
+        for name, (family, cfg, iterations) in DISTILL_SLICES.items():
+            runner = DistillationRunner(DomainRandomizedNLink(NUM_ENVS, NUM_LINKS, device="cuda"),
+                                        copy.deepcopy(cfg), device="cuda")
+            runner.load(path)
+            check_teacher(name, runner, teacher)
+            reset_counts()
+            runner.learn(iterations)
+            torch.cuda.synchronize()
+            launches[name] = check_launches(name, all_counts(), distill_launches(family, cfg, iterations))
+            print_history(name, runner)
+            check_student_replay(name, runner, T)
+    return launches
+
+
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
     """The kernel's line of the JSON result: fp32-mode time, plain time, bound
     and library time, and the bf16-mode time, plain time and bound."""
@@ -715,7 +919,8 @@ def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops
         "source": FAMILIES[family]["source"],
         "replaces": REPLACES[name][0],
         "also_replaces": REPLACES[name][1],
-        "launches": launches[name],
+        "launches": sum(launches[name].values()),
+        "launches_by_slice": launches[name],
         "max_abs_err": max_abs[name],
         "ms": ms,
         "plain_ms": plain_ms,
@@ -770,6 +975,11 @@ def main() -> None:
     repeatable = {}
     x_cases = [(2, T, B, D, bf16) for bf16 in (False, True)] + [(1, T, B, D, bf16) for bf16 in (False, True)]
     x_cases += [(2, 1, B, D, False), (2, 1, B, D, True)]
+    # the distillation students' replay: the 15-step segment and the 9-step
+    # tail of all 4096 envs at one stream
+    seg = DISTILL_GRU256_BF16["algorithm"]["gradient_length"]
+    x_cases += [(1, t, NUM_ENVS, D, bf16) for t in (seg, T - seg) for bf16 in (False, True)]
+    student_err = {}
     xp_cases = [(G, T, B_seed, D, bf16) for bf16 in (False, True)] + [(1, T, B, WIDE_D, bf16) for bf16 in (False, True)]
     xp_cases += [(G, 1, B_seed, D, False), (G, 1, B_seed, D, True)]
     for offset, family, cases in ((100, "gru", x_cases), (200, "lstm", x_cases),
@@ -786,6 +996,8 @@ def main() -> None:
                 passed[name] = passed.get(name, True) and ok
                 if (S, t, bf16) == (cases[0][0], T, False):
                     max_abs[name] = err
+                if (S, t, b, bf16) == (1, seg, NUM_ENVS, True):
+                    student_err[name] = err
                 summary.append(f"{name} max_abs_err={err:.3e} (max |plain| {scale:.3g})"
                                f" {'ok' if ok else 'FAIL'}")
             tol = TOL[bf16]
@@ -815,11 +1027,17 @@ def main() -> None:
 
     # ---- 4. the slices
     check_env_draws()
-    launches = {}
+    by_slice = {}
     for name, (family, cfg) in SLICES.items():
-        launches.update(run_slice(name, family, cfg, T, B))
+        by_slice[name] = run_slice(name, family, cfg, T, B)
     for name, (family, cfg) in MULTISEED_SLICES.items():
-        launches.update(run_multiseed_slice(name, family, cfg, T, B_seed))
+        by_slice[name] = run_multiseed_slice(name, family, cfg, T, B_seed)
+    run_ff_slice("ppo_ff256x3_bf16", copy.deepcopy(PPO_FF256X3_BF16), T)
+    by_slice.update(run_distill_slices(T))
+    launches = {k: {} for k in all_counts()}
+    for slice_name, counts in by_slice.items():
+        for k, n in counts.items():
+            launches[k][slice_name] = n
 
     # ---- 5. times at the main-path shapes, fp32 and bf16 operand modes
     kernels = []
@@ -853,14 +1071,37 @@ def main() -> None:
                   f" bf16 {times1[True][name][0]:.4f} ms (bound {fmt_ms(bound_ms(ops, nbytes, peaks, True)[0])})")
         print(f"time {bwd} + {wgrad} at S=1: fp32 {times1[False][bwd][0] + times1[False][wgrad][0]:.4f} ms,"
               f" bf16 {times1[True][bwd][0] + times1[True][wgrad][0]:.4f} ms; cuDNN backward {lib1[bwd]:.4f} ms")
-        for S_, x_ in ((S, x), (1, x1)):
+        # the students' shape: S=1 over the 15-step segment of 4096 envs
+        xs_ = make_inputs(family, 1, seg, NUM_ENVS, D, H, seed=seed + 2)
+        times_s, rows = mode_times(family, xs_)
+        lib_s = dict(zip((fwd, bwd), library_rnn_ms(family, 1, xs_, 20)[:2]))
+        lib_s[wgrad] = library_wgrad_ms(rows, 20)
+        for name, (ops, nbytes) in work(family, 1, seg, NUM_ENVS, D, H).items():
+            student = {
+                "S": 1, "T": seg, "B": NUM_ENVS,
+                "ms": times_s[False][name][0], "plain_ms": times_s[False][name][1],
+                "bound_ms": bound_ms(ops, nbytes, peaks, False)[0],
+                "bf16_ms": times_s[True][name][0], "bf16_plain_ms": times_s[True][name][1],
+                "bf16_bound_ms": bound_ms(ops, nbytes, peaks, True)[0],
+                "library_ms": lib_s[name], "bf16_max_abs_err": student_err[name],
+            }
+            next(k for k in kernels if k["name"] == name)["student_shape"] = student
+            print(f"time {name} at the students' shape S=1 T={seg} B={NUM_ENVS}: bf16 {student['bf16_ms']:.4f} ms"
+                  f" (plain {student['bf16_plain_ms']:.4f} ms, bound {fmt_ms(student['bf16_bound_ms'])});"
+                  f" fp32 {student['ms']:.4f} ms (plain {student['plain_ms']:.4f} ms, bound"
+                  f" {fmt_ms(student['bound_ms'])}); library {student['library_ms']:.4f} ms")
+        print(f"time {bwd} + {wgrad} at the students' shape: fp32"
+              f" {times_s[False][bwd][0] + times_s[False][wgrad][0]:.4f} ms, bf16"
+              f" {times_s[True][bwd][0] + times_s[True][wgrad][0]:.4f} ms; cuDNN backward {lib_s[bwd]:.4f} ms")
+        for S_, x_ in ((S, x), (1, x1), (1, xs_)):
             for bf16 in (False, True):
-                print(f"phases {bwd} S={S_} {'bf16' if bf16 else 'fp32'}: {phase_split(family, x_, bf16)}")
+                print(f"phases {bwd} S={S_} B={x_['xs'].shape[2]} T={x_['xs'].shape[1]}"
+                      f" {'bf16' if bf16 else 'fp32'}: {phase_split(family, x_, bf16)}")
         fwd_plan = getattr(FAMILIES[family]["module"], f"{fwd}_plan")
-        for S_ in (S, 1):
+        for S_, b_ in ((S, B), (1, B), (1, NUM_ENVS)):
             for bf16 in (False, True):
-                print(f"grid {fwd} S={S_} B={B} H={H} {'bf16' if bf16 else 'fp32'}:"
-                      f" {json.dumps(fwd_plan(S_, B, D, H, bf16))}")
+                print(f"grid {fwd} S={S_} B={b_} H={H} {'bf16' if bf16 else 'fp32'}:"
+                      f" {json.dumps(fwd_plan(S_, b_, D, H, bf16))}")
     for seed, family in ((11, "gru_xp"), (13, "lstm_xp")):
         x = make_inputs(family, G, T, B_seed, D, H, seed=seed)
         times, rows = mode_times(family, x)

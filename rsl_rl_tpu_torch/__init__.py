@@ -7,7 +7,9 @@ and LSTM replays that the JAX package wrote as Pallas kernels are hand-written
 CUDA here (``csrc/gru_x.cu``, ``csrc/lstm_x.cu``, ``csrc/gru_xp.cu``,
 ``csrc/lstm_xp.cu``, bound in ``ops/gru_rnn.py`` and ``ops/lstm_rnn.py``).
 Multi-seed training (``runners.MultiSeedRunner``) batches G seeds with
-``torch.func.vmap`` where the JAX package uses ``jax.vmap``.
+``torch.func.vmap`` where the JAX package uses ``jax.vmap``; student-teacher
+distillation (``runners.DistillationRunner``) distils a teacher loaded from
+a PPO checkpoint.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 there is no silent CPU fallback. The package imports ``torch`` and ``numpy``

@@ -1,0 +1,210 @@
+"""Student-teacher distillation (behavior cloning) with truncated BPTT
+(counterpart of ``rsl_rl_tpu/algorithms/distillation.py``).
+
+- :meth:`Distillation.collect` runs the window step by step: the student
+  acts (sampled; ``action_noise`` replaces the normal draws, to replay
+  another implementation's noise), the teacher's action is recorded as
+  ``privileged_actions``, the env steps, the student's normalizer folds in
+  the post-step obs and done envs' carries reset.
+- :meth:`Distillation.update` replays the window through the student and
+  takes an optimizer step every ``gradient_length`` replayed steps. The
+  epochs are laid end to end; each gradient segment is split at epoch
+  boundaries (where the carry rewinds to the window-start carry) into
+  chunks of contiguous steps, each replayed in one call of
+  ``policy.student_seq`` (for a recurrent student one launch per kernel of
+  the x-streaming replay). The carry is detached between segments; steps
+  that fill no segment are replayed forward only and count in the logged
+  mean; the acting carry continues from the end of the replay.
+
+The loss is the per-step mean of the elementwise ``mse`` or ``huber``
+(delta 1, optax's ``huber_loss``) error, summed over a segment. Adam as in
+PPO (``scale_by_adam``, applied as ``p - lr * u`` at the constant learning
+rate); ``max_grad_norm`` clips the ``student`` MLP's gradients only, by
+their own global norm (``optax.masked``): the memory and the std are not
+clipped. The JAX package also has a per-step scan form of the update for
+configs with very many segments, a compile-time workaround for XLA with the
+same math; the port keeps the chunked form only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rsl_rl_tpu_torch.algorithms.ppo import (
+    ACC_KEYS,
+    PPO,
+    AdamTrainer,
+    CollectState,
+    collect_extras_logs,
+    step_episode_stats,
+)
+from rsl_rl_tpu_torch.networks.memory import mask_carry
+from rsl_rl_tpu_torch.ops import distributions
+from rsl_rl_tpu_torch.storage.rollout import Rollout, tree_map
+from rsl_rl_tpu_torch.utils.registry import register
+
+
+def huber_loss(predictions: torch.Tensor, targets: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber loss, optax's formula: ``0.5 q^2 + delta (|e| - q)``
+    with ``q = min(|e|, delta)``."""
+    abs_err = torch.abs(predictions - targets)
+    quadratic = torch.clamp(abs_err, max=delta)
+    return 0.5 * quadratic * quadratic + delta * (abs_err - quadratic)
+
+
+def chunks_between(s0: int, s1: int, T: int) -> list[tuple[int, int]]:
+    """The window steps ``[t0, t1)`` of global replay steps ``[s0, s1)``
+    (step ``s`` replays window step ``s % T``), split where a new epoch
+    starts."""
+    out, s = [], s0
+    while s < s1:
+        t = s % T
+        n = min(s1 - s, T - t)
+        out.append((t, t + n))
+        s += n
+    return out
+
+
+@register("algorithm")
+class Distillation(AdamTrainer):
+    """Behavior cloning of the teacher's actions with truncated BPTT."""
+
+    def __init__(
+        self,
+        policy,
+        num_learning_epochs: int = 1,
+        gradient_length: int = 15,
+        learning_rate: float = 1e-3,
+        max_grad_norm: float | None = None,
+        loss_type: str = "mse",
+        optimizer: str = "adam",
+        seed: int = 0,
+        **kwargs,
+    ):
+        if kwargs:
+            print(
+                "Distillation.__init__ got unexpected arguments, which will be ignored: "
+                + str(list(kwargs.keys()))
+            )
+        if loss_type == "mse":
+            self._elem_loss = lambda a, b: torch.square(a - b)
+        elif loss_type == "huber":
+            self._elem_loss = huber_loss
+        else:
+            raise ValueError(f"Unknown loss type: {loss_type}. Supported types are: ['mse', 'huber']")
+        if optimizer.lower() != "adam":
+            raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; use 'adam'")
+        self.policy = policy
+        self.device = policy.device
+        self.num_learning_epochs = num_learning_epochs
+        self.gradient_length = gradient_length
+        self.learning_rate = learning_rate
+        # the reference clips the student MLP only; a falsy norm clips nothing
+        self.max_grad_norm = max_grad_norm if max_grad_norm else None
+        # the teacher (and its memory) require no gradient: not trained
+        self._init_adam([(n, p) for n, p in policy.named_parameters() if p.requires_grad], learning_rate,
+                        self.device)
+        self.clip_mask = [n.startswith("student.") for n in self.param_names]
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+    # the collect state is PPO's
+    init_collect_state = PPO.init_collect_state
+
+    # --------------------------------------------------------------- collect
+
+    @torch.no_grad()
+    def collect(self, env, cs: CollectState, num_steps: int, action_noise: torch.Tensor | None = None):
+        """Run one window; returns ``(cs, rollout, metrics)``.
+
+        ``action_noise [T, N, A]`` replaces the standard normal draws of the
+        student's action sampling."""
+        policy = self.policy
+        env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
+        carry0 = carry
+        acc = {k: torch.zeros((), device=self.device) for k in ACC_KEYS}
+        steps = {k: [] for k in ("obs", "actions", "privileged_actions", "rewards", "dones", "std")}
+        logs: dict[str, list] = {}
+        for t in range(num_steps):
+            mean, std, carry = policy.act(obs, carry)
+            noise = None if action_noise is None else action_noise[t]
+            action = distributions.sample(mean, std, noise, self.generator)
+            privileged, carry = policy.evaluate(obs, carry)
+
+            env_state, next_obs, rew, done, extras = env.step(env_state, action)
+            policy.update_normalization(next_obs)
+            carry = policy.reset_carry(carry, done)
+            stats, acc = step_episode_stats(stats, acc, rew, torch.zeros_like(rew), done.to(torch.float32))
+            for k, v in collect_extras_logs(extras).items():
+                logs.setdefault(k, []).append(v)
+
+            for k, v in (("obs", obs), ("actions", action), ("privileged_actions", privileged),
+                         ("rewards", rew), ("dones", done), ("std", std.mean())):
+                steps[k].append(v)
+            obs = next_obs
+
+        rollout = Rollout(
+            obs={k: torch.stack([o[k] for o in steps["obs"]]) for k in steps["obs"][0]},
+            **{k: torch.stack(steps[k]) for k in ("actions", "privileged_actions", "rewards", "dones")},
+            carry0=carry0,
+        )
+        metrics = dict(acc)
+        metrics["Policy/mean_noise_std"] = torch.stack(steps["std"]).mean()
+        for k, v in logs.items():
+            metrics[f"extras/{k}"] = torch.stack(v).mean()
+        cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
+        return cs, rollout, metrics
+
+    # ---------------------------------------------------------------- update
+
+    def _per_step_loss(self, actions: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Per-step loss means of a ``[g, N, A]`` chunk: ``[g]``."""
+        err = self._elem_loss(actions, targets)
+        return err.mean(dim=tuple(range(1, err.ndim)))
+
+    def _replay(self, rollout: Rollout, resets, carry0, carry, chunks):
+        """The student's per-step losses over ``chunks`` of the window and the
+        carry after them; the carry rewinds to ``carry0`` where a chunk
+        starts an epoch."""
+        losses = []
+        for t0, t1 in chunks:
+            if t0 == 0:
+                carry = carry0
+            obs = {k: v[t0:t1] for k, v in rollout.obs.items()}
+            actions, carry = self.policy.student_seq(obs, carry, resets[t0:t1])
+            losses.append(self._per_step_loss(actions, rollout.privileged_actions[t0:t1]))
+        return torch.cat(losses), carry
+
+    def update(self, cs: CollectState, rollout: Rollout):
+        """Truncated-BPTT behavior cloning over the window; returns ``(cs,
+        metrics)`` (tensors)."""
+        policy = self.policy
+        T, G = rollout.num_steps, self.gradient_length
+        total_steps = self.num_learning_epochs * T
+        num_segments = total_steps // G
+        resets = rollout.replay_resets()
+        carry0 = tree_map(torch.Tensor.detach, rollout.carry0) if policy.is_recurrent else ()
+        carry = carry0
+        all_losses = []
+        for seg in range(num_segments):
+            losses, carry = self._replay(rollout, resets, carry0, carry, chunks_between(seg * G, (seg + 1) * G, T))
+            grads = torch.autograd.grad(losses.sum(), self.params, allow_unused=True)
+            # the std gets no gradient from the loss: Adam sees zeros, as in JAX
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+            self._apply(grads, self.max_grad_norm, self.clip_mask)
+            carry = tree_map(torch.Tensor.detach, carry)
+            all_losses.append(losses.detach())
+        # steps that fill no gradient segment still advance the carry and
+        # count in the logged mean
+        tail = chunks_between(num_segments * G, total_steps, T)
+        if tail:
+            with torch.no_grad():
+                losses, carry = self._replay(rollout, resets, carry0, carry, tail)
+            all_losses.append(losses)
+        if policy.is_recurrent and policy.teacher_recurrent:
+            # the replay leaves the teacher's carry alone: give it the resets
+            # since the last rewind, as a step-by-step replay would
+            t_end = (total_steps - 1) % T + 1
+            carry = {**carry, "teacher": mask_carry(carry0["teacher"], resets[:t_end].any(dim=0))}
+        if policy.is_recurrent:
+            cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
+        return cs, {"Loss/behavior": torch.cat(all_losses).mean()}

@@ -1,12 +1,14 @@
-"""Proximal Policy Optimization for recurrent policies (counterpart of
-``rsl_rl_tpu/algorithms/ppo.py``).
+"""Proximal Policy Optimization for feedforward and recurrent policies
+(counterpart of ``rsl_rl_tpu/algorithms/ppo.py``).
 
 - :meth:`PPO.collect` runs the rollout window step by step: act, sample,
   log-prob, value, env step, normalizer update on the post-step obs, timeout
   bootstrap, carry reset of done envs and episode bookkeeping, all on the
   policy's device with no host sync.
-- :meth:`PPO.update` computes GAE, then runs epochs x minibatches of
-  contiguous env slices, replaying each window from its start carry. Each
+- :meth:`PPO.update` computes GAE, then runs epochs x minibatches: for a
+  recurrent policy contiguous env slices, replaying each window from its
+  start carry; for a feedforward one contiguous slices of the window's rows
+  shuffled once by one permutation (:func:`pack_minibatch_rows`). Each
   step applies the clipped surrogate + clipped value loss - entropy, the
   adaptive-KL learning rate, the global-norm clip and Adam with the formulas
   of the optax chain the JAX package uses (``clip_by_global_norm`` then
@@ -23,8 +25,8 @@
   losses gives each seed its own gradient. The env steps all G*E envs in
   one call.
 
-RND, symmetry, the feedforward update and other optimizers are not ported yet
-and raise when configured.
+RND, symmetry and other optimizers are not ported yet and raise when
+configured.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Any
 import torch
 from torch.func import functional_call, stack_module_state, vmap
 
-from rsl_rl_tpu_torch.modules.policy import seed_call
+from rsl_rl_tpu_torch.modules.policy import check_state_compatible, seed_call
 from rsl_rl_tpu_torch.ops import distributions
 from rsl_rl_tpu_torch.ops.gae import compute_gae
 from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs, tree_map
@@ -156,6 +158,76 @@ def update_data(rollout: Rollout, returns, advantages) -> dict:
     }
 
 
+_PACK_SCALAR_FIELDS = ("values", "returns", "advantages", "log_probs")
+
+
+def pack_minibatch_rows(rollout: Rollout, returns, advantages, perm):
+    """Pack every per-row field of a feedforward update into one fp32 array
+    of the window's rows in ``perm``'s order; returns ``(packed, unpack)``.
+
+    The reference draws one permutation of the ``T*N`` rows and reuses it in
+    every epoch, so the update gathers the rows once and hands out
+    contiguous slices. Columns, in order: the obs groups by sorted name,
+    ``actions``, ``values``, ``returns``, ``advantages``, ``log_probs``,
+    ``mu``, ``sigma``. With a leading seed axis (``perm [G, n]``, every
+    field ``[G, T, N, ...]``) each seed gathers its own rows: ``packed [G,
+    n, F]``. ``unpack(rows)`` splits a block of packed rows ``[..., B, F]``
+    back into the batch dict, each field in its own dtype (scalar fields
+    ``[..., B]``), with no ``resets``.
+    """
+    lead = tuple(perm.shape[:-1])
+    T, N = rollout.num_steps, rollout.num_envs
+    obs_keys = sorted(rollout.obs)
+    columns = [("obs." + k, rollout.obs[k]) for k in obs_keys] + [
+        ("actions", rollout.actions), ("values", rollout.values), ("returns", returns),
+        ("advantages", advantages), ("log_probs", rollout.log_probs), ("mu", rollout.mu),
+        ("sigma", rollout.sigma),
+    ]
+    layout, flats = [], []
+    for name, v in columns:
+        flat = v.reshape(*lead, T * N, -1)
+        layout.append((name, flat.shape[-1], tuple(v.shape[len(lead) + 2:]), v.dtype))
+        flats.append(flat.to(torch.float32))
+    packed = torch.take_along_dim(torch.cat(flats, dim=-1), perm.to(torch.int64)[..., None], dim=-2)
+
+    def unpack(rows):
+        out, off = {}, 0
+        for name, w, trail, dt in layout:
+            col = rows[..., off:off + w].to(dt)
+            if name in _PACK_SCALAR_FIELDS:
+                out[name] = col[..., 0]
+            elif len(trail) > 1:
+                out[name] = col.reshape(*col.shape[:-1], *trail)
+            else:
+                out[name] = col
+            off += w
+        return {"obs": {k: out["obs." + k] for k in obs_keys},
+                **{k: out[k] for k in ("actions", "values", "returns", "advantages", "log_probs", "mu", "sigma")}}
+
+    return packed, unpack
+
+
+def minibatches(policy, rollout: Rollout, returns, advantages, num_mini_batches: int, num_epochs: int,
+                perm, seed_axis: bool = False):
+    """Every minibatch of every epoch in order, as ``(batch, carry0)``: for
+    a recurrent policy contiguous env slices of the window and their start
+    carries; for a feedforward one contiguous slices of the rows packed in
+    ``perm``'s order (:func:`pack_minibatch_rows`), carry ``()``. With
+    ``seed_axis`` every tensor carries a leading ``[G]`` axis."""
+    lead = int(seed_axis)
+    if policy.is_recurrent:
+        data = update_data(rollout, returns, advantages)
+        nb = rollout.num_envs // num_mini_batches
+        for start in recurrent_minibatch_starts(rollout.num_envs, num_mini_batches, num_epochs):
+            yield (slice_envs(data, start, nb, axis=lead + 1),
+                   slice_envs(rollout.carry0, start, nb, axis=lead))
+        return
+    packed, unpack = pack_minibatch_rows(rollout, returns, advantages, perm)
+    mb = perm.shape[-1] // num_mini_batches
+    for start in [i * mb for i in range(num_mini_batches)] * num_epochs:
+        yield unpack(packed.narrow(lead, start, mb)), ()
+
+
 def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
     """The adaptive-KL learning-rate rule, elementwise (one rate per seed)."""
     up = torch.clamp(lr * 1.5, max=max_lr)
@@ -167,17 +239,20 @@ def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
     )
 
 
-def clip_adam(params, grads, mu, nu, count, lr, max_grad_norm: float | None):
+def clip_adam(params, grads, mu, nu, count, lr, max_grad_norm: float | None, clip_mask=None):
     """``clip_by_global_norm`` -> ``scale_by_adam`` -> ``p - lr * u`` with
     optax's formulas (the clip scales by ``max_norm / norm`` only when
     ``norm >= max_norm``; b1=0.9, b2=0.999, eps=1e-8, eps_root=0) for one
-    seed. Pure, so ``torch.func.vmap`` runs it for G seeds, each with its own
-    norm. Returns the new ``(params, mu, nu, count)``."""
+    seed. ``clip_mask`` (one bool a parameter) limits the clip, its norm
+    and its scaling to the marked parameters (``optax.masked``). Pure, so
+    ``torch.func.vmap`` runs it for G seeds, each with its own norm. Returns
+    the new ``(params, mu, nu, count)``."""
     grads = list(grads)
     if max_grad_norm is not None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        mask = [True] * len(grads) if clip_mask is None else list(clip_mask)
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g, m in zip(grads, mask) if m))
         keep = g_norm < max_grad_norm
-        grads = [torch.where(keep, g, (g / g_norm) * max_grad_norm) for g in grads]
+        grads = [torch.where(keep, g, (g / g_norm) * max_grad_norm) if m else g for g, m in zip(grads, mask)]
     b1, b2, eps = 0.9, 0.999, 1e-8
     count = count + 1
     c = count.to(torch.float32)
@@ -189,8 +264,53 @@ def clip_adam(params, grads, mu, nu, count, lr, max_grad_norm: float | None):
     return params, mu, nu, count
 
 
+class AdamTrainer:
+    """What an algorithm trains with Adam: the named parameters
+    ``param_names`` / ``params``, their optax ``scale_by_adam`` moments and
+    step count, and the learning rate ``lr``, with the clipped step in place
+    and the checkpoint form of the optimizer state."""
+
+    def _init_adam(self, named_params, learning_rate: float, device) -> None:
+        named = list(named_params)
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
+        # optax.scale_by_adam state (b1=0.9, b2=0.999, eps=1e-8, eps_root=0)
+        self.adam_count = torch.zeros((), dtype=torch.int32, device=device)
+        self.adam_mu = [torch.zeros_like(p) for p in self.params]
+        self.adam_nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def _apply(self, grads, max_grad_norm: float | None, clip_mask=None) -> None:
+        """The clipped Adam step (:func:`clip_adam`), in place."""
+        params, mu, nu, self.adam_count = clip_adam(self.params, grads, self.adam_mu, self.adam_nu,
+                                                    self.adam_count, self.lr, max_grad_norm, clip_mask)
+        for dst, src in zip(self.params + self.adam_mu + self.adam_nu, params + mu + nu):
+            dst.copy_(src)
+
+    def optimizer_state(self) -> dict:
+        """The optimizer state as plain tensors: ``{"mu": {name: t}, "nu":
+        {name: t}, "count": t}``."""
+        return {"mu": dict(zip(self.param_names, self.adam_mu)),
+                "nu": dict(zip(self.param_names, self.adam_nu)),
+                "count": self.adam_count}
+
+    @torch.no_grad()
+    def load_optimizer_state(self, state: dict, lr) -> None:
+        """Restore :meth:`optimizer_state` and the learning rate, strictly:
+        a state of other parameters raises ``ValueError`` before anything is
+        copied."""
+        for key in ("mu", "nu"):
+            check_state_compatible(dict(zip(self.param_names, self.params)), state[key], f"optimizer {key}")
+        for key, dst in (("mu", self.adam_mu), ("nu", self.adam_nu)):
+            for name, t in zip(self.param_names, dst):
+                t.copy_(state[key][name])
+        self.adam_count.copy_(torch.as_tensor(state["count"]))
+        self.lr.copy_(torch.as_tensor(lr))
+
+
 @register("algorithm")
-class PPO:
+class PPO(AdamTrainer):
     """Clipped-surrogate PPO with the adaptive-KL learning rate."""
 
     def __init__(
@@ -230,11 +350,6 @@ class PPO:
             )
         if optimizer.lower() != "adam":
             raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; use 'adam'")
-        if not policy.is_recurrent:
-            raise NotImplementedError(
-                "the feedforward PPO update is not ported yet (ROADMAP.md Queue 1,"
-                " 'Feedforward PPO')"
-            )
         self.policy = policy
         self.device = policy.device
         self.num_learning_epochs = num_learning_epochs
@@ -253,12 +368,7 @@ class PPO:
         self.max_lr = max_lr
 
         self.learning_rate = learning_rate
-        self.params = list(policy.parameters())
-        self.lr = torch.tensor(learning_rate, dtype=torch.float32, device=self.device)
-        # optax.scale_by_adam state (b1=0.9, b2=0.999, eps=1e-8, eps_root=0)
-        self.adam_count = torch.zeros((), dtype=torch.int32, device=self.device)
-        self.adam_mu = [torch.zeros_like(p) for p in self.params]
-        self.adam_nu = [torch.zeros_like(p) for p in self.params]
+        self._init_adam(policy.named_parameters(), learning_rate, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
     # --------------------------------------------------------------- collect
@@ -323,10 +433,21 @@ class PPO:
 
     # ---------------------------------------------------------------- update
 
-    def update(self, cs: CollectState, rollout: Rollout):
-        """GAE + epochs x minibatches; returns ``(cs, metrics)`` (tensors)."""
+    def _row_count(self, rollout: Rollout) -> tuple[int, int]:
+        """``(num_mini_batches, rows the permutation covers)`` of an update:
+        a feedforward update shuffles ``num_mini_batches * mb`` of the
+        window's ``T*N`` rows."""
+        T, N = rollout.num_steps, rollout.num_envs
+        num_mini_batches = resolve_num_mini_batches(self.num_mini_batches, T, N, self.policy.is_recurrent)
+        return num_mini_batches, num_mini_batches * ((T * N) // num_mini_batches)
+
+    def update(self, cs: CollectState, rollout: Rollout, perm: torch.Tensor | None = None):
+        """GAE + epochs x minibatches; returns ``(cs, metrics)`` (tensors).
+
+        ``perm`` (feedforward only) is the permutation of the window's rows,
+        drawn from the algorithm's generator when not given (to replay
+        another implementation's)."""
         policy = self.policy
-        N = rollout.num_envs
         with torch.no_grad():
             # advances the critic memory, like the reference's stateful evaluate
             last_values, carry = policy.value(cs.obs, cs.carry)
@@ -336,18 +457,17 @@ class PPO:
                 normalize_advantage=not self.normalize_advantage_per_mini_batch,
             )
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
-        data = update_data(rollout, returns, advantages)
-        num_mini_batches = resolve_num_mini_batches(self.num_mini_batches, rollout.num_steps, N, True)
-        nb = N // num_mini_batches
+        num_mini_batches, rows = self._row_count(rollout)
+        if perm is None and not policy.is_recurrent:
+            perm = torch.randperm(rows, generator=self.generator, device=self.device)
         outs: dict[str, list] = {}
-        for start in recurrent_minibatch_starts(N, num_mini_batches, self.num_learning_epochs):
-            batch = slice_envs(data, start, nb)
-            carry0 = slice_envs(rollout.carry0, start, nb, axis=0)
+        for batch, carry0 in minibatches(policy, rollout, returns, advantages, num_mini_batches,
+                                         self.num_learning_epochs, perm):
             loss, aux = self._loss(batch, carry0)
             grads = torch.autograd.grad(loss, self.params)
             if self.desired_kl is not None and self.schedule == "adaptive":
                 self._adapt_lr(aux["kl"])
-            self._apply(grads)
+            self._apply(grads, self.max_grad_norm)
             for k, v in aux.items():
                 outs.setdefault(k, []).append(v)
             outs.setdefault("learning_rate", []).append(self.lr.clone())
@@ -435,29 +555,31 @@ class PPO:
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
         return cs, rollout, metrics
 
-    def update_stacked(self, ts: StackedTrainState, cs: CollectState, rollout: Rollout):
+    def update_stacked(self, ts: StackedTrainState, cs: CollectState, rollout: Rollout,
+                       perm: torch.Tensor | None = None):
         """:meth:`update` for G seeds, in place on ``ts``; returns ``(ts, cs,
         metrics)`` with ``[G]`` metrics. Every minibatch replays all seeds'
         memories in one batched call (the xproj kernels, through the replays'
         vmap rules), takes one gradient of the summed per-seed losses, and
-        steps each seed's learning rate, clip and Adam on its own."""
+        steps each seed's learning rate, clip and Adam on its own. A
+        feedforward policy shuffles each seed's rows by its own permutation,
+        ``perm [G, rows]`` (drawn when not given)."""
         call = partial(seed_call, self.policy, ts.params, ts.buffers)
-        N = rollout.num_envs
         with torch.no_grad():
             last_values, carry = call("value", cs.obs, cs.carry)
             gae = partial(compute_gae, gamma=self.gamma, lam=self.lam,
                           normalize_advantage=not self.normalize_advantage_per_mini_batch)
             returns, advantages = vmap(gae)(rollout.rewards, rollout.values, rollout.dones, last_values)
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
-        data = update_data(rollout, returns, advantages)
         names = list(ts.params)
         step = vmap(partial(clip_adam, max_grad_norm=self.max_grad_norm))
-        num_mini_batches = resolve_num_mini_batches(self.num_mini_batches, rollout.num_steps, N, True)
-        nb = N // num_mini_batches
+        num_mini_batches, rows = self._row_count(rollout)
+        if perm is None and not self.policy.is_recurrent:
+            G = ts.lr.shape[0]
+            perm = torch.argsort(torch.rand(G, rows, generator=self.generator, device=self.device), dim=1)
         outs: dict[str, list] = {}
-        for start in recurrent_minibatch_starts(N, num_mini_batches, self.num_learning_epochs):
-            batch = slice_envs(data, start, nb, axis=2)
-            carry0 = slice_envs(rollout.carry0, start, nb, axis=1)
+        for batch, carry0 in minibatches(self.policy, rollout, returns, advantages, num_mini_batches,
+                                         self.num_learning_epochs, perm, seed_axis=True):
             loss, aux = vmap(self._seed_loss)(ts.params, ts.buffers, batch, carry0)
             grads = torch.autograd.grad(loss.sum(), [ts.params[k] for k in names])
             with torch.no_grad():
@@ -481,26 +603,18 @@ class PPO:
     def _adapt_lr(self, kl_mean: torch.Tensor) -> None:
         self.lr = adapt_lr(self.lr, kl_mean, self.desired_kl, self.min_lr, self.max_lr)
 
-    @torch.no_grad()
-    def _apply(self, grads) -> None:
-        """The clipped Adam step (:func:`clip_adam`), in place."""
-        params, mu, nu, self.adam_count = clip_adam(self.params, grads, self.adam_mu, self.adam_nu,
-                                                    self.adam_count, self.lr, self.max_grad_norm)
-        for dst, src in zip(self.params + self.adam_mu + self.adam_nu, params + mu + nu):
-            dst.copy_(src)
-
     # ------------------------------------------------------------------ loss
 
     def _loss(self, batch: dict, carry0):
         """Per-minibatch loss over a ``[T, nb]`` window; returns ``(loss, aux)``."""
-        mean, std, value = self.policy.act_value_seq(batch["obs"], carry0, batch["resets"])
+        mean, std, value = self.policy.act_value_seq(batch["obs"], carry0, batch.get("resets"))
         return self._loss_terms(mean, std, value, batch)
 
     def _seed_loss(self, params: dict, buffers: dict, batch: dict, carry0):
         """:meth:`_loss` of one seed with its policy state substituted (vmapped
         over the seeds by :meth:`update_stacked`)."""
         mean, std, value = functional_call(
-            self.policy, (params, buffers), ("act_value_seq", batch["obs"], carry0, batch["resets"]))
+            self.policy, (params, buffers), ("act_value_seq", batch["obs"], carry0, batch.get("resets")))
         return self._loss_terms(mean, std, value, batch)
 
     def _loss_terms(self, mean, std, value, batch: dict):

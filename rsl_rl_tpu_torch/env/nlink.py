@@ -22,6 +22,7 @@ hash is not JAX's threefry, so the draws differ from the JAX env's.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -29,6 +30,7 @@ import torch
 
 from rsl_rl_tpu_torch.env.vec_env import EnvState, VecEnv, as_episode_length, check_episode_length
 from rsl_rl_tpu_torch.utils.device import resolve_device
+from rsl_rl_tpu_torch.utils.registry import register
 
 
 def _int64(v: int) -> int:
@@ -81,6 +83,7 @@ class NLinkState(EnvState):
     rng: torch.Tensor  # [N] int64 per-env keys of the reset draws
 
 
+@register("env")
 class NLinkPendulum(VecEnv):
     """Torque-controlled N-link pendulum chain, vectorized over ``num_envs``."""
 
@@ -148,28 +151,49 @@ class NLinkPendulum(VecEnv):
             x[i] = s / low[i][i]
         return torch.stack(x, dim=-1)
 
-    def _accel(self, theta: torch.Tensor, omega: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-        """q̈ from the manipulator equation; all arguments ``[N, L]``."""
+    def _accel(self, theta: torch.Tensor, omega: torch.Tensor, tau: torch.Tensor, coup, gdiag) -> torch.Tensor:
+        """q̈ from the manipulator equation; ``theta``/``omega``/``tau``
+        ``[N, L]``, the couplings ``K_ij l_i l_j`` and ``g l_i K_ii`` of
+        :meth:`_coupling`."""
         dth = theta[:, :, None] - theta[:, None, :]  # [N, L, L] θ_i − θ_j
-        M = self._coup * torch.cos(dth)
-        C = torch.sum(self._coup * torch.sin(dth) * (omega**2)[:, None, :], dim=-1)
-        G = self._gdiag * torch.sin(theta)
+        M = coup * torch.cos(dth)
+        C = torch.sum(coup * torch.sin(dth) * (omega**2)[:, None, :], dim=-1)
+        G = gdiag * torch.sin(theta)
         rhs = tau - C - G - self.damping * omega
         return self._solve_spd(M, rhs)
+
+    def _coupling(self, state: NLinkState):
+        """``(K_ij l_i l_j, g l_i K_ii)`` of the state's plants: the
+        constructor's ``[L, L]`` and ``[L]`` here, a per-env batch in
+        :class:`DomainRandomizedNLink`."""
+        return self._coup, self._gdiag
 
     def _joint_to_generalized(self, u: torch.Tensor) -> torch.Tensor:
         """τ_i = u_i − u_{i+1} (a joint torque acts on both adjacent links)."""
         return u - torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], dim=1)
 
-    def _substep(self, theta, omega, tau, h):
+    def _substep(self, theta, omega, tau, h, coup, gdiag):
         """One semi-implicit Euler substep."""
-        omega = omega + h * self._accel(theta, omega, tau)
+        omega = omega + h * self._accel(theta, omega, tau, coup, gdiag)
         omega = torch.clamp(omega, -self.max_speed, self.max_speed)
         theta = theta + h * omega
         return theta, omega
 
     def _tip_height(self, theta: torch.Tensor) -> torch.Tensor:
         return -torch.sum(self.lengths * torch.cos(theta), dim=-1)
+
+    def _masses_of(self, state: NLinkState) -> torch.Tensor:
+        """Link masses: ``[L]``, or ``[N, L]`` in the domain-randomized subclass."""
+        return self.masses
+
+    def total_energy(self, state: NLinkState) -> torch.Tensor:
+        """Mechanical energy per env ``[N]`` (for integrator checks)."""
+        masses = self._masses_of(state)
+        x_dot = torch.cumsum(self.lengths * state.omega * torch.cos(state.theta), dim=-1)
+        y_dot = torch.cumsum(self.lengths * state.omega * torch.sin(state.theta), dim=-1)
+        y = torch.cumsum(-self.lengths * torch.cos(state.theta), dim=-1)
+        kinetic = 0.5 * torch.sum(masses * (x_dot**2 + y_dot**2), dim=-1)
+        return kinetic + self.g * torch.sum(masses * y, dim=-1)
 
     # ------------------------------------------------------------- contract
 
@@ -179,21 +203,30 @@ class NLinkPendulum(VecEnv):
         )
         return {"policy": obs}
 
-    def _sample_init(self, rng: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Each env's next key and a fresh ``(theta, omega)`` drawn from its
-        key: fp32 uniforms from the top 24 bits of each draw."""
+    def _sample_init(self, rng: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Each env's next key and the fields of a fresh episode drawn from
+        its key, ``{"theta", "omega"}``: fp32 uniforms from the top 24 bits
+        of each draw."""
         rng, bits = hash_draws(rng, 2 * self.num_links)
         draws = _shr(bits, 40).to(torch.float32) * self._draw_width / 2**24 + self._draw_low
-        return rng, draws[:, : self.num_links], draws[:, self.num_links :]
+        return rng, {"theta": draws[:, : self.num_links], "omega": draws[:, self.num_links :]}
+
+    def _next_state(self, state: NLinkState | None, fresh: dict, done: torch.Tensor | None,
+                    **fields) -> NLinkState:
+        """The state after a step (``done`` the envs that reset) or a reset
+        (``state`` and ``done`` None): the subclass's hook for its
+        per-episode fields."""
+        return NLinkState(**fields)
 
     def reset(self, seed: int = 0, num_envs: int | None = None) -> tuple[NLinkState, dict[str, torch.Tensor]]:
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, theta, omega = self._sample_init(env_keys(seed, num_envs, self.device))
-        state = NLinkState(
+        rng, fresh = self._sample_init(env_keys(seed, num_envs, self.device))
+        state = self._next_state(
+            None, fresh, None,
             episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
-            theta=theta,
-            omega=omega,
+            theta=fresh["theta"],
+            omega=fresh["omega"],
             rng=rng,
         )
         return state, self._obs(state)
@@ -204,15 +237,16 @@ class NLinkPendulum(VecEnv):
         rng, bits = hash_draws(state.rng, 1)
         maxlen = torch.as_tensor(self.max_episode_length, dtype=torch.int64, device=self.device)
         lengths = (_shr(bits[:, 0], 33) * maxlen) >> 31  # exact integer bounds
-        return NLinkState(episode_length=lengths.to(torch.int32), theta=state.theta, omega=state.omega, rng=rng)
+        return dataclasses.replace(state, episode_length=lengths.to(torch.int32), rng=rng)
 
     def step(self, state: NLinkState, actions: torch.Tensor):
         u = torch.clamp(actions, -self.max_torque, self.max_torque)
         tau = self._joint_to_generalized(u)
         theta, omega = state.theta, state.omega
+        coup, gdiag = self._coupling(state)
         h = self.dt / self.n_substeps
         for _ in range(self.n_substeps):
-            theta, omega = self._substep(theta, omega, tau, h)
+            theta, omega = self._substep(theta, omega, tau, h, coup, gdiag)
 
         height = self._tip_height(theta) / self._total_len  # [-1, 1]
         reward = (
@@ -227,13 +261,99 @@ class NLinkPendulum(VecEnv):
 
         # like the JAX env, every env's key advances and draws reset states,
         # kept where the env is done (no host sync on whether any env is done)
-        rng, reset_theta, reset_omega = self._sample_init(state.rng)
+        rng, fresh = self._sample_init(state.rng)
         done_col = done[:, None]
-        state = NLinkState(
+        state = self._next_state(
+            state, fresh, done,
             episode_length=torch.where(done, torch.zeros_like(episode_length), episode_length),
-            theta=torch.where(done_col, reset_theta, theta),
-            omega=torch.where(done_col, reset_omega, omega),
+            theta=torch.where(done_col, fresh["theta"], theta),
+            omega=torch.where(done_col, fresh["omega"], omega),
             rng=rng,
         )
         extras = {"time_outs": time_out, "log": {"nlink/tip_height": height}}
         return state, self._obs(state), reward, done, extras
+
+
+@dataclass
+class DomainRandomizedNLinkState(NLinkState):
+    mass_scale: torch.Tensor  # [N, L] per-episode multiplicative mass scales
+
+
+@register("env")
+class DomainRandomizedNLink(NLinkPendulum):
+    """N-link swing-up with per-episode domain randomization of the link
+    masses (counterpart of the JAX package's ``DomainRandomizedNLink``).
+
+    Every episode each env draws independent log-uniform mass scales in
+    ``mass_scale_range``; the ``[N, L]`` scales ride the env state, the
+    coupling becomes a per-env ``[N, L, L]`` batch, and a reset resamples
+    them where the env is done. They are drawn from the env's key with its
+    reset state, ``L`` more draws of the same hash, so the card and the CPU
+    draw the same bits and the env holds no generator.
+
+    Obs groups: ``"policy"`` is the base observation (the policy does not
+    see the scales); ``"privileged"`` appends ``log(mass_scale)`` for critics
+    and teachers.
+    """
+
+    def __init__(
+        self,
+        num_envs: int,
+        num_links: int = 5,
+        max_episode_length: int = 400,
+        mass_scale_range: tuple[float, float] = (0.5, 2.0),
+        device: str | torch.device = "cuda",
+    ):
+        super().__init__(num_envs, num_links, max_episode_length, device)
+        lo, hi = mass_scale_range
+        if not 0 < lo <= hi:
+            raise ValueError(f"mass_scale_range must satisfy 0 < lo <= hi, got {mass_scale_range}")
+        self.mass_scale_range = (float(lo), float(hi))
+        # the log-uniform draw's bounds, in fp32 as the JAX env computes them
+        self._log_lo, self._log_hi = (torch.log(torch.tensor(v, dtype=torch.float32)).to(self.device)
+                                      for v in self.mass_scale_range)
+        idx = torch.arange(num_links, device=self.device)
+        self._maxidx = torch.maximum(idx[:, None], idx[None, :])  # [L, L]
+        self._ll = self.lengths[:, None] * self.lengths[None, :]  # [L, L]
+
+    # --------------------------------------------------------- randomization
+
+    def _sample_init(self, rng: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The base reset state from the first ``2L`` draws of each env's
+        key and ``mass_scale``, log-uniform in ``mass_scale_range``, from the
+        next ``L``."""
+        L = self.num_links
+        rng, bits = hash_draws(rng, 3 * L)
+        draws = _shr(bits[:, : 2 * L], 40).to(torch.float32) * self._draw_width / 2**24 + self._draw_low
+        u = _shr(bits[:, 2 * L :], 40).to(torch.float32) / 2**24
+        # exp in fp64, rounded to fp32: the same bits on the CPU and the card
+        # (their fp32 exp differ in the last place)
+        mass_scale = torch.exp((self._log_lo + u * (self._log_hi - self._log_lo)).double()).float()
+        return rng, {"theta": draws[:, :L], "omega": draws[:, L:], "mass_scale": mass_scale}
+
+    def _next_state(self, state, fresh, done, **fields) -> DomainRandomizedNLinkState:
+        mass_scale = fresh["mass_scale"]
+        if state is not None:
+            mass_scale = torch.where(done[:, None], mass_scale, state.mass_scale)
+        return DomainRandomizedNLinkState(**fields, mass_scale=mass_scale)
+
+    def _K_of(self, mass_scale: torch.Tensor) -> torch.Tensor:
+        """Per-env coupling ``K_ij = Σ_{k≥max(i,j)} m_k`` ``[N, L, L]`` for
+        ``[N, L]`` mass scales."""
+        m = self.masses * mass_scale
+        cummass = torch.flip(torch.cumsum(torch.flip(m, [-1]), -1), [-1])  # [N, L]
+        return cummass[:, self._maxidx]
+
+    def _coupling(self, state: DomainRandomizedNLinkState):
+        K = self._K_of(state.mass_scale)
+        return K * self._ll, self.g * self.lengths * torch.diagonal(K, dim1=-2, dim2=-1)
+
+    def _masses_of(self, state: DomainRandomizedNLinkState) -> torch.Tensor:
+        return self.masses * state.mass_scale
+
+    # -------------------------------------------------------------- contract
+
+    def _obs(self, state: DomainRandomizedNLinkState) -> dict[str, torch.Tensor]:
+        obs = super()._obs(state)
+        obs["privileged"] = torch.cat([obs["policy"], torch.log(state.mass_scale)], dim=-1)
+        return obs

@@ -15,7 +15,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from rsl_rl_tpu_torch.modules.policy import concat_obs, obs_set_dim
+from rsl_rl_tpu_torch.modules.policy import check_state_compatible, concat_obs, obs_set_dim
 from rsl_rl_tpu_torch.networks.mlp import MLP
 from rsl_rl_tpu_torch.ops.running_norm import RunningNormState, normalize, update_running_norm
 from rsl_rl_tpu_torch.utils.device import resolve_device
@@ -151,3 +151,13 @@ class ActorCritic(nn.Module):
         if self.norm_critic is not None:
             update_running_norm(self.norm_critic, concat_obs(obs, self.obs_groups["critic"]))
 
+    # ----------------------------------------------------------- checkpoint
+
+    def load_policy_state(self, state: dict) -> bool:
+        """Restore the policy from a checkpoint's model state dict (the JAX
+        package's ``load_state_dict``): strict, raising ``ValueError`` on a
+        structural mismatch before anything is copied. Returns the resume
+        flag, always ``True`` here."""
+        check_state_compatible(self.state_dict(), state)
+        self.load_state_dict(state)
+        return True

@@ -50,3 +50,24 @@ def seed_call(policy, params: dict, buffers: dict, method: str, *args, out_dims=
         return functional_call(policy, (p, b), (method, *a))
 
     return vmap(one, out_dims=out_dims)(params, buffers, *args)
+
+
+def check_state_compatible(current: dict, loaded: dict, what: str = "policy state") -> None:
+    """Raise ``ValueError`` naming the missing and unexpected keys and the
+    shape mismatches when a loaded state dict does not match ``current``
+    (the JAX package's ``check_state_compatible``; checked before anything
+    is copied, so a refused load changes nothing)."""
+    missing = sorted(set(current) - set(loaded))
+    unexpected = sorted(set(loaded) - set(current))
+    mismatched = sorted(
+        f"{k}: expected {tuple(current[k].shape)}, got {tuple(loaded[k].shape)}"
+        for k in set(current) & set(loaded)
+        if tuple(current[k].shape) != tuple(loaded[k].shape)
+    )
+    if missing or unexpected or mismatched:
+        raise ValueError(
+            f"Loaded {what} is incompatible with the current model configuration.\n"
+            + (f"  missing keys: {missing[:8]}\n" if missing else "")
+            + (f"  unexpected keys: {unexpected[:8]}\n" if unexpected else "")
+            + (f"  shape mismatches: {mismatched[:8]}\n" if mismatched else "")
+        )

@@ -1,18 +1,21 @@
 """On-policy training runner (counterpart of
 ``rsl_rl_tpu/runners/on_policy_runner.py``): config -> policy and algorithm by
 registered name, then ``learn(n)`` alternates a collection window and an
-update and prints the console log.
+update and prints the console log. ``save`` / ``load`` / ``load_latest``
+write and read checkpoints (``utils/checkpoint.py``) at paths the caller
+names; ``get_inference_policy`` returns the deterministic policy.
 
-Logging writers, checkpoints, evaluation and multi-iteration dispatch are not
-ported yet; passing a ``log_dir``, or setting one of the runner keys in
-:data:`UNPORTED_KEYS` to anything but the JAX package's default, raises. The
-deprecated ``empirical_normalization`` key maps onto the policy's
+Logging writers, periodic saving, evaluation and multi-iteration dispatch
+are not ported yet; passing a ``log_dir``, or setting one of the runner keys
+in :data:`UNPORTED_KEYS` to anything but the JAX package's default, raises.
+The deprecated ``empirical_normalization`` key maps onto the policy's
 ``actor_obs_normalization`` / ``critic_obs_normalization`` where those are
 unset, with a ``DeprecationWarning``, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 import warnings
 from collections import deque
@@ -21,6 +24,8 @@ import torch
 
 import rsl_rl_tpu_torch.algorithms  # noqa: F401  (registers the algorithms)
 import rsl_rl_tpu_torch.modules  # noqa: F401  (registers the policies)
+from rsl_rl_tpu_torch.modules.policy import check_state_compatible
+from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.registry import resolve
 from rsl_rl_tpu_torch.utils.resolvers import resolve_obs_groups
@@ -80,25 +85,21 @@ class OnPolicyRunner:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")
         if log_dir is not None:
             raise NotImplementedError(
-                "logging writers and checkpoints are not ported yet (ROADMAP.md Queue 1,"
-                " 'Runner and utils'); pass log_dir=None"
+                "logging writers and periodic checkpoints are not ported yet (ROADMAP.md Queue 1,"
+                " 'Runner and utils'); pass log_dir=None and call save/load directly"
             )
         self.cfg = dict(train_cfg)
         check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
         self.policy_cfg = dict(train_cfg["policy"])
-        map_empirical_normalization(self.cfg, self.policy_cfg)
         self.env = env
         self.num_steps_per_env = self.cfg["num_steps_per_env"]
         seed = int(self.cfg.get("seed", 1))
 
         env_state, obs = env.reset(seed)
-        self.cfg["obs_groups"] = resolve_obs_groups(obs, self.cfg["obs_groups"], ["critic"])
-        policy_class = resolve("policy", self.policy_cfg.pop("class_name"))
-        policy = policy_class(obs, self.cfg["obs_groups"], env.num_actions,
-                              device=self.device, seed=seed, **self.policy_cfg)
-        alg_class = resolve("algorithm", self.alg_cfg.pop("class_name"))
-        self.alg = alg_class(policy, seed=seed + 1, **self.alg_cfg)
+        default_sets = ["critic"] if self.training_type == "rl" else ["teacher"]
+        self.cfg["obs_groups"] = resolve_obs_groups(obs, self.cfg["obs_groups"], default_sets)
+        self.alg = self._construct_algorithm(obs, seed)
         self.collect_state = self.alg.init_collect_state(env_state, obs, env.num_envs)
 
         self.tot_timesteps = 0
@@ -107,6 +108,15 @@ class OnPolicyRunner:
         #: one dict per finished iteration: collection_s, learn_s, steps_per_s, metrics
         self.history: list[dict] = []
         self._ep_window = deque()  # (rew_sum, len_sum, count) per iteration
+
+    def _construct_algorithm(self, obs, seed: int):
+        """Policy and algorithm from the config by registered name."""
+        map_empirical_normalization(self.cfg, self.policy_cfg)
+        policy_class = resolve("policy", self.policy_cfg.pop("class_name"))
+        policy = policy_class(obs, self.cfg["obs_groups"], self.env.num_actions,
+                              device=self.device, seed=seed, **self.policy_cfg)
+        alg_class = resolve("algorithm", self.alg_cfg.pop("class_name"))
+        return alg_class(policy, seed=seed + 1, **self.alg_cfg)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -184,3 +194,89 @@ class OnPolicyRunner:
             f"{'ETA:':>{pad}} {time.strftime('%H:%M:%S', time.gmtime(eta))}\n"
         )
         print(log)
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save(self, path: str, infos=None) -> None:
+        """Write the training state to ``path``: the policy's state dict
+        (parameters and normalizer moments), the Adam moments and count, the
+        learning rate, the iteration and ``infos`` (plain data)."""
+        save_checkpoint(path, {
+            "model": self.alg.policy.state_dict(),
+            "opt_state": self.alg.optimizer_state(),
+            "lr": self.alg.lr,
+            "iter": int(self.current_learning_iteration),
+            "infos": infos,
+        })
+
+    def load(self, path: str, load_optimizer: bool = True):
+        """Restore a checkpoint; returns its ``infos``.
+
+        The policy decides from the model state whether this is a resume
+        (its ``load_policy_state`` flag): on a resume the optimizer state, the
+        learning rate (with ``load_optimizer``) and the iteration are
+        restored; on a teacher bootstrap (an RL checkpoint loaded into a
+        distillation policy) the checkpoint's optimizer extras belong to the
+        teacher's training and are dropped. A checkpoint that neither
+        matches the policy nor remaps raises ``ValueError`` with both causes.
+        Tensors land on the runner's device.
+        """
+        loaded = load_checkpoint(path, map_location=self.device)
+        policy = self.alg.policy
+        structural_err = None
+        try:
+            check_state_compatible(policy.state_dict(), loaded["model"])
+        except ValueError as err:
+            structural_err = err
+        try:
+            resumed = policy.load_policy_state(loaded["model"])
+        except (ValueError, RuntimeError, KeyError) as remap_err:
+            if structural_err is not None:
+                raise ValueError(
+                    f"Checkpoint {path!r} neither restores into the configured policy"
+                    f" ({structural_err}) nor remaps as a teacher bootstrap ({remap_err}); it is"
+                    " incompatible with this configuration or corrupted."
+                ) from remap_err
+            raise
+        if resumed:
+            if load_optimizer:
+                self.alg.load_optimizer_state(loaded["opt_state"], loaded["lr"])
+            self.current_learning_iteration = int(loaded["iter"])
+        return loaded["infos"]
+
+    def load_latest(self, log_dir: str) -> bool:
+        """Resume from the newest ``model_<it>.pt`` in ``log_dir``; returns
+        False when there is none."""
+        path = latest_checkpoint(log_dir)
+        if path is None:
+            return False
+        self.load(path)
+        return True
+
+    # ------------------------------------------------------------- inference
+
+    def get_inference_policy(self, device=None):
+        """A deterministic policy ``obs -> action`` (the mean, no gradients).
+        A recurrent policy's callable keeps its hidden state between calls;
+        ``.reset(dones)`` zeroes it where ``dones`` is set (all of it with no
+        argument). ``device`` runs a copy of the policy there."""
+        policy = self.alg.policy
+        if device is not None:
+            device = resolve_device(device)
+            policy = copy.deepcopy(policy).to(device)
+            policy.device = device
+        holder = {"carry": policy.initial_carry(self.env.num_envs)}
+
+        @torch.no_grad()
+        def policy_fn(obs):
+            action, holder["carry"] = policy.act_inference(obs, holder["carry"])
+            return action
+
+        def reset(dones=None):
+            if dones is None:
+                holder["carry"] = policy.initial_carry(self.env.num_envs)
+            else:
+                holder["carry"] = policy.reset_carry(holder["carry"], dones)
+
+        policy_fn.reset = reset
+        return policy_fn

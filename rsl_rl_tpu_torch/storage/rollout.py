@@ -17,17 +17,20 @@ import torch
 
 @dataclass
 class Rollout:
-    """``rewards`` already include the timeout value bootstrap."""
+    """``rewards`` already include the timeout value bootstrap. PPO fills
+    ``values``, ``log_probs``, ``mu`` and ``sigma``; distillation fills
+    ``privileged_actions``, the teacher's actions."""
 
     obs: dict[str, torch.Tensor]
     actions: torch.Tensor
     rewards: torch.Tensor
     dones: torch.Tensor
-    values: torch.Tensor
-    log_probs: torch.Tensor
-    mu: torch.Tensor
-    sigma: torch.Tensor
-    carry0: Any = None  # policy carry entering step 0 (recurrent only)
+    values: torch.Tensor | None = None
+    log_probs: torch.Tensor | None = None
+    mu: torch.Tensor | None = None
+    sigma: torch.Tensor | None = None
+    privileged_actions: torch.Tensor | None = None
+    carry0: Any = None  # policy carry entering step 0
 
     @property
     def num_steps(self) -> int:

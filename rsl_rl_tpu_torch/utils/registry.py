@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-_REGISTRIES: dict[str, dict[str, Any]] = {"policy": {}, "algorithm": {}}
+_REGISTRIES: dict[str, dict[str, Any]] = {"policy": {}, "algorithm": {}, "env": {}}
 
 
 def register(kind: str, name: str | None = None) -> Callable:

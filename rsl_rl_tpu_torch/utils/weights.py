@@ -1,4 +1,5 @@
-"""Carry weights of a JAX ``ActorCritic(Recurrent)`` into the port.
+"""Carry weights of a JAX ``ActorCritic(Recurrent)`` or
+``StudentTeacher(Recurrent)`` into the port.
 
 The JAX policy's state arrives as nested dicts of numpy arrays:
 
@@ -59,34 +60,57 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
     dst.copy_(src.to(dst.device))
 
 
+def _load_mlp(mlp, src: dict, name: str) -> None:
+    for i in range(mlp.num_linear):
+        layer = getattr(mlp, f"dense_{i}")
+        _copy(layer.weight, np.asarray(src[f"dense_{i}"]["kernel"]).T, f"{name}.dense_{i}.kernel")
+        _copy(layer.bias, src[f"dense_{i}"]["bias"], f"{name}.dense_{i}.bias")
+
+
+def _load_memory(memory, src: dict, name: str) -> None:
+    pack = pack_gru_cell if memory.rnn_type == "gru" else pack_lstm_cell
+    for layer in range(memory.num_layers):
+        cell = getattr(memory, f"cell_{layer}")
+        for key, value in pack(src[f"cell_{layer}"]).items():
+            _copy(getattr(cell, key), value, f"{name}.cell_{layer}.{key}")
+
+
+def _load_norm(state, src, name: str) -> None:
+    if (state is None) != (src is None):
+        raise ValueError(f"normalizer '{name}': JAX and port configurations differ")
+    if state is not None:
+        for key in ("mean", "var", "count"):
+            _copy(getattr(state, key), src[key], f"norm.{name}.{key}")
+
+
 @torch.no_grad()
-def from_jax_state(params_np: dict, norm_np: dict, policy) -> None:
-    """Load JAX policy parameters and normalizer moments into ``policy`` (in place)."""
-    for net in ("actor", "critic"):
-        mlp = getattr(policy, net)
-        for i in range(mlp.num_linear):
-            layer = getattr(mlp, f"dense_{i}")
-            src = params_np[net][f"dense_{i}"]
-            _copy(layer.weight, np.asarray(src["kernel"]).T, f"{net}.dense_{i}.kernel")
-            _copy(layer.bias, src["bias"], f"{net}.dense_{i}.bias")
+def from_jax_state(params_np: dict, norm_np: dict, policy, aux_np: dict | None = None) -> None:
+    """Load JAX policy parameters and normalizer moments into ``policy`` (in place).
+
+    An ``ActorCritic(Recurrent)``: ``params`` and ``norm`` as above. A
+    ``StudentTeacher(Recurrent)``: ``params`` ``{"student", "std",
+    "memory_s"}``, ``norm`` ``{"student"}`` and the JAX state's ``aux``
+    ``{"teacher", "teacher_norm", "memory_t"}`` (normalizers as ``{"mean",
+    "var", "count"}`` or None).
+    """
     _copy(policy.std, params_np["std"], "std")
+    if "student" in params_np:
+        _load_mlp(policy.student, params_np["student"], "student")
+        _load_mlp(policy.teacher, aux_np["teacher"], "teacher")
+        if policy.is_recurrent:
+            _load_memory(policy.memory_s, params_np["memory_s"], "memory_s")
+            if policy.teacher_recurrent:
+                _load_memory(policy.memory_t, aux_np["memory_t"], "memory_t")
+        _load_norm(policy.norm_student, norm_np.get("student"), "student")
+        _load_norm(policy.norm_teacher, aux_np.get("teacher_norm"), "teacher")
+        return
+    for net in ("actor", "critic"):
+        _load_mlp(getattr(policy, net), params_np[net], net)
     if policy.is_recurrent:
         for mem in ("memory_a", "memory_c"):
-            memory = getattr(policy, mem)
-            pack = pack_gru_cell if memory.rnn_type == "gru" else pack_lstm_cell
-            for layer in range(memory.num_layers):
-                packed = pack(params_np[mem][f"cell_{layer}"])
-                cell = getattr(memory, f"cell_{layer}")
-                for key, value in packed.items():
-                    _copy(getattr(cell, key), value, f"{mem}.cell_{layer}.{key}")
+            _load_memory(getattr(policy, mem), params_np[mem], mem)
     for role in ("actor", "critic"):
-        state = getattr(policy, f"norm_{role}")
-        src = norm_np.get(role)
-        if (state is None) != (src is None):
-            raise ValueError(f"normalizer '{role}': JAX and port configurations differ")
-        if state is not None:
-            for key in ("mean", "var", "count"):
-                _copy(getattr(state, key), src[key], f"norm.{role}.{key}")
+        _load_norm(getattr(policy, f"norm_{role}"), norm_np.get(role), role)
 
 
 def _take(tree, index: int):

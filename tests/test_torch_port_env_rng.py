@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from rsl_rl_tpu_torch.env.nlink import NLinkPendulum, NLinkState, env_keys, hash_draws
+from rsl_rl_tpu_torch.env.nlink import DomainRandomizedNLink, NLinkPendulum, NLinkState, env_keys, hash_draws
 
 N, L = 32, 5
 
@@ -134,3 +134,41 @@ def test_randomize_episode_length_uses_the_state_keys():
     assert len(torch.unique(lengths)) > 40
     assert not torch.equal(out.rng, state.rng)
     assert torch.equal(env.randomize_episode_length(state).episode_length, lengths)
+
+
+def test_domain_randomized_draws_come_from_the_state_keys():
+    """The mass scales are drawn from each env's key with its reset state:
+    a step is a function of its arguments, the theta and omega draws are the
+    base env's for the same keys, the scales resample only where an env is
+    done, and the env holds no generator."""
+    lo, hi = 0.5, 2.0
+    env = DomainRandomizedNLink(N, L, max_episode_length=3, mass_scale_range=(lo, hi), device="cpu")
+    assert not any(isinstance(v, torch.Generator) for v in vars(env).values())
+    state, obs = env.reset(5)
+    base, _ = NLinkPendulum(N, L, device="cpu").reset(5)
+    assert torch.equal(state.theta, base.theta) and torch.equal(state.omega, base.omega)
+    assert not torch.equal(state.rng, base.rng), "the scales take draws of their own"
+    assert obs["privileged"].shape == (N, 4 * L)
+    actions = torch.randn(N, L, generator=torch.Generator().manual_seed(3))
+    state.episode_length[::2] = 2  # these envs reset in the step
+    first, second = env.step(state, actions), env.step(state, actions)
+    for a, b in zip(vars(first[0]).values(), vars(second[0]).values()):
+        assert torch.equal(a, b)
+    done = first[3]
+    assert done[::2].all() and not done[1::2].any()
+    assert torch.equal(first[0].mass_scale[1::2], state.mass_scale[1::2])
+    assert not torch.equal(first[0].mass_scale[::2], state.mass_scale[::2])
+
+
+def test_domain_randomized_scales_are_log_uniform():
+    """10^5 scales lie in the range and their logs have the mean and
+    variance of the uniform distribution on ``[log lo, log hi)`` within 3 sigma."""
+    lo, hi = 0.5, 2.0
+    state, _ = DomainRandomizedNLink(20_000, L, mass_scale_range=(lo, hi), device="cpu").reset(13)
+    x = state.mass_scale.double().flatten()
+    assert float(x.min()) >= lo and float(x.max()) <= hi
+    y = torch.log(x).numpy()
+    n, a, b = y.size, np.log(lo), np.log(hi)
+    var = (b - a) ** 2 / 12
+    assert abs(y.mean() - (a + b) / 2) < 3 * np.sqrt(var / n)
+    assert abs(y.var() - var) < 3 * np.sqrt((b - a) ** 4 * (1 / 80 - 1 / 144) / n)
