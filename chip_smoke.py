@@ -50,6 +50,20 @@ Phases, each fatal on failure:
    students the replay of the update's chunks, for the headline the batched
    MLPs). First, both envs' random draws (per-env keys in their state) on
    the card must equal the CPU's bit for bit, through a reset and a step.
+4b. Whole-iteration dispatch: for ``recurrent_gru256``,
+   ``recurrent_lstm256_bf16``, the two multi-seed slices, ``ppo_ff256x3_bf16``
+   and ``distill_gru256_bf16`` (from phase 4's saved teacher), three runners
+   from the same seed, eager, ``fuse_iteration=True`` (each iteration one
+   CUDA graph replay) and ``iterations_per_dispatch=2`` (a group of two
+   replays and a remainder of one), train 3 iterations each with the launch
+   counters zeroed just before and read just after. The graphed runs' state
+   (parameters, Adam moments, count and learning rate, normalizer moments,
+   env state, carries) and metrics must equal the eager run's bit for bit,
+   their launches the eager run's, their metrics finite; then the steady
+   env-steps/s of the three (iterations 1-2; the K=2 run's remainder,
+   iteration 2), the capture's seconds and the graph pool's bytes, beside
+   the card's name and power limit. Each runner's graph is freed before the
+   next.
 5. Time each kernel, in fp32 and in bf16-operand mode, at its main-path
    shape beside its plain version, a PyTorch yardstick the port never calls
    (cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM``; one ``torch.bmm`` for the
@@ -78,6 +92,7 @@ without CUDA or when any phase fails.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import os
@@ -97,6 +112,7 @@ from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
 from rsl_rl_tpu_torch.storage.rollout import slice_envs
 from rsl_rl_tpu_torch.utils import cuda_build
+from rsl_rl_tpu_torch.utils.cuda_graph import flatten
 
 PALLAS = "rsl_rl_tpu/ops/pallas_rnn.py"
 #: kernel families: the x-streaming kernels (the input projection inside) and
@@ -201,6 +217,8 @@ DISTILL_LSTM256_BF16["policy"]["rnn_type"] = "lstm"
 DISTILL_SLICES = {"distill_gru256_bf16": ("gru", DISTILL_GRU256_BF16, 3),
                   "distill_lstm256_bf16": ("lstm", DISTILL_LSTM256_BF16, 1)}
 TEACHER_ITERATIONS = 2
+#: the dispatch phase's runs: the runner keys of each, eager first
+DISPATCH_MODES = {"eager": {}, "fused": {"fuse_iteration": True}, "k2": {"iterations_per_dispatch": 2}}
 NUM_ENVS, NUM_LINKS, ITERATIONS = 4096, 5, 3
 NUM_SEEDS, ENVS_PER_SEED = 8, 512
 WIDE_D = 520  # an input width beyond the x-streaming kernels' 512
@@ -872,11 +890,12 @@ def check_teacher(name, runner, teacher) -> None:
         fail(f"{name}: the loaded teacher is not the trained actor")
 
 
-def run_distill_slices(T) -> dict:
-    """Train the privileged teacher, save it, and for each student load it
-    into ``DistillationRunner`` and train with the launch counters zeroed
-    just before and read just after; check the teacher and the student's
-    kernel replay. Returns ``{slice: {kernel: launches}}``."""
+def run_distill_slices(T, tmp) -> tuple[dict, str]:
+    """Train the privileged teacher, save it under ``tmp``, and for each
+    student load it into ``DistillationRunner`` and train with the launch
+    counters zeroed just before and read just after; check the teacher and
+    the student's kernel replay. Returns ``{slice: {kernel: launches}}`` and
+    the teacher's checkpoint."""
     teacher = OnPolicyRunner(DomainRandomizedNLink(NUM_ENVS, NUM_LINKS, device="cuda"),
                              copy.deepcopy(PPO_FF256X3_BF16_DR), device="cuda")
     reset_counts()
@@ -885,21 +904,110 @@ def run_distill_slices(T) -> dict:
     check_launches("ppo_ff256x3_bf16_dr", all_counts(), {})
     print_history("ppo_ff256x3_bf16_dr", teacher)
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"model_{teacher.current_learning_iteration}.pt")
-        teacher.save(path)
-        for name, (family, cfg, iterations) in DISTILL_SLICES.items():
-            runner = DistillationRunner(DomainRandomizedNLink(NUM_ENVS, NUM_LINKS, device="cuda"),
-                                        copy.deepcopy(cfg), device="cuda")
-            runner.load(path)
-            check_teacher(name, runner, teacher)
-            reset_counts()
-            runner.learn(iterations)
-            torch.cuda.synchronize()
-            launches[name] = check_launches(name, all_counts(), distill_launches(family, cfg, iterations))
-            print_history(name, runner)
-            check_student_replay(name, runner, T)
-    return launches
+    path = os.path.join(tmp, f"model_{teacher.current_learning_iteration}.pt")
+    teacher.save(path)
+    for name, (family, cfg, iterations) in DISTILL_SLICES.items():
+        runner = DistillationRunner(DomainRandomizedNLink(NUM_ENVS, NUM_LINKS, device="cuda"),
+                                    copy.deepcopy(cfg), device="cuda")
+        runner.load(path)
+        check_teacher(name, runner, teacher)
+        reset_counts()
+        runner.learn(iterations)
+        torch.cuda.synchronize()
+        launches[name] = check_launches(name, all_counts(), distill_launches(family, cfg, iterations))
+        print_history(name, runner)
+        check_student_replay(name, runner, T)
+    return launches, path
+
+
+def run_state(runner) -> list[torch.Tensor]:
+    """Every tensor a run carries from one iteration to the next: the
+    policy's parameters and normalizer moments, the Adam moments, count and
+    learning rate (stacked for a study), the env state, obs, carries and
+    episode sums."""
+    if isinstance(runner, MultiSeedRunner):
+        tree = (runner.train_state, runner.collect_state)
+    else:
+        alg = runner.alg
+        tree = (alg.policy.state_dict(), alg.adam_mu, alg.adam_nu, alg.adam_count, alg.lr, runner.collect_state)
+    return [t.detach().clone() for t in flatten(tree)[0]]
+
+
+def dispatch_runs(name, make_runner, smi) -> None:
+    """Train the slice eagerly, fused and at K=2 (``DISPATCH_MODES``) for
+    ITERATIONS from the same seed; fail unless the graphed runs' state,
+    metrics and launches equal the eager run's bit for bit and their
+    metrics are finite. Prints the steady env-steps/s of the three, the
+    capture's seconds and the graph pool's bytes."""
+    runs = {}
+    for mode, keys in DISPATCH_MODES.items():
+        runner = make_runner(keys)
+        reset_counts()
+        runner.learn(ITERATIONS)
+        torch.cuda.synchronize()
+        counts = all_counts()
+        for row in runner.history:
+            bad = {k: v for k, v in row["metrics"].items() if not np.isfinite(v).all()}
+            if bad:
+                fail(f"{name} {mode}: non-finite metrics in iteration {row['iteration']}: {bad}")
+        steady = runner.history[2:] if mode == "k2" else runner.history[1:]
+        graph = runner.iteration_graph
+        runs[mode] = {
+            "state": run_state(runner), "counts": counts,
+            "metrics": [{k: np.asarray(v) for k, v in row["metrics"].items()} for row in runner.history],
+            "steps_per_s": float(np.mean([row["steps_per_s"] for row in steady])),
+            "capture_s": None if graph is None else graph.capture_s,
+            "pool_bytes": None if graph is None else graph.pool_bytes,
+        }
+        if graph is not None:
+            graph.release()
+        del runner, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[mode]["reserved_after"] = torch.cuda.memory_reserved()
+    eager = runs["eager"]
+    for mode in ("fused", "k2"):
+        run = runs[mode]
+        differ = [i for i, (a, b) in enumerate(zip(eager["state"], run["state"])) if not torch.equal(a, b)]
+        same_metrics = all(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+                           for a, b in zip(eager["metrics"], run["metrics"]))
+        launched = {k: n for k, n in run["counts"].items() if n}
+        print(f"dispatch {name} {mode}: state equal to eager bit for bit: {not differ}"
+              f" ({len(run['state'])} tensors, differing {differ}); metrics equal: {same_metrics};"
+              f" launches {launched or 'none'}, as eager: {run['counts'] == eager['counts']};"
+              f" capture {run['capture_s']} s, graph pool {run['pool_bytes']} bytes; reserved after its release"
+              f" {run['reserved_after']} bytes (after the eager run's {eager['reserved_after']})")
+        if differ or len(run["state"]) != len(eager["state"]) or not same_metrics:
+            fail(f"{name}: the {mode} run's state or metrics differ from the eager run's")
+        if run["counts"] != eager["counts"]:
+            fail(f"{name}: the {mode} run launched {run['counts']}, the eager run {eager['counts']}")
+    print(f"dispatch {name} steady env-steps/s: " + json.dumps(
+        {"eager": eager["steps_per_s"], "fused": runs["fused"]["steps_per_s"], "k2": runs["k2"]["steps_per_s"],
+         "fused_capture_s": runs["fused"]["capture_s"], "fused_pool_bytes": runs["fused"]["pool_bytes"],
+         "card": smi}))
+
+
+def dispatch_slices(teacher_path) -> dict:
+    """Phase 4b's slices: ``{name: make_runner(runner keys)}``."""
+    def nlink(envs):
+        return NLinkPendulum(envs, NUM_LINKS, device="cuda")
+
+    def ppo(cfg):
+        return lambda keys: OnPolicyRunner(nlink(NUM_ENVS), {**copy.deepcopy(cfg), **keys}, device="cuda")
+
+    def study(cfg):
+        return lambda keys: MultiSeedRunner(nlink(ENVS_PER_SEED), {**copy.deepcopy(cfg), **keys}, NUM_SEEDS,
+                                            device="cuda")
+
+    def student(keys):
+        runner = DistillationRunner(DomainRandomizedNLink(NUM_ENVS, NUM_LINKS, device="cuda"),
+                                    {**copy.deepcopy(DISTILL_GRU256_BF16), **keys}, device="cuda")
+        runner.load(teacher_path)
+        return runner
+
+    return {**{name: ppo(cfg) for name, (_, cfg) in SLICES.items()},
+            **{name: study(cfg) for name, (_, cfg) in MULTISEED_SLICES.items()},
+            "ppo_ff256x3_bf16": ppo(PPO_FF256X3_BF16), "distill_gru256_bf16": student}
 
 
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
@@ -1033,7 +1141,13 @@ def main() -> None:
     for name, (family, cfg) in MULTISEED_SLICES.items():
         by_slice[name] = run_multiseed_slice(name, family, cfg, T, B_seed)
     run_ff_slice("ppo_ff256x3_bf16", copy.deepcopy(PPO_FF256X3_BF16), T)
-    by_slice.update(run_distill_slices(T))
+    with tempfile.TemporaryDirectory() as tmp:
+        distill_launches_, teacher_path = run_distill_slices(T, tmp)
+        by_slice.update(distill_launches_)
+
+        # ---- 4b. whole-iteration dispatch against eager
+        for name, make_runner in dispatch_slices(teacher_path).items():
+            dispatch_runs(name, make_runner, smi)
     launches = {k: {} for k in all_counts()}
     for slice_name, counts in by_slice.items():
         for k, n in counts.items():

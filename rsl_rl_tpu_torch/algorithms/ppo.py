@@ -282,10 +282,12 @@ class AdamTrainer:
 
     @torch.no_grad()
     def _apply(self, grads, max_grad_norm: float | None, clip_mask=None) -> None:
-        """The clipped Adam step (:func:`clip_adam`), in place."""
-        params, mu, nu, self.adam_count = clip_adam(self.params, grads, self.adam_mu, self.adam_nu,
-                                                    self.adam_count, self.lr, max_grad_norm, clip_mask)
-        for dst, src in zip(self.params + self.adam_mu + self.adam_nu, params + mu + nu):
+        """The clipped Adam step (:func:`clip_adam`), in place: every tensor
+        of the optimizer keeps its storage (a CUDA graph replays addresses)."""
+        params, mu, nu, count = clip_adam(self.params, grads, self.adam_mu, self.adam_nu,
+                                          self.adam_count, self.lr, max_grad_norm, clip_mask)
+        for dst, src in zip(self.params + self.adam_mu + self.adam_nu + [self.adam_count],
+                            params + mu + nu + [count]):
             dst.copy_(src)
 
     def optimizer_state(self) -> dict:
@@ -557,8 +559,8 @@ class PPO(AdamTrainer):
 
     def update_stacked(self, ts: StackedTrainState, cs: CollectState, rollout: Rollout,
                        perm: torch.Tensor | None = None):
-        """:meth:`update` for G seeds, in place on ``ts``; returns ``(ts, cs,
-        metrics)`` with ``[G]`` metrics. Every minibatch replays all seeds'
+        """:meth:`update` for G seeds, in place on ``ts`` (every tensor keeps
+        its storage); returns ``(ts, cs, metrics)`` with ``[G]`` metrics. Every minibatch replays all seeds'
         memories in one batched call (the xproj kernels, through the replays'
         vmap rules), takes one gradient of the summed per-seed losses, and
         steps each seed's learning rate, clip and Adam on its own. A
@@ -584,10 +586,11 @@ class PPO(AdamTrainer):
             grads = torch.autograd.grad(loss.sum(), [ts.params[k] for k in names])
             with torch.no_grad():
                 if self.desired_kl is not None and self.schedule == "adaptive":
-                    ts.lr = adapt_lr(ts.lr, aux["kl"], self.desired_kl, self.min_lr, self.max_lr)
-                params, mu, nu, ts.adam_count = step(
+                    ts.lr.copy_(adapt_lr(ts.lr, aux["kl"], self.desired_kl, self.min_lr, self.max_lr))
+                params, mu, nu, count = step(
                     [ts.params[k] for k in names], grads, [ts.adam_mu[k] for k in names],
                     [ts.adam_nu[k] for k in names], ts.adam_count, ts.lr)
+                ts.adam_count.copy_(count)
                 for k, p, m, v in zip(names, params, mu, nu):
                     ts.params[k].copy_(p)
                     ts.adam_mu[k].copy_(m)
@@ -601,7 +604,7 @@ class PPO(AdamTrainer):
 
     @torch.no_grad()
     def _adapt_lr(self, kl_mean: torch.Tensor) -> None:
-        self.lr = adapt_lr(self.lr, kl_mean, self.desired_kl, self.min_lr, self.max_lr)
+        self.lr.copy_(adapt_lr(self.lr, kl_mean, self.desired_kl, self.min_lr, self.max_lr))
 
     # ------------------------------------------------------------------ loss
 

@@ -2,7 +2,8 @@
 ``rsl_rl_tpu/runners/distillation_runner.py``): the on-policy loop with a
 student-teacher policy and the distillation algorithm. It differs in the
 default obs set (``teacher``) and in refusing to learn before a teacher is
-loaded (``load`` of an RL checkpoint).
+loaded (``load`` of an RL checkpoint), so a fused run captures its iteration
+with the teacher in place.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
 """Multi-seed training runner (counterpart of
 ``rsl_rl_tpu/runners/multiseed_runner.py``): G independent seeds of one
 config trained as one batched program, with the console line and trailing
-per-seed reward windows of the JAX runner.
+per-seed reward windows of the JAX runner, the loop of
+``runners/training_loop.py`` (split or whole-iteration dispatch; with a
+``log_dir`` cross-seed scalars, periodic checkpoints, the git state and the
+profiler window) and stacked checkpoints (``save`` / ``load`` /
+``load_latest``).
 
-Logging writers, checkpoints (``save``/``load``/``save_seed``), evaluation,
-multi-iteration dispatch, ``load_teacher`` and PBT are not ported yet;
-passing a ``log_dir`` raises.
+``save_seed``, ``load_teacher``, evaluation and PBT are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ import torch
 
 import rsl_rl_tpu_torch.algorithms  # noqa: F401  (registers the algorithms)
 import rsl_rl_tpu_torch.modules  # noqa: F401  (registers the policies)
+from rsl_rl_tpu_torch.modules.policy import check_state_compatible
 from rsl_rl_tpu_torch.runners.multiseed import make_multiseed_train
+from rsl_rl_tpu_torch.runners.on_policy_runner import check_unported_keys
+from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
+from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.registry import resolve
 from rsl_rl_tpu_torch.utils.resolvers import resolve_obs_groups
@@ -32,7 +38,7 @@ def seed_sequence(seed: int, num_seeds: int) -> list[int]:
     return torch.randint(0, 2**31 - 1, (num_seeds,), generator=gen).tolist()
 
 
-class MultiSeedRunner:
+class MultiSeedRunner(TrainingLoop):
     """Train ``num_seeds`` independent runs of ``train_cfg`` as one batched
     program on one device.
 
@@ -48,17 +54,14 @@ class MultiSeedRunner:
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")
-        if log_dir is not None:
-            raise NotImplementedError(
-                "logging writers and checkpoints are not ported yet (ROADMAP.md Queue 1,"
-                " 'Runner and utils'); pass log_dir=None"
-            )
         self.cfg = dict(train_cfg)
+        check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
         self.policy_cfg = dict(train_cfg["policy"])
         self.env = env
         self.num_seeds = int(num_seeds)
         self.num_steps_per_env = self.cfg["num_steps_per_env"]
+        self._init_loop(log_dir)
         seed = int(self.cfg.get("seed", 1))
 
         _, obs = env.reset(seed)  # probe the obs groups
@@ -71,9 +74,11 @@ class MultiSeedRunner:
         ]
         alg_class = resolve("algorithm", self.alg_cfg.pop("class_name"))
         self.alg = alg_class(policies[0], seed=seed + 1, **self.alg_cfg)
-        # learn() calls the collect and update halves of make_multiseed_train's
-        # train_step itself, to time them apart
-        init, _ = make_multiseed_train(self.alg, env, self.num_steps_per_env, self.num_seeds, self.device)
+        # the split iteration calls the collect and update halves of
+        # make_multiseed_train's train_step itself, to time them apart; the
+        # fused iteration is train_step
+        init, self._train_step = make_multiseed_train(self.alg, env, self.num_steps_per_env, self.num_seeds,
+                                                      self.device)
         self.train_state, self.collect_state = init(policies, seed)
 
         self.tot_timesteps = 0
@@ -89,23 +94,40 @@ class MultiSeedRunner:
             torch.cuda.synchronize(self.device)
 
     def learn(self, num_learning_iterations: int) -> None:
+        self._prepare_logging_writer()
         start_iter = self.current_learning_iteration
-        for it in range(start_iter, start_iter + num_learning_iterations):
-            start = time.perf_counter()
-            cs, rollout, cm = self.alg.collect_stacked(self.env, self.train_state, self.collect_state,
-                                                       self.num_steps_per_env)
-            self._sync()
-            collection_time = time.perf_counter() - start
+        self._run(start_iter, start_iter + num_learning_iterations)
 
-            start = time.perf_counter()
-            _, cs, um = self.alg.update_stacked(self.train_state, cs, rollout)
-            self._sync()
-            learn_time = time.perf_counter() - start
+    def _split_iteration(self):
+        start = time.perf_counter()
+        cs, rollout, cm = self.alg.collect_stacked(self.env, self.train_state, self.collect_state,
+                                                   self.num_steps_per_env)
+        self._sync()
+        collection_time = time.perf_counter() - start
 
-            self.collect_state = cs
-            self.current_learning_iteration = it
-            metrics = {k: v.detach().cpu().numpy() for k, v in {**cm, **um}.items()}
-            self._log(it, metrics, collection_time, learn_time)
+        start = time.perf_counter()
+        _, cs, um = self.alg.update_stacked(self.train_state, cs, rollout)
+        self._sync()
+        learn_time = time.perf_counter() - start
+
+        self.collect_state = cs
+        return {k: v.detach().cpu().numpy() for k, v in {**cm, **um}.items()}, collection_time, learn_time
+
+    # the fused iteration (training_loop.TrainingLoop): the train state and
+    # the collect state are its state tree
+
+    def _graph_state(self):
+        return self.train_state, self.collect_state
+
+    def _set_graph_state(self, state) -> None:
+        self.train_state, self.collect_state = state
+
+    def _graph_step(self, state):
+        ts, cs, metrics = self._train_step(*state)
+        return (ts, cs), metrics
+
+    def _to_host(self, metrics: dict) -> dict:
+        return metrics
 
     def _window_stats(self, m: dict) -> tuple[np.ndarray, np.ndarray, float]:
         """Per-seed trailing ~100-episode reward and length means."""
@@ -133,7 +155,8 @@ class MultiSeedRunner:
         count, rew, _ = self._window_reduce()
         return np.asarray(rew), float(np.asarray(count).sum())
 
-    def _log(self, it: int, metrics: dict, collection_time: float, learn_time: float) -> None:
+    def _log(self, it: int, start_iter: int, tot_iter: int, metrics: dict, collection_time: float,
+             learn_time: float) -> None:
         iteration_time = collection_time + learn_time
         collection_size = self.num_steps_per_env * self.env.num_envs * self.num_seeds
         self.tot_timesteps += collection_size
@@ -146,6 +169,74 @@ class MultiSeedRunner:
             "steps_per_s": collection_size / iteration_time,
             "metrics": metrics,
         })
-        rew, length, _ = self._window_stats(metrics)
+        rew, length, ep_count = self._window_stats(metrics)
+        if self.writer is not None:
+            self._write_scalars(it, metrics, fps, rew, length, ep_count)
         print(f"[multiseed {self.num_seeds}x] it {it}: reward {rew.mean():.2f} +/- "
               f"{rew.std():.2f}  len {length.mean():.1f}  {fps} steps/s")
+
+    def _write_scalars(self, it, metrics, fps, rew, length, ep_count) -> None:
+        """Cross-seed means and spreads (the JAX package's ``_log``)."""
+        w = self.writer
+        for key, value in metrics.items():
+            if key.startswith("Loss/"):
+                w.add_scalar(key, float(np.mean(value)), it)
+                w.add_scalar(f"{key}_std", float(np.std(value)), it)
+        w.add_scalar("Policy/mean_noise_std", float(np.mean(metrics["Policy/mean_noise_std"])), it)
+        w.add_scalar("Perf/total_fps", fps, it)
+        if ep_count > 0:
+            w.add_scalar("Train/mean_reward", float(rew.mean()), it)
+            w.add_scalar("Train/mean_reward_std", float(rew.std()), it)
+            w.add_scalar("Train/mean_episode_length", float(length.mean()), it)
+            w.add_scalar("Train/mean_episode_length_std", float(length.std()), it)
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save(self, path: str, infos=None) -> None:
+        """One stacked checkpoint of the whole study (a leading seed axis on
+        every tensor): the policies' parameters and normalizer moments, the
+        Adam moments and counts, the learning rates, the iteration, the seed
+        count and ``infos`` (plain data)."""
+        ts = self.train_state
+        save_checkpoint(path, {
+            "model": {"params": ts.params, "buffers": ts.buffers},
+            "opt_state": {"mu": ts.adam_mu, "nu": ts.adam_nu, "count": ts.adam_count},
+            "lr": ts.lr,
+            "iter": int(self.current_learning_iteration),
+            "num_seeds": self.num_seeds,
+            "infos": infos,
+        })
+        self._upload_model(path)
+
+    def load(self, path: str):
+        """Resume the whole study from a :meth:`save` checkpoint, bit for bit
+        and in place; returns its ``infos``. A checkpoint of another seed
+        count or other policies raises ``ValueError`` before anything is
+        copied."""
+        loaded = load_checkpoint(path, map_location=self.device)
+        if int(loaded.get("num_seeds", -1)) != self.num_seeds:
+            raise ValueError(f"Checkpoint {path!r} holds {loaded.get('num_seeds')} seeds; this runner is"
+                             f" configured for {self.num_seeds}.")
+        ts = self.train_state
+        model, opt = loaded["model"], loaded["opt_state"]
+        parts = [(ts.params, model["params"], "policy parameters"), (ts.buffers, model["buffers"], "policy buffers"),
+                 (ts.adam_mu, opt["mu"], "optimizer mu"), (ts.adam_nu, opt["nu"], "optimizer nu"),
+                 ({"count": ts.adam_count, "lr": ts.lr}, {"count": opt["count"], "lr": loaded["lr"]},
+                  "optimizer count and learning rate")]
+        for current, new, what in parts:
+            check_state_compatible(current, new, what)
+        with torch.no_grad():
+            for current, new, _ in parts:
+                for k, t in current.items():
+                    t.copy_(new[k])
+        self.current_learning_iteration = int(loaded["iter"])
+        return loaded["infos"]
+
+    def load_latest(self, log_dir: str | None = None) -> bool:
+        """Resume from the newest ``model_<it>.pt`` in ``log_dir`` (this
+        runner's by default); returns False when there is none."""
+        path = latest_checkpoint(log_dir or self.log_dir or "")
+        if path is None:
+            return False
+        self.load(path)
+        return True

@@ -1,16 +1,20 @@
 """On-policy training runner (counterpart of
 ``rsl_rl_tpu/runners/on_policy_runner.py``): config -> policy and algorithm by
-registered name, then ``learn(n)`` alternates a collection window and an
-update and prints the console log. ``save`` / ``load`` / ``load_latest``
-write and read checkpoints (``utils/checkpoint.py``) at paths the caller
-names; ``get_inference_policy`` returns the deterministic policy.
+registered name, then ``learn(n)`` runs the iterations (split into a
+collection window and an update, or whole-iteration dispatch as a CUDA graph
+with ``fuse_iteration`` / ``iterations_per_dispatch``;
+``runners/training_loop.py``) and prints the console log. With a ``log_dir``
+it writes the scalars (``logger``), ``model_<it>.pt`` every ``save_interval``
+iterations, the git state and the ``profiler_trace_iterations`` trace.
+``save`` / ``load`` / ``load_latest`` write and read checkpoints
+(``utils/checkpoint.py``); ``get_inference_policy`` returns the
+deterministic policy.
 
-Logging writers, periodic saving, evaluation and multi-iteration dispatch
-are not ported yet; passing a ``log_dir``, or setting one of the runner keys
-in :data:`UNPORTED_KEYS` to anything but the JAX package's default, raises.
-The deprecated ``empirical_normalization`` key maps onto the policy's
-``actor_obs_normalization`` / ``critic_obs_normalization`` where those are
-unset, with a ``DeprecationWarning``, as in the JAX package.
+Evaluation and model parallelism are not ported yet: setting one of the
+runner keys in :data:`UNPORTED_KEYS` to anything but the JAX package's
+default raises. The deprecated ``empirical_normalization`` key maps onto the
+policy's ``actor_obs_normalization`` / ``critic_obs_normalization`` where
+those are unset, with a ``DeprecationWarning``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,21 +29,17 @@ import torch
 import rsl_rl_tpu_torch.algorithms  # noqa: F401  (registers the algorithms)
 import rsl_rl_tpu_torch.modules  # noqa: F401  (registers the policies)
 from rsl_rl_tpu_torch.modules.policy import check_state_compatible
+from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.registry import resolve
 from rsl_rl_tpu_torch.utils.resolvers import resolve_obs_groups
 
 #: runner keys the JAX package reads that the port does not implement, with
-#: the JAX package's default (``fuse_iteration``'s is False off the TPU; unset
-#: or None counts as the default)
+#: the JAX package's default (unset or None counts as the default)
 UNPORTED_KEYS = {
-    "fuse_iteration": False,
-    "iterations_per_dispatch": 1,
     "eval_interval": 0,
     "model_parallel_size": 1,
-    "profiler_trace_iterations": None,
-    "logger": "tensorboard",
 }
 
 
@@ -73,7 +73,7 @@ def map_empirical_normalization(cfg: dict, policy_cfg: dict) -> None:
             policy_cfg[key] = cfg["empirical_normalization"]
 
 
-class OnPolicyRunner:
+class OnPolicyRunner(TrainingLoop):
     """Trains an actor-critic with an on-policy algorithm on one device."""
 
     training_type = "rl"
@@ -83,17 +83,13 @@ class OnPolicyRunner:
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")
-        if log_dir is not None:
-            raise NotImplementedError(
-                "logging writers and periodic checkpoints are not ported yet (ROADMAP.md Queue 1,"
-                " 'Runner and utils'); pass log_dir=None and call save/load directly"
-            )
         self.cfg = dict(train_cfg)
         check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
         self.policy_cfg = dict(train_cfg["policy"])
         self.env = env
         self.num_steps_per_env = self.cfg["num_steps_per_env"]
+        self._init_loop(log_dir)
         seed = int(self.cfg.get("seed", 1))
 
         env_state, obs = env.reset(seed)
@@ -123,26 +119,42 @@ class OnPolicyRunner:
             torch.cuda.synchronize(self.device)
 
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False) -> None:
+        self._prepare_logging_writer()
         if init_at_random_ep_len:
             self.collect_state.env_state = self.env.randomize_episode_length(self.collect_state.env_state)
-
         start_iter = self.current_learning_iteration
-        tot_iter = start_iter + num_learning_iterations
-        for it in range(start_iter, tot_iter):
-            start = time.perf_counter()
-            cs, rollout, cm = self.alg.collect(self.env, self.collect_state, self.num_steps_per_env)
-            self._sync()
-            collection_time = time.perf_counter() - start
+        self._run(start_iter, start_iter + num_learning_iterations)
 
-            start = time.perf_counter()
-            cs, um = self.alg.update(cs, rollout)
-            self._sync()
-            learn_time = time.perf_counter() - start
+    def _split_iteration(self):
+        start = time.perf_counter()
+        cs, rollout, cm = self.alg.collect(self.env, self.collect_state, self.num_steps_per_env)
+        self._sync()
+        collection_time = time.perf_counter() - start
 
-            self.collect_state = cs
-            self.current_learning_iteration = it
-            metrics = {k: float(v) for k, v in {**cm, **um}.items()}
-            self._log(it, start_iter, tot_iter, metrics, collection_time, learn_time)
+        start = time.perf_counter()
+        cs, um = self.alg.update(cs, rollout)
+        self._sync()
+        learn_time = time.perf_counter() - start
+
+        self.collect_state = cs
+        return {k: float(v) for k, v in {**cm, **um}.items()}, collection_time, learn_time
+
+    # the fused iteration (training_loop.TrainingLoop): the collect state is
+    # its state tree; the policy and optimizer update in place
+
+    def _graph_state(self):
+        return self.collect_state
+
+    def _set_graph_state(self, cs) -> None:
+        self.collect_state = cs
+
+    def _graph_step(self, cs):
+        cs, rollout, cm = self.alg.collect(self.env, cs, self.num_steps_per_env)
+        cs, um = self.alg.update(cs, rollout)
+        return cs, {**cm, **um}
+
+    def _to_host(self, metrics: dict) -> dict:
+        return {k: float(v) for k, v in metrics.items()}
 
     def _episode_window_stats(self, metrics: dict) -> tuple[float, float, float]:
         """Means over a trailing window of about 100 finished episodes."""
@@ -171,6 +183,9 @@ class OnPolicyRunner:
             "metrics": metrics,
         })
         mean_reward, mean_ep_len, ep_count = self._episode_window_stats(metrics)
+        if self.writer is not None:
+            self._write_scalars(it, metrics, int(fps), collection_time, learn_time, mean_reward, mean_ep_len,
+                                ep_count)
         header = f" \033[1m Learning iteration {it}/{tot_iter} \033[0m "
         log = (
             f"{'#' * width}\n{header.center(width, ' ')}\n\n"
@@ -195,6 +210,28 @@ class OnPolicyRunner:
         )
         print(log)
 
+    def _write_scalars(self, it, metrics, fps, collection_time, learn_time, mean_reward, mean_ep_len,
+                       ep_count) -> None:
+        """The writer's scalars of an iteration (the JAX package's ``_log``)."""
+        w = self.writer
+        for key, value in metrics.items():
+            if key.startswith("Loss/"):
+                w.add_scalar(key, value, it)
+        w.add_scalar("Policy/mean_noise_std", metrics["Policy/mean_noise_std"], it)
+        w.add_scalar("Perf/total_fps", fps, it)
+        w.add_scalar("Perf/collection time", collection_time, it)
+        w.add_scalar("Perf/learning_time", learn_time, it)
+        for key, value in metrics.items():
+            if key.startswith("extras/"):
+                name = key.removeprefix("extras/")
+                w.add_scalar(name if "/" in name else f"Episode/{name}", value, it)
+        if ep_count > 0:
+            w.add_scalar("Train/mean_reward", mean_reward, it)
+            w.add_scalar("Train/mean_episode_length", mean_ep_len, it)
+            if self.logger_type != "wandb":
+                w.add_scalar("Train/mean_reward/time", mean_reward, self.tot_time)
+                w.add_scalar("Train/mean_episode_length/time", mean_ep_len, self.tot_time)
+
     # ----------------------------------------------------------- checkpoints
 
     def save(self, path: str, infos=None) -> None:
@@ -208,6 +245,7 @@ class OnPolicyRunner:
             "iter": int(self.current_learning_iteration),
             "infos": infos,
         })
+        self._upload_model(path)
 
     def load(self, path: str, load_optimizer: bool = True):
         """Restore a checkpoint; returns its ``infos``.
@@ -244,10 +282,10 @@ class OnPolicyRunner:
             self.current_learning_iteration = int(loaded["iter"])
         return loaded["infos"]
 
-    def load_latest(self, log_dir: str) -> bool:
-        """Resume from the newest ``model_<it>.pt`` in ``log_dir``; returns
-        False when there is none."""
-        path = latest_checkpoint(log_dir)
+    def load_latest(self, log_dir: str | None = None) -> bool:
+        """Resume from the newest ``model_<it>.pt`` in ``log_dir`` (this
+        runner's by default); returns False when there is none."""
+        path = latest_checkpoint(log_dir or self.log_dir or "")
         if path is None:
             return False
         self.load(path)

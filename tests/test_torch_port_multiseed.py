@@ -11,6 +11,7 @@ both the same JAX-made rollout.
 """
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -274,8 +275,36 @@ def test_multiseed_requires_cuda_unless_cpu_is_asked():
     runner = MultiSeedRunner(env, copy.deepcopy(CFG), G, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_multiseed_train(runner.alg, env, T, G)
-    with pytest.raises(NotImplementedError, match="log_dir"):
-        MultiSeedRunner(env, copy.deepcopy(CFG), G, log_dir="runs", device="cpu")
+
+
+def test_study_writes_and_resumes_its_checkpoints(tmp_path):
+    """With a ``log_dir`` the study saves ``model_<it>.pt`` every
+    ``save_interval`` iterations and at the end; ``load_latest`` restores
+    every seed's parameters, normalizer moments, Adam state and learning rate
+    bit for bit, and the resumed study then trains as the original does. A
+    checkpoint of another seed count is refused."""
+    cfg = dict(copy.deepcopy(CFG), save_interval=2)
+    a = MultiSeedRunner(NLinkPendulum(N, LINKS, device="cpu"), cfg, G, log_dir=str(tmp_path), device="cpu")
+    a.learn(3)
+    assert sorted(f for f in os.listdir(tmp_path) if f.startswith("model_")) == ["model_0.pt", "model_2.pt"]
+    b = MultiSeedRunner(NLinkPendulum(N, LINKS, device="cpu"), copy.deepcopy(cfg), G, device="cpu")
+    assert b.load_latest(str(tmp_path)) and b.current_learning_iteration == 2
+
+    def leaves(ts):
+        return [*ts.params.values(), *ts.buffers.values(), *ts.adam_mu.values(), *ts.adam_nu.values(),
+                ts.adam_count, ts.lr]
+
+    for x, y in zip(leaves(a.train_state), leaves(b.train_state)):
+        assert torch.equal(x, y)
+    b.collect_state = copy.deepcopy(a.collect_state)
+    b.alg.generator.set_state(a.alg.generator.get_state())
+    a.learn(1)
+    b.learn(1)
+    for x, y in zip(leaves(a.train_state), leaves(b.train_state)):
+        assert torch.equal(x, y)
+    other = MultiSeedRunner(NLinkPendulum(N, LINKS, device="cpu"), copy.deepcopy(CFG), G + 1, device="cpu")
+    with pytest.raises(ValueError, match="seeds"):
+        other.load(os.path.join(tmp_path, "model_2.pt"))
 
 
 def test_stacked_jax_weights_load_one_seed_or_all():
