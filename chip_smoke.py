@@ -64,6 +64,21 @@ Phases, each fatal on failure:
    iteration 2), the capture's seconds and the graph pool's bytes, beside
    the card's name and power limit. Each runner's graph is freed before the
    next.
+4c. PPO's options and the parity study, the counters zeroed just before
+   each run and read just after: ``recurrent_gru256_rnd`` (the GRU-256 flagship with
+   ``benchmarks/parity_pendulum.py``'s RND config) eager, fused and at K=2
+   for 3 iterations, bit for bit with the RND state (predictor, target,
+   both normalizers, counter, the RND Adam); the three symmetry modes
+   ``recurrent_gru256_symmetry_{aug,mirror,log}`` on 4096 ``PointMass``
+   envs (2 iterations, eager), each with its launches (the paired x kernels
+   at S=2, B=2048; the mirror replay ``act_seq`` at S=1, B=2048, forward and
+   backward, or forward only when the loss is only logged); the parity
+   study (a) of ``parity_torch.py``, ``multiseed40_po_nlink_gru64`` (40
+   seeds x 64 ``PartiallyObservableNLink`` envs, GRU-64, fp32: ``gru_xp_*``
+   at G=80, B=16, H=64) eager and fused, with the grid ``gru_xp_fwd``
+   chose there; and ``ppo_ff256x3_bf16`` with adamw, sgd and rmsprop eager
+   and fused for 2 iterations. Their shapes (``PATH_SHAPES``) are held
+   against the plain versions in phase 3 and timed in phase 5.
 5. Time each kernel, in fp32 and in bf16-operand mode, at its main-path
    shape beside its plain version, a PyTorch yardstick the port never calls
    (cuDNN's ``torch.nn.GRU`` / ``torch.nn.LSTM``; one ``torch.bmm`` for the
@@ -105,8 +120,9 @@ import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
+from parity_torch import train_cfg as parity_cfg
 from rsl_rl_tpu_torch.algorithms.distillation import chunks_between
-from rsl_rl_tpu_torch.env import DomainRandomizedNLink, NLinkPendulum
+from rsl_rl_tpu_torch.env import DomainRandomizedNLink, NLinkPendulum, PartiallyObservableNLink, PointMass
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
@@ -219,6 +235,20 @@ DISTILL_SLICES = {"distill_gru256_bf16": ("gru", DISTILL_GRU256_BF16, 3),
 TEACHER_ITERATIONS = 2
 #: the dispatch phase's runs: the runner keys of each, eager first
 DISPATCH_MODES = {"eager": {}, "fused": {"fuse_iteration": True}, "k2": {"iterations_per_dispatch": 2}}
+# RND and symmetry on the GRU-256 flagship: benchmarks/parity_pendulum.py's
+# rnd_cfg (its weight scaled by the env's step_dt) on 4096 NLinkPendulum envs
+RECURRENT_GRU256_RND = copy.deepcopy(RECURRENT_GRU256)
+RECURRENT_GRU256_RND["obs_groups"]["rnd_state"] = ["policy"]
+RECURRENT_GRU256_RND["algorithm"]["rnd_cfg"] = parity_cfg(1, rnd=True)["algorithm"]["rnd_cfg"]
+#: the symmetry modes: (use_data_augmentation, use_mirror_loss), on 4096
+#: PointMass envs with benchmarks/parity_symmetry.py's augmentation
+SYMMETRY_MODES = {"aug": (True, False), "mirror": (False, True), "log": (False, False)}
+SYMMETRY_ITERATIONS = 2
+# the parity study (a) of parity_torch.py: 40 seeds of 64 PartiallyObservableNLink envs
+STUDY40 = {k: v for k, v in parity_cfg(1, recurrent=True).items() if k != "fuse_iteration"}
+STUDY40_SEEDS, STUDY40_ENVS = 40, 64
+#: the optimizers held under graphs on the feedforward headline
+OPTIMIZERS = ("adamw", "sgd", "rmsprop")
 NUM_ENVS, NUM_LINKS, ITERATIONS = 4096, 5, 3
 NUM_SEEDS, ENVS_PER_SEED = 8, 512
 WIDE_D = 520  # an input width beyond the x-streaming kernels' 512
@@ -279,6 +309,17 @@ EDGE_CASES = [("lstm", 2, 5, 200, 200), ("lstm", 1, 1, 200, 128), ("gru", 2, 5, 
               ("gru_xp", 16, 24, 1, 256), ("lstm_xp", 16, 24, 1, 256), ("gru_xp", 3, 1, 7, 1),
               ("lstm_xp", 3, 1, 7, 1), ("gru_xp", 16, 3, 64, 288), ("gru_xp", 40, 5, 16, 64), ("lstm_xp", 40, 5, 16, 64),
               ("gru_xp", 40, 5, 16, 384), ("lstm_xp", 40, 5, 16, 384)]
+
+
+#: the kernel shapes of phase 4c's paths: (family, streams, B, D, H) held
+#: in phase 3 and timed in phase 5 (T=24, fp32): the paired replay of an
+#: augmented PointMass minibatch, the actor's replay of the mirrored obs
+#: (act_seq), and the 40 seeds' actor and critic memories of study (a)
+PATH_SHAPES = {
+    "symmetry_aug": ("gru", 2, 2048, 2, 256),
+    "symmetry_mirror": ("gru", 1, 2048, 2, 256),
+    "study40": ("gru_xp", 80, 16, 10, 64),
+}
 
 
 def fail(msg: str) -> None:
@@ -930,20 +971,26 @@ def run_state(runner) -> list[torch.Tensor]:
     else:
         alg = runner.alg
         tree = (alg.policy.state_dict(), alg.adam_mu, alg.adam_nu, alg.adam_count, alg.lr, runner.collect_state)
+        if alg.rnd is not None:  # predictor, target, both normalizers, counter, and the RND Adam
+            opt = alg.rnd_optimizer
+            tree += (alg.rnd.state_dict(), opt.adam_mu, opt.adam_nu, opt.adam_count)
     return [t.detach().clone() for t in flatten(tree)[0]]
 
 
-def dispatch_runs(name, make_runner, smi) -> None:
-    """Train the slice eagerly, fused and at K=2 (``DISPATCH_MODES``) for
-    ITERATIONS from the same seed; fail unless the graphed runs' state,
-    metrics and launches equal the eager run's bit for bit and their
-    metrics are finite. Prints the steady env-steps/s of the three, the
-    capture's seconds and the graph pool's bytes."""
+def dispatch_runs(name, make_runner, smi, modes=tuple(DISPATCH_MODES), iterations=ITERATIONS,
+                  expected=None) -> dict:
+    """Train the slice eagerly, fused and at K=2 (``DISPATCH_MODES``, or the
+    ``modes`` given) for ``iterations`` from the same seed; fail unless the
+    graphed runs' state, metrics and launches equal the eager run's bit for
+    bit and their metrics are finite, and, with ``expected``, unless the
+    eager run launched what it says. Prints the steady env-steps/s of the
+    runs, the capture's seconds and the graph pool's bytes. Returns the
+    kernels the eager run launched."""
     runs = {}
-    for mode, keys in DISPATCH_MODES.items():
-        runner = make_runner(keys)
+    for mode in modes:
+        runner = make_runner(DISPATCH_MODES[mode])
         reset_counts()
-        runner.learn(ITERATIONS)
+        runner.learn(iterations)
         torch.cuda.synchronize()
         counts = all_counts()
         for row in runner.history:
@@ -966,7 +1013,7 @@ def dispatch_runs(name, make_runner, smi) -> None:
         torch.cuda.empty_cache()
         runs[mode]["reserved_after"] = torch.cuda.memory_reserved()
     eager = runs["eager"]
-    for mode in ("fused", "k2"):
+    for mode in modes[1:]:
         run = runs[mode]
         differ = [i for i, (a, b) in enumerate(zip(eager["state"], run["state"])) if not torch.equal(a, b)]
         same_metrics = all(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
@@ -982,9 +1029,12 @@ def dispatch_runs(name, make_runner, smi) -> None:
         if run["counts"] != eager["counts"]:
             fail(f"{name}: the {mode} run launched {run['counts']}, the eager run {eager['counts']}")
     print(f"dispatch {name} steady env-steps/s: " + json.dumps(
-        {"eager": eager["steps_per_s"], "fused": runs["fused"]["steps_per_s"], "k2": runs["k2"]["steps_per_s"],
+        {**{mode: runs[mode]["steps_per_s"] for mode in modes},
          "fused_capture_s": runs["fused"]["capture_s"], "fused_pool_bytes": runs["fused"]["pool_bytes"],
          "card": smi}))
+    if expected is not None:
+        return check_launches(f"{name} eager", eager["counts"], expected)
+    return {k: n for k, n in eager["counts"].items() if n}
 
 
 def dispatch_slices(teacher_path) -> dict:
@@ -1008,6 +1058,110 @@ def dispatch_slices(teacher_path) -> dict:
     return {**{name: ppo(cfg) for name, (_, cfg) in SLICES.items()},
             **{name: study(cfg) for name, (_, cfg) in MULTISEED_SLICES.items()},
             "ppo_ff256x3_bf16": ppo(PPO_FF256X3_BF16), "distill_gru256_bf16": student}
+
+
+def symmetry_launches(mode: str) -> dict:
+    """A symmetry slice's launches: each minibatch replays the (augmented)
+    batch through the paired x kernels; the mirror-loss mode adds the
+    actor's replay of the mirrored obs at S=1 forward and backward, the
+    logging mode that replay forward only."""
+    minibatches = SYMMETRY_ITERATIONS * RECURRENT_GRU256["algorithm"]["num_learning_epochs"] * \
+        RECURRENT_GRU256["algorithm"]["num_mini_batches"]
+    extra = {"aug": (0, 0), "mirror": (1, 1), "log": (1, 0)}[mode]
+    fwd, bwd, wgrad = FAMILIES["gru"]["kernels"]
+    return {fwd: minibatches * (1 + extra[0]), bwd: minibatches * (1 + extra[1]),
+            wgrad: minibatches * (1 + extra[1])}
+
+
+def run_symmetry_slice(mode: str) -> dict:
+    """Train the GRU-256 flagship with symmetry in ``mode`` on 4096
+    ``PointMass`` envs (SYMMETRY_ITERATIONS, eager) with the launch counters
+    zeroed just before and read just after; fail unless it launched
+    :func:`symmetry_launches` and its metrics, the mirror loss among them,
+    are finite."""
+    name = f"recurrent_gru256_symmetry_{mode}"
+    aug, mirror = SYMMETRY_MODES[mode]
+    cfg = copy.deepcopy(RECURRENT_GRU256)
+    cfg["algorithm"]["symmetry_cfg"] = {
+        "use_data_augmentation": aug, "use_mirror_loss": mirror, "mirror_loss_coeff": 0.5 if mirror else 0.0,
+        "data_augmentation_func": "rsl_rl_tpu_torch.env.toy:point_mass_symmetry"}
+    runner = OnPolicyRunner(PointMass(NUM_ENVS, device="cuda"), cfg, device="cuda")
+    reset_counts()
+    runner.learn(SYMMETRY_ITERATIONS)
+    torch.cuda.synchronize()
+    launches = check_launches(name, all_counts(), symmetry_launches(mode))
+    print_history(name, runner)
+    if "Loss/symmetry" not in runner.history[-1]["metrics"]:
+        fail(f"{name}: no Loss/symmetry metric")
+    return launches
+
+
+def path_slices(smi) -> dict:
+    """Phase 4c's paths: RND on the flagship eager, fused and
+    at K=2; the three symmetry modes; the parity study (a) eager and fused;
+    the feedforward headline with each optimizer eager and fused. Returns
+    ``{slice: {kernel: launches}}`` of their eager runs."""
+    by_slice = {}
+
+    def rnd(keys):
+        return OnPolicyRunner(NLinkPendulum(NUM_ENVS, NUM_LINKS, device="cuda"),
+                              {**copy.deepcopy(RECURRENT_GRU256_RND), **keys}, device="cuda")
+
+    by_slice["recurrent_gru256_rnd"] = dispatch_runs("recurrent_gru256_rnd", rnd, smi,
+                                                     expected=ppo_launches("gru", RECURRENT_GRU256_RND))
+    for mode in SYMMETRY_MODES:
+        by_slice[f"recurrent_gru256_symmetry_{mode}"] = run_symmetry_slice(mode)
+
+    def study(keys):
+        env = PartiallyObservableNLink(STUDY40_ENVS, NUM_LINKS, max_episode_length=400, device="cuda")
+        return MultiSeedRunner(env, {**copy.deepcopy(STUDY40), **keys}, STUDY40_SEEDS, device="cuda")
+
+    by_slice["multiseed40_po_nlink_gru64"] = dispatch_runs(
+        "multiseed40_po_nlink_gru64", study, smi, modes=("eager", "fused"),
+        expected=ppo_launches("gru_xp", STUDY40))
+    _, G, B, _, H = PATH_SHAPES["study40"]
+    print(f"grid gru_xp_fwd G={G} B={B} H={H} fp32 (XpFp32Cost's pick at study (a)):"
+          f" {json.dumps(gru_rnn.gru_xp_fwd_plan(G, B, H, False))}")
+
+    for optimizer in OPTIMIZERS:
+        def headline(keys, optimizer=optimizer):
+            cfg = copy.deepcopy(PPO_FF256X3_BF16)
+            cfg["algorithm"]["optimizer"] = optimizer
+            return OnPolicyRunner(NLinkPendulum(NUM_ENVS, NUM_LINKS, device="cuda"), {**cfg, **keys}, device="cuda")
+
+        dispatch_runs(f"ppo_ff256x3_bf16_{optimizer}", headline, smi, modes=("eager", "fused"), iterations=2,
+                      expected={})
+    return by_slice
+
+
+def path_shape_times(peaks, path_err) -> dict:
+    """Phase 5 at :data:`PATH_SHAPES`: each kernel's time in both operand
+    modes beside its plain version, its bound and its library call (cuDNN's
+    GRU for the x kernels' forward and backward, ``torch.bmm`` for the
+    reductions; none for the xproj forward and backward); ``{kernel:
+    {label: entry}}``."""
+    out = {}
+    T = RECURRENT_GRU256["num_steps_per_env"]
+    for i, (label, (family, S, B, D, H)) in enumerate(PATH_SHAPES.items()):
+        x = make_inputs(family, S, T, B, D, H, seed=700 + i)
+        times, rows = mode_times(family, x)
+        fwd, bwd, wgrad = FAMILIES[family]["kernels"]
+        library = {fwd: None, bwd: None}
+        if not family.endswith("_xp"):
+            library = dict(zip((fwd, bwd), library_rnn_ms(family, S, x, 20)[:2]))
+        library[wgrad] = library_wgrad_ms(rows, 20)
+        for name, (ops, nbytes) in work(family, S, T, B, D, H).items():
+            bound, bound_by = bound_ms(ops, nbytes, peaks, False)
+            entry = {"S": S, "T": T, "B": B, "D": D, "H": H, "max_abs_err": path_err[label][name],
+                     "ms": times[False][name][0], "plain_ms": times[False][name][1], "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": library[name], "bf16_ms": times[True][name][0],
+                     "bf16_bound_ms": bound_ms(ops, nbytes, peaks, True)[0]}
+            out.setdefault(name, {})[label] = entry
+            lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
+            print(f"time {name} at {label} S={S} B={B} D={D} H={H}: fp32 {entry['ms']:.4f} ms (plain"
+                  f" {entry['plain_ms']:.4f} ms, library {lib}, bound {bound:.4f} ms, {bound_by}); bf16"
+                  f" {entry['bf16_ms']:.4f} ms")
+    return out
 
 
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
@@ -1127,6 +1281,21 @@ def main() -> None:
                                + (f", {'bitwise repeatable' if repeat[name] else 'NOT REPEATABLE'}" if name in repeat else ""))
             print(f"edge {family} S={S} T={t} B={b} D={D} H={h} {'bf16' if bf16 else 'fp32'},"
                   f" resets at t=0: " + "; ".join(summary))
+    # the shapes of phase 4c's paths
+    path_err = {}
+    for i, (label, (family, S, b, d, h)) in enumerate(PATH_SHAPES.items()):
+        res, repeat = check_kernels(family, S, T, b, d, h, False, seed=600 + i)
+        path_err[label] = {}
+        summary = []
+        for name, checks in res.items():
+            ok = all(o for _, _, o in checks)
+            passed[name] = passed[name] and ok
+            if name in repeat:
+                repeatable[name] = repeatable[name] and repeat[name]
+            path_err[label][name] = max(e for e, _, _ in checks)
+            summary.append(f"{name} max_abs_err={path_err[label][name]:.3e} (max |plain|"
+                           f" {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'}")
+        print(f"check {label} S={S} T={T} B={b} D={d} H={h} fp32: " + "; ".join(summary))
     print(f"two calls bitwise equal: {repeatable}")
     if not all(passed.values()):
         fail(f"kernel disagrees with its plain version: {passed}")
@@ -1148,6 +1317,8 @@ def main() -> None:
         # ---- 4b. whole-iteration dispatch against eager
         for name, make_runner in dispatch_slices(teacher_path).items():
             dispatch_runs(name, make_runner, smi)
+    # ---- 4c. RND, symmetry, the 40-seed study, the optimizers
+    by_slice.update(path_slices(smi))
     launches = {k: {} for k in all_counts()}
     for slice_name, counts in by_slice.items():
         for k, n in counts.items():
@@ -1251,6 +1422,8 @@ def main() -> None:
         print(f"time {family} replay at G=1 B={B} D={WIDE_D} (projection + kernels): forward {port_fwd:.4f} ms,"
               f" backward {port_bwd:.4f} ms; cuDNN {cell_of(family).upper()} forward {lib_fwd:.4f} ms,"
               f" backward {lib_bwd:.4f} ms; {wgrad} library (bmm) {library_wgrad_ms(rows, 20):.4f} ms")
+    for name, shapes in path_shape_times(peaks, path_err).items():
+        next(k for k in kernels if k["name"] == name)["path_shapes"] = shapes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

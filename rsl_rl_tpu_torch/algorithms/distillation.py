@@ -17,11 +17,11 @@
   mean; the acting carry continues from the end of the replay.
 
 The loss is the per-step mean of the elementwise ``mse`` or ``huber``
-(delta 1, optax's ``huber_loss``) error, summed over a segment. Adam as in
-PPO (``scale_by_adam``, applied as ``p - lr * u`` at the constant learning
-rate); ``max_grad_norm`` clips the ``student`` MLP's gradients only, by
-their own global norm (``optax.masked``): the memory and the std are not
-clipped. The JAX package also has a per-step scan form of the update for
+(delta 1, optax's ``huber_loss``) error, summed over a segment. The
+optimizer (``adam``, ``adamw``, ``sgd`` or ``rmsprop``) as in PPO, applied as
+``p - lr * u`` at the constant learning rate; ``max_grad_norm`` clips the
+``student`` MLP's gradients only, by their own global norm (``optax.masked``):
+the memory and the std are not clipped. The JAX package also has a per-step scan form of the update for
 configs with very many segments, a compile-time workaround for XLA with the
 same math; the port keeps the chunked form only.
 """
@@ -33,8 +33,8 @@ import torch
 from rsl_rl_tpu_torch.algorithms.ppo import (
     ACC_KEYS,
     PPO,
-    AdamTrainer,
     CollectState,
+    Trainer,
     collect_extras_logs,
     step_episode_stats,
 )
@@ -66,7 +66,7 @@ def chunks_between(s0: int, s1: int, T: int) -> list[tuple[int, int]]:
 
 
 @register("algorithm")
-class Distillation(AdamTrainer):
+class Distillation(Trainer):
     """Behavior cloning of the teacher's actions with truncated BPTT."""
 
     def __init__(
@@ -92,8 +92,6 @@ class Distillation(AdamTrainer):
             self._elem_loss = huber_loss
         else:
             raise ValueError(f"Unknown loss type: {loss_type}. Supported types are: ['mse', 'huber']")
-        if optimizer.lower() != "adam":
-            raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; use 'adam'")
         self.policy = policy
         self.device = policy.device
         self.num_learning_epochs = num_learning_epochs
@@ -102,13 +100,14 @@ class Distillation(AdamTrainer):
         # the reference clips the student MLP only; a falsy norm clips nothing
         self.max_grad_norm = max_grad_norm if max_grad_norm else None
         # the teacher (and its memory) require no gradient: not trained
-        self._init_adam([(n, p) for n, p in policy.named_parameters() if p.requires_grad], learning_rate,
-                        self.device)
+        super().__init__([(n, p) for n, p in policy.named_parameters() if p.requires_grad], learning_rate,
+                         self.device, optimizer)
         self.clip_mask = [n.startswith("student.") for n in self.param_names]
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
-    # the collect state is PPO's
+    # the collect state is PPO's (with no RND reward normalizer to size)
     init_collect_state = PPO.init_collect_state
+    rnd = None
 
     # --------------------------------------------------------------- collect
 
@@ -190,7 +189,7 @@ class Distillation(AdamTrainer):
             grads = torch.autograd.grad(losses.sum(), self.params, allow_unused=True)
             # the std gets no gradient from the loss: Adam sees zeros, as in JAX
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
-            self._apply(grads, self.max_grad_norm, self.clip_mask)
+            self.optimizer_step(grads, self.max_grad_norm, self.clip_mask)
             carry = tree_map(torch.Tensor.detach, carry)
             all_losses.append(losses.detach())
         # steps that fill no gradient segment still advance the carry and

@@ -10,9 +10,9 @@
   start carry; for a feedforward one contiguous slices of the window's rows
   shuffled once by one permutation (:func:`pack_minibatch_rows`). Each
   step applies the clipped surrogate + clipped value loss - entropy, the
-  adaptive-KL learning rate, the global-norm clip and Adam with the formulas
-  of the optax chain the JAX package uses (``clip_by_global_norm`` then
-  ``scale_by_adam``, applied as ``p - lr * u``).
+  adaptive-KL learning rate, the global-norm clip and the optimizer with the
+  formulas of the optax chain the JAX package uses (``clip_by_global_norm``
+  then, for Adam, ``scale_by_adam``, applied as ``p - lr * u``).
 - :meth:`PPO.collect_stacked` / :meth:`PPO.update_stacked` do the same for
   G independent seeds at once (multi-seed training, the counterpart of
   ``jax.vmap`` over the JAX package's collect and update): the policies'
@@ -25,8 +25,12 @@
   losses gives each seed its own gradient. The env steps all G*E envs in
   one call.
 
-RND, symmetry and other optimizers are not ported yet and raise when
-configured.
+With ``rnd_cfg`` the collection adds RND's intrinsic reward and the update
+trains its predictor; with ``symmetry_cfg`` the update augments each
+minibatch with its symmetric copies, adds the mirror loss, or logs it
+(:class:`PPO`). The optimizer is ``adam``, ``adamw``, ``sgd`` or
+``rmsprop`` (:class:`Trainer`). The stacked path takes neither RND nor
+symmetry yet, and raises when they are configured.
 """
 
 from __future__ import annotations
@@ -38,11 +42,14 @@ from typing import Any
 import torch
 from torch.func import functional_call, stack_module_state, vmap
 
+from rsl_rl_tpu_torch.modules import symmetry
 from rsl_rl_tpu_torch.modules.policy import check_state_compatible, seed_call
+from rsl_rl_tpu_torch.modules.rnd import RandomNetworkDistillation
 from rsl_rl_tpu_torch.ops import distributions
 from rsl_rl_tpu_torch.ops.gae import compute_gae
 from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs, tree_map
 from rsl_rl_tpu_torch.utils.registry import register
+from rsl_rl_tpu_torch.utils.resolvers import resolve_optimizer, string_to_callable
 
 
 @dataclass
@@ -239,53 +246,51 @@ def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
     )
 
 
-def clip_adam(params, grads, mu, nu, count, lr, max_grad_norm: float | None, clip_mask=None):
-    """``clip_by_global_norm`` -> ``scale_by_adam`` -> ``p - lr * u`` with
-    optax's formulas (the clip scales by ``max_norm / norm`` only when
-    ``norm >= max_norm``; b1=0.9, b2=0.999, eps=1e-8, eps_root=0) for one
-    seed. ``clip_mask`` (one bool a parameter) limits the clip, its norm
-    and its scaling to the marked parameters (``optax.masked``). Pure, so
-    ``torch.func.vmap`` runs it for G seeds, each with its own norm. Returns
-    the new ``(params, mu, nu, count)``."""
+def clip_step(params, grads, mu, nu, count, lr, max_grad_norm: float | None, clip_mask=None,
+              direction=resolve_optimizer("adam")):
+    """``clip_by_global_norm`` -> the optimizer's ``direction`` (default
+    Adam; ``utils/resolvers.py`` ``resolve_optimizer``) -> ``p - lr * u``
+    with optax's formulas (the clip scales by ``max_norm / norm`` only when
+    ``norm >= max_norm``) for one seed. ``clip_mask`` (one bool a parameter)
+    limits the clip, its norm and its scaling to the marked parameters
+    (``optax.masked``). Pure, so ``torch.func.vmap`` runs it for G seeds,
+    each with its own norm. Returns the new ``(params, mu, nu, count)``."""
     grads = list(grads)
     if max_grad_norm is not None:
         mask = [True] * len(grads) if clip_mask is None else list(clip_mask)
         g_norm = torch.sqrt(sum(torch.sum(g * g) for g, m in zip(grads, mask) if m))
         keep = g_norm < max_grad_norm
         grads = [torch.where(keep, g, (g / g_norm) * max_grad_norm) if m else g for g, m in zip(grads, mask)]
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    count = count + 1
-    c = count.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.full_like(c, b1), c)
-    bc2 = 1.0 - torch.pow(torch.full_like(c, b2), c)
-    mu = [(1.0 - b1) * g + b1 * m for g, m in zip(grads, mu)]
-    nu = [(1.0 - b2) * (g * g) + b2 * v for g, v in zip(grads, nu)]
-    params = [p - lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)) for p, m, v in zip(params, mu, nu)]
+    updates, mu, nu, count = direction(grads, params, mu, nu, count)
+    params = [p - lr * u for p, u in zip(params, updates)]
     return params, mu, nu, count
 
 
-class AdamTrainer:
-    """What an algorithm trains with Adam: the named parameters
-    ``param_names`` / ``params``, their optax ``scale_by_adam`` moments and
-    step count, and the learning rate ``lr``, with the clipped step in place
-    and the checkpoint form of the optimizer state."""
+class Trainer:
+    """Named parameters ``param_names`` / ``params`` trained by an optimizer
+    (``adam``, ``adamw``, ``sgd`` or ``rmsprop``): its moments ``adam_mu`` /
+    ``adam_nu`` (named for Adam; rmsprop keeps its second moment in
+    ``adam_nu``, sgd keeps none, so they stay zero), its step count
+    ``adam_count`` and the learning rate ``lr``, with the clipped step in
+    place and the checkpoint form of the optimizer state. The algorithms
+    train their policy through it; PPO's RND predictor has one of its own."""
 
-    def _init_adam(self, named_params, learning_rate: float, device) -> None:
+    def __init__(self, named_params, learning_rate: float, device, optimizer: str = "adam"):
         named = list(named_params)
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self.direction = resolve_optimizer(optimizer)
         self.lr = torch.tensor(learning_rate, dtype=torch.float32, device=device)
-        # optax.scale_by_adam state (b1=0.9, b2=0.999, eps=1e-8, eps_root=0)
         self.adam_count = torch.zeros((), dtype=torch.int32, device=device)
         self.adam_mu = [torch.zeros_like(p) for p in self.params]
         self.adam_nu = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def _apply(self, grads, max_grad_norm: float | None, clip_mask=None) -> None:
-        """The clipped Adam step (:func:`clip_adam`), in place: every tensor
-        of the optimizer keeps its storage (a CUDA graph replays addresses)."""
-        params, mu, nu, count = clip_adam(self.params, grads, self.adam_mu, self.adam_nu,
-                                          self.adam_count, self.lr, max_grad_norm, clip_mask)
+    def optimizer_step(self, grads, max_grad_norm: float | None, clip_mask=None) -> None:
+        """The clipped step (:func:`clip_step`), in place: every tensor of the
+        optimizer keeps its storage (a CUDA graph replays addresses)."""
+        params, mu, nu, count = clip_step(self.params, grads, self.adam_mu, self.adam_nu, self.adam_count,
+                                          self.lr, max_grad_norm, clip_mask, self.direction)
         for dst, src in zip(self.params + self.adam_mu + self.adam_nu + [self.adam_count],
                             params + mu + nu + [count]):
             dst.copy_(src)
@@ -312,8 +317,20 @@ class AdamTrainer:
 
 
 @register("algorithm")
-class PPO(AdamTrainer):
-    """Clipped-surrogate PPO with the adaptive-KL learning rate."""
+class PPO(Trainer):
+    """Clipped-surrogate PPO with the adaptive-KL learning rate, RND and
+    symmetry augmentation.
+
+    ``rnd_cfg`` (resolved by ``modules/rnd.py`` ``resolve_rnd_config``)
+    adds RND's intrinsic reward to the collected rewards and trains its
+    predictor beside the policy, with Adam at the config's
+    ``learning_rate``. ``symmetry_cfg`` (``use_data_augmentation``,
+    ``use_mirror_loss``, ``data_augmentation_func``, ``mirror_loss_coeff``;
+    the env under ``"_env"``, ``modules/symmetry.py``) augments each
+    minibatch with its symmetric copies, adds the mirror loss, or, with
+    neither, logs the mirror loss only. The stacked (multi-seed) path takes
+    neither yet.
+    """
 
     def __init__(
         self,
@@ -344,14 +361,6 @@ class PPO(AdamTrainer):
                 "PPO.__init__ got unexpected arguments, which will be ignored: "
                 + str(list(kwargs.keys()))
             )
-        if rnd_cfg is not None:
-            raise NotImplementedError("RND is not ported yet (ROADMAP.md Queue 1, 'PPO options')")
-        if symmetry_cfg is not None:
-            raise NotImplementedError(
-                "symmetry is not ported yet (ROADMAP.md Queue 1, 'PPO options')"
-            )
-        if optimizer.lower() != "adam":
-            raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet; use 'adam'")
         self.policy = policy
         self.device = policy.device
         self.num_learning_epochs = num_learning_epochs
@@ -370,12 +379,44 @@ class PPO(AdamTrainer):
         self.max_lr = max_lr
 
         self.learning_rate = learning_rate
-        self._init_adam(policy.named_parameters(), learning_rate, self.device)
+        super().__init__(policy.named_parameters(), learning_rate, self.device, optimizer)
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+        self.rnd = None
+        self.rnd_optimizer = None
+        if rnd_cfg is not None:
+            rnd_cfg = dict(rnd_cfg)
+            rnd_lr = rnd_cfg.pop("learning_rate", 1e-3)
+            # a stream of its own: the policy draws from seed - 1 and seed
+            self.rnd = RandomNetworkDistillation(**rnd_cfg, device=self.device, seed=int(seed) + 0x524E44)
+            self.rnd_optimizer = Trainer(self.rnd.predictor.named_parameters(), rnd_lr, self.device)
+
+        self.symmetry = None
+        if symmetry_cfg is not None:
+            symmetry_cfg = dict(symmetry_cfg)
+            if not (symmetry_cfg["use_data_augmentation"] or symmetry_cfg["use_mirror_loss"]):
+                print("Symmetry not used for learning. We will use it for logging instead.")
+            if isinstance(symmetry_cfg["data_augmentation_func"], str):
+                symmetry_cfg["data_augmentation_func"] = string_to_callable(symmetry_cfg["data_augmentation_func"])
+            if not callable(symmetry_cfg["data_augmentation_func"]):
+                raise ValueError(
+                    "Symmetry enabled but the data augmentation function is not callable:"
+                    f" {symmetry_cfg['data_augmentation_func']}"
+                )
+            symmetry_cfg.setdefault("_env", None)
+            self.symmetry = symmetry_cfg
+
+    def _check_single_seed(self) -> None:
+        if self.rnd is not None or self.symmetry is not None:
+            raise NotImplementedError(
+                "RND and symmetry are not ported to multi-seed training yet (ROADMAP.md Queue 1 item 5)"
+            )
 
     # --------------------------------------------------------------- collect
 
     def init_collect_state(self, env_state, obs, num_envs: int) -> CollectState:
+        if self.rnd is not None:
+            self.rnd.init_reward_norm(num_envs)
         return CollectState(
             env_state=env_state,
             obs=obs,
@@ -407,11 +448,16 @@ class PPO(AdamTrainer):
             env_state, next_obs, rew, done, extras = env.step(env_state, action)
             done_f = done.to(torch.float32)
             policy.update_normalization(next_obs)
-            total_rew = rew
+            total_rew, irew = rew, torch.zeros_like(rew)
+            if self.rnd is not None:
+                # the intrinsic reward of the post-step obs
+                self.rnd.update_normalization(next_obs)
+                irew, _ = self.rnd.get_intrinsic_reward(next_obs)
+                total_rew = rew + irew
             if "time_outs" in extras:
-                total_rew = rew + self.gamma * value * extras["time_outs"].to(torch.float32)
+                total_rew = total_rew + self.gamma * value * extras["time_outs"].to(torch.float32)
             carry = policy.reset_carry(carry, done)
-            stats, acc = step_episode_stats(stats, acc, rew, torch.zeros_like(rew), done_f)
+            stats, acc = step_episode_stats(stats, acc, rew, irew, done_f)
             for k, v in collect_extras_logs(extras).items():
                 logs.setdefault(k, []).append(v)
 
@@ -428,6 +474,8 @@ class PPO(AdamTrainer):
         )
         metrics = dict(acc)
         metrics["Policy/mean_noise_std"] = rollout.sigma.mean()
+        if self.rnd is not None:
+            metrics["Rnd/weight"] = self.rnd.current_weight(self.rnd.counter)
         for k, v in logs.items():
             metrics[f"extras/{k}"] = torch.stack(v).mean()
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
@@ -466,10 +514,14 @@ class PPO(AdamTrainer):
         for batch, carry0 in minibatches(policy, rollout, returns, advantages, num_mini_batches,
                                          self.num_learning_epochs, perm):
             loss, aux = self._loss(batch, carry0)
-            grads = torch.autograd.grad(loss, self.params)
+            rnd_params = [] if self.rnd is None else self.rnd_optimizer.params
+            grads = torch.autograd.grad(loss, self.params + rnd_params)
             if self.desired_kl is not None and self.schedule == "adaptive":
                 self._adapt_lr(aux["kl"])
-            self._apply(grads, self.max_grad_norm)
+            self.optimizer_step(grads[:len(self.params)], self.max_grad_norm)
+            if self.rnd is not None:
+                # the predictor's own Adam at the RND learning rate, unclipped
+                self.rnd_optimizer.optimizer_step(grads[len(self.params):], None)
             for k, v in aux.items():
                 outs.setdefault(k, []).append(v)
             outs.setdefault("learning_rate", []).append(self.lr.clone())
@@ -512,6 +564,7 @@ class PPO(AdamTrainer):
         metric. The normalizer moments in ``ts.buffers`` update in place, per
         seed. ``action_noise [G, T, E, A]`` replaces the normal draws, which
         are otherwise taken for all seeds at once, outside the batched policy."""
+        self._check_single_seed()
         call = partial(seed_call, self.policy, ts.params, ts.buffers)
         env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
         G, E = stats.cur_reward_sum.shape
@@ -566,6 +619,7 @@ class PPO(AdamTrainer):
         steps each seed's learning rate, clip and Adam on its own. A
         feedforward policy shuffles each seed's rows by its own permutation,
         ``perm [G, rows]`` (drawn when not given)."""
+        self._check_single_seed()
         call = partial(seed_call, self.policy, ts.params, ts.buffers)
         with torch.no_grad():
             last_values, carry = call("value", cs.obs, cs.carry)
@@ -574,7 +628,7 @@ class PPO(AdamTrainer):
             returns, advantages = vmap(gae)(rollout.rewards, rollout.values, rollout.dones, last_values)
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
         names = list(ts.params)
-        step = vmap(partial(clip_adam, max_grad_norm=self.max_grad_norm))
+        step = vmap(partial(clip_step, max_grad_norm=self.max_grad_norm, direction=self.direction))
         num_mini_batches, rows = self._row_count(rollout)
         if perm is None and not self.policy.is_recurrent:
             G = ts.lr.shape[0]
@@ -609,9 +663,62 @@ class PPO(AdamTrainer):
     # ------------------------------------------------------------------ loss
 
     def _loss(self, batch: dict, carry0):
-        """Per-minibatch loss over a ``[T, nb]`` window; returns ``(loss, aux)``."""
-        mean, std, value = self.policy.act_value_seq(batch["obs"], carry0, batch.get("resets"))
-        return self._loss_terms(mean, std, value, batch)
+        """Per-minibatch loss over a ``[T, nb]`` window (feedforward: ``[B]``
+        rows); returns ``(loss, aux)``. With symmetry augmentation the batch
+        is extended by its symmetric copies first; the KL and the entropy
+        then see the original part only."""
+        policy, sym = self.policy, self.symmetry
+        time_major = policy.is_recurrent
+        obs, resets = batch["obs"], batch.get("resets")
+        first = None
+        if sym is not None and sym["use_data_augmentation"]:
+            n = batch["actions"].shape[1 if time_major else 0]
+            first = partial(_part, n=n, time_major=time_major, rest=False)
+            obs, actions, num_aug = symmetry.apply_augmentation(
+                sym["data_augmentation_func"], sym["_env"], obs, batch["actions"], time_major)
+            batch = {**batch, "actions": actions, **{
+                k: symmetry.tile_batch(batch[k], num_aug, time_major)
+                for k in ("log_probs", "values", "advantages", "returns")}}
+            if time_major:
+                resets = symmetry.tile_batch(resets, num_aug, True)
+                carry0 = symmetry.tile_carry(carry0, num_aug)
+        mean, std, value = policy.act_value_seq(obs, carry0, resets)
+        loss, aux = self._loss_terms(mean, std, value, batch, first)
+        if sym is not None:
+            symmetry_loss = self._mirror_loss(batch["obs"], carry0, resets, mean if first is not None else None)
+            if sym["use_mirror_loss"]:
+                loss = loss + sym["mirror_loss_coeff"] * symmetry_loss
+            aux["symmetry"] = symmetry_loss.detach()
+        if self.rnd is not None:
+            rnd_loss = self.rnd.predictor_loss(batch["obs"])
+            loss = loss + rnd_loss
+            aux["rnd"] = rnd_loss.detach()
+        return loss, aux
+
+    def _mirror_loss(self, obs, carry0, resets, mean_aug):
+        """The mean squared difference between the actor's mean on each
+        symmetric copy of the obs and the mirror of its mean on the original
+        (the mirrored target is a constant). ``mean_aug`` is the augmented
+        batch's mean when data augmentation already computed it (``carry0``
+        and ``resets`` are then tiled); otherwise the actor replays the
+        augmented obs (a constant) here, with gradients in mirror-loss mode
+        and without them when the loss is only logged."""
+        sym, policy = self.symmetry, self.policy
+        time_major = policy.is_recurrent
+        fn, env = sym["data_augmentation_func"], sym["_env"]
+        n = next(iter(obs.values())).shape[1 if time_major else 0]
+        if mean_aug is None:
+            obs_aug, _, num_aug = symmetry.apply_augmentation(fn, env, obs, None, time_major)
+            obs_aug = {k: v.detach() for k, v in obs_aug.items()}
+            if time_major:
+                carry0 = symmetry.tile_carry(carry0, num_aug)
+                resets = symmetry.tile_batch(resets, num_aug, True)
+            with torch.set_grad_enabled(torch.is_grad_enabled() and sym["use_mirror_loss"]):
+                mean_aug = policy.act_seq(obs_aug, carry0, resets)[0]
+        _, mirrored, _ = symmetry.apply_augmentation(fn, env, None, _part(mean_aug, n, time_major, False),
+                                                      time_major)
+        return torch.mean(torch.square(_part(mean_aug, n, time_major, True)
+                                       - _part(mirrored, n, time_major, True).detach()))
 
     def _seed_loss(self, params: dict, buffers: dict, batch: dict, carry0):
         """:meth:`_loss` of one seed with its policy state substituted (vmapped
@@ -620,15 +727,21 @@ class PPO(AdamTrainer):
             self.policy, (params, buffers), ("act_value_seq", batch["obs"], carry0, batch.get("resets")))
         return self._loss_terms(mean, std, value, batch)
 
-    def _loss_terms(self, mean, std, value, batch: dict):
-        """The loss of a minibatch from the replayed policy outputs."""
+    def _loss_terms(self, mean, std, value, batch: dict, first=None):
+        """The loss of a minibatch from the replayed policy outputs. With
+        ``first`` (symmetry augmentation) the per-sample targets are tiled
+        over the copies, and ``first`` takes the original part: the KL and the
+        entropy see it alone, and the per-minibatch advantage normalization
+        uses its statistics."""
+        first = first or (lambda x: x)
         advantages = batch["advantages"]
         if self.normalize_advantage_per_mini_batch:
-            advantages = (advantages - advantages.mean()) / (advantages.std() + 1e-8)
+            orig = first(advantages)
+            advantages = (advantages - orig.mean()) / (orig.std() + 1e-8)
         logp = distributions.log_prob(mean, std, batch["actions"])
-        entropy_mean = distributions.entropy(std).mean()
+        entropy_mean = distributions.entropy(first(std)).mean()
         kl_mean = distributions.kl_divergence(
-            batch["mu"], batch["sigma"], mean.detach(), std.detach()
+            batch["mu"], batch["sigma"], first(mean).detach(), first(std).detach()
         ).mean()
 
         ratio = torch.exp(logp - batch["log_probs"])
@@ -657,3 +770,10 @@ class PPO(AdamTrainer):
             "kl": kl_mean,
         }
         return loss, aux
+
+
+def _part(x: torch.Tensor, n: int, time_major: bool, rest: bool) -> torch.Tensor:
+    """The original part (the first ``n`` along the batch axis, axis 1 when
+    time-major) of an augmented batch array, or with ``rest`` the copies."""
+    axis = 1 if time_major else 0
+    return x.narrow(axis, n, x.shape[axis] - n) if rest else x.narrow(axis, 0, n)

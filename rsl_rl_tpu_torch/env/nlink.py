@@ -70,6 +70,22 @@ def hash_draws(keys: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
     return z[:, n], z[:, :n]
 
 
+def uniform_draws(bits: torch.Tensor, low, width) -> torch.Tensor:
+    """fp32 uniforms in ``[low, low + width)`` from the top 24 bits of each
+    64-bit draw of :func:`hash_draws`."""
+    return _shr(bits, 40).to(torch.float32) * width / 2**24 + low
+
+
+def random_episode_lengths(state: EnvState, max_episode_length) -> EnvState:
+    """``state`` with its episode lengths scattered over ``[0,
+    max_episode_length_i)`` (``init_at_random_ep_len``), drawn from each
+    env's key ``state.rng``, which advances."""
+    rng, bits = hash_draws(state.rng, 1)
+    maxlen = torch.as_tensor(max_episode_length, dtype=torch.int64, device=state.rng.device)
+    lengths = (_shr(bits[:, 0], 33) * maxlen) >> 31  # exact integer bounds
+    return dataclasses.replace(state, episode_length=lengths.to(torch.int32), rng=rng)
+
+
 def env_keys(seed: int, num_envs: int, device=None) -> torch.Tensor:
     """The per-env keys ``[num_envs]`` int64 that ``reset(seed)`` starts from."""
     root = _mix(torch.tensor([_int64(int(seed) * _GOLDEN)], dtype=torch.int64, device=device))
@@ -105,6 +121,7 @@ class NLinkPendulum(VecEnv):
         self.num_envs = num_envs
         self.num_links = num_links
         self.num_actions = num_links
+        self.step_dt = self.dt  # the env step's seconds, which resolve_rnd_config reads
         self.max_episode_length = as_episode_length(max_episode_length, self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.masses = torch.ones(num_links, **f32)
@@ -208,7 +225,7 @@ class NLinkPendulum(VecEnv):
         its key, ``{"theta", "omega"}``: fp32 uniforms from the top 24 bits
         of each draw."""
         rng, bits = hash_draws(rng, 2 * self.num_links)
-        draws = _shr(bits, 40).to(torch.float32) * self._draw_width / 2**24 + self._draw_low
+        draws = uniform_draws(bits, self._draw_low, self._draw_width)
         return rng, {"theta": draws[:, : self.num_links], "omega": draws[:, self.num_links :]}
 
     def _next_state(self, state: NLinkState | None, fresh: dict, done: torch.Tensor | None,
@@ -234,10 +251,7 @@ class NLinkPendulum(VecEnv):
     def randomize_episode_length(self, state: NLinkState) -> NLinkState:
         """Scatter the episode lengths over ``[0, max_episode_length_i)``
         (``init_at_random_ep_len``), drawn from each env's key, which advances."""
-        rng, bits = hash_draws(state.rng, 1)
-        maxlen = torch.as_tensor(self.max_episode_length, dtype=torch.int64, device=self.device)
-        lengths = (_shr(bits[:, 0], 33) * maxlen) >> 31  # exact integer bounds
-        return dataclasses.replace(state, episode_length=lengths.to(torch.int32), rng=rng)
+        return random_episode_lengths(state, self.max_episode_length)
 
     def step(self, state: NLinkState, actions: torch.Tensor):
         u = torch.clamp(actions, -self.max_torque, self.max_torque)
@@ -272,6 +286,16 @@ class NLinkPendulum(VecEnv):
         )
         extras = {"time_outs": time_out, "log": {"nlink/tip_height": height}}
         return state, self._obs(state), reward, done, extras
+
+
+@register("env")
+class PartiallyObservableNLink(NLinkPendulum):
+    """N-link swing-up with the angular velocities hidden from the policy:
+    the observation is ``[cos θ, sin θ]`` only (``2L`` dims), so a policy
+    must estimate ``ω`` from history (the recurrent parity task)."""
+
+    def _obs(self, state: NLinkState) -> dict[str, torch.Tensor]:
+        return {"policy": torch.cat([torch.cos(state.theta), torch.sin(state.theta)], dim=-1)}
 
 
 @dataclass
@@ -324,7 +348,7 @@ class DomainRandomizedNLink(NLinkPendulum):
         next ``L``."""
         L = self.num_links
         rng, bits = hash_draws(rng, 3 * L)
-        draws = _shr(bits[:, : 2 * L], 40).to(torch.float32) * self._draw_width / 2**24 + self._draw_low
+        draws = uniform_draws(bits[:, : 2 * L], self._draw_low, self._draw_width)
         u = _shr(bits[:, 2 * L :], 40).to(torch.float32) / 2**24
         # exp in fp64, rounded to fp32: the same bits on the CPU and the card
         # (their fp32 exp differ in the last place)

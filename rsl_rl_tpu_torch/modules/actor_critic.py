@@ -132,6 +132,14 @@ class ActorCritic(nn.Module):
         """Single-step value ``[N]`` and the carry."""
         return self.critic(self._critic_in(obs)).squeeze(-1), carry
 
+    def act_seq(self, obs, carry0, resets):
+        """``(mean, std)`` of an update batch."""
+        return self._dist_from_features(self._actor_in(obs))
+
+    def value_seq(self, obs, carry0, resets):
+        """Value ``[...]`` of an update batch."""
+        return self.critic(self._critic_in(obs)).squeeze(-1)
+
     def act_value_seq(self, obs, carry0, resets):
         """``(mean, std, value)`` of an update batch."""
         mean, std = self._dist_from_features(self._actor_in(obs))

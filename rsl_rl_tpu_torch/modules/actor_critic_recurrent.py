@@ -8,6 +8,8 @@ over the window through :func:`~rsl_rl_tpu_torch.networks.memory.paired_sequence
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from rsl_rl_tpu_torch.modules.actor_critic import ActorCritic
@@ -29,6 +31,15 @@ class ActorCriticRecurrent(ActorCritic):
         rnn_num_layers: int = 1,
         **kwargs,
     ):
+        if "rnn_hidden_size" in kwargs:
+            warnings.warn(
+                "The argument `rnn_hidden_size` is deprecated and will be removed in a future"
+                " version. Please use `rnn_hidden_dim` instead.",
+                DeprecationWarning,
+            )
+            size = kwargs.pop("rnn_hidden_size")
+            if rnn_hidden_dim == 256:
+                rnn_hidden_dim = size
         super().__init__(
             obs, obs_groups, num_actions, trunk_inputs=(rnn_hidden_dim, rnn_hidden_dim), **kwargs
         )
@@ -66,6 +77,17 @@ class ActorCriticRecurrent(ActorCritic):
     def value(self, obs, carry):
         new_c, features = self.memory_c.step(carry["critic"], self._critic_in(obs))
         return self.critic(features).squeeze(-1), {**carry, "critic": new_c}
+
+    def act_seq(self, obs, carry0, resets):
+        """Actor distribution of a ``[T, B]`` window, replaying the actor memory
+        alone from ``carry0`` (the x-streaming replay at one stream)."""
+        features = self.memory_a.sequence(carry0["actor"], self._actor_in(obs), resets)
+        return self._dist_from_features(features)
+
+    def value_seq(self, obs, carry0, resets):
+        """Value of a ``[T, B]`` window, replaying the critic memory alone."""
+        features = self.memory_c.sequence(carry0["critic"], self._critic_in(obs), resets)
+        return self.critic(features).squeeze(-1)
 
     def act_value_seq(self, obs, carry0, resets):
         """Actor distribution and value of a ``[T, B]`` update batch, replaying

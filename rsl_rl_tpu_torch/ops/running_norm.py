@@ -1,8 +1,9 @@
-"""Running-moment observation normalization (counterpart of
-``rsl_rl_tpu/ops/running_norm.py``). The moments are buffers of a small
-``nn.Module``, so they move with ``.to(device)`` and are updated in place.
-Multi-seed training stacks each seed's moments and updates them under
-``torch.func.vmap`` (``modules.policy.seed_call``), per seed."""
+"""Running-moment normalization (counterpart of
+``rsl_rl_tpu/ops/running_norm.py``): the observation normalizer and the
+RND reward normalizer. The moments are buffers of a small ``nn.Module``, so
+they move with ``.to(device)`` and are updated in place. Multi-seed training
+stacks each seed's moments and updates them under ``torch.func.vmap``
+(``modules.policy.seed_call``), per seed."""
 
 from __future__ import annotations
 
@@ -14,16 +15,18 @@ class RunningNormState(nn.Module):
     """Empirical mean/variance normalizer state.
 
     Attributes:
-        mean, var: running mean and (biased) variance, ``[dim]``.
+        mean, var: running mean and (biased) variance, ``[dim]`` (``dim``
+            may be a shape, ``()`` for a scalar stream).
         count: samples folded in so far (float32 scalar).
         until: updates stop once ``count >= until``; ``None`` never freezes.
         eps: added to the std in :func:`normalize`.
     """
 
-    def __init__(self, dim: int, eps: float = 1e-2, until: float | None = None):
+    def __init__(self, dim: int | tuple, eps: float = 1e-2, until: float | None = None):
         super().__init__()
-        self.register_buffer("mean", torch.zeros(dim, dtype=torch.float32))
-        self.register_buffer("var", torch.ones(dim, dtype=torch.float32))
+        shape = (dim,) if isinstance(dim, int) else tuple(dim)
+        self.register_buffer("mean", torch.zeros(shape, dtype=torch.float32))
+        self.register_buffer("var", torch.ones(shape, dtype=torch.float32))
         self.register_buffer("count", torch.zeros((), dtype=torch.float32))
         self.until = None if until is None else float(until)
         self.eps = eps
@@ -70,3 +73,28 @@ def update_running_norm(state: RunningNormState, x: torch.Tensor) -> RunningNorm
         state.var.copy_(torch.where(frozen, state.var, new_var))
         state.count.copy_(torch.where(frozen, state.count, new_count))
     return state
+
+
+class DiscountedVariationNormState(nn.Module):
+    """Reward normalization by the std of the discounted return (the RND
+    reward normalizer): a per-env accumulator ``avg = gamma * avg + r``
+    feeds the scalar running normalizer ``emp``, whose std divides the
+    reward."""
+
+    def __init__(self, num_envs: int, gamma: float = 0.99, eps: float = 1e-2, until: float | None = None):
+        super().__init__()
+        self.emp = RunningNormState((), eps=eps, until=until)
+        self.register_buffer("avg", torch.zeros(num_envs, dtype=torch.float32))
+        self.gamma = gamma
+
+
+@torch.no_grad()
+def normalize_reward(state: DiscountedVariationNormState, rew: torch.Tensor, update: bool = True) -> torch.Tensor:
+    """Update the accumulator and the moments in place (with ``update``),
+    then divide the reward by the current std where it is positive (no mean
+    subtraction, no eps)."""
+    if update:
+        state.avg.copy_(state.avg * state.gamma + rew)
+        update_running_norm(state.emp, state.avg)
+    std = state.emp.std
+    return torch.where(std > 0, rew / torch.where(std > 0, std, torch.ones_like(std)), rew)

@@ -57,6 +57,10 @@ class MultiSeedRunner(TrainingLoop):
         self.cfg = dict(train_cfg)
         check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
+        for key in ("rnd_cfg", "symmetry_cfg"):
+            if self.alg_cfg.get(key) is not None:
+                raise NotImplementedError(f"{key} is not ported to multi-seed training yet (ROADMAP.md Queue 1"
+                                          " item 5)")
         self.policy_cfg = dict(train_cfg["policy"])
         self.env = env
         self.num_seeds = int(num_seeds)

@@ -29,6 +29,8 @@ import torch
 import rsl_rl_tpu_torch.algorithms  # noqa: F401  (registers the algorithms)
 import rsl_rl_tpu_torch.modules  # noqa: F401  (registers the policies)
 from rsl_rl_tpu_torch.modules.policy import check_state_compatible
+from rsl_rl_tpu_torch.modules.rnd import resolve_rnd_config
+from rsl_rl_tpu_torch.modules.symmetry import resolve_symmetry_config
 from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
@@ -94,6 +96,8 @@ class OnPolicyRunner(TrainingLoop):
 
         env_state, obs = env.reset(seed)
         default_sets = ["critic"] if self.training_type == "rl" else ["teacher"]
+        if self.training_type == "rl" and self.alg_cfg.get("rnd_cfg") is not None:
+            default_sets.append("rnd_state")
         self.cfg["obs_groups"] = resolve_obs_groups(obs, self.cfg["obs_groups"], default_sets)
         self.alg = self._construct_algorithm(obs, seed)
         self.collect_state = self.alg.init_collect_state(env_state, obs, env.num_envs)
@@ -103,11 +107,14 @@ class OnPolicyRunner(TrainingLoop):
         self.current_learning_iteration = 0
         #: one dict per finished iteration: collection_s, learn_s, steps_per_s, metrics
         self.history: list[dict] = []
-        self._ep_window = deque()  # (rew_sum, len_sum, count) per iteration
+        # (rew_sum, len_sum, extrinsic sum, intrinsic sum, count) per iteration
+        self._ep_window = deque()
 
     def _construct_algorithm(self, obs, seed: int):
         """Policy and algorithm from the config by registered name."""
         map_empirical_normalization(self.cfg, self.policy_cfg)
+        self.alg_cfg = resolve_rnd_config(self.alg_cfg, obs, self.cfg["obs_groups"], self.env)
+        self.alg_cfg = resolve_symmetry_config(self.alg_cfg, self.env)
         policy_class = resolve("policy", self.policy_cfg.pop("class_name"))
         policy = policy_class(obs, self.cfg["obs_groups"], self.env.num_actions,
                               device=self.device, seed=seed, **self.policy_cfg)
@@ -156,18 +163,17 @@ class OnPolicyRunner(TrainingLoop):
     def _to_host(self, metrics: dict) -> dict:
         return {k: float(v) for k, v in metrics.items()}
 
-    def _episode_window_stats(self, metrics: dict) -> tuple[float, float, float]:
-        """Means over a trailing window of about 100 finished episodes."""
-        self._ep_window.append(
-            (metrics["ep_reward_sum"], metrics["ep_length_sum"], metrics["ep_count"])
-        )
-        while len(self._ep_window) > 1 and sum(e[2] for e in self._ep_window) - self._ep_window[0][2] >= 100:
+    def _episode_window_stats(self, metrics: dict) -> tuple[float, float, float, float, float]:
+        """Means over a trailing window of about 100 finished episodes: reward,
+        length, extrinsic and intrinsic reward, and the episode count."""
+        self._ep_window.append(tuple(metrics[k] for k in ("ep_reward_sum", "ep_length_sum", "ep_ereward_sum",
+                                                          "ep_ireward_sum", "ep_count")))
+        while len(self._ep_window) > 1 and sum(e[4] for e in self._ep_window) - self._ep_window[0][4] >= 100:
             self._ep_window.popleft()
-        count = sum(e[2] for e in self._ep_window)
+        count = sum(e[4] for e in self._ep_window)
         if count == 0:
-            return 0.0, 0.0, 0.0
-        return (sum(e[0] for e in self._ep_window) / count,
-                sum(e[1] for e in self._ep_window) / count, count)
+            return 0.0, 0.0, 0.0, 0.0, 0.0
+        return (*(sum(e[i] for e in self._ep_window) / count for i in range(4)), count)
 
     def _log(self, it, start_iter, tot_iter, metrics, collection_time, learn_time, width=80, pad=35):
         collection_size = self.num_steps_per_env * self.env.num_envs
@@ -182,10 +188,10 @@ class OnPolicyRunner(TrainingLoop):
             "steps_per_s": fps,
             "metrics": metrics,
         })
-        mean_reward, mean_ep_len, ep_count = self._episode_window_stats(metrics)
+        mean_reward, mean_ep_len, mean_erew, mean_irew, ep_count = self._episode_window_stats(metrics)
         if self.writer is not None:
             self._write_scalars(it, metrics, int(fps), collection_time, learn_time, mean_reward, mean_ep_len,
-                                ep_count)
+                                mean_erew, mean_irew, ep_count)
         header = f" \033[1m Learning iteration {it}/{tot_iter} \033[0m "
         log = (
             f"{'#' * width}\n{header.center(width, ' ')}\n\n"
@@ -197,6 +203,9 @@ class OnPolicyRunner(TrainingLoop):
             name = key.removeprefix("Loss/")
             if key.startswith("Loss/") and name not in ("kl", "learning_rate"):
                 log += f"{f'Mean {name} loss:':>{pad}} {value:.4f}\n"
+        if ep_count > 0 and "Rnd/weight" in metrics:
+            log += f"{'Mean extrinsic reward:':>{pad}} {mean_erew:.2f}\n"
+            log += f"{'Mean intrinsic reward:':>{pad}} {mean_irew:.2f}\n"
         if ep_count > 0:
             log += f"{'Mean reward:':>{pad}} {mean_reward:.2f}\n"
             log += f"{'Mean episode length:':>{pad}} {mean_ep_len:.2f}\n"
@@ -211,7 +220,7 @@ class OnPolicyRunner(TrainingLoop):
         print(log)
 
     def _write_scalars(self, it, metrics, fps, collection_time, learn_time, mean_reward, mean_ep_len,
-                       ep_count) -> None:
+                       mean_erew, mean_irew, ep_count) -> None:
         """The writer's scalars of an iteration (the JAX package's ``_log``)."""
         w = self.writer
         for key, value in metrics.items():
@@ -225,7 +234,12 @@ class OnPolicyRunner(TrainingLoop):
             if key.startswith("extras/"):
                 name = key.removeprefix("extras/")
                 w.add_scalar(name if "/" in name else f"Episode/{name}", value, it)
+        if "Rnd/weight" in metrics:
+            w.add_scalar("Rnd/weight", metrics["Rnd/weight"], it)
         if ep_count > 0:
+            if "Rnd/weight" in metrics:
+                w.add_scalar("Rnd/mean_extrinsic_reward", mean_erew, it)
+                w.add_scalar("Rnd/mean_intrinsic_reward", mean_irew, it)
             w.add_scalar("Train/mean_reward", mean_reward, it)
             w.add_scalar("Train/mean_episode_length", mean_ep_len, it)
             if self.logger_type != "wandb":
@@ -236,24 +250,31 @@ class OnPolicyRunner(TrainingLoop):
 
     def save(self, path: str, infos=None) -> None:
         """Write the training state to ``path``: the policy's state dict
-        (parameters and normalizer moments), the Adam moments and count, the
-        learning rate, the iteration and ``infos`` (plain data)."""
-        save_checkpoint(path, {
-            "model": self.alg.policy.state_dict(),
-            "opt_state": self.alg.optimizer_state(),
-            "lr": self.alg.lr,
+        (parameters and normalizer moments), the optimizer's moments and
+        count, the learning rate, the iteration and ``infos`` (plain data);
+        with RND also its state dict (predictor, target, normalizers,
+        counter) and its optimizer's state."""
+        alg = self.alg
+        state = {
+            "model": alg.policy.state_dict(),
+            "opt_state": alg.optimizer_state(),
+            "lr": alg.lr,
             "iter": int(self.current_learning_iteration),
             "infos": infos,
-        })
+        }
+        if alg.rnd is not None:
+            state["rnd"] = alg.rnd.state_dict()
+            state["rnd_opt_state"] = alg.rnd_optimizer.optimizer_state()
+        save_checkpoint(path, state)
         self._upload_model(path)
 
     def load(self, path: str, load_optimizer: bool = True):
         """Restore a checkpoint; returns its ``infos``.
 
         The policy decides from the model state whether this is a resume
-        (its ``load_policy_state`` flag): on a resume the optimizer state, the
-        learning rate (with ``load_optimizer``) and the iteration are
-        restored; on a teacher bootstrap (an RL checkpoint loaded into a
+        (its ``load_policy_state`` flag): on a resume the RND state (which a
+        run with RND requires), the optimizer states, the learning rate (with
+        ``load_optimizer``) and the iteration are restored; on a teacher bootstrap (an RL checkpoint loaded into a
         distillation policy) the checkpoint's optimizer extras belong to the
         teacher's training and are dropped. A checkpoint that neither
         matches the policy nor remaps raises ``ValueError`` with both causes.
@@ -277,8 +298,19 @@ class OnPolicyRunner(TrainingLoop):
                 ) from remap_err
             raise
         if resumed:
+            rnd = self.alg.rnd
+            if rnd is not None:
+                # strict: a run with RND resumes only with RND state
+                if "rnd" not in loaded:
+                    raise ValueError(f"Checkpoint {path} has no RND state but this run has RND enabled;"
+                                     " it was saved by a non-RND configuration.")
+                check_state_compatible(rnd.state_dict(), loaded["rnd"], "RND state")
+                rnd.load_state_dict(loaded["rnd"])
             if load_optimizer:
                 self.alg.load_optimizer_state(loaded["opt_state"], loaded["lr"])
+                if rnd is not None and "rnd_opt_state" in loaded:
+                    opt = self.alg.rnd_optimizer
+                    opt.load_optimizer_state(loaded["rnd_opt_state"], opt.lr)
             self.current_learning_iteration = int(loaded["iter"])
         return loaded["infos"]
 

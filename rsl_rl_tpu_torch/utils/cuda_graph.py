@@ -30,6 +30,7 @@ On the CPU the same in-place callable runs eagerly.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable
 
@@ -179,9 +180,20 @@ class IterationGraph:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = _read_counts()
+        # A dead runner lives on in a reference cycle (its graph's step is
+        # its bound method) until the cyclic collector frees it, and freeing
+        # its graph inside this capture would invalidate the capture (torch
+        # no longer collects on entering one): collect now, and not during it.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         start = time.perf_counter()
-        with capture:
-            self._packed = self._iterate()
+        try:
+            with capture:
+                self._packed = self._iterate()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - start
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved

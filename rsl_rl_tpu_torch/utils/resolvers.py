@@ -1,8 +1,10 @@
-"""Name-to-object resolvers for config-driven construction (the part of
-``rsl_rl_tpu/utils/resolvers.py`` the on-policy runner needs)."""
+"""Name-to-object resolvers for config-driven construction (counterpart of
+``rsl_rl_tpu/utils/resolvers.py``): activations, optimizers, ``"module:attr"``
+callables and observation sets."""
 
 from __future__ import annotations
 
+import importlib
 import warnings
 from typing import Any, Callable
 
@@ -33,6 +35,76 @@ def resolve_nn_activation(act_name: str) -> Callable[[torch.Tensor], torch.Tenso
             f"Invalid activation function '{act_name}'. Valid activations are: {list(_ACTIVATIONS)}"
         )
     return _ACTIVATIONS[name]
+
+
+# The optimizers' update directions, optax's formulas as the JAX package chains
+# them. Each is pure (``torch.func.vmap`` runs it for G seeds):
+# ``direction(grads, params, mu, nu, count) -> (updates, mu, nu, count)``,
+# applied as ``p - lr * u``. ``mu`` is the first moment (adam, adamw), ``nu``
+# the second (adam, adamw, rmsprop); an optimizer that keeps none leaves
+# them as they are. ``count`` counts the steps.
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def _adam(grads, params, mu, nu, count):
+    """``optax.scale_by_adam`` (b1=0.9, b2=0.999, eps=1e-8, eps_root=0)."""
+    count = count + 1
+    c = count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.full_like(c, _B1), c)
+    bc2 = 1.0 - torch.pow(torch.full_like(c, _B2), c)
+    mu = [(1.0 - _B1) * g + _B1 * m for g, m in zip(grads, mu)]
+    nu = [(1.0 - _B2) * (g * g) + _B2 * v for g, v in zip(grads, nu)]
+    return [(m / bc1) / (torch.sqrt(v / bc2) + _EPS) for m, v in zip(mu, nu)], mu, nu, count
+
+
+def _adamw(grads, params, mu, nu, count, weight_decay: float = 1e-2):
+    """``scale_by_adam`` then ``add_decayed_weights(1e-2)`` (torch AdamW's
+    default decay, decoupled: scaled by the learning rate with the rest)."""
+    updates, mu, nu, count = _adam(grads, params, mu, nu, count)
+    return [u + weight_decay * p for u, p in zip(updates, params)], mu, nu, count
+
+
+def _sgd(grads, params, mu, nu, count):
+    """``optax.identity``."""
+    return list(grads), mu, nu, count + 1
+
+
+def _rmsprop(grads, params, mu, nu, count, decay: float = 0.99, eps: float = 1e-8):
+    """``optax.scale_by_rms(decay=0.99, eps=1e-8, eps_in_sqrt=False)``
+    (torch RMSprop's alpha, eps outside the square root)."""
+    nu = [(1.0 - decay) * (g * g) + decay * v for g, v in zip(grads, nu)]
+    return [g * (1.0 / (torch.sqrt(v) + eps)) for g, v in zip(grads, nu)], mu, nu, count + 1
+
+
+_OPTIMIZERS = {"adam": _adam, "adamw": _adamw, "sgd": _sgd, "rmsprop": _rmsprop}
+
+
+def resolve_optimizer(optimizer_name: str) -> Callable:
+    """The update direction of an optimizer by name (adam, adamw, sgd,
+    rmsprop), without the learning rate: the algorithms apply ``p - lr * u``
+    with their adaptive rate."""
+    name = optimizer_name.lower()
+    if name not in _OPTIMIZERS:
+        raise ValueError(
+            f"Invalid optimizer '{optimizer_name}'. Valid optimizers are: {list(_OPTIMIZERS)}"
+        )
+    return _OPTIMIZERS[name]
+
+
+def string_to_callable(name: str) -> Callable:
+    """Resolve a ``"module:attribute"`` string to a callable."""
+    try:
+        mod_name, attr_name = name.split(":")
+        obj = getattr(importlib.import_module(mod_name), attr_name)
+    except (AttributeError, ValueError) as err:
+        raise ValueError(
+            "We could not interpret the entry as a callable object. The format of input should be"
+            f" 'module:attribute_name'\nWhile processing input '{name}', received the error:\n {err}."
+        ) from err
+    if not callable(obj):
+        raise ValueError(f"The imported object is not callable: '{name}'")
+    return obj
 
 
 def resolve_obs_groups(

@@ -18,6 +18,9 @@ i|f|g|o): ``wx = [ii|if|ig|io]`` ``[D,4H]``, ``wh = [hi|hf|hg|ho]`` ``[H,4H]``,
 ``bh`` ``[4H]``. The port keeps its own copy of these layout maps; it imports
 nothing of the JAX package.
 
+:func:`from_jax_rnd_state` loads a JAX ``RNDState`` (predictor, target,
+both normalizers, counter) into the port's ``RandomNetworkDistillation``.
+
 A multi-seed study's trees (``jax.vmap`` of the policy init) carry a leading
 ``[G]`` axis on every leaf; :func:`from_jax_stacked_state` loads them, one
 seed or all, into the port's stacked training state.
@@ -111,6 +114,24 @@ def from_jax_state(params_np: dict, norm_np: dict, policy, aux_np: dict | None =
             _load_memory(getattr(policy, mem), params_np[mem], mem)
     for role in ("actor", "critic"):
         _load_norm(getattr(policy, f"norm_{role}"), norm_np.get(role), role)
+
+
+@torch.no_grad()
+def from_jax_rnd_state(rnd_np: dict, rnd) -> None:
+    """Load a JAX ``RNDState`` into a ``RandomNetworkDistillation`` (in
+    place): ``rnd_np`` holds ``predictor`` and ``target`` (flax ``MLP``
+    params), ``state_norm`` (``{"mean", "var", "count"}`` or None),
+    ``reward_norm`` (``{"mean", "var", "count", "avg"}``: the scalar
+    normalizer's moments and the per-env accumulator, or None) and
+    ``counter``."""
+    _load_mlp(rnd.predictor, rnd_np["predictor"], "rnd.predictor")
+    _load_mlp(rnd.target, rnd_np["target"], "rnd.target")
+    _load_norm(rnd.state_norm, rnd_np.get("state_norm"), "rnd_state")
+    reward_np = rnd_np.get("reward_norm")
+    _load_norm(None if rnd.reward_norm is None else rnd.reward_norm.emp, reward_np, "rnd_reward")
+    if reward_np is not None:
+        _copy(rnd.reward_norm.avg, reward_np["avg"], "rnd.reward_norm.avg")
+    rnd.counter.copy_(torch.as_tensor(int(np.asarray(rnd_np["counter"]))))
 
 
 def _take(tree, index: int):

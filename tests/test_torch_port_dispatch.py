@@ -36,14 +36,25 @@ N, LINKS, T, G = 8, 3, 4, 2
 GROUPS = {"policy": ["policy"], "critic": ["policy"]}
 
 
-def _cfg(recurrent=True, **keys):
+#: RND with both normalizers and a schedule that moves over the first iterations
+RND_CFG = {"weight": 0.5, "num_outputs": 4, "predictor_hidden_dims": [-1], "target_hidden_dims": [-1],
+           "state_normalization": True, "reward_normalization": True, "learning_rate": 1e-3,
+           "weight_schedule": {"mode": "linear", "initial_step": 2, "final_step": 30, "final_value": 1.0}}
+
+
+def _cfg(recurrent=True, rnd=False, **keys):
     policy = {"class_name": "ActorCriticRecurrent" if recurrent else "ActorCritic",
               "actor_hidden_dims": [16], "critic_hidden_dims": [16],
               "actor_obs_normalization": True, "critic_obs_normalization": True}
     if recurrent:
         policy.update(rnn_type="gru", rnn_hidden_dim=8)
-    return {"num_steps_per_env": T, "save_interval": 5, "seed": 3, "obs_groups": GROUPS, "policy": policy,
-            "algorithm": {"class_name": "PPO", "num_learning_epochs": 2, "num_mini_batches": 2}, **keys}
+    algorithm = {"class_name": "PPO", "num_learning_epochs": 2, "num_mini_batches": 2}
+    obs_groups = GROUPS
+    if rnd:
+        algorithm["rnd_cfg"] = dict(RND_CFG)
+        obs_groups = {**GROUPS, "rnd_state": ["policy"]}
+    return {"num_steps_per_env": T, "save_interval": 5, "seed": 3, "obs_groups": obs_groups, "policy": policy,
+            "algorithm": algorithm, **keys}
 
 
 def _distill_cfg(**keys):
@@ -72,6 +83,9 @@ def _state(runner) -> list[torch.Tensor]:
     else:
         alg = runner.alg
         tree = (alg.policy.state_dict(), alg.adam_mu, alg.adam_nu, alg.adam_count, alg.lr, runner.collect_state)
+        if getattr(alg, "rnd", None) is not None:
+            opt = alg.rnd_optimizer
+            tree += (alg.rnd.state_dict(), opt.adam_mu, opt.adam_nu, opt.adam_count)
     return flatten(tree)[0]
 
 
@@ -107,14 +121,15 @@ def _student(teacher_path, device="cpu", **keys):
 # ------------------------------------------------- K-dispatch against eager
 
 
-@pytest.mark.parametrize("recurrent", [True, False], ids=["recurrent", "feedforward"])
-def test_k_dispatch_equals_fused_and_eager(recurrent):
+@pytest.mark.parametrize("recurrent,rnd", [(True, False), (False, False), (True, True)],
+                         ids=["recurrent", "feedforward", "recurrent_rnd"])
+def test_k_dispatch_equals_fused_and_eager(recurrent, rnd):
     """7 iterations at K=3 (groups of 3, 3 and a remainder of 1) against 7
     fused iterations and 7 split ones (the JAX case
     ``tests/test_ppo_integration.py:212``)."""
     runs = {}
     for mode, keys in (("eager", {}), ("fused", {"fuse_iteration": True}), ("k3", {"iterations_per_dispatch": 3})):
-        runs[mode] = OnPolicyRunner(_env(), _cfg(recurrent, **keys), device="cpu")
+        runs[mode] = OnPolicyRunner(_env(), _cfg(recurrent, rnd, **keys), device="cpu")
         runs[mode].learn(7)
     assert runs["k3"].fuse_iteration and not runs["eager"].fuse_iteration
     for mode in ("fused", "k3"):
@@ -122,6 +137,21 @@ def test_k_dispatch_equals_fused_and_eager(recurrent):
         assert runs[mode].current_learning_iteration == 6
         assert all(h["learn_s"] == 0.0 for h in runs[mode].history)
     assert int(runs["k3"].alg.adam_count) == 7 * 2 * 2  # iterations x epochs x minibatches
+    if rnd:
+        assert int(runs["k3"].alg.rnd.counter) == 7 * T and int(runs["k3"].alg.rnd_optimizer.adam_count) == 7 * 2 * 2
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "sgd", "rmsprop"])
+def test_optimizers_k_dispatch_equals_eager(optimizer):
+    """Each optimizer's moments and count update in place: 3 iterations at
+    K=2 equal 3 split ones bit for bit."""
+    runs = []
+    for keys in ({}, {"iterations_per_dispatch": 2}):
+        cfg = _cfg(**keys)
+        cfg["algorithm"] = dict(cfg["algorithm"], optimizer=optimizer)
+        runs.append(OnPolicyRunner(_env(), cfg, device="cpu"))
+        runs[-1].learn(3)
+    _assert_same_run(*runs)
 
 
 def test_study_k_dispatch_equals_eager():
@@ -160,7 +190,7 @@ def test_fused_run_takes_what_is_assigned_between_learns(teacher_ckpt, tmp_path)
     assert runs[1].current_learning_iteration == 2  # the loaded iteration 1, then 1 and 2
 
 
-@pytest.mark.parametrize("kind", ["ppo", "study", "distillation"])
+@pytest.mark.parametrize("kind", ["ppo", "study", "distillation", "ppo_rnd"])
 def test_iteration_keeps_every_state_tensor_in_place(kind, teacher_ckpt):
     """An iteration updates the optimizer state (Adam moments and count, the
     learning rate), the parameters and the normalizer moments in place, and
@@ -172,10 +202,14 @@ def test_iteration_keeps_every_state_tensor_in_place(kind, teacher_ckpt):
         held = flatten(runner.train_state)[0]
     else:
         runner = (_student(teacher_ckpt, fuse_iteration=True) if kind == "distillation"
-                  else OnPolicyRunner(_env(), _cfg(fuse_iteration=True), device="cpu"))
+                  else OnPolicyRunner(_env(), _cfg(rnd=kind == "ppo_rnd", fuse_iteration=True), device="cpu"))
         runner.learn(1)
         alg = runner.alg
         held = [*alg.params, *alg.adam_mu, *alg.adam_nu, alg.adam_count, alg.lr, *alg.policy.buffers()]
+        if kind == "ppo_rnd":
+            # the predictor, its Adam moments and count, both normalizers, the counter
+            opt = alg.rnd_optimizer
+            held += [*alg.rnd.buffers(), *opt.params, *opt.adam_mu, *opt.adam_nu, opt.adam_count]
     held += flatten(runner.iteration_graph.state)[0]
     before = [t.data_ptr() for t in held]
     snapshot = [t.detach().clone() for t in held]
@@ -365,7 +399,7 @@ def test_profiler_window_writes_trace_and_tolerates_a_resume(tmp_path, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["ppo_gru", "ppo_ff", "study", "distillation"])
+@pytest.mark.parametrize("kind", ["ppo_gru", "ppo_ff", "study", "distillation", "ppo_rnd"])
 def test_graph_replays_equal_eager_on_card(kind, tmp_path):
     """On the card a fused run replays a captured graph: 3 iterations at K=2
     (warm-up and capture, a replay, a remainder replay) equal 3 split
@@ -387,7 +421,7 @@ def test_graph_replays_equal_eager_on_card(kind, tmp_path):
             return MultiSeedRunner(_env("cuda"), _cfg(**keys), G, device="cuda")
         if kind == "distillation":
             return _student(teacher_path, "cuda", **keys)
-        return OnPolicyRunner(_env("cuda"), _cfg(kind == "ppo_gru", **keys), device="cuda")
+        return OnPolicyRunner(_env("cuda"), _cfg(kind != "ppo_ff", kind == "ppo_rnd", **keys), device="cuda")
 
     runs, counts = [], []
     for keys in ({}, {"iterations_per_dispatch": 2}):
@@ -402,3 +436,24 @@ def test_graph_replays_equal_eager_on_card(kind, tmp_path):
     assert counts[0] == counts[1]
     graph = runs[1].iteration_graph
     assert graph.capture_s is not None and graph.pool_bytes >= 0
+
+
+@pytest.mark.cuda
+def test_a_dropped_fused_runner_does_not_break_the_next_capture():
+    """A fused runner dropped without releasing its graph (it lives on in a
+    reference cycle until the cyclic collector runs) must not free its graph
+    inside the next runner's capture: the second fused run captures and
+    trains."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import gc
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # collect as often as the collector may
+    try:
+        for _ in range(3):
+            runner = OnPolicyRunner(_env("cuda"), _cfg(fuse_iteration=True), device="cuda")
+            runner.learn(2)
+            assert runner.iteration_graph.capture_s is not None
+    finally:
+        gc.set_threshold(*threshold)

@@ -28,7 +28,7 @@ from rsl_rl_tpu.modules import StudentTeacher as JaxST
 from rsl_rl_tpu.modules import StudentTeacherRecurrent as JaxSTR
 from rsl_rl_tpu.ops import pallas_rnn
 from rsl_rl_tpu_torch.algorithms.distillation import Distillation, huber_loss
-from rsl_rl_tpu_torch.algorithms.ppo import CollectState, clip_adam, init_episode_stats
+from rsl_rl_tpu_torch.algorithms.ppo import CollectState, clip_step, init_episode_stats
 from rsl_rl_tpu_torch.env.nlink import DomainRandomizedNLink, DomainRandomizedNLinkState, env_keys
 from rsl_rl_tpu_torch.modules import StudentTeacher, StudentTeacherRecurrent
 from rsl_rl_tpu_torch.runners import DistillationRunner
@@ -255,7 +255,7 @@ def test_collect_window_matches_jax(name):
 
 
 def test_masked_clip_matches_optax_masked():
-    """``clip_adam`` with a clip mask equals optax's ``masked`` global-norm
+    """``clip_step`` (Adam) with a clip mask equals optax's ``masked`` global-norm
     clip of the marked leaves followed by ``scale_by_adam`` on all, over two
     steps: the unmarked leaves are neither clipped nor counted in the norm."""
     rng = np.random.default_rng(9)
@@ -271,7 +271,7 @@ def test_masked_clip_matches_optax_masked():
         grads = {k: 3.0 * rng.normal(size=(4, 3)).astype(np.float32) for k in names}
         updates, opt = tx.update(jax.tree_util.tree_map(jnp.asarray, grads), opt, jparams)
         jparams = jax.tree_util.tree_map(lambda p, u: p - 0.1 * u, jparams, updates)
-        tparams, mu, nu, count = clip_adam(tparams, [_t(grads[k]) for k in names], mu, nu, count,
+        tparams, mu, nu, count = clip_step(tparams, [_t(grads[k]) for k in names], mu, nu, count,
                                            torch.tensor(0.1), 0.5, [k == "student" for k in names])
         for k, p in zip(names, tparams):
             _close(p, jparams[k], 1e-6, 1e-7, f"step {step} {k}")

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``rsl_rl_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, optax or the JAX package, and its
+``chip_smoke.py`` or ``parity_torch.py``) imports JAX, flax, optax or the JAX package, and its
 entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rsl_rl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsl_rl_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "parity_torch.py"]
 
 
 def _imported(path: Path) -> set[str]:
@@ -42,7 +42,7 @@ def test_package_imports_with_jax_blocked():
         f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
-        f"for m in {modules!r} + ['chip_smoke']:\n"
+        f"for m in {modules!r} + ['chip_smoke', 'parity_torch']:\n"
         "    importlib.import_module(m)\n"
         f"leaked = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"

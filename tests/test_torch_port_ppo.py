@@ -333,3 +333,37 @@ def test_auto_minibatches_update_like_the_resolved_count():
     assert histories[0].keys() == histories[1].keys()
     for k in histories[0]:
         assert histories[0][k] == pytest.approx(histories[1][k], rel=1e-6, abs=1e-7), k
+
+
+def test_rnn_hidden_size_is_a_deprecated_alias():
+    """The deprecated ``rnn_hidden_size`` builds memories of that width and
+    warns (JAX ``tests/test_modules.py:190``), unless ``rnn_hidden_dim`` is
+    set too."""
+    import warnings
+
+    obs = {"policy": torch.zeros(4, 3 * LINKS)}
+    with pytest.warns(DeprecationWarning, match="rnn_hidden_size"):
+        policy = ActorCriticRecurrent(obs, GROUPS, LINKS, rnn_type="gru", rnn_hidden_size=32,
+                                      actor_hidden_dims=[8], critic_hidden_dims=[8], device="cpu")
+    assert policy.rnn_hidden_dim == 32
+    assert policy.memory_a.hidden_size == policy.memory_c.hidden_size == 32
+    assert policy.initial_carry(4)["actor"][0].shape == (4, 32)
+    with pytest.warns(DeprecationWarning):
+        policy = ActorCriticRecurrent(obs, GROUPS, LINKS, rnn_type="gru", rnn_hidden_size=32, rnn_hidden_dim=16,
+                                      actor_hidden_dims=[8], critic_hidden_dims=[8], device="cpu")
+    assert policy.memory_a.hidden_size == 16
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ActorCriticRecurrent(obs, GROUPS, LINKS, rnn_type="gru", rnn_hidden_dim=16, device="cpu")
+
+
+@pytest.mark.parametrize("key", ["rnd_cfg", "symmetry_cfg"])
+def test_multiseed_refuses_rnd_and_symmetry(key):
+    """RND and symmetry are single-seed for now: a study raises naming the
+    queue item, before it builds anything."""
+    from rsl_rl_tpu_torch.runners import MultiSeedRunner
+
+    cfg = _runner_cfg()
+    cfg["algorithm"] = dict(cfg["algorithm"], **{key: {"weight": 1.0}})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        MultiSeedRunner(NLinkPendulum(8, LINKS, device="cpu"), cfg, 2, device="cpu")
