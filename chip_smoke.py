@@ -129,6 +129,7 @@ from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPoli
 from rsl_rl_tpu_torch.storage.rollout import slice_envs
 from rsl_rl_tpu_torch.utils import cuda_build
 from rsl_rl_tpu_torch.utils.cuda_graph import flatten
+from rsl_rl_tpu_torch.utils.evaluation import EVAL_KEYS, evaluate_policy
 
 PALLAS = "rsl_rl_tpu/ops/pallas_rnn.py"
 #: kernel families: the x-streaming kernels (the input projection inside) and
@@ -251,6 +252,16 @@ STUDY40_SEEDS, STUDY40_ENVS = 40, 64
 OPTIMIZERS = ("adamw", "sgd", "rmsprop")
 NUM_ENVS, NUM_LINKS, ITERATIONS = 4096, 5, 3
 NUM_SEEDS, ENVS_PER_SEED = 8, 512
+# phase 4d: the rest of the study. PBT on the GRU study: an exchange every
+# 2 iterations replacing floor(8 x 0.25) = 2 seeds (episode clocks scattered,
+# so every seed has a fitness after iteration 1)
+PBT_CFG = {"exploit_interval": 2, "exploit_fraction": 0.25}
+#: the multi-seed students' iterations: the LSTM student runs 2, the fewest
+#: in which a fused run replays its graph
+STUDY_DISTILL = {"multiseed8_distill_gru256_bf16": ("gru_xp", DISTILL_GRU256_BF16, ITERATIONS),
+                 "multiseed8_distill_lstm256_bf16": ("lstm_xp", DISTILL_LSTM256_BF16, 2)}
+#: the symmetry studies: 8 seeds x 512 PointMass envs, their modes
+STUDY_SYMMETRY = ("aug", "mirror")
 WIDE_D = 520  # an input width beyond the x-streaming kernels' 512
 
 # Tolerances of kernel against plain version. fp32: the two sum in another
@@ -319,6 +330,20 @@ PATH_SHAPES = {
     "symmetry_aug": ("gru", 2, 2048, 2, 256),
     "symmetry_mirror": ("gru", 1, 2048, 2, 256),
     "study40": ("gru_xp", 80, 16, 10, 64),
+}
+#: the xproj shapes of phase 4d's studies: (family, streams, B, D, H, T,
+#: launches an iteration) held in both modes in phase 3 and timed in phase 5:
+#: the multi-seed students' replay (8 seeds' student memories, the 15-step
+#: segment and the 9-step tail of 512 envs), the augmented symmetry replay
+#: (8 seeds' actor and critic memories over a minibatch of 128 envs and its
+#: mirror copies) and the mirror loss's actor replay (8 seeds' actors)
+STUDY_SHAPES = {
+    "distill8_gru_t15": ("gru_xp", 8, 512, 15, 256, 15, (1, 1, 1)),
+    "distill8_gru_t9": ("gru_xp", 8, 512, 15, 256, 9, (1, 0, 0)),
+    "distill8_lstm_t15": ("lstm_xp", 8, 512, 15, 256, 15, (1, 1, 1)),
+    "distill8_lstm_t9": ("lstm_xp", 8, 512, 15, 256, 9, (1, 0, 0)),
+    "symmetry8_aug": ("gru_xp", 16, 256, 2, 256, 24, (20, 20, 20)),
+    "symmetry8_mirror": ("gru_xp", 8, 256, 2, 256, 24, (20, 20, 20)),
 }
 
 
@@ -964,10 +989,10 @@ def run_distill_slices(T, tmp) -> tuple[dict, str]:
 def run_state(runner) -> list[torch.Tensor]:
     """Every tensor a run carries from one iteration to the next: the
     policy's parameters and normalizer moments, the Adam moments, count and
-    learning rate (stacked for a study), the env state, obs, carries and
-    episode sums."""
+    learning rate (stacked for a study, with each seed's RND state and the
+    PBT state), the env state, obs, carries and episode sums."""
     if isinstance(runner, MultiSeedRunner):
-        tree = (runner.train_state, runner.collect_state)
+        tree = runner._graph_state()  # the stacked train state (RND included), the collect and PBT states
     else:
         alg = runner.alg
         tree = (alg.policy.state_dict(), alg.adam_mu, alg.adam_nu, alg.adam_count, alg.lr, runner.collect_state)
@@ -1134,6 +1159,178 @@ def path_slices(smi) -> dict:
     return by_slice
 
 
+def study_launches(family, iterations, per_minibatch=1) -> dict:
+    """A PPO study's launches: each minibatch replays every seed's memories
+    in ``per_minibatch`` launches of each xproj kernel."""
+    alg = RECURRENT_GRU256["algorithm"]
+    n = iterations * alg["num_learning_epochs"] * alg["num_mini_batches"] * per_minibatch
+    return {k: n for k in FAMILIES[family]["kernels"]}
+
+
+def check_clones(runner) -> None:
+    """Right after an exchange (iteration 2 of an eager PBT study), each of
+    the 2 replaced seeds holds its source's parameters, optimizer moments and
+    normalizer moments, and a learning rate within the perturbation band."""
+    ts = runner.train_state
+    G = runner.num_seeds
+    exploits = runner.history[-1]["metrics"]["PBT/exploits"]
+    tensors = [*ts.params.values(), *ts.buffers.values(), *ts.adam_mu.values(), *ts.adam_nu.values()]
+    same = [[all(torch.equal(t[i], t[j]) for t in tensors) for j in range(G)] for i in range(G)]
+    in_pairs = sorted({i for i in range(G) for j in range(G) if i != j and same[i][j]})
+    ratios = [float(ts.lr[i] / ts.lr[j]) for i in in_pairs for j in in_pairs if i < j and same[i][j]]
+    print(f"pbt8_recurrent_gru256: after iteration 2 PBT/exploits={exploits}; seeds equal to another seed"
+          f" {in_pairs}; learning-rate ratios within a cloned pair {np.round(ratios, 4).tolist()}")
+    if int(exploits) != 2:
+        fail(f"pbt8_recurrent_gru256: PBT/exploits reads {exploits} after iteration 2, expected 2")
+    if not 3 <= len(in_pairs) <= 4 or not all(ratios) or not all(0.8 <= min(r, 1 / r) for r in ratios):
+        fail(f"pbt8_recurrent_gru256: the exchange did not clone 2 seeds from the top: {in_pairs}, {ratios}")
+
+
+def check_evaluation(name, runner, num_seeds=None) -> dict:
+    """Evaluate ``runner``'s policy twice from one seed (the env's longest
+    episode, ``act_inference``): equal metrics, every envs' episode
+    completed, and the training state as it was. Returns the metrics."""
+    before = run_state(runner)
+    state = None if num_seeds is None else (runner.train_state.params, runner.train_state.buffers)
+    steps = int(torch.as_tensor(runner.env.max_episode_length).max())
+    start = time.perf_counter()
+    first = evaluate_policy(runner.env, runner.alg.policy, state, steps, 11, num_seeds=num_seeds)
+    seconds = time.perf_counter() - start
+    again = evaluate_policy(runner.env, runner.alg.policy, state, steps, 11, num_seeds=num_seeds)
+    after = run_state(runner)
+    equal = all(np.array_equal(first[k], again[k]) for k in EVAL_KEYS)
+    untouched = len(before) == len(after) and all(torch.equal(a, b) for a, b in zip(before, after))
+    envs = runner.env.num_envs * (num_seeds or 1)
+    print(f"eval {name}: {json.dumps({k: np.asarray(v).tolist() for k, v in first.items()})}; twice equal: {equal};"
+          f" training state untouched: {untouched}; {steps} steps of {envs} envs in {seconds:.3f} s"
+          f" ({steps * envs / seconds:.0f} env-steps/s)")
+    if not (equal and untouched):
+        fail(f"eval {name}: two evaluations differ or the training state moved")
+    if not (np.all(np.asarray(first["Eval/episode_count"]) == runner.env.num_envs)
+            and np.isfinite(np.asarray(first["Eval/mean_reward"])).all()):
+        fail(f"eval {name}: not every env completed its episode, or a non-finite return")
+    return first
+
+
+def check_save_seed(study, tmp) -> None:
+    """``save_seed`` of one seed loads into a fresh ``OnPolicyRunner`` on the
+    card: the same parameters bit for bit, and its inference policy gives
+    that seed's actions on that seed's obs."""
+    seed = 3
+    path = os.path.join(tmp, "seed.pt")
+    study.save_seed(path, seed)
+    single = OnPolicyRunner(NLinkPendulum(ENVS_PER_SEED, NUM_LINKS, device="cuda"), copy.deepcopy(RECURRENT_GRU256),
+                            device="cuda")
+    single.load(path)
+    ts = study.train_state
+    same = all(torch.equal(p, ts.params[n][seed]) for n, p in single.alg.policy.named_parameters())
+    obs = {k: v[seed] for k, v in study.collect_state.obs.items()}
+    state = ({k: v[seed] for k, v in ts.params.items()}, {k: v[seed] for k, v in ts.buffers.items()})
+    with torch.no_grad():
+        want, _ = functional_call(study.alg.policy, state, ("act_inference", obs,
+                                                             single.alg.policy.initial_carry(ENVS_PER_SEED)))
+    err = float((single.get_inference_policy()(obs) - want).abs().max())
+    print(f"save_seed: seed {seed} loads into OnPolicyRunner, parameters equal: {same}; inference actions against"
+          f" the study's seed {seed} on {ENVS_PER_SEED} envs: max_abs_err={err:.3e} (bound 1e-5)")
+    if not (same and err <= 1e-5):
+        fail("save_seed: the exported seed does not act as the study's seed")
+
+
+def study_slices(smi, teacher_path, tmp) -> dict:
+    """Phase 4d: the rest of the multi-seed study at 8 seeds x 512 envs,
+    each eager, fused and at K=2 bit for bit with its launches: RND, the
+    symmetry modes, PBT, the students (teacher through ``load_teacher``);
+    then evaluation of the flagship and the study, and ``save_seed``.
+    Returns ``{slice: {kernel: launches}}``."""
+    by_slice = {}
+
+    def study(cfg, env_cls=NLinkPendulum, pbt=None, scatter=False):
+        def make(keys):
+            env = env_cls(ENVS_PER_SEED, device="cuda") if env_cls is PointMass else \
+                env_cls(ENVS_PER_SEED, NUM_LINKS, device="cuda")
+            runner = MultiSeedRunner(env, {**copy.deepcopy(cfg), **keys}, NUM_SEEDS, device="cuda", pbt=pbt)
+            if scatter:
+                runner.collect_state.env_state = env.randomize_episode_length(runner.collect_state.env_state)
+            return runner
+        return make
+
+    by_slice["multiseed8_recurrent_gru256_rnd"] = dispatch_runs(
+        "multiseed8_recurrent_gru256_rnd", study(RECURRENT_GRU256_RND), smi,
+        expected=study_launches("gru_xp", ITERATIONS))
+    for mode in STUDY_SYMMETRY:
+        aug, mirror = SYMMETRY_MODES[mode]
+        cfg = copy.deepcopy(RECURRENT_GRU256)
+        cfg["algorithm"]["symmetry_cfg"] = {
+            "use_data_augmentation": aug, "use_mirror_loss": mirror, "mirror_loss_coeff": 0.5 if mirror else 0.0,
+            "data_augmentation_func": "rsl_rl_tpu_torch.env.toy:point_mass_symmetry"}
+        name = f"multiseed8_recurrent_gru256_symmetry_{mode}"
+        # the mirror loss adds the seeds' actor replay of the mirrored obs
+        by_slice[name] = dispatch_runs(name, study(cfg, PointMass), smi,
+                                       expected=study_launches("gru_xp", ITERATIONS, 2 if mirror else 1))
+    pbt_study = study(RECURRENT_GRU256, pbt=PBT_CFG, scatter=True)
+    by_slice["pbt8_recurrent_gru256"] = dispatch_runs("pbt8_recurrent_gru256", pbt_study, smi,
+                                                      expected=study_launches("gru_xp", ITERATIONS))
+    runner = pbt_study({})
+    runner.learn(2)
+    check_clones(runner)
+    del runner
+
+    for name, (family, cfg, iterations) in STUDY_DISTILL.items():
+        def student(keys, cfg=cfg):
+            runner = MultiSeedRunner(DomainRandomizedNLink(ENVS_PER_SEED, NUM_LINKS, device="cuda"),
+                                     {**copy.deepcopy(cfg), **keys}, NUM_SEEDS, device="cuda")
+            runner.load_teacher(teacher_path)
+            return runner
+
+        modes = tuple(DISPATCH_MODES) if iterations >= 3 else ("eager", "fused")
+        by_slice[name] = dispatch_runs(name, student, smi, modes=modes, iterations=iterations,
+                                       expected=distill_launches(family, cfg, iterations))
+
+    flagship = OnPolicyRunner(NLinkPendulum(NUM_ENVS, NUM_LINKS, device="cuda"), copy.deepcopy(RECURRENT_GRU256),
+                              device="cuda")
+    flagship.learn(1)
+    check_evaluation("recurrent_gru256", flagship)
+    del flagship
+    gru_study = study(RECURRENT_GRU256)({})
+    gru_study.learn(1)
+    check_evaluation("multiseed8_recurrent_gru256", gru_study, NUM_SEEDS)
+    check_save_seed(gru_study, tmp)
+    return by_slice
+
+
+def study_shape_times(peaks, errs) -> dict:
+    """Phase 5 at :data:`STUDY_SHAPES`: each kernel's time in both operand
+    modes beside its plain version, its bounds, ``torch.bmm`` for the
+    reduction (no single library call computes G streams of their own
+    weights) and cuDNN on the raw input at G=1 as a yardstick; ``{kernel:
+    {label: entry}}``."""
+    out = {}
+    for i, (label, (family, S, B, D, H, T, per_it)) in enumerate(STUDY_SHAPES.items()):
+        x = make_inputs(family, S, T, B, D, H, seed=900 + i)
+        times, rows = mode_times(family, x)
+        fwd, bwd, wgrad = FAMILIES[family]["kernels"]
+        g1 = dict(zip((fwd, bwd), library_rnn_ms(family, 1, make_inputs(family, 1, T, B, D, H, seed=950 + i),
+                                                 20)[:2]))
+        library = {fwd: None, bwd: None, wgrad: library_wgrad_ms(rows, 20)}
+        for (name, (ops, nbytes)), launches in zip(work(family, S, T, B, D, H).items(), per_it):
+            bound, bound_by = bound_ms(ops, nbytes, peaks, False)
+            bf16_bound = bound_ms(ops, nbytes, peaks, True)[0]
+            entry = {"S": S, "T": T, "B": B, "D": D, "H": H, "launches_per_iteration": launches,
+                     "max_abs_err": errs[label][False][name], "bf16_max_abs_err": errs[label][True][name],
+                     "ms": times[False][name][0], "plain_ms": times[False][name][1], "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": library[name], "cudnn_g1_ms": g1.get(name),
+                     "bf16_ms": times[True][name][0], "bf16_plain_ms": times[True][name][1],
+                     "bf16_bound_ms": bf16_bound}
+            out.setdefault(name, {})[label] = entry
+            lib = "none" if library[name] is None else f"{library[name]:.4f} ms"
+            g1_ms = "" if name not in g1 else f", cuDNN at G=1 {g1[name]:.4f} ms"
+            print(f"time {name} at {label} G={S} T={T} B={B} D={D} H={H}: fp32 {entry['ms']:.4f} ms (plain"
+                  f" {entry['plain_ms']:.4f} ms, bound {bound:.4f} ms, {bound_by}); bf16 {entry['bf16_ms']:.4f} ms"
+                  f" (plain {entry['bf16_plain_ms']:.4f} ms, bound {fmt_ms(bf16_bound)}); library {lib}{g1_ms};"
+                  f" {launches} launches an iteration")
+    return out
+
+
 def path_shape_times(peaks, path_err) -> dict:
     """Phase 5 at :data:`PATH_SHAPES`: each kernel's time in both operand
     modes beside its plain version, its bound and its library call (cuDNN's
@@ -1296,6 +1493,24 @@ def main() -> None:
             summary.append(f"{name} max_abs_err={path_err[label][name]:.3e} (max |plain|"
                            f" {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'}")
         print(f"check {label} S={S} T={T} B={b} D={d} H={h} fp32: " + "; ".join(summary))
+    # the xproj shapes of phase 4d's studies, in both operand modes
+    study_err = {}
+    for i, (label, (family, S, b, d, h, t, _)) in enumerate(STUDY_SHAPES.items()):
+        study_err[label] = {}
+        for bf16 in (False, True):
+            res, repeat = check_kernels(family, S, t, b, d, h, bf16, seed=800 + 2 * i + bf16)
+            study_err[label][bf16] = {}
+            summary = []
+            for name, checks in res.items():
+                ok = all(o for _, _, o in checks)
+                passed[name] = passed[name] and ok
+                if name in repeat:
+                    repeatable[name] = repeatable[name] and repeat[name]
+                study_err[label][bf16][name] = max(e for e, _, _ in checks)
+                summary.append(f"{name} max_abs_err={study_err[label][bf16][name]:.3e} (max |plain|"
+                               f" {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'}")
+            print(f"check {label} G={S} T={t} B={b} D={d} H={h} {'bf16' if bf16 else 'fp32'}: "
+                  + "; ".join(summary))
     print(f"two calls bitwise equal: {repeatable}")
     if not all(passed.values()):
         fail(f"kernel disagrees with its plain version: {passed}")
@@ -1317,8 +1532,10 @@ def main() -> None:
         # ---- 4b. whole-iteration dispatch against eager
         for name, make_runner in dispatch_slices(teacher_path).items():
             dispatch_runs(name, make_runner, smi)
-    # ---- 4c. RND, symmetry, the 40-seed study, the optimizers
-    by_slice.update(path_slices(smi))
+        # ---- 4c. RND, symmetry, the 40-seed study, the optimizers
+        by_slice.update(path_slices(smi))
+        # ---- 4d. RND, symmetry, PBT and students in the study; evaluation; save_seed
+        by_slice.update(study_slices(smi, teacher_path, tmp))
     launches = {k: {} for k in all_counts()}
     for slice_name, counts in by_slice.items():
         for k, n in counts.items():
@@ -1424,6 +1641,8 @@ def main() -> None:
               f" backward {lib_bwd:.4f} ms; {wgrad} library (bmm) {library_wgrad_ms(rows, 20):.4f} ms")
     for name, shapes in path_shape_times(peaks, path_err).items():
         next(k for k in kernels if k["name"] == name)["path_shapes"] = shapes
+    for name, shapes in study_shape_times(peaks, study_err).items():
+        next(k for k in kernels if k["name"] == name)["study_shapes"] = shapes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

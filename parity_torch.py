@@ -28,6 +28,15 @@ The studies:
   ``parity_nlink_recurrent_sync20.json`` (20 JAX seeds).
 - ``b``: feedforward NLink, 10 seeds as one ``MultiSeedRunner`` of 64
   ``NLinkPendulum`` envs each, [128, 128]; against ``parity_nlink.json``.
+- ``b40``: the same with 40 seeds; against the 40 JAX seeds pooled from
+  ``parity_nlink.json``, ``parity_nlink_b.json`` and ``parity_nlink_c.json``
+  (every env on one episode clock, as all three were run).
+- ``b_single``: the same 10 seeds in turn, each its own ``OnPolicyRunner``
+  (as the JAX arm ran them); against ``parity_nlink.json``. ``b40_single``:
+  40 of them against the three pooled files.
+- ``b_desync``: the same with 10 seeds and each env's episode clock
+  scattered once at the start (``parity_nlink.py --random-ep-len``); against
+  ``parity_nlink_desync.json``.
 - ``c``: RND Pendulum, 6 seeds in turn (``OnPolicyRunner``, 64 ``Pendulum``
   envs, ``max_episode_length=200``), the extrinsic reward
   (``ep_ereward_sum``); against ``parity_pendulum_rnd.json``.
@@ -108,18 +117,27 @@ def symmetry_cfg(seed: int) -> dict:
     return cfg
 
 
-#: name -> (description, JAX result file, iterations, seeds, reward key, scattered
-#: episode lengths): the JAX studies' own protocols. The pooled recurrent study
+#: name -> (description, JAX result file (or files pooled), iterations, seeds,
+#: reward key, scattered episode lengths): the JAX studies' own protocols. The pooled recurrent study
 #: scattered each env's episode clock once at the start (``parity_nlink.py
 #: --recurrent --random-ep-len``, ``init_at_random_ep_len``); ``a_sync`` is the
 #: same task with every env on one clock, against the JAX package's synchronized
-#: 20-seed run; the feedforward study ran synchronized.
+#: 20-seed run; the feedforward studies ran synchronized, but for the
+#: desynchronized one (``parity_nlink.py --random-ep-len``).
 STUDIES = {
     "a": ("recurrent NLink, GRU-64, scattered episode clocks", "parity_nlink_recurrent_pooled.json", 500, 40,
           "ep_reward_sum", True),
     "a_sync": ("recurrent NLink, GRU-64, one episode clock", "parity_nlink_recurrent_sync20.json", 500, 40,
                "ep_reward_sum", False),
     "b": ("feedforward NLink, [128, 128]", "parity_nlink.json", 500, 10, "ep_reward_sum", False),
+    "b40": ("feedforward NLink, [128, 128], 40 seeds", ("parity_nlink.json", "parity_nlink_b.json",
+                                                        "parity_nlink_c.json"), 500, 40, "ep_reward_sum", False),
+    "b_single": ("feedforward NLink, [128, 128], single-seed runners", "parity_nlink.json", 500, 10,
+                 "ep_reward_sum", False),
+    "b40_single": ("feedforward NLink, [128, 128], 40 single-seed runners", ("parity_nlink.json",
+                   "parity_nlink_b.json", "parity_nlink_c.json"), 500, 40, "ep_reward_sum", False),
+    "b_desync": ("feedforward NLink, [128, 128], scattered episode clocks", "parity_nlink_desync.json", 500, 10,
+                 "ep_reward_sum", True),
     "c": ("RND Pendulum", "parity_pendulum_rnd.json", 500, 6, "ep_ereward_sum", False),
     "d": ("symmetry PointMass", "parity_symmetry.json", 300, 10, "ep_reward_sum", False),
 }
@@ -143,17 +161,21 @@ def quiet_learn(runner, iterations: int) -> None:
 def run_study(name: str, iterations: int, device: str) -> np.ndarray:
     """The port's curves ``[seeds, iterations]`` of one study."""
     _, _, _, seeds, key, scatter = STUDIES[name]
-    if name in ("a", "a_sync", "b"):
-        env_cls = NLinkPendulum if name == "b" else PartiallyObservableNLink
+    if name in ("a", "a_sync", "b", "b40", "b_desync"):
+        recurrent = name.startswith("a")
+        env_cls = PartiallyObservableNLink if recurrent else NLinkPendulum
         env = env_cls(NUM_ENVS, num_links=5, max_episode_length=400, device=device)
-        runner = MultiSeedRunner(env, train_cfg(1, recurrent=name != "b"), seeds, device=device)
+        runner = MultiSeedRunner(env, train_cfg(1, recurrent=recurrent), seeds, device=device)
         if scatter:  # every seed's envs, as each JAX run's init_at_random_ep_len
             runner.collect_state.env_state = env.randomize_episode_length(runner.collect_state.env_state)
         quiet_learn(runner, iterations)
         return np.stack([curve_point(h["metrics"], key) for h in runner.history], axis=1)
     curves = []
     for seed in range(1, seeds + 1):
-        if name == "c":
+        if name in ("b_single", "b40_single"):
+            runner = OnPolicyRunner(NLinkPendulum(NUM_ENVS, num_links=5, max_episode_length=400, device=device),
+                                    train_cfg(seed), device=device)
+        elif name == "c":
             runner = OnPolicyRunner(Pendulum(NUM_ENVS, max_episode_length=200, device=device),
                                     train_cfg(seed, rnd=True), device=device)
         else:
@@ -185,8 +207,21 @@ def band(values: np.ndarray) -> dict:
             "per_seed": [float(v) for v in values]}
 
 
-def jax_finals(path: str) -> tuple[np.ndarray, list[dict]]:
-    """The JAX package's per-seed finals and checkpoint rows of a study file."""
+def jax_finals(path) -> tuple[np.ndarray, list[dict]]:
+    """The JAX package's per-seed finals and checkpoint rows of a study file;
+    of several files, their seeds pooled, with the rows (mean and std of the
+    trailing-window means) computed from the pooled curves."""
+    if not isinstance(path, str):
+        curves = []
+        for part in path:
+            with open(os.path.join(RESULTS, part)) as f:
+                data = json.load(f)
+            curves += data["curves"]["rsl_rl_tpu"]
+            iterations = [row["iteration"] for row in data["checkpoints"]]
+        curves = np.asarray(curves, np.float64)
+        rows = [{"iteration": r["iteration"], "rsl_rl_tpu": r["port"], "rsl_rl_tpu_std": r["port_std"]}
+                for r in checkpoints(curves, iterations)]
+        return finals(curves), rows
     with open(os.path.join(RESULTS, path)) as f:
         data = json.load(f)
     if "finals" in data:  # the pooled 40-seed study stores its finals
@@ -251,7 +286,9 @@ def main() -> None:
         welch = stats.ttest_ind(port, jax_, equal_var=False)
         mwu = stats.mannwhitneyu(port, jax_, alternative="two-sided")
         study = {
-            "description": desc, "jax_file": f"benchmarks/results/{path}", "iterations": iterations,
+            "description": desc,
+            "jax_file": [f"benchmarks/results/{p}" for p in ([path] if isinstance(path, str) else path)],
+            "iterations": iterations,
             "seeds": seeds, "reward_key": key, "scattered_episode_clocks": scatter, "window_iters": FINAL_WINDOW,
             "wall_s": wall, "card": smi,
             "port": band(port), "jax": band(jax_),

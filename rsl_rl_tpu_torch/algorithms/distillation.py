@@ -16,6 +16,15 @@
   that fill no segment are replayed forward only and count in the logged
   mean; the acting carry continues from the end of the replay.
 
+:meth:`Distillation.collect_stacked` / :meth:`Distillation.update_stacked`
+do the same for G seeds at once (a multi-seed distillation study, the
+counterpart of ``jax.vmap`` over the JAX package's collect and update): the
+students (and the frozen teachers, which a study loads once for every seed)
+stack on a leading ``[G]`` axis (``algorithms.ppo.StackedTrainState``), the
+policy runs through ``torch.func.vmap``, and each chunk of the replay is one
+batched call for all seeds (the recurrent student's replay takes the xproj
+kernels with the seeds as streams).
+
 The loss is the per-step mean of the elementwise ``mse`` or ``huber``
 (delta 1, optax's ``huber_loss``) error, summed over a segment. The
 optimizer (``adam``, ``adamw``, ``sgd`` or ``rmsprop``) as in PPO, applied as
@@ -28,16 +37,24 @@ same math; the port keeps the chunked form only.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+from torch.func import functional_call, vmap
 
 from rsl_rl_tpu_torch.algorithms.ppo import (
     ACC_KEYS,
     PPO,
     CollectState,
+    StackedTrainState,
     Trainer,
+    clip_step,
     collect_extras_logs,
+    stack_trained,
+    stacked_step,
     step_episode_stats,
 )
+from rsl_rl_tpu_torch.modules.policy import seed_call
 from rsl_rl_tpu_torch.networks.memory import mask_carry
 from rsl_rl_tpu_torch.ops import distributions
 from rsl_rl_tpu_torch.storage.rollout import Rollout, tree_map
@@ -107,6 +124,7 @@ class Distillation(Trainer):
 
     # the collect state is PPO's (with no RND reward normalizer to size)
     init_collect_state = PPO.init_collect_state
+    init_stacked_collect_state = PPO.init_stacked_collect_state
     rnd = None
 
     # --------------------------------------------------------------- collect
@@ -207,3 +225,114 @@ class Distillation(Trainer):
         if policy.is_recurrent:
             cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
         return cs, {"Loss/behavior": torch.cat(all_losses).mean()}
+
+    # ------------------------------------------------------- G seeds at once
+
+    def init_stacked_state(self, policies, num_envs: int | None = None) -> StackedTrainState:
+        """Stack G student-teacher policies (each its own init) into a fresh
+        training state: the optimizer moments cover the trained parameters
+        only (the frozen teachers stack beside them), every seed at the
+        learning rate."""
+        return stack_trained(policies, len(policies), self.learning_rate, self.device)
+
+    @torch.no_grad()
+    def collect_stacked(self, env, ts: StackedTrainState, cs: CollectState, num_steps: int,
+                        action_noise: torch.Tensor | None = None):
+        """:meth:`collect` for G seeds: returns ``(cs, rollout, metrics)`` with
+        a leading ``[G]`` axis on the rollout and on every metric; the
+        students' normalizer moments in ``ts.buffers`` update in place, per
+        seed. ``action_noise [G, T, E, A]`` replaces the normal draws."""
+        call = partial(seed_call, self.policy, ts.params, ts.buffers)
+        env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
+        G, E = stats.cur_reward_sum.shape
+        carry0 = carry
+        acc = {k: torch.zeros(G, device=self.device) for k in ACC_KEYS}
+        steps = {k: [] for k in ("obs", "actions", "privileged_actions", "rewards", "dones", "std")}
+        logs: dict[str, list] = {}
+        for t in range(num_steps):
+            mean, std, carry = call("act", obs, carry)
+            noise = None if action_noise is None else action_noise[:, t]
+            action = distributions.sample(mean, std, noise, self.generator)
+            privileged, carry = call("evaluate", obs, carry)
+
+            env_state, *out = env.step(env_state, action.reshape(G * E, -1))
+            next_obs, rew, done, extras = tree_map(lambda x: x.reshape(G, E, *x.shape[1:]), out)
+            call("update_normalization", next_obs, out_dims=None)
+            carry = vmap(self.policy.reset_carry)(carry, done)
+            stats, acc = step_episode_stats(stats, acc, rew, torch.zeros_like(rew), done.to(torch.float32))
+            for k, v in vmap(collect_extras_logs)(extras).items():
+                logs.setdefault(k, []).append(v)
+
+            for k, v in (("obs", obs), ("actions", action), ("privileged_actions", privileged),
+                         ("rewards", rew), ("dones", done), ("std", std.flatten(1).mean(dim=1))):
+                steps[k].append(v)
+            obs = next_obs
+
+        rollout = Rollout(
+            obs={k: torch.stack([o[k] for o in steps["obs"]], dim=1) for k in steps["obs"][0]},
+            **{k: torch.stack(steps[k], dim=1) for k in ("actions", "privileged_actions", "rewards", "dones")},
+            carry0=carry0,
+        )
+        metrics = dict(acc)
+        metrics["Policy/mean_noise_std"] = torch.stack(steps["std"]).mean(dim=0)
+        for k, v in logs.items():
+            metrics[f"extras/{k}"] = torch.stack(v).mean(dim=0)
+        cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
+        return cs, rollout, metrics
+
+    def _seed_chunk(self, params: dict, buffers: dict, obs: dict, carry, resets, targets):
+        """One seed's per-step losses over a chunk and the carry after it
+        (vmapped over the seeds by :meth:`update_stacked`)."""
+        actions, carry = functional_call(self.policy, (params, buffers), ("student_seq", obs, carry, resets))
+        return self._per_step_loss(actions, targets), carry
+
+    def _replay_stacked(self, ts: StackedTrainState, rollout: Rollout, resets, carry0, carry, chunks):
+        """:meth:`_replay` for G seeds: each chunk is one batched call; the
+        per-step losses are ``[G, steps]``."""
+        losses = []
+        for t0, t1 in chunks:
+            if t0 == 0:
+                carry = carry0
+            obs = {k: v[:, t0:t1] for k, v in rollout.obs.items()}
+            loss, carry = vmap(self._seed_chunk)(ts.params, ts.buffers, obs, carry, resets[:, t0:t1],
+                                                 rollout.privileged_actions[:, t0:t1])
+            losses.append(loss)
+        return torch.cat(losses, dim=1), carry
+
+    def update_stacked(self, ts: StackedTrainState, cs: CollectState, rollout: Rollout):
+        """:meth:`update` for G seeds, in place on ``ts``; returns ``(ts, cs,
+        metrics)`` with ``[G]`` metrics. Each gradient segment takes one
+        gradient of the summed per-seed losses and steps each seed's clip
+        (masked to its student MLP) and optimizer on its own."""
+        policy = self.policy
+        T, L = rollout.num_steps, self.gradient_length
+        total_steps = self.num_learning_epochs * T
+        num_segments = total_steps // L
+        resets = rollout.replay_resets()
+        carry0 = tree_map(torch.Tensor.detach, rollout.carry0) if policy.is_recurrent else ()
+        carry = carry0
+        names = ts.trained_names()
+        clip_mask = [n.startswith("student.") for n in names]
+        step = vmap(partial(clip_step, max_grad_norm=self.max_grad_norm, clip_mask=clip_mask,
+                            direction=self.direction))
+        all_losses = []
+        for seg in range(num_segments):
+            losses, carry = self._replay_stacked(ts, rollout, resets, carry0, carry,
+                                                 chunks_between(seg * L, (seg + 1) * L, T))
+            grads = torch.autograd.grad(losses.sum(), [ts.params[k] for k in names], allow_unused=True)
+            # the std gets no gradient from the loss: the optimizer sees zeros, as in JAX
+            grads = [torch.zeros_like(ts.params[k]) if g is None else g for g, k in zip(grads, names)]
+            stacked_step(step, ts.params, grads, ts.adam_mu, ts.adam_nu, ts.adam_count, ts.lr)
+            carry = tree_map(torch.Tensor.detach, carry)
+            all_losses.append(losses.detach())
+        tail = chunks_between(num_segments * L, total_steps, T)
+        if tail:
+            with torch.no_grad():
+                losses, carry = self._replay_stacked(ts, rollout, resets, carry0, carry, tail)
+            all_losses.append(losses)
+        if policy.is_recurrent and policy.teacher_recurrent:
+            t_end = (total_steps - 1) % T + 1
+            carry = {**carry, "teacher": vmap(mask_carry)(carry0["teacher"], resets[:, :t_end].any(dim=1))}
+        if policy.is_recurrent:
+            cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
+        return ts, cs, {"Loss/behavior": torch.cat(all_losses, dim=1).mean(dim=1)}

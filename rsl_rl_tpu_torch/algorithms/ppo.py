@@ -28,9 +28,10 @@
 With ``rnd_cfg`` the collection adds RND's intrinsic reward and the update
 trains its predictor; with ``symmetry_cfg`` the update augments each
 minibatch with its symmetric copies, adds the mirror loss, or logs it
-(:class:`PPO`). The optimizer is ``adam``, ``adamw``, ``sgd`` or
-``rmsprop`` (:class:`Trainer`). The stacked path takes neither RND nor
-symmetry yet, and raises when they are configured.
+(:class:`PPO`), on one seed and on G at once: a study stacks each seed's
+RND state (the predictor and its optimizer, the frozen target, both
+normalizers, the counter) beside its policy. The optimizer is ``adam``,
+``adamw``, ``sgd`` or ``rmsprop`` (:class:`Trainer`).
 """
 
 from __future__ import annotations
@@ -80,8 +81,12 @@ class StackedTrainState:
 
     ``params`` and ``buffers`` are the policies' parameters and normalizer
     moments by module name (``torch.func.stack_module_state``); ``adam_mu``
-    and ``adam_nu`` the Adam moments by the same names; ``adam_count [G]``
-    and ``lr [G]`` each seed's Adam step count and adaptive learning rate.
+    and ``adam_nu`` the optimizer moments of the trained parameters (those
+    that require gradients) by the same names; ``adam_count [G]`` and ``lr
+    [G]`` each seed's step count and learning rate. With RND, ``rnd_params``
+    and ``rnd_buffers`` hold each seed's RND module (the trained predictor,
+    the frozen target; both normalizers and the counter), ``rnd_mu``,
+    ``rnd_nu`` and ``rnd_count`` its predictor's optimizer state.
     """
 
     params: dict[str, torch.Tensor]
@@ -90,6 +95,62 @@ class StackedTrainState:
     adam_nu: dict[str, torch.Tensor]
     adam_count: torch.Tensor
     lr: torch.Tensor
+    rnd_params: dict[str, torch.Tensor] | None = None
+    rnd_buffers: dict[str, torch.Tensor] | None = None
+    rnd_mu: dict[str, torch.Tensor] | None = None
+    rnd_nu: dict[str, torch.Tensor] | None = None
+    rnd_count: torch.Tensor | None = None
+
+    def trained_names(self) -> list[str]:
+        """The names of the parameters the optimizer steps."""
+        return list(self.adam_mu)
+
+    def seed_tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the state, each ``[G, ...]``."""
+        out = [self.adam_count, self.lr]
+        for tree in (self.params, self.buffers, self.adam_mu, self.adam_nu, self.rnd_params, self.rnd_buffers,
+                     self.rnd_mu, self.rnd_nu):
+            out += [] if tree is None else list(tree.values())
+        return out + ([] if self.rnd_count is None else [self.rnd_count])
+
+
+def stack_trained(modules, G: int, learning_rate: float, device) -> StackedTrainState:
+    """G modules' states stacked into a fresh training state: zero optimizer
+    moments for the parameters that require gradients, zero counts, every
+    seed at ``learning_rate``."""
+    params, buffers = stack_module_state(list(modules))
+    trained = [k for k, v in params.items() if v.requires_grad]
+    return StackedTrainState(
+        params=params,
+        buffers=buffers,
+        adam_mu={k: torch.zeros_like(params[k]) for k in trained},
+        adam_nu={k: torch.zeros_like(params[k]) for k in trained},
+        adam_count=torch.zeros(G, dtype=torch.int32, device=device),
+        lr=torch.full((G,), learning_rate, dtype=torch.float32, device=device),
+    )
+
+
+def module_call(module, state, method: str, *args):
+    """``module.<method>(*args)`` with ``state = (params, buffers)``
+    substituted (``torch.func.functional_call``), or on the module's own
+    tensors when ``state`` is None."""
+    if state is None:
+        return getattr(module, method)(*args)
+    return functional_call(module, state, (method, *args))
+
+
+@torch.no_grad()
+def stacked_step(step, ts_params: dict, grads, mu: dict, nu: dict, count: torch.Tensor, lr) -> None:
+    """``step`` (a vmapped :func:`clip_step`) over the named parameters of
+    ``mu``, in place: every tensor keeps its storage."""
+    names = list(mu)
+    params, new_mu, new_nu, new_count = step([ts_params[k] for k in names], list(grads),
+                                             [mu[k] for k in names], [nu[k] for k in names], count, lr)
+    count.copy_(new_count)
+    for k, p, m, v in zip(names, params, new_mu, new_nu):
+        ts_params[k].copy_(p)
+        mu[k].copy_(m)
+        nu[k].copy_(v)
 
 
 ACC_KEYS = ("ep_reward_sum", "ep_length_sum", "ep_ereward_sum", "ep_ireward_sum", "ep_count")
@@ -388,7 +449,9 @@ class PPO(Trainer):
             rnd_cfg = dict(rnd_cfg)
             rnd_lr = rnd_cfg.pop("learning_rate", 1e-3)
             # a stream of its own: the policy draws from seed - 1 and seed
-            self.rnd = RandomNetworkDistillation(**rnd_cfg, device=self.device, seed=int(seed) + 0x524E44)
+            self._rnd_seed = int(seed) + 0x524E44
+            self._rnd_cfg = rnd_cfg
+            self.rnd = RandomNetworkDistillation(**rnd_cfg, device=self.device, seed=self._rnd_seed)
             self.rnd_optimizer = Trainer(self.rnd.predictor.named_parameters(), rnd_lr, self.device)
 
         self.symmetry = None
@@ -405,12 +468,6 @@ class PPO(Trainer):
                 )
             symmetry_cfg.setdefault("_env", None)
             self.symmetry = symmetry_cfg
-
-    def _check_single_seed(self) -> None:
-        if self.rnd is not None or self.symmetry is not None:
-            raise NotImplementedError(
-                "RND and symmetry are not ported to multi-seed training yet (ROADMAP.md Queue 1 item 5)"
-            )
 
     # --------------------------------------------------------------- collect
 
@@ -531,20 +588,24 @@ class PPO(Trainer):
 
     # ------------------------------------------------------- G seeds at once
 
-    def init_stacked_state(self, policies) -> StackedTrainState:
+    def init_stacked_state(self, policies, num_envs: int | None = None) -> StackedTrainState:
         """Stack G policies (each its own init, the architecture of
-        ``self.policy``) into a fresh training state: zero Adam moments and
-        count, every seed at the initial learning rate."""
-        params, buffers = stack_module_state(list(policies))
+        ``self.policy``) into a fresh training state: zero optimizer moments
+        and count, every seed at the initial learning rate. With RND each
+        seed also gets its own RND module (drawn from its own seed, its
+        reward normalizer sized for ``num_envs`` envs) and a zero predictor
+        optimizer state."""
         G = len(policies)
-        return StackedTrainState(
-            params=params,
-            buffers=buffers,
-            adam_mu={k: torch.zeros_like(v) for k, v in params.items()},
-            adam_nu={k: torch.zeros_like(v) for k, v in params.items()},
-            adam_count=torch.zeros(G, dtype=torch.int32, device=self.device),
-            lr=torch.full((G,), self.learning_rate, dtype=torch.float32, device=self.device),
-        )
+        ts = stack_trained(policies, G, self.learning_rate, self.device)
+        if self.rnd is not None:
+            rnds = [self.rnd] + [RandomNetworkDistillation(**self._rnd_cfg, device=self.device,
+                                                           seed=self._rnd_seed + g) for g in range(1, G)]
+            for rnd in rnds:
+                rnd.init_reward_norm(num_envs)
+            r = stack_trained(rnds, G, 0.0, self.device)
+            ts.rnd_params, ts.rnd_buffers = r.params, r.buffers
+            ts.rnd_mu, ts.rnd_nu, ts.rnd_count = r.adam_mu, r.adam_nu, r.adam_count
+        return ts
 
     def init_stacked_collect_state(self, env_state, obs, num_seeds: int) -> CollectState:
         """``env_state`` flat over the ``G*E`` envs, ``obs`` ``[G, E, ...]``."""
@@ -561,11 +622,12 @@ class PPO(Trainer):
                         action_noise: torch.Tensor | None = None):
         """:meth:`collect` for G seeds: returns ``(cs, rollout, metrics)`` with
         a leading ``[G]`` axis on the rollout (``[G, T, E, ...]``) and on every
-        metric. The normalizer moments in ``ts.buffers`` update in place, per
-        seed. ``action_noise [G, T, E, A]`` replaces the normal draws, which
-        are otherwise taken for all seeds at once, outside the batched policy."""
-        self._check_single_seed()
+        metric. The normalizer moments in ``ts.buffers`` (and the RND state in
+        ``ts.rnd_buffers``) update in place, per seed. ``action_noise [G, T,
+        E, A]`` replaces the normal draws, which are otherwise taken for all
+        seeds at once, outside the batched policy."""
         call = partial(seed_call, self.policy, ts.params, ts.buffers)
+        rnd_call = None if self.rnd is None else partial(seed_call, self.rnd, ts.rnd_params, ts.rnd_buffers)
         env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
         G, E = stats.cur_reward_sum.shape
         carry0 = carry
@@ -584,11 +646,15 @@ class PPO(Trainer):
             next_obs, rew, done, extras = tree_map(lambda x: x.reshape(G, E, *x.shape[1:]), out)
             done_f = done.to(torch.float32)
             call("update_normalization", next_obs, out_dims=None)
-            total_rew = rew
+            total_rew, irew = rew, torch.zeros_like(rew)
+            if rnd_call is not None:
+                rnd_call("update_normalization", next_obs, out_dims=None)
+                irew, _ = rnd_call("get_intrinsic_reward", next_obs)
+                total_rew = rew + irew
             if "time_outs" in extras:
-                total_rew = rew + self.gamma * value * extras["time_outs"].to(torch.float32)
+                total_rew = total_rew + self.gamma * value * extras["time_outs"].to(torch.float32)
             carry = vmap(self.policy.reset_carry)(carry, done)
-            stats, acc = step_episode_stats(stats, acc, rew, torch.zeros_like(rew), done_f)
+            stats, acc = step_episode_stats(stats, acc, rew, irew, done_f)
             for k, v in vmap(collect_extras_logs)(extras).items():
                 logs.setdefault(k, []).append(v)
 
@@ -605,6 +671,8 @@ class PPO(Trainer):
         )
         metrics = dict(acc)
         metrics["Policy/mean_noise_std"] = rollout.sigma.flatten(1).mean(dim=1)
+        if self.rnd is not None:
+            metrics["Rnd/weight"] = vmap(self.rnd.current_weight)(ts.rnd_buffers["counter"])
         for k, v in logs.items():
             metrics[f"extras/{k}"] = torch.stack(v).mean(dim=0)
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
@@ -613,13 +681,15 @@ class PPO(Trainer):
     def update_stacked(self, ts: StackedTrainState, cs: CollectState, rollout: Rollout,
                        perm: torch.Tensor | None = None):
         """:meth:`update` for G seeds, in place on ``ts`` (every tensor keeps
-        its storage); returns ``(ts, cs, metrics)`` with ``[G]`` metrics. Every minibatch replays all seeds'
-        memories in one batched call (the xproj kernels, through the replays'
-        vmap rules), takes one gradient of the summed per-seed losses, and
-        steps each seed's learning rate, clip and Adam on its own. A
-        feedforward policy shuffles each seed's rows by its own permutation,
-        ``perm [G, rows]`` (drawn when not given)."""
-        self._check_single_seed()
+        its storage); returns ``(ts, cs, metrics)`` with ``[G]`` metrics. Every
+        minibatch replays all seeds' memories in one batched call (the xproj
+        kernels, through the replays' vmap rules: with symmetry augmentation
+        the augmented batch, and the mirror loss's actor replay in another),
+        takes one gradient of the summed per-seed losses, and steps each
+        seed's learning rate, clip and optimizer on its own (and with RND
+        each seed's predictor with its own optimizer). A feedforward policy
+        shuffles each seed's rows by its own permutation, ``perm [G, rows]``
+        (drawn when not given)."""
         call = partial(seed_call, self.policy, ts.params, ts.buffers)
         with torch.no_grad():
             last_values, carry = call("value", cs.obs, cs.carry)
@@ -627,8 +697,13 @@ class PPO(Trainer):
                           normalize_advantage=not self.normalize_advantage_per_mini_batch)
             returns, advantages = vmap(gae)(rollout.rewards, rollout.values, rollout.dones, last_values)
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
-        names = list(ts.params)
+        names = ts.trained_names()
+        rnd_names = [] if self.rnd is None else list(ts.rnd_mu)
         step = vmap(partial(clip_step, max_grad_norm=self.max_grad_norm, direction=self.direction))
+        # the predictor's own Adam at the RND learning rate, unclipped
+        rnd_step = vmap(partial(clip_step, max_grad_norm=None), in_dims=(0, 0, 0, 0, 0, None))
+        rnd_dim = None if self.rnd is None else 0
+        seed_loss = vmap(self._seed_loss, in_dims=(0, 0, rnd_dim, rnd_dim, 0, 0))
         num_mini_batches, rows = self._row_count(rollout)
         if perm is None and not self.policy.is_recurrent:
             G = ts.lr.shape[0]
@@ -636,19 +711,16 @@ class PPO(Trainer):
         outs: dict[str, list] = {}
         for batch, carry0 in minibatches(self.policy, rollout, returns, advantages, num_mini_batches,
                                          self.num_learning_epochs, perm, seed_axis=True):
-            loss, aux = vmap(self._seed_loss)(ts.params, ts.buffers, batch, carry0)
-            grads = torch.autograd.grad(loss.sum(), [ts.params[k] for k in names])
+            loss, aux = seed_loss(ts.params, ts.buffers, ts.rnd_params, ts.rnd_buffers, batch, carry0)
+            grads = torch.autograd.grad(loss.sum(), [ts.params[k] for k in names]
+                                        + [ts.rnd_params[k] for k in rnd_names])
             with torch.no_grad():
                 if self.desired_kl is not None and self.schedule == "adaptive":
                     ts.lr.copy_(adapt_lr(ts.lr, aux["kl"], self.desired_kl, self.min_lr, self.max_lr))
-                params, mu, nu, count = step(
-                    [ts.params[k] for k in names], grads, [ts.adam_mu[k] for k in names],
-                    [ts.adam_nu[k] for k in names], ts.adam_count, ts.lr)
-                ts.adam_count.copy_(count)
-                for k, p, m, v in zip(names, params, mu, nu):
-                    ts.params[k].copy_(p)
-                    ts.adam_mu[k].copy_(m)
-                    ts.adam_nu[k].copy_(v)
+            stacked_step(step, ts.params, grads[:len(names)], ts.adam_mu, ts.adam_nu, ts.adam_count, ts.lr)
+            if self.rnd is not None:
+                stacked_step(rnd_step, ts.rnd_params, grads[len(names):], ts.rnd_mu, ts.rnd_nu, ts.rnd_count,
+                             self.rnd_optimizer.lr)
             for k, v in aux.items():
                 outs.setdefault(k, []).append(v.detach())
             outs.setdefault("learning_rate", []).append(ts.lr.clone())
@@ -662,12 +734,15 @@ class PPO(Trainer):
 
     # ------------------------------------------------------------------ loss
 
-    def _loss(self, batch: dict, carry0):
+    def _loss(self, batch: dict, carry0, state=None, rnd_state=None):
         """Per-minibatch loss over a ``[T, nb]`` window (feedforward: ``[B]``
         rows); returns ``(loss, aux)``. With symmetry augmentation the batch
         is extended by its symmetric copies first; the KL and the entropy
-        then see the original part only."""
+        then see the original part only. ``state`` and ``rnd_state`` (each
+        ``(params, buffers)``) substitute one seed's policy and RND state
+        (:func:`module_call`)."""
         policy, sym = self.policy, self.symmetry
+        call = partial(module_call, policy, state)
         time_major = policy.is_recurrent
         obs, resets = batch["obs"], batch.get("resets")
         first = None
@@ -682,27 +757,28 @@ class PPO(Trainer):
             if time_major:
                 resets = symmetry.tile_batch(resets, num_aug, True)
                 carry0 = symmetry.tile_carry(carry0, num_aug)
-        mean, std, value = policy.act_value_seq(obs, carry0, resets)
+        mean, std, value = call("act_value_seq", obs, carry0, resets)
         loss, aux = self._loss_terms(mean, std, value, batch, first)
         if sym is not None:
-            symmetry_loss = self._mirror_loss(batch["obs"], carry0, resets, mean if first is not None else None)
+            symmetry_loss = self._mirror_loss(call, batch["obs"], carry0, resets,
+                                              mean if first is not None else None)
             if sym["use_mirror_loss"]:
                 loss = loss + sym["mirror_loss_coeff"] * symmetry_loss
             aux["symmetry"] = symmetry_loss.detach()
         if self.rnd is not None:
-            rnd_loss = self.rnd.predictor_loss(batch["obs"])
+            rnd_loss = module_call(self.rnd, rnd_state, "predictor_loss", batch["obs"])
             loss = loss + rnd_loss
             aux["rnd"] = rnd_loss.detach()
         return loss, aux
 
-    def _mirror_loss(self, obs, carry0, resets, mean_aug):
+    def _mirror_loss(self, call, obs, carry0, resets, mean_aug):
         """The mean squared difference between the actor's mean on each
         symmetric copy of the obs and the mirror of its mean on the original
         (the mirrored target is a constant). ``mean_aug`` is the augmented
         batch's mean when data augmentation already computed it (``carry0``
         and ``resets`` are then tiled); otherwise the actor replays the
-        augmented obs (a constant) here, with gradients in mirror-loss mode
-        and without them when the loss is only logged."""
+        augmented obs (a constant) here through ``call``, with gradients in
+        mirror-loss mode and without them when the loss is only logged."""
         sym, policy = self.symmetry, self.policy
         time_major = policy.is_recurrent
         fn, env = sym["data_augmentation_func"], sym["_env"]
@@ -714,18 +790,17 @@ class PPO(Trainer):
                 carry0 = symmetry.tile_carry(carry0, num_aug)
                 resets = symmetry.tile_batch(resets, num_aug, True)
             with torch.set_grad_enabled(torch.is_grad_enabled() and sym["use_mirror_loss"]):
-                mean_aug = policy.act_seq(obs_aug, carry0, resets)[0]
+                mean_aug = call("act_seq", obs_aug, carry0, resets)[0]
         _, mirrored, _ = symmetry.apply_augmentation(fn, env, None, _part(mean_aug, n, time_major, False),
                                                       time_major)
         return torch.mean(torch.square(_part(mean_aug, n, time_major, True)
                                        - _part(mirrored, n, time_major, True).detach()))
 
-    def _seed_loss(self, params: dict, buffers: dict, batch: dict, carry0):
-        """:meth:`_loss` of one seed with its policy state substituted (vmapped
-        over the seeds by :meth:`update_stacked`)."""
-        mean, std, value = functional_call(
-            self.policy, (params, buffers), ("act_value_seq", batch["obs"], carry0, batch.get("resets")))
-        return self._loss_terms(mean, std, value, batch)
+    def _seed_loss(self, params: dict, buffers: dict, rnd_params, rnd_buffers, batch: dict, carry0):
+        """:meth:`_loss` of one seed with its policy and RND state substituted
+        (vmapped over the seeds by :meth:`update_stacked`)."""
+        rnd_state = None if rnd_params is None else (rnd_params, rnd_buffers)
+        return self._loss(batch, carry0, (params, buffers), rnd_state)
 
     def _loss_terms(self, mean, std, value, batch: dict, first=None):
         """The loss of a minibatch from the replayed policy outputs. With

@@ -1,15 +1,18 @@
 """Gaussian MLP actor-critic (counterpart of ``rsl_rl_tpu/modules/actor_critic.py``).
 
-Scalar or log action std and optional running observation normalization.
-Parameters are fp32; ``dtype=torch.bfloat16`` runs the MLP trunks in bf16
-with fp32 output heads.
+Scalar, log or state-dependent action std and optional running observation
+normalization. Parameters are fp32; ``dtype=torch.bfloat16`` runs the MLP
+trunks in bf16 with fp32 output heads.
 The std is the raw parameter in ``"scalar"`` mode (it can drift negative, as
-in the reference) and ``exp`` of it in ``"log"`` mode; ``noise_std_floor``
-clamps it from below when set.
+in the reference) and ``exp`` of it in ``"log"`` mode; with
+``state_dependent_std`` the actor's head outputs ``[2, A]``, the mean and the
+raw std (the same two modes), and there is no std parameter. ``noise_std_floor``
+clamps the std from below when set.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -59,10 +62,6 @@ class ActorCritic(nn.Module):
                 "ActorCritic.__init__ got unexpected arguments, which will be ignored: "
                 + str(list(kwargs.keys()))
             )
-        if state_dependent_std:
-            raise NotImplementedError(
-                "state-dependent std is not ported yet (ROADMAP.md Queue 1, 'Actor-critic')"
-            )
         if noise_std_type not in ("scalar", "log"):
             raise ValueError(
                 f"Unknown standard deviation type: {noise_std_type}. Should be 'scalar' or 'log'"
@@ -73,6 +72,7 @@ class ActorCritic(nn.Module):
         self.num_actor_obs = obs_set_dim(obs, obs_groups["policy"])
         self.num_critic_obs = obs_set_dim(obs, obs_groups["critic"])
         self.noise_std_type = noise_std_type
+        self.state_dependent_std = state_dependent_std
         self.noise_std_floor = noise_std_floor
         # the recurrent subclass feeds its memory outputs to the MLPs
         actor_in, critic_in = trunk_inputs or (self.num_actor_obs, self.num_critic_obs)
@@ -82,12 +82,23 @@ class ActorCritic(nn.Module):
         # gradient on long runs)
         head = torch.float32 if dtype is not None else None
         gen = torch.Generator().manual_seed(int(seed))
-        self.actor = MLP(actor_in, num_actions, list(actor_hidden_dims), activation, gen,
+        # a state-dependent std is the second row of the actor's [2, A] output
+        actor_out = (2, num_actions) if state_dependent_std else num_actions
+        self.actor = MLP(actor_in, actor_out, list(actor_hidden_dims), activation, gen,
                          dtype=dtype, head_dtype=head)
         self.critic = MLP(critic_in, 1, list(critic_hidden_dims), activation, gen,
                           dtype=dtype, head_dtype=head)
-        std0 = init_noise_std * torch.ones(num_actions)
-        self.std = nn.Parameter(std0 if noise_std_type == "scalar" else torch.log(std0))
+        if state_dependent_std:
+            # the std half of the last layer: zero weights, the initial std as bias
+            last = getattr(self.actor, f"dense_{self.actor.num_linear - 1}")
+            with torch.no_grad():
+                last.weight[num_actions:].zero_()
+                last.bias[num_actions:] = (init_noise_std if noise_std_type == "scalar"
+                                           else math.log(init_noise_std + 1e-7))
+            self.std = None
+        else:
+            std0 = init_noise_std * torch.ones(num_actions)
+            self.std = nn.Parameter(std0 if noise_std_type == "scalar" else torch.log(std0))
         self.norm_actor = RunningNormState(self.num_actor_obs) if actor_obs_normalization else None
         self.norm_critic = RunningNormState(self.num_critic_obs) if critic_obs_normalization else None
         self.to(self.device)
@@ -108,9 +119,14 @@ class ActorCritic(nn.Module):
     # ------------------------------------------------------------- forward
 
     def _dist_from_features(self, features: torch.Tensor):
-        mean = self.actor(features)
-        std = self.std if self.noise_std_type == "scalar" else torch.exp(self.std)
-        std = std.expand_as(mean)
+        out = self.actor(features)
+        if self.state_dependent_std:
+            mean, raw = out[..., 0, :], out[..., 1, :]
+            std = raw if self.noise_std_type == "scalar" else torch.exp(raw)
+        else:
+            mean = out
+            std = self.std if self.noise_std_type == "scalar" else torch.exp(self.std)
+            std = std.expand_as(mean)
         if self.noise_std_floor is not None:
             std = torch.clamp(std, min=self.noise_std_floor)
         return mean, std

@@ -104,4 +104,5 @@ class ActorCriticRecurrent(ActorCritic):
     def act_inference(self, obs, carry):
         """Stateful single-step deterministic action: ``(mean, carry)``."""
         new_a, features = self.memory_a.step(carry["actor"], self._actor_in(obs))
-        return self.actor(features), {**carry, "actor": new_a}
+        out = self.actor(features)
+        return (out[..., 0, :] if self.state_dependent_std else out), {**carry, "actor": new_a}

@@ -81,6 +81,11 @@ class RandomNetworkDistillation(nn.Module):
         self.register_buffer("counter", torch.zeros((), dtype=torch.int32))
         self.to(self.device)
 
+    def forward(self, method: str, *args):
+        """``self.<method>(*args)``: lets ``torch.func.functional_call`` run any
+        method with a substituted state (each seed's, in a study)."""
+        return getattr(self, method)(*args)
+
     def init_reward_norm(self, num_envs: int) -> None:
         """Make the reward normalizer for ``num_envs`` envs (with
         ``reward_normalization``)."""

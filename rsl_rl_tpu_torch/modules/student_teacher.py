@@ -101,6 +101,11 @@ class StudentTeacher(nn.Module):
 
     # ------------------------------------------------------------- carries
 
+    def forward(self, method: str, *args):
+        """``self.<method>(*args)``: lets ``torch.func.functional_call`` run any
+        policy method with a substituted state (a study's seeds)."""
+        return getattr(self, method)(*args)
+
     def initial_carry(self, num_envs: int) -> Any:
         return ()
 

@@ -2,7 +2,10 @@
 
 Layers are ``dense_{i}`` ``nn.Linear``s with torch's default init,
 ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weight and bias, drawn from an
-explicit generator. Parameters are fp32. With ``dtype=torch.bfloat16`` a
+explicit generator; ``init_scales`` (one gain, or a gain a layer) draws
+orthogonal weights with those gains and zero biases instead. A tuple
+``output_dim`` reshapes the output (``(2, A)``: ``[..., 2, A]``). Parameters
+are fp32. With ``dtype=torch.bfloat16`` a
 layer computes as flax ``nn.Dense(dtype=bfloat16)`` does: input, kernel and
 bias cast to bf16, a bf16 matmul, the bias added in bf16, the activation in
 bf16. ``head_dtype=torch.float32`` computes the last layer in fp32 (``None``
@@ -29,12 +32,13 @@ class MLP(nn.Module):
     def __init__(
         self,
         input_dim: int,
-        output_dim: int,
+        output_dim: int | Sequence[int],
         hidden_dims: Sequence[int],
         activation: str = "elu",
         generator: torch.Generator | None = None,
         dtype=None,
         head_dtype=None,
+        init_scales: float | Sequence[float] | None = None,
     ):
         super().__init__()
         _check_dtype("dtype", dtype, (None, torch.bfloat16))
@@ -42,14 +46,22 @@ class MLP(nn.Module):
         self.act = resolve_nn_activation(activation)
         self.dtype = dtype
         self.head_dtype = head_dtype
-        dims = [input_dim, *hidden_dims, output_dim]
+        self.out_shape = None if isinstance(output_dim, int) else tuple(output_dim)
+        dims = [input_dim, *hidden_dims, output_dim if self.out_shape is None else math.prod(self.out_shape)]
         self.num_linear = len(dims) - 1
+        if isinstance(init_scales, (list, tuple)) and len(init_scales) != self.num_linear:
+            raise ValueError(f"init_scales has {len(init_scales)} gains for {self.num_linear} layers")
         for i in range(self.num_linear):
             layer = nn.Linear(dims[i], dims[i + 1])
             bound = 1.0 / math.sqrt(dims[i])
             with torch.no_grad():
-                layer.weight.uniform_(-bound, bound, generator=generator)
-                layer.bias.uniform_(-bound, bound, generator=generator)
+                if init_scales is None:
+                    layer.weight.uniform_(-bound, bound, generator=generator)
+                    layer.bias.uniform_(-bound, bound, generator=generator)
+                else:
+                    gain = init_scales[i] if isinstance(init_scales, (list, tuple)) else init_scales
+                    nn.init.orthogonal_(layer.weight, gain=float(gain), generator=generator)
+                    layer.bias.zero_()
             self.add_module(f"dense_{i}", layer)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -63,4 +75,5 @@ class MLP(nn.Module):
                 x = torch.matmul(x.to(dt), layer.weight.to(dt).T) + layer.bias.to(dt)
             if not is_head:
                 x = self.act(x)
-        return x.to(torch.float32)
+        x = x.to(torch.float32)
+        return x if self.out_shape is None else x.reshape(*x.shape[:-1], *self.out_shape)

@@ -10,7 +10,9 @@ call per policy step and per minibatch for all seeds, the env stepping all
 kernels with the seeds (and the actor and critic memories) as their stream
 axis, as the JAX package's replays take its xproj cores under ``vmap``.
 Seeds share no state: each has its own policy init, env draws, action noise,
-normalizer moments, advantage normalization, learning rate, clip and Adam.
+normalizer moments, advantage normalization, learning rate, clip and
+optimizer, and its own RND state. A distillation study stacks students
+beside one shared teacher (``MultiSeedRunner.load_teacher``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ def make_multiseed_train(alg, env, num_steps_per_env: int, num_seeds: int,
                          device="cuda") -> tuple[Callable, Callable]:
     """Build ``(init, train_step)`` for multi-seed training.
 
-    ``alg`` is a PPO whose policy serves as the architecture template; ``env``
-    has ``num_envs`` envs per seed.
+    ``alg`` is a PPO or a Distillation whose policy serves as the
+    architecture template; ``env`` has ``num_envs`` envs per seed.
 
     ``init(policies, seed) -> (ts, cs)`` stacks the ``num_seeds`` policies
     (each with its own init) into the training state, resets
@@ -49,7 +51,7 @@ def make_multiseed_train(alg, env, num_steps_per_env: int, num_seeds: int,
     def init(policies, seed: int):
         if len(policies) != G:
             raise ValueError(f"expected {G} policies, one per seed, got {len(policies)}")
-        ts = alg.init_stacked_state(policies)
+        ts = alg.init_stacked_state(policies, E)
         env_state, obs = env.reset(seed, num_envs=G * E)
         obs = tree_map(lambda x: x.reshape(G, E, *x.shape[1:]), obs)
         return ts, alg.init_stacked_collect_state(env_state, obs, G)

@@ -8,11 +8,12 @@ it writes the scalars (``logger``), ``model_<it>.pt`` every ``save_interval``
 iterations, the git state and the ``profiler_trace_iterations`` trace.
 ``save`` / ``load`` / ``load_latest`` write and read checkpoints
 (``utils/checkpoint.py``); ``get_inference_policy`` returns the
-deterministic policy.
+deterministic policy. ``eval_interval`` (with a ``log_dir``) evaluates the
+deterministic policy on a fresh copy of the env every that many iterations
+(``utils/evaluation.py``) and writes ``Eval/*``.
 
-Evaluation and model parallelism are not ported yet: setting one of the
-runner keys in :data:`UNPORTED_KEYS` to anything but the JAX package's
-default raises. The deprecated ``empirical_normalization`` key maps onto the
+Model parallelism is not ported yet: setting a runner key of
+:data:`UNPORTED_KEYS` to anything but the JAX package's default raises. The deprecated ``empirical_normalization`` key maps onto the
 policy's ``actor_obs_normalization`` / ``critic_obs_normalization`` where
 those are unset, with a ``DeprecationWarning``, as in the JAX package.
 """
@@ -34,13 +35,13 @@ from rsl_rl_tpu_torch.modules.symmetry import resolve_symmetry_config
 from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
+from rsl_rl_tpu_torch.utils.evaluation import eval_seed, evaluate_policy
 from rsl_rl_tpu_torch.utils.registry import resolve
 from rsl_rl_tpu_torch.utils.resolvers import resolve_obs_groups
 
 #: runner keys the JAX package reads that the port does not implement, with
 #: the JAX package's default (unset or None counts as the default)
 UNPORTED_KEYS = {
-    "eval_interval": 0,
     "model_parallel_size": 1,
 }
 
@@ -92,7 +93,7 @@ class OnPolicyRunner(TrainingLoop):
         self.env = env
         self.num_steps_per_env = self.cfg["num_steps_per_env"]
         self._init_loop(log_dir)
-        seed = int(self.cfg.get("seed", 1))
+        seed = self.seed = int(self.cfg.get("seed", 1))
 
         env_state, obs = env.reset(seed)
         default_sets = ["critic"] if self.training_type == "rl" else ["teacher"]
@@ -162,6 +163,22 @@ class OnPolicyRunner(TrainingLoop):
 
     def _to_host(self, metrics: dict) -> dict:
         return {k: float(v) for k, v in metrics.items()}
+
+    def _run_eval(self, it: int) -> None:
+        """One deterministic evaluation (a fresh env copy from a seed apart
+        from training's, ``act_inference`` actions); writes ``Eval/*``. It
+        draws nothing from the training's generators."""
+        m = evaluate_policy(self.env, self.alg.policy, None, self.eval_num_steps, eval_seed(self.seed, it))
+        count = m["Eval/episode_count"]
+        self.writer.add_scalar("Eval/episode_count", count, it)
+        if count > 0:
+            for key in ("Eval/mean_reward", "Eval/mean_episode_length", "Eval/min_return", "Eval/max_return"):
+                self.writer.add_scalar(key, m[key], it)
+            print(f"Evaluation at iteration {it}: mean return {m['Eval/mean_reward']:.2f} over {int(count)}"
+                  " episodes (deterministic policy)")
+        else:
+            print(f"Evaluation at iteration {it}: no episode completed within the eval budget (raise"
+                  " eval_num_steps)")
 
     def _episode_window_stats(self, metrics: dict) -> tuple[float, float, float, float, float]:
         """Means over a trailing window of about 100 finished episodes: reward,

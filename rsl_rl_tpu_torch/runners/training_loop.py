@@ -16,7 +16,10 @@ checkpoints, the git state and the profiler window.
 With a ``log_dir``: scalars go to the writer (``logger``: tensorboard, wandb
 or neptune, ``utils/writers.py``), ``model_<it>.pt`` is saved every
 ``save_interval`` iterations (at the end of the group holding one) and at the
-end of ``learn``, the git state of :attr:`git_status_repos` is stored after
+end of ``learn``, ``eval_interval`` runs the deterministic evaluation
+(``utils/evaluation.py``, ``eval_num_steps`` steps, the env's longest episode
+by default) every that many iterations (at the end of the group holding one,
+after its save) and writes its ``Eval/*`` scalars, the git state of :attr:`git_status_repos` is stored after
 the first iteration (or group), and ``profiler_trace_iterations = [first,
 last]`` traces the groups holding those iterations with ``torch.profiler``
 into ``<log_dir>/profile``. A run that resumes past ``first`` starts no
@@ -26,13 +29,15 @@ A runner provides ``_split_iteration()`` -> ``(metrics, collection_s,
 learn_s)`` (host metrics), the fused iteration ``_graph_step(tree) ->
 (tree, metrics)`` over the state tree ``_graph_state()`` /
 ``_set_graph_state(tree)``, ``_to_host(metrics)``, ``_log(it, start_iter,
-tot_iter, metrics, collection_s, learn_s)`` and ``save(path)``.
+tot_iter, metrics, collection_s, learn_s)``, ``save(path)`` and
+``_run_eval(it)``.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import torch
 
@@ -56,6 +61,18 @@ class TrainingLoop:
         if self.iterations_per_dispatch < 1:
             raise ValueError(f"iterations_per_dispatch must be >= 1, got {self.iterations_per_dispatch}")
         self.fuse_iteration = bool(self.cfg.get("fuse_iteration")) or self.iterations_per_dispatch > 1
+        self.eval_interval = int(self.cfg.get("eval_interval") or 0)
+        if self.eval_interval > 0:
+            if log_dir is None:
+                # evaluation runs where its scalars have somewhere to go
+                warnings.warn(
+                    "eval_interval is set but log_dir is None: Eval/* scalars have nowhere to go and evaluation"
+                    " will not run. Pass a log_dir to enable periodic evaluation.",
+                    UserWarning,
+                    stacklevel=3,
+                )
+            longest = int(torch.as_tensor(self.env.max_episode_length).max())
+            self.eval_num_steps = int(self.cfg.get("eval_num_steps") or longest)
         self.logger_type = self.cfg.get("logger") or "tensorboard"
         self.writer = None
         self.git_status_repos = [rsl_rl_tpu_torch.__file__]
@@ -68,7 +85,7 @@ class TrainingLoop:
         group = self.iterations_per_dispatch if self.fuse_iteration else 1
         if self.fuse_iteration:
             if self.iteration_graph is None:
-                self.iteration_graph = IterationGraph(self._graph_step, self.device, [self.alg.generator])
+                self.iteration_graph = IterationGraph(self._graph_step, self.device, self._graph_generators())
             # what was assigned to the state since the last learn
             self.iteration_graph.load(self._graph_state())
         it = start_iter
@@ -77,13 +94,17 @@ class TrainingLoop:
             self._trace_start(window, it, k)
             rows = self._dispatch(k) if self.fuse_iteration else [self._split_iteration()]
             self._trace_stop(window, it, k)
-            save_due = False
+            save_due = eval_due = False
             for j, (metrics, collection_s, learn_s) in enumerate(rows):
                 self.current_learning_iteration = it + j
                 self._log(it + j, start_iter, tot_iter, metrics, collection_s, learn_s)
                 save_due |= self.log_dir is not None and (it + j) % self.save_interval == 0
+                eval_due |= self.log_dir is not None and self.eval_interval > 0 and (it + j) % self.eval_interval == 0
             if save_due:
                 self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"))
+            if eval_due:
+                # the state exists at group boundaries: the group's last iteration
+                self._run_eval(self.current_learning_iteration)
             if it == start_iter:
                 self._store_git_state()
             it += k
@@ -91,6 +112,10 @@ class TrainingLoop:
             self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"))
         if self.writer is not None:
             self.writer.flush()
+
+    def _graph_generators(self) -> list:
+        """The generators the fused iteration draws from."""
+        return [self.alg.generator]
 
     def _dispatch(self, k: int) -> list:
         """``k`` runs of the fused iteration and one read of their metrics."""

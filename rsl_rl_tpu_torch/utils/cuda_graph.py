@@ -94,12 +94,12 @@ class IterationGraph:
     graph on the card and run eagerly on the CPU.
 
     ``step(tree) -> (tree', metrics)`` is the iteration; ``tree'`` has the
-    structure of ``tree`` and ``metrics`` is a dict of tensors of one shape
-    (scalars, or ``[G]`` for a study). ``generators`` are the explicit
+    structure of ``tree`` and ``metrics`` is a dict of tensors (scalars, or
+    ``[G]`` for a study). ``generators`` are the explicit
     generators it draws from. :meth:`load` copies a tree into the static
     tensors (the first call takes a private copy), :attr:`state` is the tree
     over them, :meth:`run` runs one iteration and returns its metrics
-    packed into one ``[M, ...]`` tensor in the order of :attr:`metric_keys`,
+    flattened into one tensor in the order of :attr:`metric_keys`,
     and :meth:`unpack` reads the packed metrics of several runs at once.
     ``capture_s`` and ``pool_bytes`` (the memory the capture reserved) are
     set once the graph is captured.
@@ -147,7 +147,8 @@ class IterationGraph:
                     dst.copy_(src)
             if self.metric_keys is None:
                 self.metric_keys = list(metrics)
-            return torch.stack([metrics[k].detach().to(torch.float32) for k in self.metric_keys])
+                self._metric_shapes = [tuple(metrics[k].shape) for k in self.metric_keys]
+            return torch.cat([metrics[k].detach().to(torch.float32).reshape(-1) for k in self.metric_keys])
 
     def run(self) -> torch.Tensor:
         """One iteration; its packed metrics, a fresh tensor (no sync)."""
@@ -207,7 +208,15 @@ class IterationGraph:
         """The metrics of runs (their :meth:`run` outputs), read to the host
         in one transfer: one ``{key: value}`` a run."""
         host = torch.stack(packs).cpu().numpy()
-        return [{k: host[j, i] for i, k in enumerate(self.metric_keys)} for j in range(len(packs))]
+        out = []
+        for row in host:
+            metrics, off = {}, 0
+            for k, shape in zip(self.metric_keys, self._metric_shapes):
+                n = int(np.prod(shape))
+                metrics[k] = row[off:off + n].reshape(shape)
+                off += n
+            out.append(metrics)
+        return out
 
     def release(self) -> None:
         """Free the graph and its memory pool; the static tensors stay (the

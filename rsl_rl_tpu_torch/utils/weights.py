@@ -23,7 +23,8 @@ both normalizers, counter) into the port's ``RandomNetworkDistillation``.
 
 A multi-seed study's trees (``jax.vmap`` of the policy init) carry a leading
 ``[G]`` axis on every leaf; :func:`from_jax_stacked_state` loads them, one
-seed or all, into the port's stacked training state.
+seed or all, into the port's stacked training state, and
+:func:`from_jax_stacked_rnd_state` a study's RND states.
 """
 
 from __future__ import annotations
@@ -96,7 +97,10 @@ def from_jax_state(params_np: dict, norm_np: dict, policy, aux_np: dict | None =
     ``{"teacher", "teacher_norm", "memory_t"}`` (normalizers as ``{"mean",
     "var", "count"}`` or None).
     """
-    _copy(policy.std, params_np["std"], "std")
+    if getattr(policy, "std", None) is not None:  # a state-dependent std is in the actor's [H, 2A] head
+        _copy(policy.std, params_np["std"], "std")
+    elif params_np.get("std") is not None:
+        raise ValueError("std: the JAX policy has a std parameter, the port's is state-dependent")
     if "student" in params_np:
         _load_mlp(policy.student, params_np["student"], "student")
         _load_mlp(policy.teacher, aux_np["teacher"], "teacher")
@@ -165,3 +169,21 @@ def from_jax_stacked_state(params_np: dict, norm_np: dict, policy, state, seeds=
             state.params[name][g].copy_(t)
         for name, t in scratch.named_buffers():
             state.buffers[name][g].copy_(t)
+
+
+@torch.no_grad()
+def from_jax_stacked_rnd_state(rnd_np: dict, rnd, state, seeds=None) -> None:
+    """Load seed-stacked JAX ``RNDState`` trees (every leaf ``[G, ...]``, the
+    dict of :func:`from_jax_rnd_state`) into a stacked training state's
+    ``rnd_params`` / ``rnd_buffers`` in place. ``rnd`` is the template
+    module, its reward normalizer sized for one seed's envs (left unchanged);
+    ``seeds`` as in :func:`from_jax_stacked_state`."""
+    num_seeds = next(iter(state.rnd_params.values())).shape[0]
+    seeds = range(num_seeds) if seeds is None else ([seeds] if isinstance(seeds, int) else seeds)
+    scratch = copy.deepcopy(rnd)
+    for g in seeds:
+        from_jax_rnd_state(_take(rnd_np, g), scratch)
+        for name, t in scratch.named_parameters():
+            state.rnd_params[name][g].copy_(t)
+        for name, t in scratch.named_buffers():
+            state.rnd_buffers[name][g].copy_(t)

@@ -298,3 +298,27 @@ def test_feedforward_runners_train():
     metrics = multi.history[-1]["metrics"]
     assert all(v.shape == (3,) and np.isfinite(v).all() for v in metrics.values())
     assert len({float(x) for x in metrics["Loss/surrogate"]}) == 3
+
+
+def test_parity_protocol_tracks_jax_with_its_streams():
+    """The feedforward NLink parity protocol's config
+    (``benchmarks/parity_pendulum.py``'s ``train_cfg``: 64 envs of 5 links,
+    [128, 128], 5 epochs x 4 minibatches, adaptive KL) with 30-step episodes,
+    one single-seed run, the port driven by the JAX runner's random streams
+    (action noise, permutations, reset draws;
+    ``tests/torch_port_stream_parity.py``) against the JAX runner itself over
+    4 iterations, three episode resets among them: every metric of every
+    iteration at rtol 3e-4 / atol 3e-5 (one update's bar)."""
+    from tests.torch_port_stream_parity import stream_run
+
+    iterations = 4
+    curve, history, jax_runner = stream_run(1, iterations, max_episode_length=30)
+    ts, cs = jax_runner.train_state, jax_runner.collect_state
+    for it in range(iterations):
+        ts, cs, rollout, cm = jax_runner._collect(ts, cs)
+        ts, cs, um = jax_runner._update(ts, cs, rollout)
+        want = jax.device_get({**cm, **um})
+        assert set(history[it]) == set(want)
+        for k, v in want.items():
+            _close(history[it][k], v, 3e-4, 3e-5, f"iteration {it} {k}")
+    assert sum(h["ep_count"] for h in history) == 3 * 64 and all(np.isfinite(c) for c in curve[1:])

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``rsl_rl_tpu_torch`` (nor
-``chip_smoke.py`` or ``parity_torch.py``) imports JAX, flax, optax or the JAX package, and its
-entry points run on CUDA unless the caller asks for the CPU."""
+``chip_smoke.py``, ``parity_torch.py`` or ``examples/train_pendulum_torch.py``)
+imports JAX, flax, optax or the JAX package, nothing of it needs ``yaml``
+until a config file is loaded, and its entry points run on CUDA unless the
+caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -13,7 +15,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rsl_rl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsl_rl_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "parity_torch.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "parity_torch.py", ROOT / "examples" / "train_pendulum_torch.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
 
 
 def _imported(path: Path) -> set[str]:
@@ -32,19 +35,20 @@ def test_no_forbidden_import_in_source(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-def test_package_imports_with_jax_blocked():
+@pytest.mark.parametrize("blocked", [FORBIDDEN, FORBIDDEN + ("yaml",)], ids=["jax", "jax_and_yaml"])
+def test_package_imports_with_jax_blocked(blocked):
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
     )
     code = (
         "import sys\n"
-        f"for name in {FORBIDDEN!r}:\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
-        f"for m in {modules!r} + ['chip_smoke', 'parity_torch']:\n"
+        f"for m in {modules!r} + ['chip_smoke', 'parity_torch', 'examples.train_pendulum_torch']:\n"
         "    importlib.import_module(m)\n"
-        f"leaked = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r} and sys.modules[m] is not None]\n"
+        f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -74,3 +78,24 @@ def test_entry_points_require_cuda_unless_cpu_is_asked():
     assert runner.history and all(
         torch.isfinite(torch.tensor(v)) for v in runner.history[0]["metrics"].values()
     )
+
+
+def test_study_entry_points_require_cuda_unless_cpu_is_asked():
+    """``make_pbt_train`` and the study's evaluation follow the rule too: a
+    CPU tensor only where the caller asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    from rsl_rl_tpu_torch.env import Pendulum
+    from rsl_rl_tpu_torch.runners import MultiSeedRunner, make_pbt_train
+
+    cfg = {"num_steps_per_env": 2, "obs_groups": {"policy": ["policy"], "critic": ["policy"]},
+           "policy": {"class_name": "ActorCritic", "actor_hidden_dims": [8], "critic_hidden_dims": [8]},
+           "algorithm": {"class_name": "PPO", "num_learning_epochs": 1, "num_mini_batches": 2}}
+    env = Pendulum(4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MultiSeedRunner(env, cfg, 2, pbt={"exploit_fraction": 0.5})
+    runner = MultiSeedRunner(env, cfg, 2, device="cpu", pbt={"exploit_fraction": 0.5})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_pbt_train(runner.alg, env, 2, 2)
+    runner.learn(1)
+    assert runner.pbt_state.fitness.device.type == "cpu"

@@ -299,11 +299,16 @@ def test_empirical_normalization_leaves_set_keys():
 UNPORTED_SETTINGS = {"eval_interval": 10, "model_parallel_size": 2}
 
 
-@pytest.mark.parametrize("key", sorted(UNPORTED_KEYS))
+@pytest.mark.parametrize("key", sorted(UNPORTED_SETTINGS))
 def test_unported_runner_key_raises(key):
     """A runner key the port does not implement raises unless it holds the JAX
-    package's default; at the default it is accepted."""
+    package's default; at the default it is accepted. ``eval_interval`` is
+    ported since: the runner takes it."""
     env = NLinkPendulum(8, LINKS, device="cpu")
+    if key not in UNPORTED_KEYS:
+        with pytest.warns(UserWarning, match=key):
+            assert OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_SETTINGS[key]}), device="cpu").eval_interval == 10
+        return
     with pytest.raises(NotImplementedError, match=key):
         OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_SETTINGS[key]}), device="cpu")
     OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_KEYS[key]}), device="cpu")
@@ -357,13 +362,35 @@ def test_rnn_hidden_size_is_a_deprecated_alias():
         ActorCriticRecurrent(obs, GROUPS, LINKS, rnn_type="gru", rnn_hidden_dim=16, device="cpu")
 
 
+def _twice(obs, actions, env):
+    """An augmentation of two identical copies."""
+    return (None if obs is None else {k: torch.cat([v, v]) for k, v in obs.items()},
+            None if actions is None else torch.cat([actions, actions]))
+
+
 @pytest.mark.parametrize("key", ["rnd_cfg", "symmetry_cfg"])
 def test_multiseed_refuses_rnd_and_symmetry(key):
-    """RND and symmetry are single-seed for now: a study raises naming the
-    queue item, before it builds anything."""
+    """A study once refused RND and symmetry; it now resolves both configs as
+    the single-seed runner does (RND's sizes, its ``rnd_state`` obs set and
+    ``step_dt`` scaling; symmetry's env) and trains with them
+    (``tests/test_torch_port_multiseed_options.py`` holds them against JAX)."""
     from rsl_rl_tpu_torch.runners import MultiSeedRunner
 
     cfg = _runner_cfg()
-    cfg["algorithm"] = dict(cfg["algorithm"], **{key: {"weight": 1.0}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        MultiSeedRunner(NLinkPendulum(8, LINKS, device="cpu"), cfg, 2, device="cpu")
+    option = ({"weight": 1.0, "num_outputs": 4, "predictor_hidden_dims": [8], "target_hidden_dims": [8]}
+              if key == "rnd_cfg" else
+              {"use_data_augmentation": True, "use_mirror_loss": False, "mirror_loss_coeff": 0.0,
+               "data_augmentation_func": _twice})
+    cfg["algorithm"] = dict(cfg["algorithm"], **{key: option})
+    env = NLinkPendulum(8, LINKS, device="cpu")
+    if key == "rnd_cfg":
+        with pytest.warns(UserWarning, match="rnd_state"):
+            study = MultiSeedRunner(env, cfg, 2, device="cpu")
+        assert study.alg.rnd.num_states == 3 * LINKS
+        assert np.isclose(study.alg.rnd.initial_weight, env.step_dt)
+        assert study.train_state.rnd_count.shape == (2,)
+    else:
+        study = MultiSeedRunner(env, cfg, 2, device="cpu")
+        assert study.alg.symmetry["_env"] is env
+    study.learn(1)
+    assert all(np.isfinite(v).all() for v in study.history[0]["metrics"].values())
