@@ -48,8 +48,9 @@ Phases, each fatal on failure:
    (and, across seeds, distinct) metrics, and that the kernel replay of a
    collected window reproduces the acting-time policy (per seed; for the
    students the replay of the update's chunks, for the headline the batched
-   MLPs). First, both envs' random draws (per-env keys in their state) on
-   the card must equal the CPU's bit for bit, through a reset and a step.
+   MLPs). First, the random draws (per-env keys in their state) of both
+   envs and of the four of phase 6c on the card must equal the CPU's bit for
+   bit, through a reset and a step.
 4b. Whole-iteration dispatch: for ``recurrent_gru256``,
    ``recurrent_lstm256_bf16``, the two multi-seed slices, ``ppo_ff256x3_bf16``
    and ``distill_gru256_bf16`` (from phase 4's saved teacher), three runners
@@ -99,6 +100,39 @@ Phases, each fatal on failure:
    The x-streaming kernels also at the GRU and LSTM students' shape (S=1,
    T=15, B=4096), beside cuDNN and their bounds.
 
+6. The host-env path (run after phase 4d, so that it loads phase 4's
+   teacher), each step fatal. The card's machine has neither MuJoCo nor
+   Gymnasium, so the script's own ``HostNLink`` (a ``HostVecEnv`` over the
+   port's ``NLinkPendulum`` on the CPU, numpy in and out, a writable
+   ``episode_length_buf`` that each step reads) stands in for an external
+   simulator, and ``HostDRNLink`` for ``DomainRandomizedNLink``; the env
+   steps on the host, the policy on the card. 6a: ``recurrent_gru256_host``,
+   phase 4's GRU-256 flagship on 4096 such envs through
+   ``OnPolicyRunner.learn(3, init_at_random_ep_len=True)`` with the counters
+   zeroed just before and read just after (20 launches of each ``gru_x_*``
+   kernel an iteration, none of any other): finite metrics, the buffer
+   randomized in place (the same ndarray, clocks spread over ``[0,
+   max_episode_length)``), finished episodes; then 2 iterations with the
+   collection's phases fenced (``host ... collection split`` line: the act
+   step on the card, the action's copy to the host, the env step, the copies
+   back, the step processing; beside the untimed steady env-steps/s and the
+   card), the kernel replay of a host window against acting, the same
+   config with ``fuse_iteration=True`` (runs split, the same launches), and
+   ``iterations_per_dispatch=2`` and ``eval_interval=1`` refused. 6b:
+   ``distill_gru256_bf16_host``, the GRU-256 bf16 student on 4096
+   ``HostDRNLink`` envs with phase 4's teacher, 2 iterations (``gru_x_fwd``
+   4, ``gru_x_bwd`` 2, ``gru_x_wgrad`` 2), and the replay of a host window in
+   the update's chunks. 6c: the headline policy on 4096 envs of
+   ``CartPoleSwingUp``, ``Reacher``, ``Hopper`` and ``SparseGoalReach``, and
+   ``benchmarks/bench_configs.py``'s config #3 (RND, [128, 128], 512
+   ``SparseGoalReach`` envs with ``goal_dist=6.0``,
+   ``max_episode_length=100``), eager and fused for 2 iterations, bit for
+   bit (phase 4's first check also holds these envs' draws, card against
+   CPU). 6d: 6a's policy through ``utils/export.py`` (``torch.export``) and
+   ``utils/torch_deploy.py``'s ``as_torch_policy`` against
+   ``get_inference_policy()`` over 50 steps of 4096 envs with resets, at
+   ``DEPLOY_TOL``.
+
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without CUDA or when any phase fails.
@@ -122,7 +156,18 @@ from torch.func import functional_call, vmap
 
 from parity_torch import train_cfg as parity_cfg
 from rsl_rl_tpu_torch.algorithms.distillation import chunks_between
-from rsl_rl_tpu_torch.env import DomainRandomizedNLink, NLinkPendulum, PartiallyObservableNLink, PointMass
+from rsl_rl_tpu_torch.algorithms.host_collect import PHASES
+from rsl_rl_tpu_torch.env import (
+    CartPoleSwingUp,
+    DomainRandomizedNLink,
+    Hopper,
+    HostVecEnv,
+    NLinkPendulum,
+    PartiallyObservableNLink,
+    PointMass,
+    Reacher,
+    SparseGoalReach,
+)
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
@@ -130,6 +175,8 @@ from rsl_rl_tpu_torch.storage.rollout import slice_envs
 from rsl_rl_tpu_torch.utils import cuda_build
 from rsl_rl_tpu_torch.utils.cuda_graph import flatten
 from rsl_rl_tpu_torch.utils.evaluation import EVAL_KEYS, evaluate_policy
+from rsl_rl_tpu_torch.utils.export import export_policy, load_policy
+from rsl_rl_tpu_torch.utils.torch_deploy import as_torch_policy
 
 PALLAS = "rsl_rl_tpu/ops/pallas_rnn.py"
 #: kernel families: the x-streaming kernels (the input projection inside) and
@@ -770,29 +817,54 @@ def check_replay(label, outputs, mu, values, bf16) -> bool:
     return ok and err_mu < mu_bound and err_v < v_bound
 
 
-def env_draws(env_cls, device: str) -> list[torch.Tensor]:
+#: the functional envs whose random draws phase 4 holds on the card against
+#: the CPU: constructors ``(num_envs, device, max_episode_length)`` and the
+#: state fields computed from the draws through cos / sin (Reacher's target
+#: is ``radius * (cos, sin)(angle)``), which CUDA's and the CPU's math
+#: libraries may round an ulp apart: those are held at DERIVED_ATOL, the
+#: draws themselves and every other field bit for bit
+DRAW_ENVS = {
+    "NLinkPendulum": (lambda n, device, m: NLinkPendulum(n, NUM_LINKS, max_episode_length=m, device=device), ()),
+    "DomainRandomizedNLink": (lambda n, device, m: DomainRandomizedNLink(n, NUM_LINKS, max_episode_length=m,
+                                                                          device=device), ()),
+    "CartPoleSwingUp": (lambda n, device, m: CartPoleSwingUp(n, max_episode_length=m, device=device), ()),
+    "Reacher": (lambda n, device, m: Reacher(n, max_episode_length=m, device=device), ("target",)),
+    "Hopper": (lambda n, device, m: Hopper(n, max_episode_length=m, device=device), ()),
+    "SparseGoalReach": (lambda n, device, m: SparseGoalReach(n, max_episode_length=m, device=device), ()),
+}
+DERIVED_ATOL = 2.4e-7  # 4 ulps of fp32 at |x| < 1
+
+
+def env_draws(make_env, device: str) -> list[tuple[str, torch.Tensor]]:
     """The env's reset state on ``device`` and, after a step in which half
     the envs reset, every key and the reset envs' fresh draws (the other
-    envs' physics may round differently on two devices), on the CPU."""
-    env = env_cls(NUM_ENVS, NUM_LINKS, max_episode_length=2, device=device)
+    envs' physics may round differently on two devices), on the CPU, by
+    field name."""
+    env = make_env(NUM_ENVS, device, 2)
     state, _ = env.reset(3)
-    first = [v.cpu().clone() for v in vars(state).values()]
+    first = [(k, v.cpu().clone()) for k, v in vars(state).items()]
     state.episode_length[::2] = 1  # these envs reset in the step
-    state, *_ = env.step(state, torch.zeros(NUM_ENVS, NUM_LINKS, device=device))
-    fresh = [v[::2].cpu() for k, v in vars(state).items() if k not in ("rng", "episode_length")]
-    return first + [state.rng.cpu()] + fresh
+    state, *_ = env.step(state, torch.zeros(NUM_ENVS, env.num_actions, device=device))
+    fresh = [(k, v[::2].cpu()) for k, v in vars(state).items() if k not in ("rng", "episode_length")]
+    return first + [("rng", state.rng.cpu())] + fresh
 
 
 def check_env_draws() -> None:
     """Each env's random draws on the card give the CPU's bits (the domain-
     randomized env's mass scales too): they come from per-env keys in the
     state (integer hashing), not from a device generator."""
-    for env_cls in (NLinkPendulum, DomainRandomizedNLink):
-        cpu, card = env_draws(env_cls, "cpu"), env_draws(env_cls, "cuda")
-        same = len(cpu) == len(card) and all(torch.equal(a, b) for a, b in zip(cpu, card))
-        print(f"{env_cls.__name__} draws on the card equal the CPU's through a reset and a step: {same}")
+    for name, (make_env, derived) in DRAW_ENVS.items():
+        cpu, card = env_draws(make_env, "cpu"), env_draws(make_env, "cuda")
+        same = len(cpu) == len(card) and all(
+            k == k2 and (torch.equal(a, b) if k not in derived else bool((a - b).abs().max() <= DERIVED_ATOL))
+            for (k, a), (k2, b) in zip(cpu, card))
+        note = ""
+        if derived:
+            worst = max(float((a - b).abs().max()) for (k, a), (_, b) in zip(cpu, card) if k in derived)
+            note = f" ({', '.join(derived)} from cos / sin of the draws: max_abs_err={worst:.3e}, atol {DERIVED_ATOL:g})"
+        print(f"{name} draws on the card equal the CPU's through a reset and a step: {same}{note}")
         if not same:
-            fail(f"{env_cls.__name__}'s random draws differ between the card and the CPU")
+            fail(f"{name}'s random draws differ between the card and the CPU")
 
 
 def run_slice(name, family, cfg, T, B):
@@ -910,7 +982,10 @@ def check_student_replay(name, runner, T) -> None:
     policy, alg = runner.alg.policy, runner.alg
     freeze(policy.norm_student)
     noise = torch.zeros(T, NUM_ENVS, NUM_LINKS, device="cuda")
-    _, rollout, _ = alg.collect(runner.env, runner.collect_state, T, action_noise=noise)
+    if runner.host_collect is None:
+        _, rollout, _ = alg.collect(runner.env, runner.collect_state, T, action_noise=noise)
+    else:  # a host env: the host collection window (its own steps; T must match)
+        _, rollout, _ = runner.host_collect(runner.collect_state, action_noise=noise)
     resets = rollout.replay_resets()
     x = policy._student_in(rollout.obs)
     carry0 = rollout.carry0["student"]
@@ -1361,6 +1436,245 @@ def path_shape_times(peaks, path_err) -> dict:
     return out
 
 
+# ---- phase 6: the host-env path
+
+
+class HostNLink(HostVecEnv):
+    """Smoke-test scaffolding, not a package feature: the port's
+    ``NLinkPendulum`` kept and stepped on the CPU behind the stateful numpy
+    API of an external simulator (``env/host_env.py``), so the policy acts
+    on the card and the env steps on the host. Its writable
+    ``episode_length_buf`` is the env's clock: each step reads it and writes
+    the new one back into the same array."""
+
+    env_cls = NLinkPendulum
+
+    def __init__(self, num_envs: int | None = None):
+        num_envs = NUM_ENVS if num_envs is None else num_envs
+        self.sim = self.env_cls(num_envs, NUM_LINKS, device="cpu")
+        self.num_envs, self.num_actions = num_envs, self.sim.num_actions
+        self.max_episode_length = int(self.sim.max_episode_length)
+        self.episode_length_buf = np.zeros(num_envs, np.int32)
+        self.state = None
+
+    def reset(self, seed=None):
+        self.state, obs = self.sim.reset(0 if seed is None else int(seed))
+        self.episode_length_buf[:] = self.state.episode_length.numpy()
+        return {k: v.numpy() for k, v in obs.items()}
+
+    def step(self, actions):
+        self.state.episode_length = torch.from_numpy(self.episode_length_buf)
+        # one CPU thread, as a simulator process of its own would step: the
+        # [4096]-wide elementwise ops gain nothing from torch's intra-op pool
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            self.state, obs, rew, done, extras = self.sim.step(self.state, torch.from_numpy(actions))
+        finally:
+            torch.set_num_threads(threads)
+        self.episode_length_buf[:] = self.state.episode_length.numpy()
+        return ({k: v.numpy() for k, v in obs.items()}, rew.numpy(), done.numpy(),
+                {"time_outs": extras["time_outs"].numpy(), "log": {k: v.numpy() for k, v in extras["log"].items()}})
+
+
+class HostDRNLink(HostNLink):
+    """:class:`HostNLink` over ``DomainRandomizedNLink`` (``"policy"`` and
+    ``"privileged"`` obs)."""
+
+    env_cls = DomainRandomizedNLink
+
+
+#: phase 6c: the remaining functional envs under the feedforward headline
+#: (constructors at ``num_envs`` on the card), and benchmarks/bench_configs.py's
+#: config #3, PPO with RND on 512 SparseGoalReach envs
+REMAINING_ENVS = {
+    "cartpole": lambda n: CartPoleSwingUp(n, device="cuda"),
+    "reacher": lambda n: Reacher(n, device="cuda"),
+    "hopper": lambda n: Hopper(n, device="cuda"),
+    "sparse": lambda n: SparseGoalReach(n, device="cuda"),
+}
+PPO_RND_SPARSE_GOAL_512 = {
+    "num_steps_per_env": 24, "save_interval": 10_000, "seed": 1,
+    "obs_groups": {"policy": ["policy"], "critic": ["policy"], "rnd_state": ["policy"]},
+    "policy": {"class_name": "ActorCritic", "actor_hidden_dims": [128, 128], "critic_hidden_dims": [128, 128],
+               "actor_obs_normalization": True, "critic_obs_normalization": True},
+    "algorithm": {"class_name": "PPO", "schedule": "adaptive", "desired_kl": 0.01, "entropy_coef": 0.01,
+                  "rnd_cfg": {"weight": 2.0, "predictor_hidden_dims": [64, 64], "target_hidden_dims": [64, 64],
+                              "num_outputs": 16, "state_normalization": True, "reward_normalization": True,
+                              "learning_rate": 1e-3}},
+}
+# Phase 6d: the exported program runs act_inference's own ops, so it holds
+# the fp32 bar of summation order alone; as_torch_policy's nn.GRU is cuDNN's
+# (its own GEMMs and gate order) against the port's plain step over 50
+# recurrent steps: the same bar, checked as |got - want| <= atol + rtol |want|
+DEPLOY_TOL = {"rtol": 1e-6, "atol": 1e-6}
+DEPLOY_STEPS = 50
+
+
+def host_gru_slice(smi, T, B) -> tuple[dict, OnPolicyRunner]:
+    """6a: the GRU-256 flagship on :class:`HostNLink` through
+    ``OnPolicyRunner.learn(init_at_random_ep_len=True)``, the counters zeroed
+    just before and read just after; checks finite metrics, the buffer
+    randomized in place, finished episodes, then times two iterations with
+    the collection's phases fenced, holds the kernel replay of a host window
+    against acting, and runs ``fuse_iteration=True`` (eager, the same
+    launches) and the refused keys. Returns the launches and the runner."""
+    name = "recurrent_gru256_host"
+    cfg = RECURRENT_GRU256
+    env = HostNLink()
+    runner = OnPolicyRunner(env, copy.deepcopy(cfg), device="cuda")
+    buf = env.episode_length_buf
+    reset_counts()
+    runner.learn(ITERATIONS, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    launches = check_launches(name, all_counts(), ppo_launches("gru", cfg))
+    print_history(name, runner)
+    episodes = sum(row["metrics"]["ep_count"] for row in runner.history)
+    spread = len(np.unique(buf))
+    print(f"{name}: episode_length_buf randomized in place: {env.episode_length_buf is buf}, {spread} distinct"
+          f" clocks in [{buf.min()}, {buf.max()}] (max_episode_length {env.max_episode_length});"
+          f" {episodes:.0f} episodes finished")
+    if not (env.episode_length_buf is buf and spread > min(100, env.num_envs // 2) and buf.max() < env.max_episode_length
+            and episodes > 0):
+        fail(f"{name}: the episode clocks were not randomized in place, or no episode finished")
+    steady = runner.history[1:]
+
+    # the collection's phases, each fenced (costs a synchronization a phase and step)
+    runner.host_collect.timings = timings = {}
+    runner.learn(2)
+    timed = runner.history[-2:]
+    collection_s = sum(row["collection_s"] for row in timed)
+    report = {
+        "steady_env_steps_per_s": float(np.mean([row["steps_per_s"] for row in steady])),
+        "steady_collection_s": float(np.mean([row["collection_s"] for row in steady])),
+        "steady_learn_s": float(np.mean([row["learn_s"] for row in steady])),
+        "timed_env_steps_per_s": float(np.mean([row["steps_per_s"] for row in timed])),
+        "timed_collection_s": collection_s / 2,
+        "phase_s": {k: timings[k] / 2 for k in PHASES},
+        "phase_share_of_collection": {k: timings[k] / collection_s for k in PHASES},
+        "card": smi,
+    }
+    print(f"host {name} env-steps/s and collection split (per iteration): {json.dumps(report)}")
+    runner.host_collect.timings = None
+
+    # the kernel replay of a host window reproduces the acting-time outputs
+    policy = runner.alg.policy
+    freeze(policy.norm_actor)
+    freeze(policy.norm_critic)
+    _, rollout, _ = runner.host_collect(runner.collect_state)
+    with torch.no_grad():
+        carry0 = slice_envs(rollout.carry0, 0, B, axis=0)
+        obs = {k: v[:, :B] for k, v in rollout.obs.items()}
+        outputs = replay_outputs(policy, obs, carry0, rollout.replay_resets()[:, :B])
+    if not check_replay(name, outputs, rollout.mu[:, :B], rollout.values[:, :B], False):
+        fail(f"{name}: kernel replay does not reproduce the acting-time outputs")
+
+    fused = OnPolicyRunner(HostNLink(), {**copy.deepcopy(cfg), "fuse_iteration": True}, device="cuda")
+    reset_counts()
+    fused.learn(ITERATIONS, init_at_random_ep_len=True)
+    torch.cuda.synchronize()
+    print(f"{name} fuse_iteration=True: resolves to {fused.fuse_iteration}, graph {fused.iteration_graph}")
+    if fused.fuse_iteration or fused.iteration_graph is not None:
+        fail(f"{name}: fuse_iteration on a host env did not resolve to the split iteration")
+    check_launches(f"{name} fuse_iteration=True", all_counts(), ppo_launches("gru", cfg))
+    del fused
+    for key, value in (("iterations_per_dispatch", 2), ("eval_interval", 1)):
+        try:
+            OnPolicyRunner(HostNLink(), {**copy.deepcopy(cfg), key: value}, device="cuda")
+        except ValueError as err:
+            print(f"{name} {key}={value}: ValueError ({err})")
+        else:
+            fail(f"{name}: {key}={value} on a host env did not raise")
+    return launches, runner
+
+
+def host_student_slice(teacher_path, T) -> dict:
+    """6b: the GRU-256 bf16 student on :class:`HostDRNLink`, its teacher
+    phase 4's checkpoint, 2 iterations with the counters zeroed just before
+    and read just after; checks finite metrics and the replay of a host
+    window in the update's chunks. Returns the launches."""
+    name, iterations = "distill_gru256_bf16_host", 2
+    runner = DistillationRunner(HostDRNLink(), copy.deepcopy(DISTILL_GRU256_BF16), device="cuda")
+    runner.load(teacher_path)
+    reset_counts()
+    runner.learn(iterations)
+    torch.cuda.synchronize()
+    launches = check_launches(name, all_counts(), distill_launches("gru", DISTILL_GRU256_BF16, iterations))
+    print_history(name, runner)
+    check_student_replay(name, runner, T)
+    return launches
+
+
+def remaining_env_slices(smi) -> None:
+    """6c: the headline policy on 4096 envs of each remaining env, and config
+    #3 (RND on 512 SparseGoalReach envs), eager and fused for 2 iterations,
+    bit for bit, no kernel launched."""
+    for name, make_env in REMAINING_ENVS.items():
+        def make(keys, make_env=make_env):
+            return OnPolicyRunner(make_env(NUM_ENVS), {**copy.deepcopy(PPO_FF256X3_BF16), **keys}, device="cuda")
+
+        dispatch_runs(f"ppo_ff256x3_bf16_{name}", make, smi, modes=("eager", "fused"), iterations=2, expected={})
+
+    def sparse_rnd(keys):
+        env = SparseGoalReach(512, goal_dist=6.0, max_episode_length=100, device="cuda")
+        return OnPolicyRunner(env, {**copy.deepcopy(PPO_RND_SPARSE_GOAL_512), **keys}, device="cuda")
+
+    dispatch_runs("ppo_rnd_sparse_goal_512", sparse_rnd, smi, modes=("eager", "fused"), iterations=2, expected={})
+
+
+def check_export(runner, tmp) -> None:
+    """6d: ``export_policy`` of 6a's trained policy, reloaded with
+    ``load_policy``, and ``as_torch_policy`` must give
+    ``get_inference_policy()``'s actions over DEPLOY_STEPS steps of NUM_ENVS
+    envs on the card, carries reset where episodes end (NLinkPendulum with a
+    20-step limit and scattered clocks), at DEPLOY_TOL."""
+    policy = runner.alg.policy
+    env = NLinkPendulum(NUM_ENVS, NUM_LINKS, max_episode_length=20, device="cuda")
+    state, obs = env.reset(5)
+    state = env.randomize_episode_length(state)
+    path = os.path.join(tmp, "policy.pt2")
+    start = time.perf_counter()
+    export_policy(policy, obs, path)
+    export_s = time.perf_counter() - start
+    loaded = load_policy(path)
+    module = as_torch_policy(policy).eval()
+    reference = runner.get_inference_policy()
+    hidden = None
+    err = {"export": 0.0, "as_torch_policy": 0.0}
+    excess = {"export": 0.0, "as_torch_policy": 0.0}  # max of |got - want| - (atol + rtol |want|)
+    resets = 0
+    with torch.no_grad():
+        for _ in range(DEPLOY_STEPS):
+            want = reference(obs)
+            got_t, hidden = module(torch.cat([obs[k] for k in module.obs_names], dim=-1), hidden)
+            for label, got in (("export", loaded(obs)), ("as_torch_policy", got_t)):
+                diff = (got - want).abs()
+                err[label] = max(err[label], float(diff.max()))
+                bound = DEPLOY_TOL["atol"] + DEPLOY_TOL["rtol"] * want.abs()
+                excess[label] = max(excess[label], float((diff - bound).max()))
+            state, obs, _, done, _ = env.step(state, want)
+            reference.reset(done)
+            loaded.reset(done)
+            hidden[:, done] = 0.0
+            resets += int(done.sum())
+    ok = resets > 0 and all(v <= 0.0 for v in excess.values())
+    print(f"export: {DEPLOY_STEPS} steps of {NUM_ENVS} envs ({resets} resets) against get_inference_policy():"
+          f" max_abs_err {json.dumps(err)} (rtol {DEPLOY_TOL['rtol']:g} atol {DEPLOY_TOL['atol']:g}:"
+          f" {'ok' if ok else 'FAIL'}); torch.export in {export_s:.2f} s, {os.path.getsize(path)} bytes")
+    if not ok:
+        fail("export: the exported policy or as_torch_policy does not act as get_inference_policy()")
+
+
+def host_slices(smi, teacher_path, tmp, T, B) -> dict:
+    """Phase 6; returns ``{slice: {kernel: launches}}``."""
+    launches, runner = host_gru_slice(smi, T, B)
+    by_slice = {"recurrent_gru256_host": launches,
+                "distill_gru256_bf16_host": host_student_slice(teacher_path, T)}
+    remaining_env_slices(smi)
+    check_export(runner, tmp)
+    return by_slice
+
+
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
     """The kernel's line of the JSON result: fp32-mode time, plain time, bound
     and library time, and the bf16-mode time, plain time and bound."""
@@ -1536,6 +1850,8 @@ def main() -> None:
         by_slice.update(path_slices(smi))
         # ---- 4d. RND, symmetry, PBT and students in the study; evaluation; save_seed
         by_slice.update(study_slices(smi, teacher_path, tmp))
+        # ---- 6. the host-env path, the remaining envs, export
+        by_slice.update(host_slices(smi, teacher_path, tmp, T, B))
     launches = {k: {} for k in all_counts()}
     for slice_name, counts in by_slice.items():
         for k, n in counts.items():

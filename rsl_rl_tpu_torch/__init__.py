@@ -9,7 +9,9 @@ CUDA here (``csrc/gru_x.cu``, ``csrc/lstm_x.cu``, ``csrc/gru_xp.cu``,
 Multi-seed training (``runners.MultiSeedRunner``) batches G seeds with
 ``torch.func.vmap`` where the JAX package uses ``jax.vmap``; student-teacher
 distillation (``runners.DistillationRunner``) distils a teacher loaded from
-a PPO checkpoint.
+a PPO checkpoint. External simulators that keep their own state train
+through ``env.HostVecEnv`` (stepped on the host, the policy on the card);
+``utils.export`` and ``utils.torch_deploy`` carry a trained policy out.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 there is no silent CPU fallback. The package imports ``torch`` and ``numpy``

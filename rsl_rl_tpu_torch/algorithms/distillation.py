@@ -39,6 +39,7 @@ from __future__ import annotations
 
 from functools import partial
 
+import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
@@ -170,6 +171,58 @@ class Distillation(Trainer):
             metrics[f"extras/{k}"] = torch.stack(v).mean()
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
         return cs, rollout, metrics
+
+    def make_host_collect_fn(self, env, num_steps_per_env: int, bridge=None):
+        """The collection window for a host env: ``collect(cs,
+        action_noise=None) -> (cs, rollout, metrics)``, the loop of
+        ``PPO.make_host_collect_fn`` with the student's sampled action, the
+        teacher's action recorded as ``privileged_actions``, and a step's
+        processing the student's normalizer update and the done envs' carry
+        reset. ``collect.timings`` as there."""
+        from rsl_rl_tpu_torch.algorithms.host_collect import (
+            HostEpisodeTracker,
+            PhaseTimer,
+            host_step,
+            stack_trajectory,
+        )
+
+        if bridge is not None:
+            raise NotImplementedError("host data parallelism (a sharding bridge) is not ported yet")
+        policy, device = self.policy, self.device
+
+        @torch.no_grad()
+        def collect(cs: CollectState, action_noise: torch.Tensor | None = None):
+            timer = PhaseTimer(collect.timings, device)
+            obs, carry = cs.obs, cs.carry
+            carry0 = carry
+            tracker = HostEpisodeTracker(cs.stats, device)
+            zero_irew = np.zeros(env.num_envs, np.float32)
+            traj = {k: [] for k in ("obs", "actions", "privileged_actions", "rewards", "dones")}
+            stds = []
+            for t in range(num_steps_per_env):
+                mean, std, carry = policy.act(obs, carry)
+                noise = None if action_noise is None else action_noise[t]
+                action = distributions.sample(mean, std, noise, self.generator)
+                privileged, carry = policy.evaluate(obs, carry)
+                timer.mark("act")
+                (next_obs, rew, done, _), (rew_np, done_np, extras) = host_step(env, action, device, timer)
+                policy.update_normalization(next_obs)
+                carry = policy.reset_carry(carry, done)
+                for k, v in (("obs", obs), ("actions", action), ("privileged_actions", privileged),
+                             ("rewards", rew), ("dones", done)):
+                    traj[k].append(v)
+                stds.append(std.mean())
+                obs = next_obs
+                tracker.step(rew_np, zero_irew, done_np, extras)
+                timer.mark("process")
+
+            rollout = Rollout(**stack_trajectory(traj), carry0=carry0)
+            metrics = tracker.metrics()
+            metrics["Policy/mean_noise_std"] = torch.stack(stds).mean()
+            return CollectState(env_state=(), obs=obs, carry=carry, stats=tracker.stats()), rollout, metrics
+
+        collect.timings = None
+        return collect
 
     # ---------------------------------------------------------------- update
 

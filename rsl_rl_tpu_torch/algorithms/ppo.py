@@ -40,6 +40,7 @@ from dataclasses import dataclass, fields
 from functools import partial
 from typing import Any
 
+import numpy as np
 import torch
 from torch.func import functional_call, stack_module_state, vmap
 
@@ -537,6 +538,76 @@ class PPO(Trainer):
             metrics[f"extras/{k}"] = torch.stack(v).mean()
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
         return cs, rollout, metrics
+
+    def make_host_collect_fn(self, env, num_steps_per_env: int, bridge=None):
+        """The collection window for a host env (``env/host_env.py``):
+        ``collect(cs, action_noise=None) -> (cs, rollout, metrics)``.
+
+        Each step acts on the policy's device, copies the action to the
+        host, steps the env there and copies obs, rewards, dones and
+        time-outs back; then the normalizers fold in the new obs, RND adds
+        its intrinsic reward, the time-outs add the ``gamma * value``
+        bootstrap and the done envs' carries reset, all on the device. The
+        episode bookkeeping runs on the host, on the env's own numpy
+        rewards and dones. The window stacks into the time-major
+        ``Rollout`` (with ``carry0`` for a recurrent policy) that
+        :meth:`update` takes. ``action_noise [T, N, A]`` replaces the
+        normal draws, as in :meth:`collect`. ``collect.timings``: set it to a
+        dict to add each phase's seconds there (``host_collect.PHASES``).
+        """
+        from rsl_rl_tpu_torch.algorithms.host_collect import (
+            HostEpisodeTracker,
+            PhaseTimer,
+            host_step,
+            stack_trajectory,
+        )
+
+        if bridge is not None:
+            raise NotImplementedError("host data parallelism (a sharding bridge) is not ported yet")
+        policy, rnd, device = self.policy, self.rnd, self.device
+
+        @torch.no_grad()
+        def collect(cs: CollectState, action_noise: torch.Tensor | None = None):
+            timer = PhaseTimer(collect.timings, device)
+            obs, carry = cs.obs, cs.carry
+            carry0 = carry
+            tracker = HostEpisodeTracker(cs.stats, device)
+            # without RND the intrinsic reward is zero: a host buffer saves
+            # a blocking copy from the device a step
+            zero_irew = np.zeros(env.num_envs, np.float32)
+            traj = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs", "mu", "sigma")}
+            for t in range(num_steps_per_env):
+                mean, std, carry = policy.act(obs, carry)
+                noise = None if action_noise is None else action_noise[t]
+                action = distributions.sample(mean, std, noise, self.generator)
+                log_p = distributions.log_prob(mean, std, action)
+                value, carry = policy.value(obs, carry)
+                timer.mark("act")
+                (next_obs, rew, done, time_outs), (rew_np, done_np, extras) = host_step(env, action, device, timer)
+
+                policy.update_normalization(next_obs)
+                irew = torch.zeros_like(rew)
+                if rnd is not None:
+                    rnd.update_normalization(next_obs)
+                    irew, _ = rnd.get_intrinsic_reward(next_obs)
+                total_rew = rew + irew + self.gamma * value * time_outs
+                carry = policy.reset_carry(carry, done)
+                for k, v in (("obs", obs), ("actions", action), ("rewards", total_rew), ("dones", done),
+                             ("values", value), ("log_probs", log_p), ("mu", mean), ("sigma", std)):
+                    traj[k].append(v)
+                obs = next_obs
+                tracker.step(rew_np, irew.cpu().numpy() if rnd is not None else zero_irew, done_np, extras)
+                timer.mark("process")
+
+            rollout = Rollout(**stack_trajectory(traj), carry0=carry0)
+            metrics = tracker.metrics()
+            metrics["Policy/mean_noise_std"] = rollout.sigma.mean()
+            if rnd is not None:
+                metrics["Rnd/weight"] = rnd.current_weight(rnd.counter)
+            return CollectState(env_state=(), obs=obs, carry=carry, stats=tracker.stats()), rollout, metrics
+
+        collect.timings = None
+        return collect
 
     # ---------------------------------------------------------------- update
 

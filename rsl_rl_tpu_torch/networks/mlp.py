@@ -44,6 +44,7 @@ class MLP(nn.Module):
         _check_dtype("dtype", dtype, (None, torch.bfloat16))
         _check_dtype("head_dtype", head_dtype, (None, torch.float32))
         self.act = resolve_nn_activation(activation)
+        self.activation = activation.lower()  # the name, for the deployment bridge (utils/torch_deploy.py)
         self.dtype = dtype
         self.head_dtype = head_dtype
         self.out_shape = None if isinstance(output_dim, int) else tuple(output_dim)

@@ -59,6 +59,9 @@ class MultiSeedRunner(TrainingLoop):
 
     def __init__(self, env, train_cfg: dict, num_seeds: int, log_dir: str | None = None,
                  device: str | torch.device = "cuda", pbt: dict | None = None):
+        if not getattr(env, "is_jax", True):
+            raise ValueError("MultiSeedRunner requires a functional (device) env: host envs step on the host"
+                             " and cannot be vmapped over the seed axis.")
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")

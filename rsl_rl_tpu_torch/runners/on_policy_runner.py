@@ -12,6 +12,14 @@ deterministic policy. ``eval_interval`` (with a ``log_dir``) evaluates the
 deterministic policy on a fresh copy of the env every that many iterations
 (``utils/evaluation.py``) and writes ``Eval/*``.
 
+A host env (``env/host_env.py``: stateful, numpy, ``is_jax = False``, as
+the JAX runner detects it) trains through the algorithm's host collection
+loop (``make_host_collect_fn``): its iterations are split (``fuse_iteration``
+resolves to False), ``iterations_per_dispatch > 1`` and ``eval_interval``
+raise ``ValueError`` as in the JAX package, and ``init_at_random_ep_len``
+scatters the env's ``episode_length_buf`` (from the runner's own generator)
+or warns where it has none.
+
 Model parallelism is not ported yet: setting a runner key of
 :data:`UNPORTED_KEYS` to anything but the JAX package's default raises. The deprecated ``empirical_normalization`` key maps onto the
 policy's ``actor_obs_normalization`` / ``critic_obs_normalization`` where
@@ -25,6 +33,7 @@ import time
 import warnings
 from collections import deque
 
+import numpy as np
 import torch
 
 import rsl_rl_tpu_torch.algorithms  # noqa: F401  (registers the algorithms)
@@ -84,7 +93,9 @@ class OnPolicyRunner(TrainingLoop):
     def __init__(self, env, train_cfg: dict, log_dir: str | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        if env.device != self.device:
+        #: a host env steps on the host; the policy stays on ``device``
+        self.is_jax_env = getattr(env, "is_jax", True)
+        if self.is_jax_env and env.device != self.device:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")
         self.cfg = dict(train_cfg)
         check_unported_keys(self.cfg)
@@ -95,13 +106,23 @@ class OnPolicyRunner(TrainingLoop):
         self._init_loop(log_dir)
         seed = self.seed = int(self.cfg.get("seed", 1))
 
-        env_state, obs = env.reset(seed)
+        if self.is_jax_env:
+            env_state, obs = env.reset(seed)
+        else:
+            env_state = ()
+            obs = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+                   for k, v in env.reset(seed=seed).items()}
+            # the draws of init_at_random_ep_len
+            self._host_generator = torch.Generator().manual_seed(seed)
         default_sets = ["critic"] if self.training_type == "rl" else ["teacher"]
         if self.training_type == "rl" and self.alg_cfg.get("rnd_cfg") is not None:
             default_sets.append("rnd_state")
         self.cfg["obs_groups"] = resolve_obs_groups(obs, self.cfg["obs_groups"], default_sets)
         self.alg = self._construct_algorithm(obs, seed)
         self.collect_state = self.alg.init_collect_state(env_state, obs, env.num_envs)
+        #: the host env's collection window (``make_host_collect_fn``); its
+        #: ``timings`` attribute times the window's phases when set to a dict
+        self.host_collect = None if self.is_jax_env else self.alg.make_host_collect_fn(env, self.num_steps_per_env)
 
         self.tot_timesteps = 0
         self.tot_time = 0.0
@@ -129,13 +150,36 @@ class OnPolicyRunner(TrainingLoop):
     def learn(self, num_learning_iterations: int, init_at_random_ep_len: bool = False) -> None:
         self._prepare_logging_writer()
         if init_at_random_ep_len:
-            self.collect_state.env_state = self.env.randomize_episode_length(self.collect_state.env_state)
+            if self.is_jax_env:
+                self.collect_state.env_state = self.env.randomize_episode_length(self.collect_state.env_state)
+            else:
+                self._randomize_host_episode_length()
         start_iter = self.current_learning_iteration
         self._run(start_iter, start_iter + num_learning_iterations)
 
+    def _randomize_host_episode_length(self) -> None:
+        """Scatter a host env's ``episode_length_buf`` over ``[0,
+        max_episode_length)``: in place when it is a writable ndarray (a view
+        into the simulator's state sees the write), else by replacing the
+        attribute; without the buffer, warn."""
+        buf = getattr(self.env, "episode_length_buf", None)
+        if buf is None:
+            warnings.warn("init_at_random_ep_len requires the host env to expose an episode_length_buf;"
+                          " ignoring.", stacklevel=3)
+            return
+        high = int(np.max(self.env.max_episode_length))
+        values = torch.randint(0, high, np.shape(buf), generator=self._host_generator).numpy()
+        if isinstance(buf, np.ndarray) and buf.flags.writeable:
+            buf[:] = values.astype(buf.dtype)
+        else:
+            self.env.episode_length_buf = values.astype(np.asarray(buf).dtype)
+
     def _split_iteration(self):
         start = time.perf_counter()
-        cs, rollout, cm = self.alg.collect(self.env, self.collect_state, self.num_steps_per_env)
+        if self.is_jax_env:
+            cs, rollout, cm = self.alg.collect(self.env, self.collect_state, self.num_steps_per_env)
+        else:
+            cs, rollout, cm = self.host_collect(self.collect_state)
         self._sync()
         collection_time = time.perf_counter() - start
 

@@ -62,6 +62,16 @@ class TrainingLoop:
             raise ValueError(f"iterations_per_dispatch must be >= 1, got {self.iterations_per_dispatch}")
         self.fuse_iteration = bool(self.cfg.get("fuse_iteration")) or self.iterations_per_dispatch > 1
         self.eval_interval = int(self.cfg.get("eval_interval") or 0)
+        if not getattr(self.env, "is_jax", True):
+            # a host env steps on the host: no iteration is one device program
+            if self.iterations_per_dispatch > 1:
+                raise ValueError("iterations_per_dispatch > 1 requires a functional (device) env: host envs"
+                                 " step on the host, so iterations cannot batch into one device program.")
+            if self.eval_interval > 0:
+                raise ValueError("eval_interval requires a functional (device) env: a host env has no second"
+                                 " copy to roll (evaluate a host-env policy offline, through"
+                                 " get_inference_policy()).")
+            self.fuse_iteration = False
         if self.eval_interval > 0:
             if log_dir is None:
                 # evaluation runs where its scalars have somewhere to go

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import importlib
 import warnings
+from functools import partial
 from typing import Any, Callable
 
 import torch
@@ -20,7 +21,7 @@ _ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "softplus": F.softplus,
-    "gelu": F.gelu,
+    "gelu": partial(F.gelu, approximate="tanh"),  # jax.nn.gelu's default, the tanh approximation
     "swish": F.silu,
     "mish": F.mish,
     "identity": lambda x: x,

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``rsl_rl_tpu_torch`` (nor
-``chip_smoke.py``, ``parity_torch.py`` or ``examples/train_pendulum_torch.py``)
-imports JAX, flax, optax or the JAX package, nothing of it needs ``yaml``
-until a config file is loaded, and its entry points run on CUDA unless the
-caller asks for the CPU."""
+``chip_smoke.py``, ``parity_torch.py`` or the port's examples
+``examples/*_torch.py``) imports JAX, flax, optax or the JAX package, nothing
+of it needs ``yaml`` until a config file is loaded nor ``mujoco`` or
+``gymnasium`` until a host env is built, and its entry points run on CUDA
+unless the caller asks for the CPU."""
 
 import ast
 import subprocess
@@ -15,7 +16,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rsl_rl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsl_rl_tpu")
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "parity_torch.py", ROOT / "examples" / "train_pendulum_torch.py"]
+EXAMPLES = ["train_pendulum_torch", "train_mujoco_host_torch", "play_torch"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "parity_torch.py"] + [ROOT / "examples" / f"{e}.py" for e in EXAMPLES]
 SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
 
 
@@ -35,7 +37,8 @@ def test_no_forbidden_import_in_source(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-@pytest.mark.parametrize("blocked", [FORBIDDEN, FORBIDDEN + ("yaml",)], ids=["jax", "jax_and_yaml"])
+@pytest.mark.parametrize("blocked", [FORBIDDEN, FORBIDDEN + ("yaml",), FORBIDDEN + ("mujoco", "gymnasium")],
+                         ids=["jax", "jax_and_yaml", "jax_mujoco_gymnasium"])
 def test_package_imports_with_jax_blocked(blocked):
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
@@ -46,7 +49,7 @@ def test_package_imports_with_jax_blocked(blocked):
         f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
-        f"for m in {modules!r} + ['chip_smoke', 'parity_torch', 'examples.train_pendulum_torch']:\n"
+        f"for m in {modules!r} + ['chip_smoke', 'parity_torch'] + {['examples.' + e for e in EXAMPLES]!r}:\n"
         "    importlib.import_module(m)\n"
         f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"
@@ -99,3 +102,44 @@ def test_study_entry_points_require_cuda_unless_cpu_is_asked():
         make_pbt_train(runner.alg, env, 2, 2)
     runner.learn(1)
     assert runner.pbt_state.fitness.device.type == "cpu"
+
+
+@pytest.mark.parametrize("env", ["CartPoleSwingUp", "Reacher", "Hopper", "SparseGoalReach"])
+def test_new_envs_require_cuda_unless_cpu_is_asked(env):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    from rsl_rl_tpu_torch.utils.registry import resolve
+
+    cls = resolve("env", env)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls(8)
+    state, obs = cls(8, device="cpu").reset(0)
+    assert all(v.device.type == "cpu" for v in obs.values())
+
+
+def test_host_env_runner_requires_cuda_unless_cpu_is_asked():
+    """A host env has no device: the runner's own device rule decides."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    import numpy as np
+
+    from rsl_rl_tpu_torch.env import HostVecEnv
+    from rsl_rl_tpu_torch.runners import OnPolicyRunner
+
+    class Env(HostVecEnv):
+        num_envs, num_actions, max_episode_length = 4, 1, 10
+
+        def reset(self, seed=None):
+            return {"policy": np.zeros((4, 2), np.float32)}
+
+        def step(self, actions):
+            return self.reset(), np.zeros(4, np.float32), np.zeros(4, bool), {}
+
+    cfg = {"num_steps_per_env": 2, "obs_groups": {"policy": ["policy"], "critic": ["policy"]},
+           "policy": {"class_name": "ActorCritic", "actor_hidden_dims": [8], "critic_hidden_dims": [8]},
+           "algorithm": {"class_name": "PPO", "num_learning_epochs": 1, "num_mini_batches": 2}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OnPolicyRunner(Env(), cfg)
+    runner = OnPolicyRunner(Env(), cfg, device="cpu")
+    runner.learn(1)
+    assert runner.collect_state.obs["policy"].device.type == "cpu"

@@ -2,6 +2,8 @@
 package's own random streams.
 
     JAX_PLATFORMS=cpu python tests/torch_port_stream_parity.py --seeds 1 2 3 [--iterations 500] [--out FILE]
+        [--draws all|noise|perm|resets]
+    JAX_PLATFORMS=cpu python tests/torch_port_stream_parity.py --summarize FILE [FILE ...] --out SUMMARY
 
 Each seed is one single-seed run of ``benchmarks/parity_nlink.py``'s
 protocol (``benchmarks/parity_pendulum.py``'s ``train_cfg``, 64
@@ -15,6 +17,14 @@ the final (the nan-aware mean of the last 20 iterations' mean reward) and
 writes the curves to ``--out``. With the JAX draws the port computes the
 JAX run's numbers until fp32 rounding, amplified by the dynamics, separates
 the two; ``tests/test_torch_port_ff.py`` holds the first iterations.
+
+``--draws`` swaps in one of the three JAX streams alone (``noise``: the
+action noise; ``perm``: the update's permutation; ``resets``: the env's
+reset draws) and leaves the other two to the port's own generators, seeded
+as ``OnPolicyRunner`` seeds them for that seed (the algorithm's generator
+from ``seed + 1``, the env's per-env keys from ``seed``); the initial
+policy and env state stay the JAX runner's. ``all`` (the default) swaps in
+all three.
 """
 
 from __future__ import annotations
@@ -40,16 +50,19 @@ from rsl_rl_tpu_torch.modules import ActorCritic  # noqa: E402
 from rsl_rl_tpu_torch.utils.weights import from_jax_state  # noqa: E402
 
 NUM_ENVS, NUM_LINKS, T, MAX_EPISODE_LENGTH = 64, 5, 24, 400
+#: the JAX streams ``--draws`` can swap in
+STREAMS = ("noise", "perm", "resets")
 
 
 def _t(x):
     return torch.tensor(np.asarray(x))
 
 
-def stream_run(seed: int, iterations: int, max_episode_length: int = MAX_EPISODE_LENGTH):
+def stream_run(seed: int, iterations: int, max_episode_length: int = MAX_EPISODE_LENGTH, draws=STREAMS):
     """The port's curve (one mean completed-episode reward an iteration, nan
     where none completed) and per-iteration metrics, with the JAX run's
-    streams, and the JAX runner it started from."""
+    streams named in ``draws`` and the port's own for the others, and the
+    JAX runner it started from."""
     jenv = JaxNLink(num_envs=NUM_ENVS, num_links=NUM_LINKS, max_episode_length=max_episode_length)
     jax_runner = JaxRunner(jenv, train_cfg(seed), log_dir=None)
     ts, cs = jax_runner.train_state, jax_runner.collect_state
@@ -62,13 +75,14 @@ def stream_run(seed: int, iterations: int, max_episode_length: int = MAX_EPISODE
     norm = {k: None if v is None else {f: np.asarray(getattr(v, f)) for f in ("mean", "var", "count")}
             for k, v in ps.norm.items()}
     from_jax_state(ps.params, norm, policy)
-    ppo = PPO(policy, **alg_kw)
+    ppo = PPO(policy, seed=seed + 1, **alg_kw)  # the runner's seed of the algorithm's generator
     env = NLinkPendulum(NUM_ENVS, NUM_LINKS, max_episode_length=max_episode_length, device="cpu")
     fresh = []  # the JAX env's reset draws, one entry a step
-    env._sample_init = lambda rng: (rng, fresh.pop(0))
+    if "resets" in draws:
+        env._sample_init = lambda rng: (rng, fresh.pop(0))
     st = jax.device_get(cs.env_state)
     port_cs = CollectState(env_state=NLinkState(_t(st.episode_length), _t(st.theta), _t(st.omega),
-                                                env_keys(0, NUM_ENVS)),
+                                                env_keys(seed, NUM_ENVS)),
                            obs={k: _t(v) for k, v in cs.obs.items()}, carry=(),
                            stats=init_episode_stats(NUM_ENVS, "cpu"))
 
@@ -92,8 +106,12 @@ def stream_run(seed: int, iterations: int, max_episode_length: int = MAX_EPISODE
             env_rng, theta, omega = reset_draws(env_rng)
             fresh.append({"theta": _t(theta), "omega": _t(omega)})
         key, k_perm = split(key)  # the update's draw
-        port_cs, rollout, cm = ppo.collect(env, port_cs, T, action_noise=torch.tensor(np.stack(noise)))
-        port_cs, um = ppo.update(port_cs, rollout, perm=_t(permutation(k_perm)))
+        if "resets" not in draws:
+            fresh.clear()
+        action_noise = torch.tensor(np.stack(noise)) if "noise" in draws else None
+        perm = _t(permutation(k_perm)) if "perm" in draws else None
+        port_cs, rollout, cm = ppo.collect(env, port_cs, T, action_noise=action_noise)
+        port_cs, um = ppo.update(port_cs, rollout, perm=perm)
         count = float(cm["ep_count"])
         curve.append(float(cm["ep_reward_sum"]) / count if count > 0 else float("nan"))
         history.append({k: float(v) for k, v in {**cm, **um}.items()})
@@ -106,21 +124,57 @@ def final(curve) -> float:
         return float(np.nanmean(np.asarray(curve[-20:], np.float64)))
 
 
+def summarize(paths, out_path, against: str = "parity_torch_results.json") -> dict:
+    """Pool the ``--out`` files of one ``--draws`` setting (their seeds) and
+    hold the finals against the 40 single-seed runs of ``parity_torch.py``'s
+    ``b40_single`` study: the JAX runs and the port's own (Welch's t and
+    Mann-Whitney U, two-sided); writes ``out_path``."""
+    from scipy import stats
+
+    runs = [json.load(open(p)) for p in paths]
+    if len({(r["draws"], r["iterations"]) for r in runs}) != 1:
+        raise ValueError("the files mix --draws or --iterations settings")
+    seeds = {k: v for r in runs for k, v in r["seeds"].items()}
+    finals = np.array([v["final"] for v in seeds.values()])
+    ref = json.load(open(against))["studies"]["b40_single"]
+    summary = {"script": "tests/torch_port_stream_parity.py", "draws": runs[0]["draws"],
+               "iterations": runs[0]["iterations"], "platform": "cpu", "num_seeds": len(seeds),
+               "finals_mean": float(finals.mean()), "finals_std": float(finals.std(ddof=1)),
+               "finals_median": float(np.median(finals))}
+    for name, arm in (("against_jax_files", "jax"), ("against_port_b40_single", "port")):
+        other = np.array(ref[arm]["per_seed"])
+        summary[name] = {"welch_t_p": float(stats.ttest_ind(finals, other, equal_var=False).pvalue),
+                         "mann_whitney_u_p": float(stats.mannwhitneyu(finals, other, alternative="two-sided").pvalue)}
+    summary["seeds"] = seeds
+    with open(out_path, "w") as f:
+        json.dump(summary, f)
+    return summary
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--seeds", type=int, nargs="+", required=True)
+    p.add_argument("--seeds", type=int, nargs="+")
     p.add_argument("--iterations", type=int, default=500)
     p.add_argument("--out", default=None)
+    p.add_argument("--draws", choices=("all",) + STREAMS, default="all",
+                   help="the JAX stream to swap in alone (default: all three)")
+    p.add_argument("--summarize", nargs="+", metavar="FILE",
+                   help="pool these --out files into --out, against parity_torch_results.json's b40_single")
     args = p.parse_args()
+    if args.summarize:
+        summary = summarize(args.summarize, args.out)
+        print(json.dumps({k: v for k, v in summary.items() if k != "seeds"}))
+        return
+    draws = STREAMS if args.draws == "all" else (args.draws,)
     torch.set_num_threads(2)
     out = {}
     for seed in args.seeds:
-        curve, _, _ = stream_run(seed, args.iterations)
+        curve, _, _ = stream_run(seed, args.iterations, draws=draws)
         out[seed] = {"final": final(curve), "curve": [None if np.isnan(v) else v for v in curve]}
         print(json.dumps({"seed": seed, "final": out[seed]["final"]}), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f)
+        if args.out:  # after every seed, so a cut run keeps what it finished
+            with open(args.out, "w") as f:
+                json.dump({"draws": args.draws, "iterations": args.iterations, "seeds": out}, f)
 
 
 if __name__ == "__main__":
