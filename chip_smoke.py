@@ -132,6 +132,35 @@ Phases, each fatal on failure:
    ``utils/torch_deploy.py``'s ``as_torch_policy`` against
    ``get_inference_policy()`` over 50 steps of 4096 envs with resets, at
    ``DEPLOY_TOL``.
+7. Data and tensor parallelism on ``torch.distributed`` (after phase 6,
+   with phase 4's teacher), 2 eager iterations each, every one against the
+   one-process run of the same global config (4096 envs) made first, with
+   no process group. 7a: ``recurrent_gru256`` through the mesh path in an
+   NCCL group of one (20 launches of each ``gru_x_*`` an iteration; the
+   losses, moments and parameters at ``PARALLEL_TOL``, and whether bit for
+   bit). 7b and 7c: two ranks that the script spawns on ``cuda:0``
+   (``--parallel-rank``; Gloo, since NCCL refuses two ranks on one card),
+   each running, with the counters zeroed just before and read just after:
+   the GRU flagship on 2 x 2048 device envs (10 launches of each ``gru_x_*``
+   an iteration a rank: each owns two of the four recurrent minibatches)
+   and on 2 x 2048 envs of a shardable ``HostNLink``, the GRU student
+   through the host bridge on ``HostDRNLink`` shards, the headline and the
+   GRU flagship with ``model_parallel_size: 2`` (memories replicated: 20
+   launches a rank); ``phase7 {...}`` lines give each rank's launches,
+   local minibatch shares, learn and collection seconds and local
+   env-steps/s, and the c10d collectives' share of one more profiled
+   iteration of the data-parallel flagship. The first iteration's metrics
+   and the normalizer moments at ``PARALLEL_TOL``, the parameters' difference
+   after two iterations below ``UPDATE_SHARE`` of the one-process update
+   (beside how far a perturbation of the initial weights by one part in 1e7
+   moves them); and on the same window, the one-process run's first,
+   replayed through the ranks' data-parallel, tensor-parallel and
+   distillation updates (``WINDOW_UPDATES``), the parameters at
+   ``PARALLEL_TOL``; bf16 runs at ``BF16_FIRST_TOL`` / ``BF16_TOL``, the
+   headline's sharded forward against the unsharded one on the same
+   weights; the tensor-parallel flagship's checkpoint (rank 0 writes the
+   gathered state) loads into one process bit for bit. Any
+   rank's failure fails the smoke.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -156,6 +185,7 @@ from torch.func import functional_call, vmap
 
 from parity_torch import train_cfg as parity_cfg
 from rsl_rl_tpu_torch.algorithms.distillation import chunks_between
+from rsl_rl_tpu_torch.algorithms.ppo import PPO, CollectState
 from rsl_rl_tpu_torch.algorithms.host_collect import PHASES
 from rsl_rl_tpu_torch.env import (
     CartPoleSwingUp,
@@ -170,8 +200,10 @@ from rsl_rl_tpu_torch.env import (
 )
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
+from rsl_rl_tpu_torch.parallel import distributed_init, gather_tree_tp
+from rsl_rl_tpu_torch.parallel.mesh import local_slice
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
-from rsl_rl_tpu_torch.storage.rollout import slice_envs
+from rsl_rl_tpu_torch.storage.rollout import Rollout, slice_envs, tree_map
 from rsl_rl_tpu_torch.utils import cuda_build
 from rsl_rl_tpu_torch.utils.cuda_graph import flatten
 from rsl_rl_tpu_torch.utils.evaluation import EVAL_KEYS, evaluate_policy
@@ -740,10 +772,10 @@ def check_launches(name, counts, expected: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def ppo_launches(family, cfg) -> dict:
+def ppo_launches(family, cfg, iterations=ITERATIONS) -> dict:
     """A PPO slice's launches: one of each of the family's kernels a minibatch."""
     alg_cfg = cfg["algorithm"]
-    expected = ITERATIONS * alg_cfg["num_learning_epochs"] * alg_cfg["num_mini_batches"]
+    expected = iterations * alg_cfg["num_learning_epochs"] * alg_cfg["num_mini_batches"]
     return {k: expected for k in FAMILIES[family]["kernels"]}
 
 
@@ -1449,16 +1481,20 @@ class HostNLink(HostVecEnv):
 
     env_cls = NLinkPendulum
 
-    def __init__(self, num_envs: int | None = None):
+    def __init__(self, num_envs: int | None = None, env_offset: int = 0, seed: int | None = None):
         num_envs = NUM_ENVS if num_envs is None else num_envs
         self.sim = self.env_cls(num_envs, NUM_LINKS, device="cpu")
         self.num_envs, self.num_actions = num_envs, self.sim.num_actions
         self.max_episode_length = int(self.sim.max_episode_length)
         self.episode_length_buf = np.zeros(num_envs, np.int32)
         self.state = None
+        # phase 7: a shard holds the envs env_offset.. of a global env reset
+        # from a fixed seed, so that shards compose into the global env
+        self.env_offset, self.seed = env_offset, seed
 
     def reset(self, seed=None):
-        self.state, obs = self.sim.reset(0 if seed is None else int(seed))
+        seed = self.seed if self.seed is not None else (0 if seed is None else int(seed))
+        self.state, obs = self.sim.reset(seed, num_envs=self.num_envs, env_offset=self.env_offset)
         self.episode_length_buf[:] = self.state.episode_length.numpy()
         return {k: v.numpy() for k, v in obs.items()}
 
@@ -1675,6 +1711,586 @@ def host_slices(smi, teacher_path, tmp, T, B) -> dict:
     return by_slice
 
 
+# ---- phase 7: data and tensor parallelism on torch.distributed
+#: the parallel runs' iterations (eager), and their layout: NCCL refuses two
+#: ranks on one card, so 7b and 7c run two Gloo ranks on cuda:0
+PARALLEL_ITERATIONS, PARALLEL_WORLD = 2, 2
+#: the bars of phase 7. On the same window (the one-process run's first,
+#: replayed through the ranks' update, with SGD, whose step is linear in the
+#: gradient, so Adam's normalized steps do not amplify the ranks' summation
+#: order): the parameters after the update at rtol 1e-5 / atol 1e-6 and the
+#: update itself within ``WINDOW_SHARE`` of its largest entry (bf16: the
+#: bf16 bar's 5e-2). Along a run: the first iteration's metrics (the same
+#: weights and data, summed in another order) and the normalizer moments at
+#: rtol 1e-5 / atol 1e-6 (fp32). A run then leaves the one-process run at
+#: the rate it amplifies rounding (the NLink obs normalizer's small early
+#: std, Adam's normalized steps, the chaotic pendulum): after two iterations the
+#: parameters' difference is held below a tenth of the one-process update
+#: (``UPDATE_SHARE``), and printed beside how far a perturbation of the
+#: initial weights by one part in 1e7 moves them. bf16 trunks (the student,
+#: the headline under tensor parallelism): the first iteration's losses at
+#: rtol 1e-3 / atol 1e-4 (the surrogate and the KL are near-zero means of
+#: terms of the whitened advantages' scale), the rest and the sharded
+#: policy's outputs against the unsharded forward on the same weights at the
+#: repo's bf16 bar (rtol 5e-2 / atol 3e-2, that of the bf16 update against
+#: JAX)
+PARALLEL_TOL = {"rtol": 1e-5, "atol": 1e-6}
+UPDATE_SHARE = 0.1
+WINDOW_SHARE = {"fp32": 1e-3, "bf16": 5e-2}
+BF16_FIRST_TOL = {"rtol": 1e-3, "atol": 1e-4}
+BF16_TOL = {"rtol": 5e-2, "atol": 3e-2}
+#: one backward through a bf16 trunk on two model ranks against the
+#: unsharded one: each parameter's gradient within this share of its norm
+#: (tests/test_torch_port_tensor_parallel.py's bar; rounding each rank's
+#: part to bf16 before the sum leaves about 5e-3)
+TP_GRAD_SHARE = 1e-3
+#: the rollout fields a window carries
+WINDOW_FIELDS = ("actions", "rewards", "dones", "values", "log_probs", "mu", "sigma", "privileged_actions")
+
+
+def tp_cfg(cfg) -> dict:
+    """``cfg`` with its MLP trunks sharded over two model ranks."""
+    return {**copy.deepcopy(cfg), "model_parallel_size": PARALLEL_WORLD}
+
+
+def full_state(alg) -> dict:
+    """The policy's full state on the CPU (tensor-parallel slices gathered)."""
+    state = alg.policy.state_dict()
+    if alg.tp_specs is not None:
+        state = gather_tree_tp(state, alg.mesh, alg.tp_specs)
+    return {k: v.detach().cpu().clone() for k, v in state.items()}
+
+
+def parallel_result(runner) -> dict:
+    """What phase 7 holds of a run: the per-iteration metrics and seconds,
+    the full policy state, the policy's deterministic actions (a fresh
+    carry) on the current obs, and the obs."""
+    obs = runner.collect_state.obs
+    with torch.no_grad():
+        outputs = runner.alg.policy.act_inference(
+            obs, runner.alg.policy.initial_carry(next(iter(obs.values())).shape[0]))[0]
+    return {"history": [{k: row[k] for k in ("collection_s", "learn_s", "steps_per_s", "metrics")}
+                        for row in runner.history],
+            "state": full_state(runner.alg), "outputs": outputs.cpu(),
+            "obs": {k: v.cpu() for k, v in obs.items()}}
+
+
+def local_minibatch_sizes(runner) -> list[int]:
+    """This rank's envs of each recurrent minibatch of an epoch."""
+    mesh, nb_total = runner.mesh, runner.alg.num_mini_batches
+    n_global = runner.num_global_envs
+    nb, (offset, n) = n_global // nb_total, ((0, n_global) if mesh is None else local_slice(mesh, n_global))
+    return [max(0, min(s + nb, offset + n) - max(s, offset)) for s in range(0, n_global, nb)]
+
+
+def parallel_scenarios(teacher_path, device, num_envs, rank):
+    """7b and 7c on each rank, in order: ``{name: (make_runner, expected
+    launches of this rank)}``. A device env is the global one, a host env
+    this rank's shard of the same global env."""
+    host = num_envs // PARALLEL_WORLD
+    iters, alg = PARALLEL_ITERATIONS, RECURRENT_GRU256["algorithm"]
+    # a data rank replays the minibatches of its envs (half of the 4), a
+    # model rank all of them (the memories are replicated)
+    per_rank = {k: iters * alg["num_learning_epochs"] * alg["num_mini_batches"] // PARALLEL_WORLD
+                for k in FAMILIES["gru"]["kernels"]}
+    replicated = ppo_launches("gru", RECURRENT_GRU256, iters)
+
+    def student():
+        runner = DistillationRunner(HostDRNLink(host, env_offset=rank * host, seed=1),
+                                    copy.deepcopy(DISTILL_GRU256_BF16), device=device)
+        runner.load(teacher_path)
+        return runner
+
+    return {
+        "dp2_recurrent_gru256": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                        copy.deepcopy(RECURRENT_GRU256), device=device), per_rank),
+        "dp2_recurrent_gru256_host": (lambda: OnPolicyRunner(HostNLink(host, env_offset=rank * host, seed=1),
+                                                             copy.deepcopy(RECURRENT_GRU256), device=device),
+                                      per_rank),
+        "dp2_distill_gru256_bf16_host": (student, distill_launches("gru", DISTILL_GRU256_BF16, iters)),
+        "tp2_ppo_ff256x3_bf16": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                        tp_cfg(PPO_FF256X3_BF16), device=device), {}),
+        "tp2_recurrent_gru256": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                        tp_cfg(RECURRENT_GRU256), device=device), replicated),
+        # the same trained with SGD (SGD_RUNS)
+        "dp2_recurrent_gru256_sgd": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                            sgd(RECURRENT_GRU256), device=device), per_rank),
+        "dp2_recurrent_gru256_host_sgd": (lambda: OnPolicyRunner(HostNLink(host, env_offset=rank * host, seed=1),
+                                                                 sgd(RECURRENT_GRU256), device=device), per_rank),
+        "tp2_ppo_ff256x3_bf16_sgd": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                            tp_cfg(sgd(PPO_FF256X3_BF16)), device=device), {}),
+    }
+
+
+#: the parallel runs trained with SGD and their one-process runs: SGD's step
+#: is linear in the gradient, so the ranks' summation order cannot steer
+#: them as it steers Adam's (PERF.md, PR 14): held at the issue's bars
+SGD_RUNS = {"dp2_recurrent_gru256_sgd": "recurrent_gru256_sgd",
+            "dp2_recurrent_gru256_host_sgd": "recurrent_gru256_host_sgd",
+            "tp2_ppo_ff256x3_bf16_sgd": "ppo_ff256x3_bf16_sgd"}
+
+
+def sgd(cfg) -> dict:
+    """``cfg`` trained with SGD (the same-window updates)."""
+    cfg = copy.deepcopy(cfg)
+    cfg["algorithm"]["optimizer"] = "sgd"
+    return cfg
+
+
+def window_runner(window, teacher_path, device, num_envs, rank, model_parallel=False):
+    """The runner of a same-window update, SGD: the GRU flagship or the
+    headline on the global device env (on two data ranks, or two model
+    ranks with ``model_parallel``), or the GRU student on this rank's host
+    shard."""
+    if window.startswith("distill"):
+        host = num_envs // PARALLEL_WORLD if torch.distributed.is_initialized() else num_envs
+        runner = DistillationRunner(HostDRNLink(host, env_offset=rank * host, seed=1), sgd(DISTILL_GRU256_BF16),
+                                    device=device)
+        runner.load(teacher_path)
+        return runner
+    cfg = sgd({"recurrent_gru256": RECURRENT_GRU256, "ppo_ff256x3_bf16": PPO_FF256X3_BF16}[window])
+    return OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device), tp_cfg(cfg) if model_parallel else cfg,
+                          device=device)
+
+
+#: the same-window updates: (the window's one-process run, model-parallel)
+WINDOW_UPDATES = {"dp2_update_on_window": ("recurrent_gru256", False),
+                  "tp2_update_on_window": ("recurrent_gru256", True),
+                  "tp2_headline_update_on_window": ("ppo_ff256x3_bf16", True),
+                  "dp2_distill_update_on_window": ("distill_gru256_bf16_host", False)}
+
+
+def save_window(name, runner, out) -> dict:
+    """Collect the one-process run's first window, save it and the policy
+    (as a checkpoint) as the update finds them, update; returns the full
+    state before and after the update."""
+    if runner.is_jax_env:
+        cs, rollout, _ = runner.alg.collect(runner.env, runner.collect_state, runner.num_steps_per_env)
+    else:
+        cs, rollout, _ = runner.host_collect(runner.collect_state)
+    runner.save(os.path.join(out, f"{name}.window.ckpt"))
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    torch.save({"fields": {f: cpu(getattr(rollout, f)) for f in WINDOW_FIELDS if getattr(rollout, f) is not None},
+                "obs": {k: cpu(v) for k, v in rollout.obs.items()}, "carry0": tree_map(cpu, rollout.carry0),
+                "cs_obs": {k: cpu(v) for k, v in cs.obs.items()}, "cs_carry": tree_map(cpu, cs.carry)},
+               os.path.join(out, f"{name}.window.pt"))
+    before = full_state(runner.alg)
+    runner.alg.update(cs, rollout, **window_perm(runner, rollout, out, name))
+    return before, full_state(runner.alg)
+
+
+def window_perm(runner, rollout, out, name) -> dict:
+    """A feedforward update's permutation of the window's rows: drawn and
+    saved beside the window (``{"perm": ...}``) where the file is missing,
+    read from it where present; a recurrent update or distillation draws
+    none (``{}``)."""
+    if not isinstance(runner.alg, PPO) or runner.alg.policy.is_recurrent:
+        return {}
+    path = os.path.join(out, f"{name}.window.perm.pt")
+    if not os.path.exists(path):
+        rows = runner.alg._row_count(rollout)[1]
+        torch.save(torch.randperm(rows, generator=runner.alg.generator, device=runner.alg.device).cpu(), path)
+    return {"perm": torch.load(path).to(runner.alg.device)}
+
+
+def update_on_window(runner, name, out, device):
+    """This rank's update of the saved window: the checkpoint loaded (sliced
+    under tensor parallelism), the window cut to this data rank's envs."""
+    runner.load(os.path.join(out, f"{name}.window.ckpt"))
+    w = torch.load(os.path.join(out, f"{name}.window.pt"), weights_only=False)
+    n_global = next(iter(w["cs_obs"].values())).shape[0]
+    offset, n = (0, n_global) if runner.mesh is None else local_slice(runner.mesh, n_global)
+    cut = lambda axis: lambda t: t.narrow(axis, offset, n).to(device).contiguous()  # noqa: E731
+    rollout = Rollout(obs=tree_map(cut(1), w["obs"]), **tree_map(cut(1), w["fields"]),
+                      carry0=tree_map(cut(0), w["carry0"]))
+    cs = CollectState(env_state=(), obs=tree_map(cut(0), w["cs_obs"]), carry=tree_map(cut(0), w["cs_carry"]),
+                      stats=None)
+    runner.alg.update(cs, rollout, **window_perm(runner, rollout, out, name))
+    return full_state(runner.alg)
+
+
+def trace_lr(alg) -> list:
+    """Record ``(kl, lr before, lr after)`` at every step of a PPO
+    algorithm's adaptive-KL rule (distillation has none: an empty list)."""
+    rows = []
+    if not hasattr(alg, "_adapt_lr"):
+        return rows
+    adapt = alg._adapt_lr
+
+    def traced(kl):
+        before = float(alg.lr)
+        adapt(kl)
+        rows.append((float(kl), before, float(alg.lr)))
+
+    alg._adapt_lr = traced
+    return rows
+
+
+def first_flip(got: list, want: list, desired_kl: float = 0.01) -> dict | None:
+    """The first minibatch whose learning rate after the adaptive-KL rule
+    differs between two traces of :func:`trace_lr`: its index, both KLs and
+    rates, the one-process (``want``) KL's relative distance to the rule's
+    nearest threshold (``2 * desired_kl`` or ``desired_kl / 2``) and the
+    largest relative difference of the KLs before it."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g[2] != w[2]:
+            threshold = min((2.0 * desired_kl, desired_kl / 2.0), key=lambda t: abs(w[0] - t))
+            return {"minibatch": i, "kl": w[0], "kl_other": g[0], "lr": w[2], "lr_other": g[2],
+                    "threshold": threshold, "kl_margin": abs(w[0] - threshold) / threshold,
+                    "kl_rel_diff_before": max([abs(a[0] - b[0]) / max(abs(b[0]), 1e-12)
+                                               for a, b in zip(got[:i], want[:i])], default=0.0)}
+    return None
+
+
+def time_collectives(mesh, device) -> dict:
+    """Time every sum over ``mesh``'s groups, wall clock, from a drained
+    card to a drained card (the card synchronized before and after each, so
+    a sum's time is its copies, the exchange and the wait for the other
+    rank, and none of the work queued before it): ``{"s": seconds,
+    "calls": count}``, growing as the sums run. Delete the instance's
+    ``data_sum_`` / ``model_sum_`` to stop."""
+    spent = {"s": 0.0, "calls": 0}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn):
+        def call(t):
+            sync()
+            start = time.perf_counter()
+            out = fn(t)
+            sync()
+            spent["s"] += time.perf_counter() - start
+            spent["calls"] += 1
+            return out
+        return call
+
+    mesh.data_sum_, mesh.model_sum_ = timed(mesh.data_sum_), timed(mesh.model_sum_)
+    return spent
+
+
+def trunk_grads(alg, obs) -> dict:
+    """The gradients of one backward through the actor trunk on the policy
+    obs, ``sum(actor(obs) * c)`` with ``c`` drawn from seed 3, gathered
+    whole under tensor parallelism, on the CPU."""
+    actor, x = alg.policy.actor, obs["policy"]
+    out = actor(x)
+    c = torch.randn(out.shape, generator=torch.Generator(device=x.device).manual_seed(3), device=x.device)
+    grads = torch.autograd.grad((out * c).sum(), list(actor.parameters()))
+    grads = {f"actor.{n}": g for (n, _), g in zip(actor.named_parameters(), grads)}
+    if alg.tp_specs is not None:
+        grads = gather_tree_tp(grads, alg.mesh, alg.tp_specs)
+    return {k: v.cpu() for k, v in grads.items()}
+
+
+def parallel_rank(rank, init_file, out_dir, teacher_path, device, num_envs) -> None:
+    """One rank of 7b/7c (``chip_smoke.py --parallel-rank``): join the Gloo
+    group, run each scenario with the counters zeroed just before and read
+    just after, save its result for the launching process to hold, print one
+    ``phase7`` JSON line a scenario (launches, minibatch shares, seconds);
+    time the collectives of one more iteration of the data-parallel
+    flagship (:func:`time_collectives`); save the gradients of one backward
+    through the tensor-parallel headline's trunk and the tensor-parallel
+    flagship's checkpoint (rank 0 writes the gathered state); then update
+    the one-process runs' first windows (``WINDOW_UPDATES``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed_init(backend="gloo", init_method=f"file://{init_file}", rank=rank, world_size=PARALLEL_WORLD)
+    runners = {}
+    scenarios = parallel_scenarios(teacher_path, device, num_envs, rank)
+    for name, (make, expected) in scenarios.items():
+        runner = runners[name] = make()
+        trace = trace_lr(runner.alg)
+        reset_counts()
+        runner.learn(PARALLEL_ITERATIONS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = check_launches(f"{name} rank {rank}", all_counts(), expected if device == "cuda" else {})
+        result = parallel_result(runner)
+        result["launches"], result["trace"] = launches, trace
+        torch.save(result, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+        row = {"slice": name, "rank": rank, "launches": launches,
+               "learn_s": [r["learn_s"] for r in runner.history],
+               "collection_s": [r["collection_s"] for r in runner.history],
+               "local_env_steps_per_s": [runner.num_steps_per_env * runner.collect_state.stats.cur_reward_sum.numel()
+                                         / (r["collection_s"] + r["learn_s"]) for r in runner.history]}
+        if runner.alg.policy.is_recurrent and not name.startswith("dp2_distill"):
+            row["local_minibatch_envs"] = local_minibatch_sizes(runner)
+        print("phase7 " + json.dumps(row), flush=True)
+    # the collectives' share of one more iteration of the data-parallel flagship
+    runner = runners["dp2_recurrent_gru256"]
+    spent = time_collectives(runner.mesh, device)
+    start = time.perf_counter()
+    runner.learn(1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    del runner.mesh.data_sum_, runner.mesh.model_sum_
+    print("phase7 " + json.dumps({"slice": "dp2_recurrent_gru256", "rank": rank, "timed_iteration_s": wall,
+                                  "collective_wall_s": spent["s"], "collective_calls": spent["calls"],
+                                  "collective_share": spent["s"] / wall}), flush=True)
+    # one backward through the tensor-parallel headline's bf16 actor trunk
+    headline = runners["tp2_ppo_ff256x3_bf16"]
+    torch.save(trunk_grads(headline.alg, headline.collect_state.obs), os.path.join(out_dir, f"tp2_grads.rank{rank}.pt"))
+    runners["tp2_recurrent_gru256"].save(os.path.join(out_dir, "tp2.pt"))
+    for name, (window, model_parallel) in WINDOW_UPDATES.items():
+        runner = window_runner(window, teacher_path, device, num_envs, rank, model_parallel)
+        torch.save(update_on_window(runner, window, out_dir, device), os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def hold(name, got, want, tol, what) -> float:
+    """Fail unless ``got`` is within ``tol`` of ``want``; returns the largest
+    absolute difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.allclose(got, want, **tol):
+        fail(f"{name}: {what} beyond rtol {tol['rtol']:g} / atol {tol['atol']:g}: max |got - want|"
+             f" {np.max(np.abs(got - want)):.3e}")
+    return float(np.max(np.abs(got - want))) if got.size else 0.0
+
+
+def hold_run(name, got, want, first_tol, norm_tol, global_episodes=True, exact_tol=None) -> None:
+    """Hold a parallel run against the one-process run: the first
+    iteration's metrics at ``first_tol``, the normalizer moments at
+    ``norm_tol``, the parameters' difference below ``UPDATE_SHARE`` of the
+    one-process update; print the later metrics' largest relative
+    difference, the parameters' largest difference and whether they are
+    within ``PARALLEL_TOL`` too. With ``exact_tol`` (an SGD run) every
+    iteration's metrics are held at ``first_tol`` and the parameters at
+    ``exact_tol``."""
+    later = 0.0
+    for i, (g, w) in enumerate(zip(got["history"], want["history"])):
+        for k, v in w["metrics"].items():
+            if not (k.startswith("Loss/") or (global_episodes and not k.startswith("extras/"))):
+                continue
+            if i == 0 or exact_tol is not None:
+                hold(name, g["metrics"][k], v, first_tol, f"iteration {i} {k}")
+            else:
+                later = max(later, abs(g["metrics"][k] - v) / max(abs(v), 1e-12))
+    norm_err = param_err = 0.0
+    within = True
+    diff_sq = update_sq = 0.0
+    for k, w in want["state"].items():
+        g = got["state"][k].float()
+        if k.startswith("norm_"):
+            norm_err = max(norm_err, hold(name, g, w, norm_tol, f"normalizer {k}"))
+            continue
+        param_err = max(param_err, float((g - w.float()).abs().max()))
+        within &= bool(np.allclose(g.numpy(), w.float().numpy(), **PARALLEL_TOL))
+        if exact_tol is not None:
+            hold(name, g, w.float(), exact_tol, f"parameter {k}")
+        diff_sq += float(torch.sum((g - w.float()) ** 2))
+        update_sq += float(torch.sum((w.float() - want["state0"][k].float()) ** 2))
+    share = math.sqrt(diff_sq / update_sq)
+    print(f"{name}: {'every iteration' if exact_tol else 'iteration 0'} within rtol {first_tol['rtol']:g} / atol {first_tol['atol']:g}; later metrics'"
+          f" largest relative difference {later:.3e}; normalizer moments {norm_err:.3e}; parameters max |diff|"
+          f" {param_err:.3e} (within rtol {PARALLEL_TOL['rtol']:g} / atol {PARALLEL_TOL['atol']:g}: {within}),"
+          f" |diff| / |one-process update| {share:.3e}; the learning rate's first flip:"
+          f" {json.dumps(first_flip(got['trace'], want['trace']))}")
+    if exact_tol is None and share > UPDATE_SHARE:
+        fail(f"{name}: the parameters left the one-process run by {share:.3e} of its update (> {UPDATE_SHARE})")
+
+
+def parallel_slices(smi, teacher_path, tmp, device="cuda", num_envs=NUM_ENVS) -> dict:
+    """Phase 7; returns ``{slice: {kernel: launches}}``."""
+    iters = PARALLEL_ITERATIONS
+    out = os.path.join(tmp, "parallel")
+    os.makedirs(out)
+
+    def student():
+        runner = DistillationRunner(HostDRNLink(num_envs, seed=1), copy.deepcopy(DISTILL_GRU256_BF16), device=device)
+        runner.load(teacher_path)
+        return runner
+
+    # the one-process runs of the same global configurations (no process
+    # group), their initial state, and the first windows of two
+    makers = {
+        "recurrent_gru256": lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                   copy.deepcopy(RECURRENT_GRU256), device=device),
+        "recurrent_gru256_host": lambda: OnPolicyRunner(HostNLink(num_envs, seed=1),
+                                                        copy.deepcopy(RECURRENT_GRU256), device=device),
+        "ppo_ff256x3_bf16": lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                   copy.deepcopy(PPO_FF256X3_BF16), device=device),
+        "distill_gru256_bf16_host": student,
+        "recurrent_gru256_sgd": lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                       sgd(RECURRENT_GRU256), device=device),
+        "recurrent_gru256_host_sgd": lambda: OnPolicyRunner(HostNLink(num_envs, seed=1), sgd(RECURRENT_GRU256),
+                                                            device=device),
+        "ppo_ff256x3_bf16_sgd": lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                       sgd(PPO_FF256X3_BF16), device=device),
+    }
+    refs = {}
+    for name, make in makers.items():
+        runner = make()
+        state0, trace = full_state(runner.alg), trace_lr(runner.alg)
+        runner.learn(iters)
+        refs[name] = {**parallel_result(runner), "state0": state0, "trace": trace}
+    windows = {w: save_window(w, window_runner(w, teacher_path, device, num_envs, 0), out)
+               for w in sorted({w for w, _ in WINDOW_UPDATES.values()})}
+    # the sensitivity of the flagship and the headline: their initial
+    # weights perturbed by one part in 1e7
+    moved = {}
+    for name in ("recurrent_gru256", "ppo_ff256x3_bf16"):
+        runner = makers[name]()
+        gen = torch.Generator(device=device).manual_seed(7)
+        with torch.no_grad():
+            for p in runner.alg.policy.parameters():
+                p.mul_(1.0 + 1e-7 * torch.randn(p.shape, generator=gen, device=device))
+        runner.learn(iters)
+        moved[name] = parallel_result(runner)
+        params = max(float((moved[name]["state"][k] - v).abs().max()) for k, v in refs[name]["state"].items())
+        outputs = float((moved[name]["outputs"] - refs[name]["outputs"]).abs().max())
+        print(f"{name}: initial weights perturbed by one part in 1e7 move the parameters by max {params:.3e}"
+              f" and the policy outputs by max {outputs:.3e} after {iters} iterations")
+
+    # 7a: the data-parallel code in a process group of one (NCCL on the card)
+    distributed_init(backend="nccl" if device == "cuda" else "gloo", init_method=f"file://{tmp}/group_of_one",
+                     rank=0, world_size=1, device_id=torch.device(device, 0) if device == "cuda" else None)
+    runner = makers["recurrent_gru256"]()
+    if runner.mesh is None or not runner.mesh.distributed:
+        fail("7a: the runner did not take the process group")
+    reset_counts()
+    runner.learn(iters)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {"nccl1_recurrent_gru256": check_launches(
+        "nccl1_recurrent_gru256", all_counts(), ppo_launches("gru", RECURRENT_GRU256, iters) if device == "cuda" else {})}
+    print_history("nccl1_recurrent_gru256", runner)
+    got, want = parallel_result(runner), refs["recurrent_gru256"]
+    for i, (g, w) in enumerate(zip(got["history"], want["history"])):
+        for k, v in w["metrics"].items():
+            hold("nccl1_recurrent_gru256", g["metrics"][k], v, PARALLEL_TOL, f"iteration {i} {k}")
+    for k, v in want["state"].items():
+        hold("nccl1_recurrent_gru256", got["state"][k], v, PARALLEL_TOL, k)
+    same = all(torch.equal(got["state"][k], v) for k, v in want["state"].items())
+    print(f"nccl1_recurrent_gru256: metrics, parameters and moments within rtol 1e-5 / atol 1e-6 of the plain"
+          f" runner's; bit for bit: {same}")
+    torch.distributed.destroy_process_group()
+
+    # 7b, 7c: two Gloo ranks on the one card, each its own process
+    cmd = [sys.executable, os.path.abspath(__file__), "--parallel-rank", "{rank}", "--init", f"{tmp}/two_ranks",
+           "--out", out, "--teacher", teacher_path, "--device", device, "--num-envs", str(num_envs)]
+    procs = [subprocess.Popen([c.format(rank=r) for c in cmd], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(PARALLEL_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        for line in o.splitlines():
+            if line.startswith("phase7 ") or "launches:" in line:
+                print(line)
+        if p.returncode != 0:
+            fail(f"phase 7 rank {r} exited {p.returncode}:\n{o[-6000:]}")
+    load = lambda name, r: torch.load(os.path.join(out, f"{name}.rank{r}.pt"), weights_only=False)  # noqa: E731
+    # the ranks' update of the one-process runs' first windows
+    for name, (window, _) in WINDOW_UPDATES.items():
+        bf16 = "bf16" in window
+        tol, before, after = BF16_TOL if bf16 else PARALLEL_TOL, *windows[window]
+        for r in range(PARALLEL_WORLD):
+            got = load(name, r)
+            err = max(hold(name, got[k], v, tol, f"rank {r} {k}") for k, v in after.items())
+            # the update itself, against its largest entry
+            diff = max(float(((got[k] - before[k]) - (v - before[k])).float().abs().max()) for k, v in after.items())
+            scale = max(float((v - before[k]).float().abs().max()) for k, v in after.items())
+            print(f"{name} rank {r}: the one-process run's first window updated on the ranks (SGD): parameters max"
+                  f" |diff| {err:.3e} (rtol {tol['rtol']:g} / atol {tol['atol']:g}); the update's max |diff|"
+                  f" {diff:.3e} of its max |entry| {scale:.3e}")
+            if diff > WINDOW_SHARE["bf16" if bf16 else "fp32"] * scale:
+                fail(f"{name} rank {r}: the ranks' update of the window leaves the one process's by {diff:.3e} of"
+                     f" {scale:.3e}")
+    ranks = {name: [load(name, r) for r in range(PARALLEL_WORLD)]
+             for name in parallel_scenarios(teacher_path, device, num_envs, 0)}
+    for name, want in (("dp2_recurrent_gru256", "recurrent_gru256"),
+                       ("dp2_recurrent_gru256_host", "recurrent_gru256_host"),
+                       ("dp2_distill_gru256_bf16_host", "distill_gru256_bf16_host"),
+                       ("tp2_recurrent_gru256", "recurrent_gru256")):
+        host = name.endswith("_host")
+        # a bf16 student's actions move its env, and so its obs moments
+        tols = (BF16_FIRST_TOL, BF16_TOL) if "bf16" in name else (PARALLEL_TOL, PARALLEL_TOL)
+        for r in range(PARALLEL_WORLD):
+            # through the bridge the episode statistics stay each rank's
+            hold_run(f"{name} rank {r}", ranks[name][r], refs[want], *tols, global_episodes=not host)
+        if host:
+            for i, w in enumerate(refs[want]["history"]):
+                for k in ("ep_count", "ep_length_sum"):
+                    hold(name, sum(ranks[name][r]["history"][i]["metrics"][k] for r in range(PARALLEL_WORLD)),
+                         w["metrics"][k], PARALLEL_TOL, f"iteration {i}: the ranks' {k}")
+    name = "tp2_ppo_ff256x3_bf16"
+    for r in range(PARALLEL_WORLD):
+        want = refs["ppo_ff256x3_bf16"]
+        for i, (g, w) in enumerate(zip(ranks[name][r]["history"], want["history"])):
+            for k, v in w["metrics"].items():
+                if k.startswith("Loss/"):
+                    err = hold(name, g["metrics"][k], v, BF16_FIRST_TOL if i == 0 else BF16_TOL,
+                               f"rank {r} iteration {i} {k}")
+                    print(f"{name} rank {r} iteration {i} {k}: max |diff| {err:.3e}")
+        # the trained policies' outputs, beside how far the replicated run's
+        # own outputs move from weights perturbed by one part in 1e7 (held
+        # in the SGD run below)
+        err = float((ranks[name][r]["outputs"] - want["outputs"]).abs().max())
+        base = float((moved["ppo_ff256x3_bf16"]["outputs"] - want["outputs"]).abs().max())
+        print(f"{name} rank {r}: outputs after {iters} iterations against the replicated run's: max |diff| {err:.3e}"
+              f" (the replicated run perturbed by 1e-7: {base:.3e}); the learning rate's first flip:"
+              f" {json.dumps(first_flip(ranks[name][r]['trace'], want['trace']))}")
+    # the sharded forward against the unsharded one on the same weights: the
+    # row-parallel products summed in fp32 and rounded once
+    one = makers["ppo_ff256x3_bf16"]()
+    got = ranks[name][0]
+    one.alg.policy.load_state_dict(got["state"])
+    with torch.no_grad():
+        plain = one.alg.policy.act_inference({k: v.to(device) for k, v in got["obs"].items()})[0].cpu()
+    err = hold(name, got["outputs"], plain, BF16_TOL, "outputs against the unsharded forward on its weights")
+    print(f"{name}: the sharded forward against the unsharded one on the same weights: max |diff| {err:.3e}")
+    # and one backward through its actor trunk: the partial sums that cross
+    # ranks are fp32 and rounded to bf16 once, as the unsharded layer rounds
+    # its fp32 accumulation once (cuBLAS's reduced-precision split-K
+    # reductions off for the reference)
+    matmul = torch.backends.cuda.matmul
+    reduced, matmul.allow_bf16_reduced_precision_reduction = matmul.allow_bf16_reduced_precision_reduction, False
+    try:
+        want = trunk_grads(one.alg, {k: v.to(device) for k, v in got["obs"].items()})
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    for r in range(PARALLEL_WORLD):
+        grads = torch.load(os.path.join(out, f"tp2_grads.rank{r}.pt"), weights_only=False)
+        shares = {k: float((grads[k] - w).norm() / w.norm()) for k, w in want.items()}
+        print(f"{name} rank {r}: one backward through the actor trunk against the unsharded one on the same"
+              f" weights and obs, |grad diff| / |grad| a parameter: {json.dumps(shares)}")
+        if max(shares.values()) > TP_GRAD_SHARE:
+            fail(f"{name} rank {r}: the sharded trunk's gradients leave the unsharded ones by"
+                 f" {max(shares.values()):.3e} of their norm (> {TP_GRAD_SHARE})")
+    # the runs trained with SGD: every iteration's metrics, the moments and
+    # the parameters at the issue's bars, the headline's outputs too
+    for name, want in SGD_RUNS.items():
+        bf16 = "bf16" in name
+        tols = (BF16_FIRST_TOL, BF16_TOL, BF16_TOL) if bf16 else (PARALLEL_TOL, PARALLEL_TOL, PARALLEL_TOL)
+        for r in range(PARALLEL_WORLD):
+            hold_run(f"{name} rank {r}", ranks[name][r], refs[want], tols[0], tols[1],
+                     global_episodes=not name.endswith("_host_sgd"), exact_tol=tols[2])
+            if bf16:
+                err = hold(name, ranks[name][r]["outputs"], refs[want]["outputs"], BF16_TOL,
+                           f"rank {r} outputs after {iters} iterations against the replicated run's")
+                print(f"{name} rank {r}: outputs after {iters} iterations against the replicated run's: max |diff|"
+                      f" {err:.3e} (rtol {BF16_TOL['rtol']:g} / atol {BF16_TOL['atol']:g})")
+    # a checkpoint saved under tensor parallelism loads into one process
+    one = makers["recurrent_gru256"]()
+    one.load(os.path.join(out, "tp2.pt"))
+    saved = ranks["tp2_recurrent_gru256"][0]["state"]
+    if not all(torch.equal(v.cpu(), saved[k]) for k, v in one.alg.policy.state_dict().items()):
+        fail("the checkpoint saved under tensor parallelism does not load into one process as trained")
+    print("tp2_recurrent_gru256: its checkpoint (gathered by rank 0) loads into one process bit for bit")
+    for name, results in ranks.items():
+        for r, res in enumerate(results):
+            if res["launches"]:
+                launches[f"{name}_rank{r}"] = res["launches"]
+    print(f"phase 7 on {smi}: passed")
+    return launches
+
+
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
     """The kernel's line of the JSON result: fp32-mode time, plain time, bound
     and library time, and the bf16-mode time, plain time and bound."""
@@ -1709,6 +2325,18 @@ def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops
 
 
 def main() -> None:
+    if "--parallel-rank" in sys.argv:
+        # one rank of phase 7's two (the smoke launches them itself)
+        import argparse
+
+        parser = argparse.ArgumentParser()
+        for arg in ("--parallel-rank", "--num-envs"):
+            parser.add_argument(arg, type=int, required=True)
+        for arg in ("--init", "--out", "--teacher", "--device"):
+            parser.add_argument(arg, required=True)
+        a = parser.parse_args()
+        parallel_rank(a.parallel_rank, a.init, a.out, a.teacher, a.device, a.num_envs)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
@@ -1852,6 +2480,8 @@ def main() -> None:
         by_slice.update(study_slices(smi, teacher_path, tmp))
         # ---- 6. the host-env path, the remaining envs, export
         by_slice.update(host_slices(smi, teacher_path, tmp, T, B))
+        # ---- 7. data and tensor parallelism on torch.distributed
+        by_slice.update(parallel_slices(smi, teacher_path, tmp))
     launches = {k: {} for k in all_counts()}
     for slice_name, counts in by_slice.items():
         for k, n in counts.items():

@@ -33,6 +33,11 @@ optimizer (``adam``, ``adamw``, ``sgd`` or ``rmsprop``) as in PPO, applied as
 the memory and the std are not clipped. The JAX package also has a per-step scan form of the update for
 configs with very many segments, a compile-time workaround for XLA with the
 same math; the port keeps the chunked form only.
+
+On a mesh (:meth:`Distillation.distribute`, as ``algorithms/ppo.py``'s) each
+data rank replays its env shard: the per-step loss is this rank's share of
+the global mean, the gradients are summed over the data group before each
+step and the logged loss is the global one.
 """
 
 from __future__ import annotations
@@ -51,9 +56,13 @@ from rsl_rl_tpu_torch.algorithms.ppo import (
     Trainer,
     clip_step,
     collect_extras_logs,
+    distribute,
+    global_metrics,
     stack_trained,
     stacked_step,
     step_episode_stats,
+    step_noise,
+    sum_with_grads,
 )
 from rsl_rl_tpu_torch.modules.policy import seed_call
 from rsl_rl_tpu_torch.networks.memory import mask_carry
@@ -128,6 +137,11 @@ class Distillation(Trainer):
     init_stacked_collect_state = PPO.init_stacked_collect_state
     rnd = None
 
+    def distribute(self, mesh) -> None:
+        """Train on ``mesh`` (``parallel/mesh.py``): this process is one rank,
+        its envs one data shard."""
+        distribute(self, mesh)
+
     # --------------------------------------------------------------- collect
 
     @torch.no_grad()
@@ -135,7 +149,8 @@ class Distillation(Trainer):
         """Run one window; returns ``(cs, rollout, metrics)``.
 
         ``action_noise [T, N, A]`` replaces the standard normal draws of the
-        student's action sampling."""
+        student's action sampling (on a mesh the global ``[T, N_global, A]``;
+        the metrics are the data group's)."""
         policy = self.policy
         env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
         carry0 = carry
@@ -144,7 +159,7 @@ class Distillation(Trainer):
         logs: dict[str, list] = {}
         for t in range(num_steps):
             mean, std, carry = policy.act(obs, carry)
-            noise = None if action_noise is None else action_noise[t]
+            noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
             action = distributions.sample(mean, std, noise, self.generator)
             privileged, carry = policy.evaluate(obs, carry)
 
@@ -170,7 +185,7 @@ class Distillation(Trainer):
         for k, v in logs.items():
             metrics[f"extras/{k}"] = torch.stack(v).mean()
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
-        return cs, rollout, metrics
+        return cs, rollout, global_metrics(metrics, self.mesh)
 
     def make_host_collect_fn(self, env, num_steps_per_env: int, bridge=None):
         """The collection window for a host env: ``collect(cs,
@@ -178,7 +193,7 @@ class Distillation(Trainer):
         ``PPO.make_host_collect_fn`` with the student's sampled action, the
         teacher's action recorded as ``privileged_actions``, and a step's
         processing the student's normalizer update and the done envs' carry
-        reset. ``collect.timings`` as there."""
+        reset. ``collect.timings`` and a ``bridge`` as there."""
         from rsl_rl_tpu_torch.algorithms.host_collect import (
             HostEpisodeTracker,
             PhaseTimer,
@@ -187,7 +202,7 @@ class Distillation(Trainer):
         )
 
         if bridge is not None:
-            raise NotImplementedError("host data parallelism (a sharding bridge) is not ported yet")
+            self.distribute(bridge.mesh)
         policy, device = self.policy, self.device
 
         @torch.no_grad()
@@ -201,7 +216,7 @@ class Distillation(Trainer):
             stds = []
             for t in range(num_steps_per_env):
                 mean, std, carry = policy.act(obs, carry)
-                noise = None if action_noise is None else action_noise[t]
+                noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
                 action = distributions.sample(mean, std, noise, self.generator)
                 privileged, carry = policy.evaluate(obs, carry)
                 timer.mark("act")
@@ -216,9 +231,14 @@ class Distillation(Trainer):
                 tracker.step(rew_np, zero_irew, done_np, extras)
                 timer.mark("process")
 
-            rollout = Rollout(**stack_trajectory(traj), carry0=carry0)
+            stacked = stack_trajectory(traj)
+            if bridge is not None:
+                stacked = bridge.constrain_time_major(stacked)
+            rollout = Rollout(**stacked, carry0=carry0)
             metrics = tracker.metrics()
+            local = list(metrics)
             metrics["Policy/mean_noise_std"] = torch.stack(stds).mean()
+            metrics = global_metrics(metrics, self.mesh, local)
             return CollectState(env_state=(), obs=obs, carry=carry, stats=tracker.stats()), rollout, metrics
 
         collect.timings = None
@@ -227,9 +247,13 @@ class Distillation(Trainer):
     # ---------------------------------------------------------------- update
 
     def _per_step_loss(self, actions: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        """Per-step loss means of a ``[g, N, A]`` chunk: ``[g]``."""
+        """Per-step loss means of a ``[g, N, A]`` chunk: ``[g]`` (on a mesh this
+        rank's share of the global means, over equal shards)."""
         err = self._elem_loss(actions, targets)
-        return err.mean(dim=tuple(range(1, err.ndim)))
+        dims = tuple(range(1, err.ndim))
+        if self.mesh is None:
+            return err.mean(dim=dims)
+        return err.mean(dim=dims) / self.mesh.data_size
 
     def _replay(self, rollout: Rollout, resets, carry0, carry, chunks):
         """The student's per-step losses over ``chunks`` of the window and the
@@ -260,6 +284,8 @@ class Distillation(Trainer):
             grads = torch.autograd.grad(losses.sum(), self.params, allow_unused=True)
             # the std gets no gradient from the loss: Adam sees zeros, as in JAX
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+            if self.mesh is not None:
+                grads, _ = sum_with_grads(self.mesh, grads, {})
             self.optimizer_step(grads, self.max_grad_norm, self.clip_mask)
             carry = tree_map(torch.Tensor.detach, carry)
             all_losses.append(losses.detach())
@@ -277,7 +303,8 @@ class Distillation(Trainer):
             carry = {**carry, "teacher": mask_carry(carry0["teacher"], resets[:t_end].any(dim=0))}
         if policy.is_recurrent:
             cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
-        return cs, {"Loss/behavior": torch.cat(all_losses).mean()}
+        loss = torch.cat(all_losses).mean()
+        return cs, {"Loss/behavior": loss if self.mesh is None else self.mesh.data_sum_(loss.reshape(1))[0]}
 
     # ------------------------------------------------------- G seeds at once
 

@@ -32,6 +32,18 @@ minibatch with its symmetric copies, adds the mirror loss, or logs it
 RND state (the predictor and its optimizer, the frozen target, both
 normalizers, the counter) beside its policy. The optimizer is ``adam``,
 ``adamw``, ``sgd`` or ``rmsprop`` (:class:`Trainer`).
+
+Data and tensor parallelism (:meth:`PPO.distribute`, ``parallel/``): each
+data rank holds a contiguous shard of the envs and the math stays that of
+one process over all of them, as the JAX package's global programs keep it.
+The action noise is drawn for every env from the shared generator and each
+rank keeps its rows; the normalizers and the advantage whitening take the
+global moments; a minibatch is the global one (a slice of the global
+permutation, or of the global env axis) and each rank replays the rows it
+owns, every loss mean its local sum over the global count, so the gradients
+and the loss metrics summed over the data group (one collective a
+minibatch) are the global ones. A rank that owns none of a minibatch joins
+the sum with zeros and launches no replay.
 """
 
 from __future__ import annotations
@@ -49,6 +61,9 @@ from rsl_rl_tpu_torch.modules.policy import check_state_compatible, seed_call
 from rsl_rl_tpu_torch.modules.rnd import RandomNetworkDistillation
 from rsl_rl_tpu_torch.ops import distributions
 from rsl_rl_tpu_torch.ops.gae import compute_gae
+from rsl_rl_tpu_torch.ops.running_norm import RunningNormState
+from rsl_rl_tpu_torch.parallel.mesh import global_mean_std
+from rsl_rl_tpu_torch.parallel.tp import shard_module_tp, sharded_mask
 from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs, tree_map
 from rsl_rl_tpu_torch.utils.registry import register
 from rsl_rl_tpu_torch.utils.resolvers import resolve_optimizer, string_to_callable
@@ -297,6 +312,41 @@ def minibatches(policy, rollout: Rollout, returns, advantages, num_mini_batches:
         yield unpack(packed.narrow(lead, start, mb)), ()
 
 
+def dp_minibatches(policy, rollout: Rollout, returns, advantages, num_mini_batches: int, num_epochs: int,
+                   perm, mesh):
+    """:func:`minibatches` of the data group's window on this data rank:
+    every global minibatch of every epoch in order, as ``(batch, carry0,
+    n_local, n_global)``, ``batch`` the rows of it this rank owns (None when
+    it owns none) and ``n_local`` / ``n_global`` their count and the
+    minibatch's along the batch axis. Recurrent: the global env slice cut to
+    this rank's envs. Feedforward: the rows of the slice of the global
+    permutation ``perm`` (over the ``T x N_global`` window) that fall in
+    this rank's envs, in the permutation's order."""
+    N = rollout.num_envs
+    N_global, offset = N * mesh.data_size, mesh.data_rank * N
+    if policy.is_recurrent:
+        data = update_data(rollout, returns, advantages)
+        nb = N_global // num_mini_batches
+        for start in recurrent_minibatch_starts(N_global, num_mini_batches, num_epochs):
+            lo, hi = max(start, offset), min(start + nb, offset + N)
+            if hi <= lo:
+                yield None, None, 0, nb
+            else:
+                yield (slice_envs(data, lo - offset, hi - lo, axis=1),
+                       slice_envs(rollout.carry0, lo - offset, hi - lo, axis=0), hi - lo, nb)
+        return
+    perm = perm.to(torch.int64)
+    t, env = perm // N_global, perm % N_global
+    own = (env >= offset) & (env < offset + N)
+    mb = perm.shape[-1] // num_mini_batches
+    counts = own.view(num_mini_batches, mb).sum(dim=1).tolist()
+    packed, unpack = pack_minibatch_rows(rollout, returns, advantages, (t * N + env - offset)[own])
+    starts = np.cumsum([0] + counts[:-1]).tolist()
+    for i in list(range(num_mini_batches)) * num_epochs:
+        n = counts[i]
+        yield (unpack(packed.narrow(0, starts[i], n)) if n else None), (), n, mb
+
+
 def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
     """The adaptive-KL learning-rate rule, elementwise (one rate per seed)."""
     up = torch.clamp(lr * 1.5, max=max_lr)
@@ -309,18 +359,28 @@ def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
 
 
 def clip_step(params, grads, mu, nu, count, lr, max_grad_norm: float | None, clip_mask=None,
-              direction=resolve_optimizer("adam")):
+              direction=resolve_optimizer("adam"), sharded=None, model_sum=None):
     """``clip_by_global_norm`` -> the optimizer's ``direction`` (default
     Adam; ``utils/resolvers.py`` ``resolve_optimizer``) -> ``p - lr * u``
     with optax's formulas (the clip scales by ``max_norm / norm`` only when
     ``norm >= max_norm``) for one seed. ``clip_mask`` (one bool a parameter)
     limits the clip, its norm and its scaling to the marked parameters
-    (``optax.masked``). Pure, so ``torch.func.vmap`` runs it for G seeds,
-    each with its own norm. Returns the new ``(params, mu, nu, count)``."""
+    (``optax.masked``). Under tensor parallelism ``sharded`` (one bool a
+    parameter) marks the parameters sliced over the model group and
+    ``model_sum`` sums over it, so the norm counts each sliced parameter's
+    slices once and each replicated one once. Pure, so ``torch.func.vmap``
+    runs it for G seeds, each with its own norm. Returns the new ``(params,
+    mu, nu, count)``."""
     grads = list(grads)
     if max_grad_norm is not None:
         mask = [True] * len(grads) if clip_mask is None else list(clip_mask)
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g, m in zip(grads, mask) if m))
+        if sharded is None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g, m in zip(grads, mask) if m))
+        else:
+            zero = torch.zeros((), device=grads[0].device)
+            sliced = sum((torch.sum(g * g) for g, m, s in zip(grads, mask, sharded) if m and s), zero)
+            whole = sum((torch.sum(g * g) for g, m, s in zip(grads, mask, sharded) if m and not s), zero)
+            g_norm = torch.sqrt(whole + model_sum(sliced.clone()))
         keep = g_norm < max_grad_norm
         grads = [torch.where(keep, g, (g / g_norm) * max_grad_norm) if m else g for g, m in zip(grads, mask)]
     updates, mu, nu, count = direction(grads, params, mu, nu, count)
@@ -346,13 +406,32 @@ class Trainer:
         self.adam_count = torch.zeros((), dtype=torch.int32, device=device)
         self.adam_mu = [torch.zeros_like(p) for p in self.params]
         self.adam_nu = [torch.zeros_like(p) for p in self.params]
+        #: the mesh (``parallel/mesh.py``) and, under tensor parallelism, the
+        #: specs of the full state (``parallel/tp.py``) and which parameters
+        #: are sliced
+        self.mesh = None
+        self.tp_specs = None
+        self.sharded = None
+
+    def _place(self, mesh, tp_specs=None) -> None:
+        """Train on ``mesh``; with ``tp_specs`` the parameters were sliced in
+        place (``shard_module_tp``), so the moments start again at their
+        shapes."""
+        self.mesh = mesh
+        if tp_specs is not None:
+            self.tp_specs = tp_specs
+            self.sharded = sharded_mask(self.param_names, tp_specs)
+            self.adam_mu = [torch.zeros_like(p) for p in self.params]
+            self.adam_nu = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
     def optimizer_step(self, grads, max_grad_norm: float | None, clip_mask=None) -> None:
         """The clipped step (:func:`clip_step`), in place: every tensor of the
         optimizer keeps its storage (a CUDA graph replays addresses)."""
+        model_sum = None if self.sharded is None else self.mesh.model_sum_
         params, mu, nu, count = clip_step(self.params, grads, self.adam_mu, self.adam_nu, self.adam_count,
-                                          self.lr, max_grad_norm, clip_mask, self.direction)
+                                          self.lr, max_grad_norm, clip_mask, self.direction, self.sharded,
+                                          model_sum)
         for dst, src in zip(self.params + self.adam_mu + self.adam_nu + [self.adam_count],
                             params + mu + nu + [count]):
             dst.copy_(src)
@@ -376,6 +455,73 @@ class Trainer:
                 t.copy_(state[key][name])
         self.adam_count.copy_(torch.as_tensor(state["count"]))
         self.lr.copy_(torch.as_tensor(lr))
+
+
+def set_norm_mesh(module: torch.nn.Module, mesh) -> None:
+    """Give every normalizer of ``module`` the mesh whose data group its
+    batch moments are summed over."""
+    for m in module.modules():
+        if isinstance(m, RunningNormState):
+            m.mesh = mesh
+
+
+def step_noise(mean: torch.Tensor, action_noise, t: int, mesh, generator):
+    """The action noise of step ``t`` for this rank's envs: without a mesh
+    ``action_noise[t]`` (None: ``distributions.sample`` draws); with one, the
+    rows of this data rank's envs of the global step noise, ``action_noise[t]``
+    ``[N_global, A]`` or drawn from ``generator`` for all the envs (the same
+    draws on every rank)."""
+    if mesh is None:
+        return None if action_noise is None else action_noise[t]
+    n = mean.shape[0]
+    if action_noise is None:
+        full = torch.randn((n * mesh.data_size, *mean.shape[1:]), dtype=mean.dtype, device=mean.device,
+                           generator=generator)
+    else:
+        full = action_noise[t]
+    return full.narrow(0, mesh.data_rank * n, n)
+
+
+def global_metrics(metrics: dict, mesh, local=()) -> dict:
+    """A window's metrics over the data group, in one sum: the episode
+    totals (:data:`ACC_KEYS`) summed, the rest (per-step means over equal
+    shards) averaged; the keys of ``local`` stay this rank's."""
+    keys = [k for k in metrics if k not in local]
+    if mesh is None or not keys:
+        return metrics
+    packed = mesh.data_sum_(torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32) for k in keys]))
+    out = dict(metrics)
+    for i, k in enumerate(keys):
+        out[k] = packed[i] if k in ACC_KEYS else packed[i] / mesh.data_size
+    return out
+
+
+def distribute(alg, mesh) -> None:
+    """Train ``alg`` (PPO or Distillation) on ``mesh``: with a model axis,
+    shard the policy's MLP trunks and the optimizer moments
+    (``parallel/tp.py``); give the policy's (and RND's) normalizers the
+    mesh. A second call with the same mesh does nothing."""
+    if alg.mesh is mesh:
+        return
+    if alg.mesh is not None:
+        raise ValueError("the algorithm already trains on another mesh")
+    specs = shard_module_tp(alg.policy, mesh) if mesh.model_size > 1 else None
+    alg._place(mesh, specs)
+    set_norm_mesh(alg.policy, mesh)
+    if alg.rnd is not None:
+        set_norm_mesh(alg.rnd, mesh)
+
+
+def sum_with_grads(mesh, grads: list, aux: dict) -> tuple[list, dict]:
+    """Sum the gradients and the loss metrics over the data group in one
+    collective; returns them in their shapes."""
+    keys = list(aux)
+    flat = mesh.data_sum_(torch.cat([g.reshape(-1) for g in grads] + [aux[k].reshape(1) for k in keys]))
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return out, {k: flat[off + i] for i, k in enumerate(keys)}
 
 
 @register("algorithm")
@@ -443,6 +589,9 @@ class PPO(Trainer):
         self.learning_rate = learning_rate
         super().__init__(policy.named_parameters(), learning_rate, self.device, optimizer)
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        # on a mesh, the minibatch being replayed: its global count over this
+        # rank's share, and its advantages' global count (update on a mesh)
+        self._batch_ratio, self._adv_count = 1.0, None
 
         self.rnd = None
         self.rnd_optimizer = None
@@ -470,11 +619,25 @@ class PPO(Trainer):
             symmetry_cfg.setdefault("_env", None)
             self.symmetry = symmetry_cfg
 
+    def distribute(self, mesh) -> None:
+        """Train on ``mesh`` (``parallel/mesh.py``): this process is one rank,
+        its envs one data shard (see the module docstring)."""
+        distribute(self, mesh)
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A loss mean over the minibatch: on a mesh this rank's share of the
+        global mean, its sum over the minibatch's global count."""
+        if self.mesh is None:
+            return x.mean()
+        return x.mean() / self._batch_ratio
+
     # --------------------------------------------------------------- collect
 
     def init_collect_state(self, env_state, obs, num_envs: int) -> CollectState:
         if self.rnd is not None:
             self.rnd.init_reward_norm(num_envs)
+            if self.mesh is not None:
+                set_norm_mesh(self.rnd, self.mesh)
         return CollectState(
             env_state=env_state,
             obs=obs,
@@ -487,7 +650,9 @@ class PPO(Trainer):
         """Run one window; returns ``(cs, rollout, metrics)``.
 
         ``action_noise [T, N, A]`` replaces the standard normal draws of the
-        action sampling (to replay another implementation's noise).
+        action sampling (to replay another implementation's noise); on a mesh
+        it is the global noise ``[T, N_global, A]`` and the metrics are the
+        data group's.
         """
         policy = self.policy
         env_state, obs, carry, stats = cs.env_state, cs.obs, cs.carry, cs.stats
@@ -498,7 +663,7 @@ class PPO(Trainer):
         logs: dict[str, list] = {}
         for t in range(num_steps):
             mean, std, carry = policy.act(obs, carry)
-            noise = None if action_noise is None else action_noise[t]
+            noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
             action = distributions.sample(mean, std, noise, self.generator)
             log_p = distributions.log_prob(mean, std, action)
             value, carry = policy.value(obs, carry)
@@ -537,7 +702,7 @@ class PPO(Trainer):
         for k, v in logs.items():
             metrics[f"extras/{k}"] = torch.stack(v).mean()
         cs = CollectState(env_state=env_state, obs=obs, carry=carry, stats=stats)
-        return cs, rollout, metrics
+        return cs, rollout, global_metrics(metrics, self.mesh)
 
     def make_host_collect_fn(self, env, num_steps_per_env: int, bridge=None):
         """The collection window for a host env (``env/host_env.py``):
@@ -554,6 +719,13 @@ class PPO(Trainer):
         :meth:`update` takes. ``action_noise [T, N, A]`` replaces the
         normal draws, as in :meth:`collect`. ``collect.timings``: set it to a
         dict to add each phase's seconds there (``host_collect.PHASES``).
+
+        With a ``HostShardingBridge`` (``parallel/host_dp.py``) ``env`` is
+        this rank's shard and the algorithm trains on the bridge's mesh
+        (:meth:`distribute`): the noise is the global draw's rows, the
+        normalizers take the global moments and ``Policy/mean_noise_std`` is
+        global, while the episode statistics stay this rank's (rank 0 logs),
+        as in ``host_dp.py:25-28``.
         """
         from rsl_rl_tpu_torch.algorithms.host_collect import (
             HostEpisodeTracker,
@@ -563,7 +735,7 @@ class PPO(Trainer):
         )
 
         if bridge is not None:
-            raise NotImplementedError("host data parallelism (a sharding bridge) is not ported yet")
+            self.distribute(bridge.mesh)
         policy, rnd, device = self.policy, self.rnd, self.device
 
         @torch.no_grad()
@@ -578,7 +750,7 @@ class PPO(Trainer):
             traj = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs", "mu", "sigma")}
             for t in range(num_steps_per_env):
                 mean, std, carry = policy.act(obs, carry)
-                noise = None if action_noise is None else action_noise[t]
+                noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
                 action = distributions.sample(mean, std, noise, self.generator)
                 log_p = distributions.log_prob(mean, std, action)
                 value, carry = policy.value(obs, carry)
@@ -599,11 +771,16 @@ class PPO(Trainer):
                 tracker.step(rew_np, irew.cpu().numpy() if rnd is not None else zero_irew, done_np, extras)
                 timer.mark("process")
 
-            rollout = Rollout(**stack_trajectory(traj), carry0=carry0)
+            stacked = stack_trajectory(traj)
+            if bridge is not None:
+                stacked = bridge.constrain_time_major(stacked)
+            rollout = Rollout(**stacked, carry0=carry0)
             metrics = tracker.metrics()
+            local = list(metrics)
             metrics["Policy/mean_noise_std"] = rollout.sigma.mean()
             if rnd is not None:
                 metrics["Rnd/weight"] = rnd.current_weight(rnd.counter)
+            metrics = global_metrics(metrics, self.mesh, local)
             return CollectState(env_state=(), obs=obs, carry=carry, stats=tracker.stats()), rollout, metrics
 
         collect.timings = None
@@ -615,7 +792,7 @@ class PPO(Trainer):
         """``(num_mini_batches, rows the permutation covers)`` of an update:
         a feedforward update shuffles ``num_mini_batches * mb`` of the
         window's ``T*N`` rows."""
-        T, N = rollout.num_steps, rollout.num_envs
+        T, N = rollout.num_steps, rollout.num_envs * (1 if self.mesh is None else self.mesh.data_size)
         num_mini_batches = resolve_num_mini_batches(self.num_mini_batches, T, N, self.policy.is_recurrent)
         return num_mini_batches, num_mini_batches * ((T * N) // num_mini_batches)
 
@@ -624,7 +801,10 @@ class PPO(Trainer):
 
         ``perm`` (feedforward only) is the permutation of the window's rows,
         drawn from the algorithm's generator when not given (to replay
-        another implementation's)."""
+        another implementation's); on a mesh, of the global window's rows
+        ``[T, N_global]``, and the update is the data group's: each global
+        minibatch's rows this rank owns (:func:`dp_minibatches`), their loss
+        with every mean over the global count."""
         policy = self.policy
         with torch.no_grad():
             # advances the critic memory, like the reference's stateful evaluate
@@ -633,17 +813,41 @@ class PPO(Trainer):
                 rollout.rewards, rollout.values, rollout.dones, last_values,
                 self.gamma, self.lam,
                 normalize_advantage=not self.normalize_advantage_per_mini_batch,
+                mesh=self.mesh,
             )
         cs = CollectState(env_state=cs.env_state, obs=cs.obs, carry=carry, stats=cs.stats)
         num_mini_batches, rows = self._row_count(rollout)
         if perm is None and not policy.is_recurrent:
             perm = torch.randperm(rows, generator=self.generator, device=self.device)
+        mesh = self.mesh
+        if mesh is None:
+            batches = ((batch, carry0, 1, 1) for batch, carry0 in minibatches(
+                policy, rollout, returns, advantages, num_mini_batches, self.num_learning_epochs, perm))
+        else:
+            batches = dp_minibatches(policy, rollout, returns, advantages, num_mini_batches,
+                                     self.num_learning_epochs, perm, mesh)
+        params = self.params + ([] if self.rnd is None else self.rnd_optimizer.params)
         outs: dict[str, list] = {}
-        for batch, carry0 in minibatches(policy, rollout, returns, advantages, num_mini_batches,
-                                         self.num_learning_epochs, perm):
-            loss, aux = self._loss(batch, carry0)
-            rnd_params = [] if self.rnd is None else self.rnd_optimizer.params
-            grads = torch.autograd.grad(loss, self.params + rnd_params)
+        for batch, carry0, n_local, n_global in batches:
+            if mesh is not None:
+                # the global count of the minibatch's advantages, and this
+                # rank's share of it (the loss means' divisor)
+                self._adv_count = (rollout.num_steps if policy.is_recurrent else 1) * n_global
+                self._batch_ratio = n_global / max(n_local, 1)
+            if n_local:
+                loss, aux = self._loss(batch, carry0)
+                grads = list(torch.autograd.grad(loss, params))
+            else:
+                # a rank that owns none of the minibatch adds zeros (and
+                # sums zeros into the per-minibatch advantage statistics)
+                if self.normalize_advantage_per_mini_batch:
+                    global_mean_std(torch.zeros(0, device=self.device), mesh, self._adv_count)
+                grads = [torch.zeros_like(p) for p in params]
+                aux = {k: torch.zeros((), device=self.device) for k in self._aux_keys()}
+            if mesh is not None:
+                # the gradients and the loss metrics summed over the data
+                # group before the learning-rate rule, the clip and the step
+                grads, aux = sum_with_grads(mesh, grads, {k: v.detach() for k, v in aux.items()})
             if self.desired_kl is not None and self.schedule == "adaptive":
                 self._adapt_lr(aux["kl"])
             self.optimizer_step(grads[:len(self.params)], self.max_grad_norm)
@@ -656,6 +860,11 @@ class PPO(Trainer):
         metrics = {f"Loss/{k}": torch.stack(v).mean() for k, v in outs.items() if k != "learning_rate"}
         metrics["Loss/learning_rate"] = outs["learning_rate"][-1]
         return cs, metrics
+
+    def _aux_keys(self) -> list[str]:
+        """The loss metrics of a minibatch, in :meth:`_loss`'s order."""
+        return (["value_function", "surrogate", "entropy", "kl"] + ["symmetry"] * (self.symmetry is not None)
+                + ["rnd"] * (self.rnd is not None))
 
     # ------------------------------------------------------- G seeds at once
 
@@ -837,7 +1046,7 @@ class PPO(Trainer):
                 loss = loss + sym["mirror_loss_coeff"] * symmetry_loss
             aux["symmetry"] = symmetry_loss.detach()
         if self.rnd is not None:
-            rnd_loss = module_call(self.rnd, rnd_state, "predictor_loss", batch["obs"])
+            rnd_loss = module_call(self.rnd, rnd_state, "predictor_loss", batch["obs"], self._mean)
             loss = loss + rnd_loss
             aux["rnd"] = rnd_loss.detach()
         return loss, aux
@@ -864,7 +1073,7 @@ class PPO(Trainer):
                 mean_aug = call("act_seq", obs_aug, carry0, resets)[0]
         _, mirrored, _ = symmetry.apply_augmentation(fn, env, None, _part(mean_aug, n, time_major, False),
                                                       time_major)
-        return torch.mean(torch.square(_part(mean_aug, n, time_major, True)
+        return self._mean(torch.square(_part(mean_aug, n, time_major, True)
                                        - _part(mirrored, n, time_major, True).detach()))
 
     def _seed_loss(self, params: dict, buffers: dict, rnd_params, rnd_buffers, batch: dict, carry0):
@@ -878,35 +1087,37 @@ class PPO(Trainer):
         ``first`` (symmetry augmentation) the per-sample targets are tiled
         over the copies, and ``first`` takes the original part: the KL and the
         entropy see it alone, and the per-minibatch advantage normalization
-        uses its statistics."""
+        uses its statistics (on a mesh the global minibatch's)."""
         first = first or (lambda x: x)
+        mean_of = self._mean
         advantages = batch["advantages"]
         if self.normalize_advantage_per_mini_batch:
             orig = first(advantages)
-            advantages = (advantages - orig.mean()) / (orig.std() + 1e-8)
+            adv_mean, adv_std = global_mean_std(orig, self.mesh, self._adv_count)
+            advantages = (advantages - adv_mean) / (adv_std + 1e-8)
         logp = distributions.log_prob(mean, std, batch["actions"])
-        entropy_mean = distributions.entropy(first(std)).mean()
-        kl_mean = distributions.kl_divergence(
+        entropy_mean = mean_of(distributions.entropy(first(std)))
+        kl_mean = mean_of(distributions.kl_divergence(
             batch["mu"], batch["sigma"], first(mean).detach(), first(std).detach()
-        ).mean()
+        ))
 
         ratio = torch.exp(logp - batch["log_probs"])
         surrogate = -advantages * ratio
         surrogate_clipped = -advantages * torch.clamp(
             ratio, 1.0 - self.clip_param, 1.0 + self.clip_param
         )
-        surrogate_loss = torch.maximum(surrogate, surrogate_clipped).mean()
+        surrogate_loss = mean_of(torch.maximum(surrogate, surrogate_clipped))
 
         returns, target_values = batch["returns"], batch["values"]
         if self.use_clipped_value_loss:
             value_clipped = target_values + torch.clamp(
                 value - target_values, -self.clip_param, self.clip_param
             )
-            value_loss = torch.maximum(
+            value_loss = mean_of(torch.maximum(
                 torch.square(value - returns), torch.square(value_clipped - returns)
-            ).mean()
+            ))
         else:
-            value_loss = torch.square(returns - value).mean()
+            value_loss = mean_of(torch.square(returns - value))
 
         loss = surrogate_loss + self.value_loss_coef * value_loss - self.entropy_coef * entropy_mean
         aux = {

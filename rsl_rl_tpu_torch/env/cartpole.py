@@ -57,10 +57,10 @@ class CartPoleSwingUp(VecEnv):
         rng, bits = hash_draws(rng, 2)
         return rng, uniform_draws(bits[:, 0], -0.5, 1.0), math.pi + uniform_draws(bits[:, 1], -0.1, 0.2)
 
-    def reset(self, seed: int = 0, num_envs: int | None = None):
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0):
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, x, theta = self._sample_init(env_keys(seed, num_envs, self.device))
+        rng, x, theta = self._sample_init(env_keys(seed, num_envs, self.device, env_offset))
         zeros = torch.zeros_like(x)
         state = CartPoleState(episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
                               x=x, x_dot=zeros, theta=theta, theta_dot=zeros.clone(), rng=rng)

@@ -76,10 +76,10 @@ class Hopper(VecEnv):
         z = self.l0 + uniform_draws(bits[:, 0], 0.0, 0.3)
         return rng, z, torch.zeros_like(z)
 
-    def reset(self, seed: int = 0, num_envs: int | None = None):
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0):
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, z, v = self._sample_init(env_keys(seed, num_envs, self.device))
+        rng, z, v = self._sample_init(env_keys(seed, num_envs, self.device, env_offset))
         state = HopperState(episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
                             z=z, v=v, rng=rng)
         return state, self._obs(state)

@@ -86,10 +86,13 @@ def random_episode_lengths(state: EnvState, max_episode_length) -> EnvState:
     return dataclasses.replace(state, episode_length=lengths.to(torch.int32), rng=rng)
 
 
-def env_keys(seed: int, num_envs: int, device=None) -> torch.Tensor:
-    """The per-env keys ``[num_envs]`` int64 that ``reset(seed)`` starts from."""
+def env_keys(seed: int, num_envs: int, device=None, env_offset: int = 0) -> torch.Tensor:
+    """The per-env keys ``[num_envs]`` int64 that ``reset(seed)`` starts
+    from, of the envs ``env_offset ..`` of the global env index: a shard's
+    key ``i`` is the whole env's key ``env_offset + i`` (data parallelism)."""
     root = _mix(torch.tensor([_int64(int(seed) * _GOLDEN)], dtype=torch.int64, device=device))
-    return _mix(root + torch.arange(1, num_envs + 1, dtype=torch.int64, device=device) * _GOLDEN)
+    index = torch.arange(env_offset + 1, env_offset + num_envs + 1, dtype=torch.int64, device=device)
+    return _mix(root + index * _GOLDEN)
 
 
 @dataclass
@@ -235,10 +238,10 @@ class NLinkPendulum(VecEnv):
         per-episode fields."""
         return NLinkState(**fields)
 
-    def reset(self, seed: int = 0, num_envs: int | None = None) -> tuple[NLinkState, dict[str, torch.Tensor]]:
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0) -> tuple[NLinkState, dict[str, torch.Tensor]]:
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, fresh = self._sample_init(env_keys(seed, num_envs, self.device))
+        rng, fresh = self._sample_init(env_keys(seed, num_envs, self.device, env_offset))
         state = self._next_state(
             None, fresh, None,
             episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),

@@ -52,10 +52,10 @@ class Pendulum(VecEnv):
         rng, bits = hash_draws(rng, 2)
         return rng, uniform_draws(bits[:, 0], -math.pi, 2 * math.pi), uniform_draws(bits[:, 1], -1.0, 2.0)
 
-    def reset(self, seed: int = 0, num_envs: int | None = None):
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0):
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, theta, theta_dot = self._sample_init(env_keys(seed, num_envs, self.device))
+        rng, theta, theta_dot = self._sample_init(env_keys(seed, num_envs, self.device, env_offset))
         state = PendulumState(episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
                               theta=theta, theta_dot=theta_dot, rng=rng)
         return state, self._obs(state)

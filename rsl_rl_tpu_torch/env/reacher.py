@@ -64,10 +64,10 @@ class Reacher(VecEnv):
         angle = uniform_draws(bits[:, 3:4], -math.pi, 2 * math.pi)
         return rng, q, torch.cat([radius * torch.cos(angle), radius * torch.sin(angle)], dim=-1)
 
-    def reset(self, seed: int = 0, num_envs: int | None = None):
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0):
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, q, target = self._sample(env_keys(seed, num_envs, self.device))
+        rng, q, target = self._sample(env_keys(seed, num_envs, self.device, env_offset))
         state = ReacherState(episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
                              q=q, qd=torch.zeros_like(q), target=target, rng=rng)
         return state, self._obs(state)

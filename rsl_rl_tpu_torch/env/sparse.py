@@ -51,10 +51,10 @@ class SparseGoalReach(VecEnv):
         rng, bits = hash_draws(rng, 2)
         return rng, uniform_draws(bits, -0.5, 1.0)
 
-    def reset(self, seed: int = 0, num_envs: int | None = None):
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0):
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, pos = self._sample_start(env_keys(seed, num_envs, self.device))
+        rng, pos = self._sample_start(env_keys(seed, num_envs, self.device, env_offset))
         state = SparseGoalState(episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
                                 pos=pos, vel=torch.zeros_like(pos), rng=rng)
         return state, self._obs(state)

@@ -49,10 +49,10 @@ class PointMass(VecEnv):
         return {"policy": torch.stack([state.x, state.v], dim=-1),
                 "privileged": torch.stack([state.x, state.v, last_action], dim=-1)}
 
-    def reset(self, seed: int = 0, num_envs: int | None = None):
+    def reset(self, seed: int = 0, num_envs: int | None = None, env_offset: int = 0):
         num_envs = self.num_envs if num_envs is None else int(num_envs)
         check_episode_length(self.max_episode_length, num_envs)
-        rng, bits = hash_draws(env_keys(seed, num_envs, self.device), 1)
+        rng, bits = hash_draws(env_keys(seed, num_envs, self.device, env_offset), 1)
         x = uniform_draws(bits[:, 0], -2.0, 4.0)
         state = PointMassState(episode_length=torch.zeros(num_envs, dtype=torch.int32, device=self.device),
                                x=x, v=torch.zeros_like(x), rng=rng)

@@ -60,9 +60,11 @@ class VecEnv(abc.ABC):
     device: torch.device
 
     @abc.abstractmethod
-    def reset(self, seed: int, num_envs: int | None = None) -> tuple[EnvState, dict[str, torch.Tensor]]:
+    def reset(self, seed: int, num_envs: int | None = None,
+              env_offset: int = 0) -> tuple[EnvState, dict[str, torch.Tensor]]:
         """Initialize ``num_envs`` envs (default ``self.num_envs``), their
-        random keys derived from ``seed``."""
+        random keys derived from ``seed`` and their global index from
+        ``env_offset`` on (a data-parallel rank resets its shard)."""
 
     @abc.abstractmethod
     def step(

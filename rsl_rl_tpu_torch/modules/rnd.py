@@ -127,13 +127,15 @@ class RandomNetworkDistillation(nn.Module):
         if self.state_norm is not None:
             update_running_norm(self.state_norm, concat_obs(obs, self.obs_groups["rnd_state"]))
 
-    def predictor_loss(self, obs: dict[str, torch.Tensor]) -> torch.Tensor:
+    def predictor_loss(self, obs: dict[str, torch.Tensor], mean=torch.mean) -> torch.Tensor:
         """Mean squared error of the predictor against the frozen target on
-        the normalized rnd obs; differentiable in the predictor only."""
+        the normalized rnd obs; differentiable in the predictor only.
+        ``mean`` takes the mean (data parallelism passes this rank's share
+        of the global batch's)."""
         x = self._state_in(obs).detach()
         with torch.no_grad():
             target = self.target(x)
-        return torch.mean(torch.square(self.predictor(x) - target))
+        return mean(torch.square(self.predictor(x) - target))
 
 
 def resolve_rnd_config(alg_cfg: dict, obs, obs_groups, env) -> dict:

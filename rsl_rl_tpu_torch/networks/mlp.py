@@ -10,6 +10,15 @@ layer computes as flax ``nn.Dense(dtype=bfloat16)`` does: input, kernel and
 bias cast to bf16, a bf16 matmul, the bias added in bf16, the activation in
 bf16. ``head_dtype=torch.float32`` computes the last layer in fp32 (``None``
 inherits ``dtype``); the output is fp32 either way.
+
+Under tensor parallelism (``parallel/tp.py`` ``shard_module_tp`` sets
+``tp_roles`` and ``tp_mesh``) a column-parallel ``dense_k`` multiplies the
+whole input by its rows of the weight (the input's gradient summed over the
+model group), a row-parallel one its slice of the input by its columns (the
+partial products summed over the model group). In a bf16 layer both sums
+run in fp32 and are rounded once to bf16 after them, forward and backward,
+as the unsharded layer rounds its fp32 accumulation once; then the bias is
+added. A column-parallel last layer gathers its output.
 """
 
 from __future__ import annotations
@@ -64,8 +73,14 @@ class MLP(nn.Module):
                     nn.init.orthogonal_(layer.weight, gain=float(gain), generator=generator)
                     layer.bias.zero_()
             self.add_module(f"dense_{i}", layer)
+        #: ``"column"``, ``"row"`` or None a layer, and the mesh, under
+        #: tensor parallelism (``parallel/tp.py``)
+        self.tp_roles = None
+        self.tp_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_roles is not None:
+            return self._tp_forward(x)
         for i in range(self.num_linear):
             layer = getattr(self, f"dense_{i}")
             is_head = i == self.num_linear - 1
@@ -76,5 +91,43 @@ class MLP(nn.Module):
                 x = torch.matmul(x.to(dt), layer.weight.to(dt).T) + layer.bias.to(dt)
             if not is_head:
                 x = self.act(x)
+        x = x.to(torch.float32)
+        return x if self.out_shape is None else x.reshape(*x.shape[:-1], *self.out_shape)
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from rsl_rl_tpu_torch.parallel.tp import CopyToModel, GatherFromModel, ReduceFromModel
+
+        mesh, split = self.tp_mesh, False
+        for i, role in enumerate(self.tp_roles):
+            layer = getattr(self, f"dense_{i}")
+            is_head = i == self.num_linear - 1
+            dt = self.head_dtype if is_head and self.head_dtype is not None else self.dtype
+            if role != "row" and split:
+                x, split = GatherFromModel.apply(x, mesh), False
+            if role is None:
+                x = layer(x) if dt is None else torch.matmul(x.to(dt), layer.weight.to(dt).T) + layer.bias.to(dt)
+            elif dt is None:
+                # a row-parallel layer's x is this rank's slice of the
+                # features (a column-parallel layer always precedes it)
+                if role == "row":
+                    x = ReduceFromModel.apply(torch.matmul(x, layer.weight.T), mesh) + layer.bias
+                else:
+                    x = layer(CopyToModel.apply(x, mesh))
+            else:
+                # bf16 operands multiplied in fp32: the partial sums that
+                # cross ranks (the row-parallel products forward, the
+                # column-parallel input's gradient backward) stay fp32 until
+                # the sum and are rounded to bf16 once after it
+                xs, w = x.to(dt).float(), layer.weight.to(dt).float()
+                if role == "row":
+                    y = ReduceFromModel.apply(torch.matmul(xs, w.T), mesh)
+                else:
+                    y = torch.matmul(CopyToModel.apply(xs, mesh), w.T)
+                x = y.to(dt) + layer.bias.to(dt)
+            split = role == "column"
+            if not is_head:
+                x = self.act(x)
+        if split:
+            x = GatherFromModel.apply(x, mesh)
         x = x.to(torch.float32)
         return x if self.out_shape is None else x.reshape(*x.shape[:-1], *self.out_shape)

@@ -16,13 +16,15 @@ def compute_gae(
     lam: float,
     normalize_advantage: bool = True,
     eps: float = 1e-8,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-step returns and advantages over a ``[T, N]`` window.
 
     ``delta_t = r_t + (1 - done_t) γ V_{t+1} - V_t``,
     ``A_t = delta_t + (1 - done_t) γ λ A_{t+1}``, ``R_t = A_t + V_t``; the
-    advantages are optionally whitened with the unbiased std, the returns
-    stay raw. Timeout bootstraps are already folded into ``rewards``.
+    advantages are optionally whitened with the unbiased std (over the data
+    group's windows with a ``mesh``), the returns stay raw. Timeout
+    bootstraps are already folded into ``rewards``.
     """
     not_terminal = 1.0 - dones.to(values.dtype)
     advantages = torch.empty_like(values)
@@ -35,10 +37,16 @@ def compute_gae(
         next_values = values[t]
     returns = advantages + values
     if normalize_advantage:
-        advantages = whiten(advantages, eps=eps)
+        advantages = whiten(advantages, eps=eps, mesh=mesh)
     return returns, advantages
 
 
-def whiten(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """``(x - mean) / (std + eps)`` over all elements, unbiased std."""
-    return (x - x.mean()) / (x.std(unbiased=True) + eps)
+def whiten(x: torch.Tensor, eps: float = 1e-8, mesh=None) -> torch.Tensor:
+    """``(x - mean) / (std + eps)`` over all elements, unbiased std; with a
+    ``mesh`` (``parallel/mesh.py``) over the elements of every data rank."""
+    if mesh is None:
+        return (x - x.mean()) / (x.std(unbiased=True) + eps)
+    from rsl_rl_tpu_torch.parallel.mesh import global_mean_std
+
+    mean, std = global_mean_std(x, mesh)
+    return (x - mean) / (std + eps)

@@ -3,7 +3,10 @@
 RND reward normalizer. The moments are buffers of a small ``nn.Module``, so
 they move with ``.to(device)`` and are updated in place. Multi-seed training
 stacks each seed's moments and updates them under ``torch.func.vmap``
-(``modules.policy.seed_call``), per seed."""
+(``modules.policy.seed_call``), per seed. Under data parallelism a
+normalizer's ``mesh`` (``parallel/mesh.py``) makes its update fold in the
+moments of the global batch, summed over the data group, so the moments stay
+the same on every rank and equal one process's over the whole batch."""
 
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ class RunningNormState(nn.Module):
         self.register_buffer("count", torch.zeros((), dtype=torch.float32))
         self.until = None if until is None else float(until)
         self.eps = eps
+        #: the mesh whose data group the batch moments are summed over; None:
+        #: this process's batch is the whole batch
+        self.mesh = None
 
     @property
     def std(self) -> torch.Tensor:
@@ -49,16 +55,20 @@ def update_running_norm(state: RunningNormState, x: torch.Tensor) -> RunningNorm
     ``mean' = mean + rate * (mean_x - mean)`` and
     ``var' = var + rate * (var_x - var + delta * (mean_x - mean'))``.
     The freeze test uses the count before the update (``until=0`` freezes
-    from the start). All leading axes of ``x`` are batch axes.
+    from the start). All leading axes of ``x`` are batch axes. With a
+    ``state.mesh`` the batch is the data group's (:func:`_global_moments`).
     """
     batch_axes = tuple(range(x.ndim - state.mean.ndim))
     count_x = 1
     for ax in batch_axes:
         count_x *= x.shape[ax]
+    if state.mesh is None:
+        mean_x = torch.mean(x, dim=batch_axes)
+        var_x = torch.var(x, dim=batch_axes, unbiased=False)
+    else:
+        count_x, mean_x, var_x = _global_moments(x, batch_axes, count_x, state.mesh)
     new_count = state.count + count_x
     rate = count_x / new_count
-    mean_x = torch.mean(x, dim=batch_axes)
-    var_x = torch.var(x, dim=batch_axes, unbiased=False)
     delta = mean_x - state.mean
     new_mean = state.mean + rate * delta
     new_var = state.var + rate * (var_x - state.var + delta * (mean_x - new_mean))
@@ -73,6 +83,18 @@ def update_running_norm(state: RunningNormState, x: torch.Tensor) -> RunningNorm
         state.var.copy_(torch.where(frozen, state.var, new_var))
         state.count.copy_(torch.where(frozen, state.count, new_count))
     return state
+
+
+def _global_moments(x: torch.Tensor, batch_axes: tuple, count_x: int, mesh):
+    """``(count, mean, biased var)`` of the data group's batch, its shards of
+    equal size: each rank's moments weighted by ``1 / data_size``, two sums
+    (on a group of one exactly the rank's own)."""
+    w = 1.0 / mesh.data_size
+    mean_i = torch.mean(x, dim=batch_axes)
+    var_i = torch.var(x, dim=batch_axes, unbiased=False)
+    mean = mesh.data_sum_(mean_i * w)
+    var = mesh.data_sum_((var_i + torch.square(mean_i - mean)) * w)
+    return count_x * mesh.data_size, mean, var
 
 
 class DiscountedVariationNormState(nn.Module):

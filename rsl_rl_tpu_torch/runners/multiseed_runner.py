@@ -27,7 +27,6 @@ from rsl_rl_tpu_torch.modules.policy import check_state_compatible
 from rsl_rl_tpu_torch.modules.rnd import resolve_rnd_config
 from rsl_rl_tpu_torch.modules.symmetry import resolve_symmetry_config
 from rsl_rl_tpu_torch.runners.multiseed import make_multiseed_train
-from rsl_rl_tpu_torch.runners.on_policy_runner import check_unported_keys
 from rsl_rl_tpu_torch.runners.pbt import init_pbt_state, make_pbt_step
 from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -66,7 +65,6 @@ class MultiSeedRunner(TrainingLoop):
         if env.device != self.device:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")
         self.cfg = dict(train_cfg)
-        check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
         self.policy_cfg = dict(train_cfg["policy"])
         self.env = env

@@ -20,8 +20,24 @@ raise ``ValueError`` as in the JAX package, and ``init_at_random_ep_len``
 scatters the env's ``episode_length_buf`` (from the runner's own generator)
 or warns where it has none.
 
-Model parallelism is not ported yet: setting a runner key of
-:data:`UNPORTED_KEYS` to anything but the JAX package's default raises. The deprecated ``empirical_normalization`` key maps onto the
+Data and tensor parallelism (``parallel/``), as the JAX runner's mesh: when
+a ``torch.distributed`` process group is initialized (``distributed_init``)
+each process is one rank of a ``("data",)`` layout, or of ``("data",
+"model")`` with ``model_parallel_size: M`` (which must divide the rank
+count; without a process group only 1 does). A device env is the global one
+(``env.num_envs`` envs): each data rank resets and steps its contiguous
+shard, the per-env keys those of the global index. A host env is this
+rank's shard, reset with ``seed + data rank``; the global count is
+``num_envs * data_size`` and the runner trains it through a
+``HostShardingBridge``. The algorithm trains on the mesh
+(``PPO.distribute``), so a run's losses and parameters are those of one
+process over the global envs. Rank 0 alone logs, writes the git state and
+writes checkpoints (every rank takes part in a save, whose tensor-parallel
+slices are gathered); every rank runs an evaluation. Whole-iteration
+dispatch on a mesh raises ``NotImplementedError``, and tensor parallelism
+with a host env ``ValueError``.
+
+The deprecated ``empirical_normalization`` key maps onto the
 policy's ``actor_obs_normalization`` / ``critic_obs_normalization`` where
 those are unset, with a ``DeprecationWarning``, as in the JAX package.
 """
@@ -41,31 +57,15 @@ import rsl_rl_tpu_torch.modules  # noqa: F401  (registers the policies)
 from rsl_rl_tpu_torch.modules.policy import check_state_compatible
 from rsl_rl_tpu_torch.modules.rnd import resolve_rnd_config
 from rsl_rl_tpu_torch.modules.symmetry import resolve_symmetry_config
+from rsl_rl_tpu_torch.parallel.host_dp import HostShardingBridge
+from rsl_rl_tpu_torch.parallel.mesh import local_slice, make_tp_mesh
+from rsl_rl_tpu_torch.parallel.tp import gather_tree_tp, reshard_module_tp, shard_tree_tp, unshard_module_tp
 from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.evaluation import eval_seed, evaluate_policy
 from rsl_rl_tpu_torch.utils.registry import resolve
 from rsl_rl_tpu_torch.utils.resolvers import resolve_obs_groups
-
-#: runner keys the JAX package reads that the port does not implement, with
-#: the JAX package's default (unset or None counts as the default)
-UNPORTED_KEYS = {
-    "model_parallel_size": 1,
-}
-
-
-def check_unported_keys(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for a runner key of :data:`UNPORTED_KEYS`
-    set to anything but its default."""
-    for key, default in UNPORTED_KEYS.items():
-        value = cfg.get(key)
-        if value is not None and value != default:
-            raise NotImplementedError(
-                f"runner key {key}={value!r} is not ported yet (ROADMAP.md Queue 1); leave it unset"
-                f" or at {default!r}"
-            )
-
 
 def map_empirical_normalization(cfg: dict, policy_cfg: dict) -> None:
     """The deprecated ``empirical_normalization`` runner key: fills the policy's
@@ -86,7 +86,8 @@ def map_empirical_normalization(cfg: dict, policy_cfg: dict) -> None:
 
 
 class OnPolicyRunner(TrainingLoop):
-    """Trains an actor-critic with an on-policy algorithm on one device."""
+    """Trains an actor-critic with an on-policy algorithm on one device, or
+    as one rank of a data- (and tensor-) parallel layout."""
 
     training_type = "rl"
 
@@ -98,20 +99,35 @@ class OnPolicyRunner(TrainingLoop):
         if self.is_jax_env and env.device != self.device:
             raise ValueError(f"the env lives on {env.device}, the runner on {self.device}")
         self.cfg = dict(train_cfg)
-        check_unported_keys(self.cfg)
         self.alg_cfg = dict(train_cfg["algorithm"])
         self.policy_cfg = dict(train_cfg["policy"])
         self.env = env
         self.num_steps_per_env = self.cfg["num_steps_per_env"]
-        self._init_loop(log_dir)
+        model_parallel_size = int(self.cfg.get("model_parallel_size") or 1)
+        if model_parallel_size > 1 and not self.is_jax_env:
+            raise ValueError("model_parallel_size > 1 requires a functional (device) env: a host env trains"
+                             " data-parallel only, so tensor parallelism would be silently inert.")
+        # the rank layout (parallel/mesh.py) when a process group is
+        # initialized or tensor parallelism is asked for, else None
+        mesh = None
+        if torch.distributed.is_initialized() or model_parallel_size > 1:
+            mesh = make_tp_mesh(model_parallel_size)
+        self._init_loop(log_dir, mesh)
         seed = self.seed = int(self.cfg.get("seed", 1))
 
+        data_size = 1 if self.mesh is None else self.mesh.data_size
         if self.is_jax_env:
-            env_state, obs = env.reset(seed)
+            #: the global env count; this rank steps its shard
+            self.num_global_envs = env.num_envs
+            offset, num_envs = (0, env.num_envs) if self.mesh is None else local_slice(self.mesh, env.num_envs)
+            env_state, obs = env.reset(seed, num_envs=num_envs, env_offset=offset)
         else:
+            self.num_global_envs, num_envs = env.num_envs * data_size, env.num_envs
             env_state = ()
+            # each data rank's shard explores from its own seed
+            rank_seed = seed + (0 if self.mesh is None else self.mesh.data_rank)
             obs = {k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
-                   for k, v in env.reset(seed=seed).items()}
+                   for k, v in env.reset(seed=rank_seed).items()}
             # the draws of init_at_random_ep_len
             self._host_generator = torch.Generator().manual_seed(seed)
         default_sets = ["critic"] if self.training_type == "rl" else ["teacher"]
@@ -119,10 +135,17 @@ class OnPolicyRunner(TrainingLoop):
             default_sets.append("rnd_state")
         self.cfg["obs_groups"] = resolve_obs_groups(obs, self.cfg["obs_groups"], default_sets)
         self.alg = self._construct_algorithm(obs, seed)
-        self.collect_state = self.alg.init_collect_state(env_state, obs, env.num_envs)
+        if self.mesh is not None:
+            self.alg.distribute(self.mesh)
+        self.collect_state = self.alg.init_collect_state(env_state, obs, num_envs)
+        #: the host env's bridge to the mesh (data parallelism), else None
+        self._host_bridge = None
+        if not self.is_jax_env and self.mesh is not None:
+            self._host_bridge = HostShardingBridge(self.mesh, self.device)
         #: the host env's collection window (``make_host_collect_fn``); its
         #: ``timings`` attribute times the window's phases when set to a dict
-        self.host_collect = None if self.is_jax_env else self.alg.make_host_collect_fn(env, self.num_steps_per_env)
+        self.host_collect = None if self.is_jax_env else self.alg.make_host_collect_fn(
+            env, self.num_steps_per_env, bridge=self._host_bridge)
 
         self.tot_timesteps = 0
         self.tot_time = 0.0
@@ -168,7 +191,11 @@ class OnPolicyRunner(TrainingLoop):
                           " ignoring.", stacklevel=3)
             return
         high = int(np.max(self.env.max_episode_length))
-        values = torch.randint(0, high, np.shape(buf), generator=self._host_generator).numpy()
+        # drawn for the global envs, this data rank's rows kept
+        n = int(np.size(buf))
+        rank, size = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data_size)
+        values = torch.randint(0, high, (n * size,), generator=self._host_generator)[rank * n:(rank + 1) * n]
+        values = values.numpy().reshape(np.shape(buf))
         if isinstance(buf, np.ndarray) and buf.flags.writeable:
             buf[:] = values.astype(buf.dtype)
         else:
@@ -213,6 +240,8 @@ class OnPolicyRunner(TrainingLoop):
         from training's, ``act_inference`` actions); writes ``Eval/*``. It
         draws nothing from the training's generators."""
         m = evaluate_policy(self.env, self.alg.policy, None, self.eval_num_steps, eval_seed(self.seed, it))
+        if self.disable_logs:
+            return
         count = m["Eval/episode_count"]
         self.writer.add_scalar("Eval/episode_count", count, it)
         if count > 0:
@@ -237,7 +266,7 @@ class OnPolicyRunner(TrainingLoop):
         return (*(sum(e[i] for e in self._ep_window) / count for i in range(4)), count)
 
     def _log(self, it, start_iter, tot_iter, metrics, collection_time, learn_time, width=80, pad=35):
-        collection_size = self.num_steps_per_env * self.env.num_envs
+        collection_size = self.num_steps_per_env * self.num_global_envs
         self.tot_timesteps += collection_size
         iteration_time = collection_time + learn_time
         self.tot_time += iteration_time
@@ -250,6 +279,8 @@ class OnPolicyRunner(TrainingLoop):
             "metrics": metrics,
         })
         mean_reward, mean_ep_len, mean_erew, mean_irew, ep_count = self._episode_window_stats(metrics)
+        if self.disable_logs:
+            return
         if self.writer is not None:
             self._write_scalars(it, metrics, int(fps), collection_time, learn_time, mean_reward, mean_ep_len,
                                 mean_erew, mean_irew, ep_count)
@@ -314,11 +345,19 @@ class OnPolicyRunner(TrainingLoop):
         (parameters and normalizer moments), the optimizer's moments and
         count, the learning rate, the iteration and ``infos`` (plain data);
         with RND also its state dict (predictor, target, normalizers,
-        counter) and its optimizer's state."""
+        counter) and its optimizer's state. On a mesh every rank calls it: the
+        tensor-parallel slices are gathered (``gather_tree_tp``) and rank 0
+        writes the full state, which loads into any layout."""
         alg = self.alg
+        model, opt = alg.policy.state_dict(), alg.optimizer_state()
+        if alg.tp_specs is not None:
+            model = gather_tree_tp(model, self.mesh, alg.tp_specs)
+            opt = {**opt, **{k: gather_tree_tp(opt[k], self.mesh, alg.tp_specs) for k in ("mu", "nu")}}
+        if self.disable_logs:
+            return
         state = {
-            "model": alg.policy.state_dict(),
-            "opt_state": alg.optimizer_state(),
+            "model": model,
+            "opt_state": opt,
             "lr": alg.lr,
             "iter": int(self.current_learning_iteration),
             "infos": infos,
@@ -339,25 +378,23 @@ class OnPolicyRunner(TrainingLoop):
         distillation policy) the checkpoint's optimizer extras belong to the
         teacher's training and are dropped. A checkpoint that neither
         matches the policy nor remaps raises ``ValueError`` with both causes.
-        Tensors land on the runner's device.
+        Tensors land on the runner's device. Under tensor parallelism every
+        rank loads the full state: the sliced parameters are gathered for the
+        load and sliced again after it, and the optimizer moments are sliced.
         """
         loaded = load_checkpoint(path, map_location=self.device)
-        policy = self.alg.policy
-        structural_err = None
-        try:
-            check_state_compatible(policy.state_dict(), loaded["model"])
-        except ValueError as err:
-            structural_err = err
-        try:
-            resumed = policy.load_policy_state(loaded["model"])
-        except (ValueError, RuntimeError, KeyError) as remap_err:
-            if structural_err is not None:
-                raise ValueError(
-                    f"Checkpoint {path!r} neither restores into the configured policy"
-                    f" ({structural_err}) nor remaps as a teacher bootstrap ({remap_err}); it is"
-                    " incompatible with this configuration or corrupted."
-                ) from remap_err
-            raise
+        specs = self.alg.tp_specs
+        if specs is None:
+            resumed = self._load_policy(path, loaded)
+        else:
+            unshard_module_tp(self.alg.policy, self.mesh, specs)
+            try:
+                resumed = self._load_policy(path, loaded)
+            finally:
+                reshard_module_tp(self.alg.policy, self.mesh, specs)
+            if "opt_state" in loaded:
+                opt = loaded["opt_state"]
+                loaded["opt_state"] = {**opt, **{k: shard_tree_tp(opt[k], self.mesh, specs) for k in ("mu", "nu")}}
         if resumed:
             rnd = self.alg.rnd
             if rnd is not None:
@@ -374,6 +411,26 @@ class OnPolicyRunner(TrainingLoop):
                     opt.load_optimizer_state(loaded["rnd_opt_state"], opt.lr)
             self.current_learning_iteration = int(loaded["iter"])
         return loaded["infos"]
+
+    def _load_policy(self, path: str, loaded: dict) -> bool:
+        """Load the checkpoint's model state into the policy; returns whether
+        it is a resume (the policy's ``load_policy_state``)."""
+        policy = self.alg.policy
+        structural_err = None
+        try:
+            check_state_compatible(policy.state_dict(), loaded["model"])
+        except ValueError as err:
+            structural_err = err
+        try:
+            return policy.load_policy_state(loaded["model"])
+        except (ValueError, RuntimeError, KeyError) as remap_err:
+            if structural_err is not None:
+                raise ValueError(
+                    f"Checkpoint {path!r} neither restores into the configured policy"
+                    f" ({structural_err}) nor remaps as a teacher bootstrap ({remap_err}); it is"
+                    " incompatible with this configuration or corrupted."
+                ) from remap_err
+            raise
 
     def load_latest(self, log_dir: str | None = None) -> bool:
         """Resume from the newest ``model_<it>.pt`` in ``log_dir`` (this

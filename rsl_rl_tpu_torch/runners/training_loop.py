@@ -31,6 +31,11 @@ learn_s)`` (host metrics), the fused iteration ``_graph_step(tree) ->
 ``_set_graph_state(tree)``, ``_to_host(metrics)``, ``_log(it, start_iter,
 tot_iter, metrics, collection_s, learn_s)``, ``save(path)`` and
 ``_run_eval(it)``.
+
+On a mesh (``parallel/``; the runner's ``mesh``) rank 0 alone writes the
+scalars and the git state (``disable_logs`` elsewhere), and whole-iteration
+dispatch raises ``NotImplementedError``: a rank's share of a global
+minibatch varies from one to the next, which a captured iteration cannot.
 """
 
 from __future__ import annotations
@@ -50,9 +55,12 @@ from rsl_rl_tpu_torch.utils.writers import make_writer
 class TrainingLoop:
     """Mixin of the runners' loop; see the module docstring."""
 
-    def _init_loop(self, log_dir: str | None) -> None:
-        """Read the loop's runner keys from ``self.cfg``."""
+    def _init_loop(self, log_dir: str | None, mesh=None) -> None:
+        """Read the loop's runner keys from ``self.cfg``; ``mesh`` is the
+        runner's rank layout (None: one process)."""
         self.log_dir = log_dir
+        self.mesh = mesh
+        self.disable_logs = mesh is not None and mesh.rank != 0
         self.save_interval = self.cfg.get("save_interval")
         if log_dir is not None and not self.save_interval:
             raise ValueError("a run with a log_dir needs the runner key save_interval (iterations between saves)")
@@ -72,6 +80,11 @@ class TrainingLoop:
                                  " copy to roll (evaluate a host-env policy offline, through"
                                  " get_inference_policy()).")
             self.fuse_iteration = False
+        if self.fuse_iteration and mesh is not None:
+            raise NotImplementedError(
+                f"fuse_iteration / iterations_per_dispatch > 1 on a mesh of {mesh.size} rank(s) is not ported: a"
+                " rank's share of a global minibatch varies, which a CUDA graph cannot capture (ROADMAP.md,"
+                " graphed data-parallel iterations). Train split (the default) on a mesh.")
         if self.eval_interval > 0:
             if log_dir is None:
                 # evaluation runs where its scalars have somewhere to go
@@ -159,7 +172,7 @@ class TrainingLoop:
     # ------------------------------------------------------------- logging
 
     def _prepare_logging_writer(self) -> None:
-        if self.log_dir is not None and self.writer is None:
+        if self.log_dir is not None and self.writer is None and not self.disable_logs:
             self.writer = make_writer(self.logger_type, self.log_dir, self.cfg)
             if self.logger_type in ("wandb", "neptune"):
                 self.writer.log_config(getattr(self.env, "cfg", {}), self.cfg, self.alg_cfg, self.policy_cfg)
@@ -167,7 +180,7 @@ class TrainingLoop:
     def _store_git_state(self) -> None:
         """The git status and diff of :attr:`git_status_repos` under
         ``<log_dir>/git``, uploaded by the W&B and Neptune writers."""
-        if self.log_dir is None:
+        if self.log_dir is None or self.disable_logs:
             return
         paths = store_code_state(self.log_dir, self.git_status_repos)
         if self.logger_type in ("wandb", "neptune"):

@@ -240,16 +240,25 @@ def test_iteration_graph_load_copies_into_its_own_tensors():
 @pytest.mark.parametrize("runner_kind", ["ppo", "study"])
 @pytest.mark.parametrize("key,value", [("eval_interval", 10), ("model_parallel_size", 2)])
 def test_unported_keys_raise_in_every_runner(runner_kind, key, value):
-    """An unported runner key raises in every runner; ``eval_interval``,
-    ported since, is taken by both (and warns without a log_dir)."""
+    """The runner keys once refused, in every runner. ``eval_interval`` is
+    taken by both (and warns without a log_dir). ``model_parallel_size: 2``
+    raises ``ValueError("must divide")`` in ``OnPolicyRunner`` on one
+    process, as the JAX runner does; ``MultiSeedRunner`` ignores the key, as
+    the JAX one (which never reads it) does, and trains."""
     make = ((lambda cfg: OnPolicyRunner(_env(), cfg, device="cpu")) if runner_kind == "ppo"
             else (lambda cfg: MultiSeedRunner(_env(), cfg, G, device="cpu")))
     if key == "eval_interval":
         with pytest.warns(UserWarning, match="eval_interval"):
             assert make(_cfg(**{key: value})).eval_interval == value
         return
-    with pytest.raises(NotImplementedError, match=key):
-        make(_cfg(**{key: value}))
+    if runner_kind == "ppo":
+        with pytest.raises(ValueError, match="must divide"):
+            make(_cfg(**{key: value}))
+        return
+    runner = make(_cfg(**{key: value}))
+    assert runner.mesh is None
+    runner.learn(1)
+    assert len(runner.history) == 1
 
 
 def test_log_dir_needs_save_interval_and_positive_k(tmp_path):

@@ -51,3 +51,27 @@ def test_play_torch_with_export(tmp_path):
     policy = load_policy(str(export))
     action = policy({"policy": torch.zeros(4, 3)})
     assert action.shape == (4, 1) and np.isfinite(action.numpy()).all() and not policy.is_recurrent
+
+
+def test_train_multihost_torch_on_two_gloo_ranks(tmp_path):
+    """``train_multihost_torch.py`` under ``torchrun`` (``--standalone`` picks
+    its own free port) with two Gloo ranks on the CPU for one iteration: rank
+    0 alone logs and saves the checkpoint, which loads into one process."""
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                          os.path.join(REPO, "examples", "train_multihost_torch.py"), "--device", "cpu",
+                          "--num-envs", "16", "--iterations", "1", "--log-dir", str(tmp_path)],
+                         capture_output=True, text=True, timeout=TIMEOUT_S, cwd=REPO,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert_ok(res, "ranks=2 device=cpu global envs=16")
+    assert res.stdout.count("Learning iteration 0/1") == 1, res.stdout[-3000:]
+    assert res.stdout.count("Total timesteps: 384") == 1  # 24 steps x 16 global envs
+    assert (tmp_path / "model_0.pt").exists() and (tmp_path / "git").is_dir()
+    from rsl_rl_tpu_torch.env import Pendulum
+    from rsl_rl_tpu_torch.runners import OnPolicyRunner
+
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    from train_multihost_torch import train_cfg
+
+    runner = OnPolicyRunner(Pendulum(16, device="cpu"), train_cfg(1), device="cpu")
+    runner.load(str(tmp_path / "model_0.pt"))
+    assert runner.current_learning_iteration == 0

@@ -298,10 +298,37 @@ def test_host_window_and_update_match_jax(name):
 
 
 def test_host_collect_refuses_a_bridge(pendulum_env):
-    obs = {k: _t(v) for k, v in pendulum_env.reset(seed=0).items()}
-    ppo = PPO(ActorCritic(obs, GROUPS, 1, device="cpu"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ppo.make_host_collect_fn(pendulum_env, T, bridge=object())
+    """The host collection takes a ``HostShardingBridge`` (host data
+    parallelism, ported since): on the one-rank mesh of a process with no
+    process group the bridged window and its update equal the unbridged
+    ones, and the unbridged collection is unchanged by the bridge's
+    existence (the same draws, bit for bit, as a fresh unbridged run)."""
+    from rsl_rl_tpu_torch.parallel import HostShardingBridge, make_mesh
+
+    runs = {}
+    for mode in ("plain", "bridged", "plain_again"):
+        raw = _make_vec()
+        env = GymVecEnv(raw)
+        obs = {k: _t(v) for k, v in env.reset(seed=0).items()}
+        ppo = PPO(ActorCritic(obs, GROUPS, 1, device="cpu", seed=3, **POLICIES["feedforward"]), seed=4, **PPO_KW)
+        bridge = HostShardingBridge(make_mesh()) if mode == "bridged" else None
+        collect = ppo.make_host_collect_fn(env, T, bridge=bridge)
+        assert ppo.mesh is (None if bridge is None else bridge.mesh)
+        cs, rollout, metrics = collect(ppo.init_collect_state((), obs, N))
+        _, um = ppo.update(cs, rollout)
+        runs[mode] = (rollout, metrics, um, [p.detach().clone() for p in ppo.policy.parameters()])
+        raw.close()
+    plain, bridged, again = runs["plain"], runs["bridged"], runs["plain_again"]
+    for field in ("actions", "rewards", "values", "log_probs"):
+        torch.testing.assert_close(getattr(again[0], field), getattr(plain[0], field), rtol=0, atol=0)
+        _close(getattr(bridged[0], field), getattr(plain[0], field), f"bridged {field}", 1e-5, 1e-6)
+    assert set(bridged[1]) == set(plain[1]) and set(bridged[2]) == set(plain[2])
+    for k in plain[1]:
+        _close(bridged[1][k], plain[1][k], f"bridged metric {k}", 1e-5, 1e-6)
+    for k in plain[2]:
+        _close(bridged[2][k], plain[2][k], f"bridged update metric {k}", 1e-5, 1e-6)
+    for got, want in zip(bridged[3], plain[3]):
+        _close(got, want, "bridged parameters", 1e-5, 1e-6)
 
 
 # ---------------------------------------------- Distillation host collection

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``rsl_rl_tpu_torch`` (nor
-``chip_smoke.py``, ``parity_torch.py`` or the port's examples
-``examples/*_torch.py``) imports JAX, flax, optax or the JAX package, nothing
+``chip_smoke.py``, ``parity_torch.py``, ``parallel_drift.py`` or the port's
+examples ``examples/*_torch.py``) imports JAX, flax, optax or the JAX package, nothing
 of it needs ``yaml`` until a config file is loaded nor ``mujoco`` or
 ``gymnasium`` until a host env is built, and its entry points run on CUDA
 unless the caller asks for the CPU."""
@@ -16,8 +16,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rsl_rl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsl_rl_tpu")
-EXAMPLES = ["train_pendulum_torch", "train_mujoco_host_torch", "play_torch"]
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "parity_torch.py"] + [ROOT / "examples" / f"{e}.py" for e in EXAMPLES]
+EXAMPLES = ["train_pendulum_torch", "train_mujoco_host_torch", "play_torch", "train_multihost_torch"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "parity_torch.py", ROOT / "parallel_drift.py"] + [
+    ROOT / "examples" / f"{e}.py" for e in EXAMPLES]
 SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
 
 
@@ -49,7 +50,7 @@ def test_package_imports_with_jax_blocked(blocked):
         f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
-        f"for m in {modules!r} + ['chip_smoke', 'parity_torch'] + {['examples.' + e for e in EXAMPLES]!r}:\n"
+        f"for m in {modules!r} + ['chip_smoke', 'parity_torch', 'parallel_drift'] + {['examples.' + e for e in EXAMPLES]!r}:\n"
         "    importlib.import_module(m)\n"
         f"leaked = [m for m in sys.modules if m.split('.')[0] in {blocked!r} and sys.modules[m] is not None]\n"
         "assert not leaked, leaked\n"

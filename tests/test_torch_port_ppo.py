@@ -255,7 +255,6 @@ from rsl_rl_tpu.algorithms.ppo import resolve_num_mini_batches as jax_resolve_nu
 from rsl_rl_tpu.runners import OnPolicyRunner as JaxRunner  # noqa: E402
 from rsl_rl_tpu_torch.algorithms.ppo import resolve_num_mini_batches  # noqa: E402
 from rsl_rl_tpu_torch.runners import OnPolicyRunner  # noqa: E402
-from rsl_rl_tpu_torch.runners.on_policy_runner import UNPORTED_KEYS  # noqa: E402
 
 
 def _runner_cfg(**overrides):
@@ -301,17 +300,20 @@ UNPORTED_SETTINGS = {"eval_interval": 10, "model_parallel_size": 2}
 
 @pytest.mark.parametrize("key", sorted(UNPORTED_SETTINGS))
 def test_unported_runner_key_raises(key):
-    """A runner key the port does not implement raises unless it holds the JAX
-    package's default; at the default it is accepted. ``eval_interval`` is
-    ported since: the runner takes it."""
+    """The runner keys the port once refused, ported since. ``eval_interval``:
+    the runner takes it. ``model_parallel_size: 2`` in one process (no
+    process group: one rank) raises ``ValueError("must divide")``, as the
+    JAX runner does for a model axis its devices do not divide
+    (``tests/test_tensor_parallel.py:87-102``); at 1 the runner trains on
+    one process, with no mesh."""
     env = NLinkPendulum(8, LINKS, device="cpu")
-    if key not in UNPORTED_KEYS:
+    if key == "eval_interval":
         with pytest.warns(UserWarning, match=key):
             assert OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_SETTINGS[key]}), device="cpu").eval_interval == 10
         return
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(ValueError, match="must divide"):
         OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_SETTINGS[key]}), device="cpu")
-    OnPolicyRunner(env, _runner_cfg(**{key: UNPORTED_KEYS[key]}), device="cpu")
+    assert OnPolicyRunner(env, _runner_cfg(**{key: 1}), device="cpu").mesh is None
 
 
 @pytest.mark.parametrize("recurrent", [True, False], ids=["recurrent", "feedforward"])
