@@ -160,7 +160,24 @@ Phases, each fatal on failure:
    headline's sharded forward against the unsharded one on the same
    weights; the tensor-parallel flagship's checkpoint (rank 0 writes the
    gathered state) loads into one process bit for bit. Any
-   rank's failure fails the smoke.
+   rank's failure fails the smoke. 7b also trains the headline on the two
+   ranks (``dp2_ppo_ff256x3_bf16``: each rank replays its fixed half of
+   every global minibatch, 12,288 rows in every minibatch of every update
+   on both ranks, from the window rows the ranks gather; the losses at the
+   bf16 bars), and each rank checks first that a fused or K=2 runner and a
+   fused host-env runner over the Gloo group on the card raise
+   ``ValueError``. 7d (in 7a's NCCL group of one): the GRU flagship, the
+   LSTM bf16 flagship, the headline and the GRU student through the mesh
+   path with ``fuse_iteration`` and with ``iterations_per_dispatch: 2``,
+   their NCCL collectives captured in the graph, each for 2 iterations with
+   the counters zeroed just before and read just after (40 launches of
+   each ``gru_x_*`` / ``lstm_x_*``; the student 4/2/2), then 2 more
+   replays; state, metrics and launches bit for bit those of the plain
+   fused run of the same config made first with no process group, after
+   the 2 iterations and after the replays. ``phase7d {...}`` lines give
+   each mode's steady env-steps/s beside the plain fused rate, the
+   capture's seconds, the graph pool's bytes, the launches and the
+   collectives issued an iteration.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -185,6 +202,7 @@ from torch.func import functional_call, vmap
 
 from parity_torch import train_cfg as parity_cfg
 from rsl_rl_tpu_torch.algorithms.distillation import chunks_between
+import rsl_rl_tpu_torch.algorithms.ppo as ppo_module
 from rsl_rl_tpu_torch.algorithms.ppo import PPO, CollectState
 from rsl_rl_tpu_torch.algorithms.host_collect import PHASES
 from rsl_rl_tpu_torch.env import (
@@ -1810,6 +1828,10 @@ def parallel_scenarios(teacher_path, device, num_envs, rank):
         "dp2_distill_gru256_bf16_host": (student, distill_launches("gru", DISTILL_GRU256_BF16, iters)),
         "tp2_ppo_ff256x3_bf16": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
                                                         tp_cfg(PPO_FF256X3_BF16), device=device), {}),
+        # the headline on two data ranks: each replays its fixed share of
+        # every global minibatch, from the window rows the ranks gather
+        "dp2_ppo_ff256x3_bf16": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                        copy.deepcopy(PPO_FF256X3_BF16), device=device), {}),
         "tp2_recurrent_gru256": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
                                                         tp_cfg(RECURRENT_GRU256), device=device), replicated),
         # the same trained with SGD (SGD_RUNS)
@@ -1981,6 +2003,54 @@ def trunk_grads(alg, obs) -> dict:
     return {k: v.cpu() for k, v in grads.items()}
 
 
+def record_shares() -> dict:
+    """Record this rank's rows of each minibatch of each update
+    (``dp_minibatches``' ``n_local``) until the returned dict's ``wrapped``
+    function is put back: ``{"updates": [[rows, ...], ...]}``."""
+    wrapped = ppo_module.dp_minibatches
+    shares = {"updates": [], "wrapped": wrapped}
+
+    def recorded(*args, **kwargs):
+        rows = []
+        shares["updates"].append(rows)
+        for batch in wrapped(*args, **kwargs):
+            rows.append(batch[2])
+            yield batch
+
+    ppo_module.dp_minibatches = recorded
+    return shares
+
+
+def refuse_fused_on_gloo(teacher_path, device, num_envs, rank) -> None:
+    """On the card a fused runner over this Gloo group, and a fused host-env
+    runner on it, raise ``ValueError`` (the first naming the backend);
+    prints a ``phase7`` line, exits non-zero otherwise. On the CPU the
+    Gloo group captures nothing, so nothing is refused."""
+    if device != "cuda":
+        return
+    host = num_envs // PARALLEL_WORLD
+    cases = {"fused device env": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                         {**copy.deepcopy(PPO_FF256X3_BF16), "fuse_iteration": True},
+                                                         device=device), "gloo"),
+             "k2 device env": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                                      {**copy.deepcopy(RECURRENT_GRU256), "iterations_per_dispatch": 2},
+                                                      device=device), "gloo"),
+             "fused host env": (lambda: OnPolicyRunner(HostNLink(host, env_offset=rank * host, seed=1),
+                                                       {**copy.deepcopy(RECURRENT_GRU256), "fuse_iteration": True},
+                                                       device=device), "host env")}
+    messages = {}
+    for case, (make, words) in cases.items():
+        try:
+            make()
+        except ValueError as e:
+            messages[case] = str(e)
+            if words not in str(e):
+                fail(f"rank {rank}: {case} raised without naming {words!r}: {e}")
+            continue
+        fail(f"rank {rank}: a {case} runner over a Gloo group on the card did not raise")
+    print("phase7 " + json.dumps({"rank": rank, "refused": messages}), flush=True)
+
+
 def parallel_rank(rank, init_file, out_dir, teacher_path, device, num_envs) -> None:
     """One rank of 7b/7c (``chip_smoke.py --parallel-rank``): join the Gloo
     group, run each scenario with the counters zeroed just before and read
@@ -1994,13 +2064,17 @@ def parallel_rank(rank, init_file, out_dir, teacher_path, device, num_envs) -> N
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     distributed_init(backend="gloo", init_method=f"file://{init_file}", rank=rank, world_size=PARALLEL_WORLD)
+    refuse_fused_on_gloo(teacher_path, device, num_envs, rank)
     runners = {}
     scenarios = parallel_scenarios(teacher_path, device, num_envs, rank)
     for name, (make, expected) in scenarios.items():
         runner = runners[name] = make()
         trace = trace_lr(runner.alg)
+        shares = record_shares() if name == "dp2_ppo_ff256x3_bf16" else None
         reset_counts()
         runner.learn(PARALLEL_ITERATIONS)
+        if shares is not None:
+            ppo_module.dp_minibatches = shares.pop("wrapped")
         if device == "cuda":
             torch.cuda.synchronize()
         launches = check_launches(f"{name} rank {rank}", all_counts(), expected if device == "cuda" else {})
@@ -2014,6 +2088,10 @@ def parallel_rank(rank, init_file, out_dir, teacher_path, device, num_envs) -> N
                                          / (r["collection_s"] + r["learn_s"]) for r in runner.history]}
         if runner.alg.policy.is_recurrent and not name.startswith("dp2_distill"):
             row["local_minibatch_envs"] = local_minibatch_sizes(runner)
+        if shares is not None:
+            # each update's rows of every minibatch of every epoch
+            result["local_minibatch_rows"] = row["local_minibatch_rows"] = shares["updates"]
+            torch.save(result, os.path.join(out_dir, f"{name}.rank{rank}.pt"))
         print("phase7 " + json.dumps(row), flush=True)
     # the collectives' share of one more iteration of the data-parallel flagship
     runner = runners["dp2_recurrent_gru256"]
@@ -2089,6 +2167,171 @@ def hold_run(name, got, want, first_tol, norm_tol, global_episodes=True, exact_t
         fail(f"{name}: the parameters left the one-process run by {share:.3e} of its update (> {UPDATE_SHARE})")
 
 
+#: phase 7d: graphed iterations on the mesh path in the NCCL group of one,
+#: each mode held bit for bit against the plain fused run (no process
+#: group) over ``GRAPHED_ITERATIONS``, then ``GRAPHED_STEADY`` more replays
+#: of each timed
+GRAPHED_ITERATIONS, GRAPHED_STEADY = 2, 4
+GRAPHED_MODES = {"fused": {"fuse_iteration": True}, "k2": {"iterations_per_dispatch": 2}}
+
+
+def graphed_slices(teacher_path, device, num_envs) -> dict:
+    """7d's slices: ``{name: (make_runner(runner keys), expected launches
+    over GRAPHED_ITERATIONS)}``."""
+    iters = GRAPHED_ITERATIONS
+
+    def ppo(cfg):
+        return lambda keys: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
+                                           {**copy.deepcopy(cfg), **keys}, device=device)
+
+    def student(keys):
+        runner = DistillationRunner(DomainRandomizedNLink(num_envs, NUM_LINKS, device=device),
+                                    {**copy.deepcopy(DISTILL_GRU256_BF16), **keys}, device=device)
+        runner.load(teacher_path)
+        return runner
+
+    return {"recurrent_gru256": (ppo(RECURRENT_GRU256), ppo_launches("gru", RECURRENT_GRU256, iters)),
+            "recurrent_lstm256_bf16": (ppo(RECURRENT_LSTM256_BF16),
+                                       ppo_launches("lstm", RECURRENT_LSTM256_BF16, iters)),
+            "ppo_ff256x3_bf16": (ppo(PPO_FF256X3_BF16), {}),
+            "distill_gru256_bf16": (student, distill_launches("gru", DISTILL_GRU256_BF16, iters))}
+
+
+def count_collectives(mesh) -> dict:
+    """Count the calls of ``mesh``'s collectives (the data group's sums and
+    gathers, the model group's sums) as they are issued from Python: in a
+    graphed run the warm-up's and the capture's, none of the replays'.
+    Delete the instance's attributes to stop."""
+    calls = {"n": 0}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    mesh.data_sum_, mesh.data_gather, mesh.model_sum_ = (counted(mesh.data_sum_), counted(mesh.data_gather),
+                                                         counted(mesh.model_sum_))
+    return calls
+
+
+def graphed_run(name, make, keys, expected, device) -> dict:
+    """One graphed run of 7d: ``GRAPHED_ITERATIONS`` with the counters zeroed
+    just before and read just after (the launches checked against
+    ``expected`` on the card), the state and metrics then, and after
+    ``GRAPHED_STEADY`` more replays; their env-steps/s, the capture's
+    seconds, the graph pool's bytes and, on a mesh, the collectives the
+    capture holds an iteration."""
+    runner = make(keys)
+    calls = None if runner.mesh is None else count_collectives(runner.mesh)
+    reset_counts()
+    runner.learn(GRAPHED_ITERATIONS)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = check_launches(name, all_counts(), expected if device == "cuda" else {})
+    graph = runner.iteration_graph
+    if graph is None or (device == "cuda" and graph.capture_s is None):
+        fail(f"{name}: the run captured no graph")
+    first = {"state": run_state(runner), "metrics": [row["metrics"] for row in runner.history]}
+    # the collectives issued in the first two iterations (on the card the
+    # warm-up's and the capture's)
+    issued = None if calls is None else calls["n"] / GRAPHED_ITERATIONS
+    runner.learn(GRAPHED_STEADY)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out = {"first": first, "state": run_state(runner), "metrics": [row["metrics"] for row in runner.history],
+           "launches": launches, "capture_s": graph.capture_s, "pool_bytes": graph.pool_bytes,
+           "steps_per_s": float(np.mean([row["steps_per_s"] for row in runner.history[GRAPHED_ITERATIONS:]])),
+           "distributed": runner.mesh is not None and runner.mesh.distributed}
+    if calls is not None:
+        out["collectives_an_iteration"] = issued
+        del runner.mesh.data_sum_, runner.mesh.data_gather, runner.mesh.model_sum_
+    graph.release()
+    del runner, graph
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def same_run(a, b) -> bool:
+    """Two runs' states and metrics equal bit for bit."""
+    same_state = len(a["state"]) == len(b["state"]) and all(torch.equal(x, y) for x, y in zip(a["state"], b["state"]))
+    same_metrics = all(x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+                       for x, y in zip(a["metrics"], b["metrics"]))
+    return same_state and same_metrics and len(a["metrics"]) == len(b["metrics"])
+
+
+#: the sums timed inside a graph in 7d: elements of each, sums a graph
+GRAPHED_SUM_SIZES, GRAPHED_SUMS = (1, 1 << 20), 100
+
+
+def time_graphed_sums(smi, reps=20) -> None:
+    """Capture ``GRAPHED_SUMS`` all-reduces over the initialized group (the
+    NCCL group of one) of a tensor of each of ``GRAPHED_SUM_SIZES`` fp32
+    elements (a scalar statistic; a million, above the GRU flagship's
+    683,019 gradient elements a minibatch) in one CUDA graph, replay it ``reps`` times
+    between CUDA events and print the time a sum (``phase7d`` line)."""
+    times = {}
+    for n in GRAPHED_SUM_SIZES:
+        t = torch.ones(n, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.distributed.all_reduce(t)  # the warm-up, outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPHED_SUMS):
+                torch.distributed.all_reduce(t)
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times[n] = 1e3 * start.elapsed_time(end) / (reps * GRAPHED_SUMS)
+        graph.reset()
+    print("phase7d " + json.dumps({"graphed_sum_us_by_elements": times, "sums_a_graph": GRAPHED_SUMS, "card": smi}),
+          flush=True)
+
+
+def check_graphed_mesh(plain, teacher_path, smi, device, num_envs) -> dict:
+    """7d in the initialized process group of one: each slice through the
+    mesh path fused and at K=2, bit for bit its plain fused run (``plain``)
+    after ``GRAPHED_ITERATIONS`` and after the steady replays; prints a
+    ``phase7d {...}`` line a slice. Returns ``{slice: {kernel: launches}}``."""
+    launches = {}
+    for name, (make, expected) in graphed_slices(teacher_path, device, num_envs).items():
+        row = {"slice": name, "plain_fused_env_steps_per_s": plain[name]["steps_per_s"],
+               "plain_capture_s": plain[name]["capture_s"], "plain_pool_bytes": plain[name]["pool_bytes"]}
+        for mode, keys in GRAPHED_MODES.items():
+            label = f"nccl1_{name}_{mode}"
+            run = graphed_run(label, make, keys, expected, device)
+            if not run["distributed"]:
+                fail(f"{label}: the runner did not take the process group")
+            for stage in ("first", None):
+                got, want = (run[stage], plain[name][stage]) if stage else (run, plain[name])
+                if not same_run(got, want):
+                    fail(f"{label}: state or metrics differ from the plain fused run"
+                         f" {'after ' + str(GRAPHED_ITERATIONS) + ' iterations' if stage else 'after the replays'}")
+            if run["launches"] != plain[name]["launches"]:
+                fail(f"{label}: launched {run['launches']}, the plain fused run {plain[name]['launches']}")
+            steps = num_envs * RECURRENT_GRU256["num_steps_per_env"]
+            row[mode] = {"env_steps_per_s": run["steps_per_s"], "capture_s": run["capture_s"],
+                         "pool_bytes": run["pool_bytes"], "launches": run["launches"],
+                         "collectives_an_iteration": run["collectives_an_iteration"],
+                         "iteration_s_over_plain": steps / run["steps_per_s"] - steps / plain[name]["steps_per_s"]}
+            launches[label] = run["launches"]
+        row["bit_for_bit"] = True
+        row["card"] = smi
+        print("phase7d " + json.dumps(row), flush=True)
+    if device == "cuda":
+        time_graphed_sums(smi)
+    return launches
+
+
 def parallel_slices(smi, teacher_path, tmp, device="cuda", num_envs=NUM_ENVS) -> dict:
     """Phase 7; returns ``{slice: {kernel: launches}}``."""
     iters = PARALLEL_ITERATIONS
@@ -2141,6 +2384,10 @@ def parallel_slices(smi, teacher_path, tmp, device="cuda", num_envs=NUM_ENVS) ->
         print(f"{name}: initial weights perturbed by one part in 1e7 move the parameters by max {params:.3e}"
               f" and the policy outputs by max {outputs:.3e} after {iters} iterations")
 
+    # 7d's references: each slice's plain fused run, no process group
+    graphed_plain = {name: graphed_run(f"{name}_plain_fused", make, {"fuse_iteration": True}, expected, device)
+                     for name, (make, expected) in graphed_slices(teacher_path, device, num_envs).items()}
+
     # 7a: the data-parallel code in a process group of one (NCCL on the card)
     distributed_init(backend="nccl" if device == "cuda" else "gloo", init_method=f"file://{tmp}/group_of_one",
                      rank=0, world_size=1, device_id=torch.device(device, 0) if device == "cuda" else None)
@@ -2163,6 +2410,9 @@ def parallel_slices(smi, teacher_path, tmp, device="cuda", num_envs=NUM_ENVS) ->
     same = all(torch.equal(got["state"][k], v) for k, v in want["state"].items())
     print(f"nccl1_recurrent_gru256: metrics, parameters and moments within rtol 1e-5 / atol 1e-6 of the plain"
           f" runner's; bit for bit: {same}")
+    del runner
+    # 7d: graphed iterations on the mesh path, the collectives in the graph
+    launches.update(check_graphed_mesh(graphed_plain, teacher_path, smi, device, num_envs))
     torch.distributed.destroy_process_group()
 
     # 7b, 7c: two Gloo ranks on the one card, each its own process
@@ -2219,6 +2469,24 @@ def parallel_slices(smi, teacher_path, tmp, device="cuda", num_envs=NUM_ENVS) ->
                 for k in ("ep_count", "ep_length_sum"):
                     hold(name, sum(ranks[name][r]["history"][i]["metrics"][k] for r in range(PARALLEL_WORLD)),
                          w["metrics"][k], PARALLEL_TOL, f"iteration {i}: the ranks' {k}")
+    # the headline on two data ranks: every update's share of every
+    # minibatch the same, on both ranks (the layout's, not the draw's);
+    # the losses at the bf16 bars
+    name = "dp2_ppo_ff256x3_bf16"
+    alg = PPO_FF256X3_BF16["algorithm"]
+    mb = num_envs * PPO_FF256X3_BF16["num_steps_per_env"] // alg["num_mini_batches"]
+    want_rows = [-(-mb // PARALLEL_WORLD)] * (alg["num_mini_batches"] * alg["num_learning_epochs"])
+    for r in range(PARALLEL_WORLD):
+        rows = ranks[name][r]["local_minibatch_rows"]
+        if len(rows) != iters or any(u != want_rows for u in rows):
+            fail(f"{name} rank {r}: minibatch shares {rows}, expected {want_rows} in each of {iters} updates")
+        for i, (g, w) in enumerate(zip(ranks[name][r]["history"], refs["ppo_ff256x3_bf16"]["history"])):
+            for k, v in w["metrics"].items():
+                if k.startswith("Loss/"):
+                    err = hold(name, g["metrics"][k], v, BF16_FIRST_TOL if i == 0 else BF16_TOL,
+                               f"rank {r} iteration {i} {k}")
+                    print(f"{name} rank {r} iteration {i} {k}: max |diff| {err:.3e}")
+    print(f"{name}: minibatch shares {want_rows[0]} rows a rank in every minibatch of both updates")
     name = "tp2_ppo_ff256x3_bf16"
     for r in range(PARALLEL_WORLD):
         want = refs["ppo_ff256x3_bf16"]

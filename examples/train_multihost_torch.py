@@ -9,7 +9,9 @@ card of its ``LOCAL_RANK`` (NCCL), or the CPU with ``--device cpu`` (Gloo)::
 
 ``--num-envs`` is the global env count: each data rank steps its
 contiguous shard, and the losses and parameters are those of one process
-over all of them (``rsl_rl_tpu_torch/parallel``). Rank 0 alone prints,
+over all of them (``rsl_rl_tpu_torch/parallel``). Each rank replays its
+iteration as one CUDA graph (``fuse_iteration``), which needs NCCL: one
+rank a card. Rank 0 alone prints,
 writes the scalars and the git state and saves the checkpoints in
 ``--log-dir``. Without ``torchrun`` it trains in one process.
 """
@@ -30,14 +32,15 @@ from rsl_rl_tpu_torch.runners import OnPolicyRunner  # noqa: E402
 
 
 def train_cfg(seed: int) -> dict:
-    """``examples/train_multihost.py``'s config, trained split (whole-iteration
-    dispatch is not ported to a mesh)."""
+    """``examples/train_multihost.py``'s config: each iteration one CUDA
+    graph a rank, its NCCL collectives inside (on the CPU it runs eagerly)."""
     return {
         "num_steps_per_env": 24,
         "save_interval": 100,
         "seed": seed,
         "obs_groups": {"policy": ["policy"], "critic": ["policy"]},
         "logger": "tensorboard",
+        "fuse_iteration": True,
         "policy": {
             "class_name": "ActorCritic",
             "actor_obs_normalization": True,

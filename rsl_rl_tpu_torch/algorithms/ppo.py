@@ -39,11 +39,15 @@ one process over all of them, as the JAX package's global programs keep it.
 The action noise is drawn for every env from the shared generator and each
 rank keeps its rows; the normalizers and the advantage whitening take the
 global moments; a minibatch is the global one (a slice of the global
-permutation, or of the global env axis) and each rank replays the rows it
-owns, every loss mean its local sum over the global count, so the gradients
-and the loss metrics summed over the data group (one collective a
-minibatch) are the global ones. A rank that owns none of a minibatch joins
-the sum with zeros and launches no replay.
+permutation, or of the global env axis) and each rank replays a share of
+it fixed by the layout (:func:`dp_minibatches`: the rows of its envs of a
+recurrent minibatch; its fixed rows of each slice of the permutation, over
+the window rows the data group gathers once an update), every loss mean
+its local sum over the global count, so the gradients and the loss metrics
+summed over the data group (one collective a minibatch) are the global
+ones. A rank with no share of a minibatch joins the sum with zeros and
+launches no replay. No count depends on a draw, so an iteration on a mesh
+is captured as one CUDA graph as it is in one process.
 """
 
 from __future__ import annotations
@@ -251,7 +255,8 @@ def pack_minibatch_rows(rollout: Rollout, returns, advantages, perm):
 
     The reference draws one permutation of the ``T*N`` rows and reuses it in
     every epoch, so the update gathers the rows once and hands out
-    contiguous slices. Columns, in order: the obs groups by sorted name,
+    contiguous slices (``perm`` None: the rows in the window's order).
+    Columns, in order: the obs groups by sorted name,
     ``actions``, ``values``, ``returns``, ``advantages``, ``log_probs``,
     ``mu``, ``sigma``. With a leading seed axis (``perm [G, n]``, every
     field ``[G, T, N, ...]``) each seed gathers its own rows: ``packed [G,
@@ -259,7 +264,7 @@ def pack_minibatch_rows(rollout: Rollout, returns, advantages, perm):
     back into the batch dict, each field in its own dtype (scalar fields
     ``[..., B]``), with no ``resets``.
     """
-    lead = tuple(perm.shape[:-1])
+    lead = () if perm is None else tuple(perm.shape[:-1])
     T, N = rollout.num_steps, rollout.num_envs
     obs_keys = sorted(rollout.obs)
     columns = [("obs." + k, rollout.obs[k]) for k in obs_keys] + [
@@ -272,7 +277,9 @@ def pack_minibatch_rows(rollout: Rollout, returns, advantages, perm):
         flat = v.reshape(*lead, T * N, -1)
         layout.append((name, flat.shape[-1], tuple(v.shape[len(lead) + 2:]), v.dtype))
         flats.append(flat.to(torch.float32))
-    packed = torch.take_along_dim(torch.cat(flats, dim=-1), perm.to(torch.int64)[..., None], dim=-2)
+    packed = torch.cat(flats, dim=-1)
+    if perm is not None:
+        packed = torch.take_along_dim(packed, perm.to(torch.int64)[..., None], dim=-2)
 
     def unpack(rows):
         out, off = {}, 0
@@ -316,12 +323,17 @@ def dp_minibatches(policy, rollout: Rollout, returns, advantages, num_mini_batch
                    perm, mesh):
     """:func:`minibatches` of the data group's window on this data rank:
     every global minibatch of every epoch in order, as ``(batch, carry0,
-    n_local, n_global)``, ``batch`` the rows of it this rank owns (None when
-    it owns none) and ``n_local`` / ``n_global`` their count and the
-    minibatch's along the batch axis. Recurrent: the global env slice cut to
-    this rank's envs. Feedforward: the rows of the slice of the global
-    permutation ``perm`` (over the ``T x N_global`` window) that fall in
-    this rank's envs, in the permutation's order."""
+    n_local, n_global)``, ``batch`` this rank's rows of it (None when it
+    has none) and ``n_local`` / ``n_global`` their count and the
+    minibatch's along the batch axis. Every count is fixed by the layout,
+    none by the draw, so a captured iteration replays it.
+
+    Recurrent: the global env slice cut to this rank's envs. Feedforward:
+    the data group's window rows gathered once (``mesh.data_gather``, in
+    the global ``[T, N_global]`` order that ``perm`` indexes), then the
+    fixed rows ``[r s, (r + 1) s)`` of every global minibatch of ``mb``
+    rows, ``s = ceil(mb / W)`` for data rank ``r`` of ``W``: the last
+    ranks' shares end at ``mb``."""
     N = rollout.num_envs
     N_global, offset = N * mesh.data_size, mesh.data_rank * N
     if policy.is_recurrent:
@@ -335,16 +347,15 @@ def dp_minibatches(policy, rollout: Rollout, returns, advantages, num_mini_batch
                 yield (slice_envs(data, lo - offset, hi - lo, axis=1),
                        slice_envs(rollout.carry0, lo - offset, hi - lo, axis=0), hi - lo, nb)
         return
-    perm = perm.to(torch.int64)
-    t, env = perm // N_global, perm % N_global
-    own = (env >= offset) & (env < offset + N)
     mb = perm.shape[-1] // num_mini_batches
-    counts = own.view(num_mini_batches, mb).sum(dim=1).tolist()
-    packed, unpack = pack_minibatch_rows(rollout, returns, advantages, (t * N + env - offset)[own])
-    starts = np.cumsum([0] + counts[:-1]).tolist()
+    share = -(-mb // mesh.data_size)
+    lo, hi = min(mesh.data_rank * share, mb), min((mesh.data_rank + 1) * share, mb)
+    n = hi - lo
+    packed, unpack = pack_minibatch_rows(rollout, returns, advantages, None)
+    window = mesh.data_gather(packed.view(rollout.num_steps, N, -1), dim=1).view(rollout.num_steps * N_global, -1)
+    rows = window.index_select(0, perm.to(torch.int64).view(num_mini_batches, mb)[:, lo:hi].reshape(-1))
     for i in list(range(num_mini_batches)) * num_epochs:
-        n = counts[i]
-        yield (unpack(packed.narrow(0, starts[i], n)) if n else None), (), n, mb
+        yield (unpack(rows.narrow(0, i * n, n)) if n else None), (), n, mb
 
 
 def adapt_lr(lr, kl_mean, desired_kl: float, min_lr: float, max_lr: float):
@@ -802,9 +813,9 @@ class PPO(Trainer):
         ``perm`` (feedforward only) is the permutation of the window's rows,
         drawn from the algorithm's generator when not given (to replay
         another implementation's); on a mesh, of the global window's rows
-        ``[T, N_global]``, and the update is the data group's: each global
-        minibatch's rows this rank owns (:func:`dp_minibatches`), their loss
-        with every mean over the global count."""
+        ``[T, N_global]``, and the update is the data group's: this rank's
+        fixed share of each global minibatch (:func:`dp_minibatches`), its
+        loss with every mean over the global count."""
         policy = self.policy
         with torch.no_grad():
             # advances the critic memory, like the reference's stateful evaluate
@@ -831,14 +842,15 @@ class PPO(Trainer):
         for batch, carry0, n_local, n_global in batches:
             if mesh is not None:
                 # the global count of the minibatch's advantages, and this
-                # rank's share of it (the loss means' divisor)
+                # rank's share of it (the loss means' divisor), both fixed
+                # by the layout
                 self._adv_count = (rollout.num_steps if policy.is_recurrent else 1) * n_global
                 self._batch_ratio = n_global / max(n_local, 1)
             if n_local:
                 loss, aux = self._loss(batch, carry0)
                 grads = list(torch.autograd.grad(loss, params))
             else:
-                # a rank that owns none of the minibatch adds zeros (and
+                # a rank with no share of the minibatch adds zeros (and
                 # sums zeros into the per-minibatch advantage statistics)
                 if self.normalize_advantage_per_mini_batch:
                     global_mean_std(torch.zeros(0, device=self.device), mesh, self._adv_count)

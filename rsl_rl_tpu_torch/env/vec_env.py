@@ -21,6 +21,7 @@ from the JAX package's threefry draws for the same seed.
 from __future__ import annotations
 
 import abc
+import copy
 from dataclasses import dataclass
 
 import torch
@@ -45,10 +46,12 @@ def as_episode_length(value, device: torch.device | str = "cpu") -> int | torch.
     return torch.as_tensor(value, dtype=torch.int32, device=device)
 
 
-def check_episode_length(value, num_envs: int) -> None:
-    """A per-env ``max_episode_length`` must cover every env of the state."""
-    if isinstance(value, torch.Tensor) and value.numel() != num_envs:
-        raise ValueError(f"max_episode_length has {value.numel()} entries for {num_envs} envs")
+def check_episode_length(value, num_envs: int, num_global: int | None = None) -> None:
+    """A per-env ``max_episode_length`` must cover every env of the state
+    (or, with ``num_global``, every env of the global count it is cut from)."""
+    if isinstance(value, torch.Tensor) and value.numel() not in (num_envs, num_global):
+        whole = "" if num_global in (None, num_envs) else f" (nor for the global {num_global})"
+        raise ValueError(f"max_episode_length has {value.numel()} entries for {num_envs} envs{whole}")
 
 
 class VecEnv(abc.ABC):
@@ -65,6 +68,20 @@ class VecEnv(abc.ABC):
         """Initialize ``num_envs`` envs (default ``self.num_envs``), their
         random keys derived from ``seed`` and their global index from
         ``env_offset`` on (a data-parallel rank resets its shard)."""
+
+    def shard(self, env_offset: int, num_envs: int) -> "VecEnv":
+        """The env that resets and steps the envs ``env_offset ..
+        env_offset + num_envs`` of this one (a data rank's shard): itself,
+        unless ``max_episode_length`` is per env over this env's
+        ``num_envs``, which the shard's copy (shallow) holds as its slice. A
+        per-env limit of neither count raises ``ValueError``."""
+        limit = self.max_episode_length
+        check_episode_length(limit, num_envs, self.num_envs)
+        if not isinstance(limit, torch.Tensor) or limit.numel() == num_envs:
+            return self
+        part = copy.copy(self)
+        part.max_episode_length = limit[env_offset:env_offset + num_envs]
+        return part
 
     @abc.abstractmethod
     def step(

@@ -122,6 +122,14 @@ class Mesh:
         dist.all_gather(parts, t.contiguous(), group=self.model_group)
         return torch.cat(parts, dim=dim)
 
+    def data_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Concatenate the data group's ``t`` along ``dim`` in data-rank order."""
+        if self.data_group is None:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.data_size)]
+        dist.all_gather(parts, t.contiguous(), group=self.data_group)
+        return torch.cat(parts, dim=dim)
+
     def data_broadcast_(self, t: torch.Tensor) -> torch.Tensor:
         """Overwrite ``t`` with data rank 0's, in place; returns ``t``."""
         if self.data_group is not None and self.data_size > 1:

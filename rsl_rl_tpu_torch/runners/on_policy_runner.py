@@ -33,9 +33,12 @@ rank's shard, reset with ``seed + data rank``; the global count is
 (``PPO.distribute``), so a run's losses and parameters are those of one
 process over the global envs. Rank 0 alone logs, writes the git state and
 writes checkpoints (every rank takes part in a save, whose tensor-parallel
-slices are gathered); every rank runs an evaluation. Whole-iteration
-dispatch on a mesh raises ``NotImplementedError``, and tensor parallelism
-with a host env ``ValueError``.
+slices are gathered); every rank runs an evaluation. A device env's per-env
+``max_episode_length`` over the global envs is cut to the rank's shard
+(``VecEnv.shard``, the runner's ``step_env``). ``fuse_iteration`` and
+``iterations_per_dispatch`` run on a mesh of device envs as in one process
+(NCCL groups on the card, ``runners/training_loop.py``); tensor parallelism
+with a host env raises ``ValueError``.
 
 The deprecated ``empirical_normalization`` key maps onto the
 policy's ``actor_obs_normalization`` / ``critic_obs_normalization`` where
@@ -120,9 +123,13 @@ class OnPolicyRunner(TrainingLoop):
             #: the global env count; this rank steps its shard
             self.num_global_envs = env.num_envs
             offset, num_envs = (0, env.num_envs) if self.mesh is None else local_slice(self.mesh, env.num_envs)
-            env_state, obs = env.reset(seed, num_envs=num_envs, env_offset=offset)
+            #: the env this rank resets and steps: on a mesh its shard, which
+            #: holds its slice of a per-env ``max_episode_length``
+            self.step_env = env if self.mesh is None else env.shard(offset, num_envs)
+            env_state, obs = self.step_env.reset(seed, num_envs=num_envs, env_offset=offset)
         else:
             self.num_global_envs, num_envs = env.num_envs * data_size, env.num_envs
+            self.step_env = env
             env_state = ()
             # each data rank's shard explores from its own seed
             rank_seed = seed + (0 if self.mesh is None else self.mesh.data_rank)
@@ -174,7 +181,7 @@ class OnPolicyRunner(TrainingLoop):
         self._prepare_logging_writer()
         if init_at_random_ep_len:
             if self.is_jax_env:
-                self.collect_state.env_state = self.env.randomize_episode_length(self.collect_state.env_state)
+                self.collect_state.env_state = self.step_env.randomize_episode_length(self.collect_state.env_state)
             else:
                 self._randomize_host_episode_length()
         start_iter = self.current_learning_iteration
@@ -204,7 +211,7 @@ class OnPolicyRunner(TrainingLoop):
     def _split_iteration(self):
         start = time.perf_counter()
         if self.is_jax_env:
-            cs, rollout, cm = self.alg.collect(self.env, self.collect_state, self.num_steps_per_env)
+            cs, rollout, cm = self.alg.collect(self.step_env, self.collect_state, self.num_steps_per_env)
         else:
             cs, rollout, cm = self.host_collect(self.collect_state)
         self._sync()
@@ -228,7 +235,7 @@ class OnPolicyRunner(TrainingLoop):
         self.collect_state = cs
 
     def _graph_step(self, cs):
-        cs, rollout, cm = self.alg.collect(self.env, cs, self.num_steps_per_env)
+        cs, rollout, cm = self.alg.collect(self.step_env, cs, self.num_steps_per_env)
         cs, um = self.alg.update(cs, rollout)
         return cs, {**cm, **um}
 

@@ -33,9 +33,15 @@ tot_iter, metrics, collection_s, learn_s)``, ``save(path)`` and
 ``_run_eval(it)``.
 
 On a mesh (``parallel/``; the runner's ``mesh``) rank 0 alone writes the
-scalars and the git state (``disable_logs`` elsewhere), and whole-iteration
-dispatch raises ``NotImplementedError``: a rank's share of a global
-minibatch varies from one to the next, which a captured iteration cannot.
+scalars and the git state (``disable_logs`` elsewhere). Whole-iteration
+dispatch runs there too, as the JAX runner's jit over the sharded state
+does: each rank captures its own graph, whose collectives (NCCL on the
+card) are captured with it, and the ranks replay in lockstep, issuing the
+same collectives in the same order; saves, evaluations and the git state
+happen at group boundaries, outside the graph. On CUDA a group of another
+backend (Gloo stages its collectives through the host) raises
+``ValueError``, as does a host env asked to fuse: nothing falls back to
+eager.
 """
 
 from __future__ import annotations
@@ -45,11 +51,28 @@ import time
 import warnings
 
 import torch
+import torch.distributed as dist
 
 import rsl_rl_tpu_torch
 from rsl_rl_tpu_torch.utils.cuda_graph import IterationGraph
 from rsl_rl_tpu_torch.utils.git_state import store_code_state
 from rsl_rl_tpu_torch.utils.writers import make_writer
+
+
+def check_graph_backends(mesh, device: torch.device) -> None:
+    """A fused iteration on ``mesh`` captures its collectives: on CUDA every
+    process group of the mesh must be NCCL. Raises ``ValueError`` naming the
+    backend of one that is not (Gloo stages its collectives through the
+    host, which a CUDA graph cannot capture)."""
+    if torch.device(device).type != "cuda":
+        return
+    for group in (mesh.data_group, mesh.model_group):
+        backend = None if group is None else dist.get_backend(group)
+        if backend not in (None, "nccl"):
+            raise ValueError(
+                f"fuse_iteration / iterations_per_dispatch > 1 on CUDA needs NCCL process groups, and this mesh's"
+                f" group is {backend}: its collectives stage through the host, which a CUDA graph cannot capture."
+                " Initialize the group with backend='nccl' (one rank a card), or train split.")
 
 
 class TrainingLoop:
@@ -72,6 +95,10 @@ class TrainingLoop:
         self.eval_interval = int(self.cfg.get("eval_interval") or 0)
         if not getattr(self.env, "is_jax", True):
             # a host env steps on the host: no iteration is one device program
+            if self.fuse_iteration and mesh is not None and self.device.type == "cuda":
+                raise ValueError("fuse_iteration / iterations_per_dispatch > 1 with a host env on a CUDA mesh: the"
+                                 " host env steps on the host between device steps, so its iteration is no CUDA"
+                                 " graph and the runner trains split. Leave fuse_iteration unset.")
             if self.iterations_per_dispatch > 1:
                 raise ValueError("iterations_per_dispatch > 1 requires a functional (device) env: host envs"
                                  " step on the host, so iterations cannot batch into one device program.")
@@ -81,10 +108,7 @@ class TrainingLoop:
                                  " get_inference_policy()).")
             self.fuse_iteration = False
         if self.fuse_iteration and mesh is not None:
-            raise NotImplementedError(
-                f"fuse_iteration / iterations_per_dispatch > 1 on a mesh of {mesh.size} rank(s) is not ported: a"
-                " rank's share of a global minibatch varies, which a CUDA graph cannot capture (ROADMAP.md,"
-                " graphed data-parallel iterations). Train split (the default) on a mesh.")
+            check_graph_backends(mesh, self.device)
         if self.eval_interval > 0:
             if log_dir is None:
                 # evaluation runs where its scalars have somewhere to go

@@ -24,6 +24,11 @@ counters (``ops/rnn_common.py`` ``LaunchCounts``) count in the Python
 wrappers, which a replay does not run: the counts that the capture added are
 taken back, and every replay adds them again.
 
+On a mesh the iteration's collectives are captured with it: each rank
+captures its own graph after a warm-up whose collectives create the NCCL
+communicators, and the ranks' replays issue the same collectives in the
+same order.
+
 On the CPU the same in-place callable runs eagerly.
 """
 

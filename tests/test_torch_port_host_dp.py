@@ -30,6 +30,8 @@ from tests.torch_port_dist_worker import ppo_cfg, run_scenario, spawn
 from tests.torch_port_host_env_double import ShardableHostEnv
 
 HOST = ("host_ff", "host_gru", "host_distill")
+#: a host env asked to fuse on the CPU mesh: its runner trains split
+FUSED_HOST = "host_ff_fused"
 GLOBAL_BAR = {"rtol": 1e-5, "atol": 1e-6}
 STATE_BAR = {"rtol": 3e-4, "atol": 3e-5}
 EPISODE_KEYS = ("ep_reward_sum", "ep_length_sum", "ep_ereward_sum", "ep_ireward_sum", "ep_count")
@@ -37,7 +39,7 @@ EPISODE_KEYS = ("ep_reward_sum", "ep_length_sum", "ep_ereward_sum", "ep_ireward_
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    ranks = spawn(str(tmp_path_factory.mktemp("host_dp")), list(HOST), world=2, timeout=300)
+    ranks = spawn(str(tmp_path_factory.mktemp("host_dp")), [*HOST, FUSED_HOST], world=2, timeout=300)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -67,6 +69,19 @@ def test_bridged_ranks_equal_one_process(runs, name):
     for k, w in want["state"].items():
         assert torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]), f"{name}: the ranks' {k} differ"
         _close(ranks[0]["state"][k], w, STATE_BAR, f"{name}: {k}")
+
+
+def test_fused_host_runner_on_the_mesh_trains_split(runs):
+    """``fuse_iteration`` with a host env on the CPU mesh: the host env steps
+    on the host, so the runner trains split (on the card it raises
+    ``ValueError``, ``runners/training_loop.py``), equal to the split run
+    bit for bit on each rank."""
+    for r in range(2):
+        got, want = runs[0][FUSED_HOST][r], runs[0]["host_ff"][r]
+        assert got["fuse_iteration"] is False and got["iteration_graph"] is None
+        assert got["losses"] == want["losses"]
+        for k, v in want["state"].items():
+            assert torch.equal(got["state"][k], v), f"rank {r} {k}"
 
 
 def test_shard_composability_of_double():

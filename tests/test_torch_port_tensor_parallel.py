@@ -22,6 +22,8 @@ sharding is placement, never math.
 - A one-process checkpoint loads into the two ranks and theirs, gathered,
   into one process; a model axis that does not divide the ranks raises
   ``must divide``.
+- The fused and K=2 iterations of the cut-down headline on the two model
+  ranks equal its split run bit for bit.
 """
 
 import contextlib
@@ -79,7 +81,7 @@ def runs(tmp_path_factory):
         return runner
 
     saved = _quiet(one_rank_checkpoint)
-    ranks = spawn(str(out), [*TP, "tp_grads_bf16", "tp_checkpoint"], world=2, timeout=300)
+    ranks = spawn(str(out), [*TP, "tp_grads_bf16", "tp_checkpoint", "fused_tp_headline"], world=2, timeout=300)
     one = {name: _quiet(run_scenario, name, 1, str(out)) for name in (*TP, "tp_grads_bf16")}
     return {"ranks": ranks, "one": one, "dir": out, "saved": saved}
 
@@ -206,3 +208,17 @@ def test_checkpoints_cross_topologies(runs):
     for k, v in one.alg.policy.state_dict().items():
         assert torch.equal(v, ranks[0]["state"][k]), k
     assert one.current_learning_iteration == ranks[0]["iteration"]
+
+
+def test_fused_and_k2_headline_equal_the_split_run(runs):
+    """The headline's shape cut down (bf16 trunks [16, 16, 16]) on two model
+    ranks with ``fuse_iteration`` and ``iterations_per_dispatch: 2``: the
+    row-parallel sums inside the fused iteration, every state tensor (the
+    parameter slices, the sliced optimizer moments) and every metric of 3
+    iterations equal to the split run's bit for bit, on each rank."""
+    for r, res in enumerate(runs["ranks"]["fused_tp_headline"]):
+        for mode in ("fused", "k2"):
+            assert len(res[mode]["tensors"]) == len(res["split"]["tensors"])
+            for i, (a, b) in enumerate(zip(res[mode]["tensors"], res["split"]["tensors"])):
+                assert torch.equal(a, b), f"rank {r} {mode}: state tensor {i} differs"
+            assert res[mode]["losses"] == res["split"]["losses"], f"rank {r} {mode}: the metrics differ"

@@ -40,10 +40,11 @@ from rsl_rl_tpu_torch.parallel import (  # noqa: E402
 )
 from rsl_rl_tpu_torch.parallel.mesh import global_mean, global_mean_std, global_sum, local_slice  # noqa: E402
 from rsl_rl_tpu_torch.parallel.tp import gather_tree_tp, shard_module_tp  # noqa: E402
-from rsl_rl_tpu_torch.runners import OnPolicyRunner  # noqa: E402
+from rsl_rl_tpu_torch.runners import DistillationRunner, OnPolicyRunner  # noqa: E402
+from rsl_rl_tpu_torch.runners.training_loop import check_graph_backends  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from chip_smoke import full_state  # noqa: E402
+from chip_smoke import full_state, run_state  # noqa: E402
 from tests.torch_port_host_env_double import ShardableHostEnv  # noqa: E402
 
 N_GLOBAL, T, LINKS, ITERATIONS = 16, 8, 2, 2
@@ -115,6 +116,28 @@ def dp_options(world):
     return train(PointMass(N_GLOBAL, max_episode_length=6, device="cpu"), cfg)
 
 
+#: a per-env ``max_episode_length`` over the 16 global envs: each rank's
+#: shard holds short and long limits
+LIMITS = [3, 5, 4, 7, 6, 9, 5, 3, 8, 4, 6, 5, 7, 3, 9, 4]
+
+
+def dp_ff_odd(world):
+    """Feedforward PPO with 5 minibatches of 25 of the window's 128 rows: on
+    two ranks each replays 13 and 12 rows of each."""
+    return train(NLinkPendulum(N_GLOBAL, LINKS, max_episode_length=6, device="cpu"),
+                 ppo_cfg(algorithm={"num_mini_batches": 5}))
+
+
+def dp_ff_limits(world):
+    """Feedforward PPO on 16 NLink envs with a per-env ``max_episode_length``
+    (:data:`LIMITS`), the episode lengths scattered first
+    (``init_at_random_ep_len``): each rank steps its shard's slice."""
+    runner = OnPolicyRunner(NLinkPendulum(N_GLOBAL, LINKS, max_episode_length=torch.tensor(LIMITS), device="cpu"),
+                            ppo_cfg(), device="cpu")
+    runner.learn(ITERATIONS, init_at_random_ep_len=True)
+    return runner_result(runner)
+
+
 def _host_env(world):
     rank, _ = rank_world()
     n = N_GLOBAL // world
@@ -124,6 +147,14 @@ def _host_env(world):
 def host_ff(world):
     """Feedforward PPO through the bridge: each rank steps its shard."""
     return train(_host_env(world), ppo_cfg())
+
+
+def host_ff_fused(world):
+    """:func:`host_ff` asked to fuse: the runner trains split."""
+    runner = OnPolicyRunner(_host_env(world), ppo_cfg(fuse_iteration=True), device="cpu")
+    runner.learn(ITERATIONS)
+    return {**runner_result(runner), "fuse_iteration": runner.fuse_iteration,
+            "iteration_graph": runner.iteration_graph}
 
 
 def host_gru(world):
@@ -282,7 +313,9 @@ def window_tp(world, out_dir=None):
 def refusals(world):
     """What a two-rank layout refuses, each named: a model axis that does
     not divide the ranks, a global env count the data axis does not divide,
-    whole-iteration dispatch on a mesh, tensor parallelism on a host env."""
+    a per-env episode limit of neither the shard's nor the global count,
+    a fused iteration on CUDA over this Gloo group, tensor parallelism on a
+    host env."""
     env = NLinkPendulum(N_GLOBAL, LINKS, device="cpu")
     cases = {
         "make_tp_mesh(3)": (ValueError, lambda: make_tp_mesh(3)),
@@ -290,10 +323,10 @@ def refusals(world):
                                                                       device="cpu")),
         "15 envs": (ValueError, lambda: OnPolicyRunner(NLinkPendulum(15, LINKS, device="cpu"), ppo_cfg(),
                                                        device="cpu")),
-        "fuse_iteration": (NotImplementedError, lambda: OnPolicyRunner(env, ppo_cfg(fuse_iteration=True),
-                                                                       device="cpu")),
-        "iterations_per_dispatch: 2": (NotImplementedError, lambda: OnPolicyRunner(
-            env, ppo_cfg(iterations_per_dispatch=2), device="cpu")),
+        "max_episode_length of 12 envs": (ValueError, lambda: OnPolicyRunner(
+            NLinkPendulum(N_GLOBAL, LINKS, max_episode_length=torch.arange(4, 16), device="cpu"), ppo_cfg(),
+            device="cpu")),
+        "fused on cuda over gloo": (ValueError, lambda: check_graph_backends(make_mesh(), torch.device("cuda"))),
         "host env, model_parallel_size: 2": (ValueError, lambda: OnPolicyRunner(
             _host_env(world), ppo_cfg(model_parallel_size=2), device="cpu")),
     }
@@ -307,17 +340,19 @@ def refusals(world):
     return {"messages": out}
 
 
-def jax_parity(world, out_dir=None, model_parallel=False):
+def jax_parity(world, out_dir=None, model_parallel=False, inputs_file="jax_inputs.pt"):
     """PPO on a mesh with the JAX run's draws (``jax_inputs.pt``, made by the
     test from the JAX package's 2-device run): the weights and normalizers
     carried across, each iteration's global action noise and permutation
     injected, this rank's shard of the env state (with ``model_parallel``,
     one data rank whose trunks are sliced over the ranks). No episode ends
     inside the windows, so the env's own draws do not matter."""
-    inputs = torch.load(os.path.join(out_dir, "jax_inputs.pt"), weights_only=False)
-    env = NLinkPendulum(N_GLOBAL, inputs["links"], max_episode_length=1000, device="cpu")
+    inputs = torch.load(os.path.join(out_dir, inputs_file), weights_only=False)
+    env = NLinkPendulum(N_GLOBAL, inputs["links"], max_episode_length=inputs.get("max_episode_length", 1000),
+                        device="cpu")
     mesh = None if world == 1 else make_tp_mesh(world) if model_parallel else make_mesh()
     offset, n = (0, N_GLOBAL) if mesh is None else local_slice(mesh, N_GLOBAL)
+    env = env.shard(offset, n)
     state, _ = env.reset(0, num_envs=n, env_offset=offset)
     state.theta, state.omega = (inputs[k][offset:offset + n].clone() for k in ("theta", "omega"))
     state.episode_length = inputs["episode_length"][offset:offset + n].clone()
@@ -340,11 +375,166 @@ def jax_parity_tp(world, out_dir=None):
     return jax_parity(world, out_dir, model_parallel=True)
 
 
-SCENARIOS = {f.__name__: f for f in (dp_ff, dp_gru, dp_options, dp_distill, host_ff, host_gru, host_distill, tp_ff,
-                                     tp_ff_bf16, tp_grads_bf16, tp_gru, tp_checkpoint, collectives, refusals,
-                                     jax_parity, jax_parity_tp, window_dp, window_tp)}
+def jax_parity_limits(world, out_dir=None):
+    """:func:`jax_parity` on ``jax_limits_inputs.pt``: a per-env
+    ``max_episode_length`` whose short limits end episodes at the last step
+    of the last window (the timeout bootstrap and GAE's cut; no reset obs
+    reaches the update), obs normalization off."""
+    return jax_parity(world, out_dir, inputs_file="jax_limits_inputs.pt")
+
+
+# ------------------------------------------------- fused iterations on the mesh
+
+#: the runner keys of the dispatch modes, split first
+DISPATCH = {"split": {}, "fused": {"fuse_iteration": True}, "k2": {"iterations_per_dispatch": 2}}
+FUSED_ITERATIONS = 3
+
+
+def distill_cfg(**keys) -> dict:
+    """The GRU student on NLink's policy obs, its teacher the MLP of
+    :func:`save_teacher`."""
+    return {"num_steps_per_env": T, "save_interval": 100, "seed": 2,
+            "obs_groups": {"policy": ["policy"], "teacher": ["policy"]},
+            "policy": {"class_name": "StudentTeacherRecurrent", "rnn_type": "gru", "rnn_hidden_dim": 8,
+                       "student_hidden_dims": [16], "teacher_hidden_dims": [16],
+                       "student_obs_normalization": True, "teacher_obs_normalization": True},
+            "algorithm": {"class_name": "Distillation", "gradient_length": 3, "max_grad_norm": 1.0}, **keys}
+
+
+def save_teacher(out_dir) -> str:
+    """A feedforward PPO checkpoint (one process, one iteration) that
+    :func:`distill_cfg`'s student loads as its teacher: ``teacher.pt``."""
+    runner = OnPolicyRunner(NLinkPendulum(N_GLOBAL, LINKS, max_episode_length=6, device="cpu"),
+                            ppo_cfg(hidden=(16,)), device="cpu")
+    runner.learn(1)
+    path = os.path.join(out_dir, "teacher.pt")
+    runner.save(path)
+    return path
+
+
+def _dispatch_modes(make) -> dict:
+    """``make(runner keys)`` trained split, fused and at K=2 for
+    :data:`FUSED_ITERATIONS`: ``{mode: {"losses", "tensors"}}``."""
+    out = {}
+    for mode, keys in DISPATCH.items():
+        runner = make(keys)
+        runner.learn(FUSED_ITERATIONS)
+        # this rank's state: under tensor parallelism its slices
+        out[mode] = {"losses": [row["metrics"] for row in runner.history], "tensors": run_state(runner)}
+    return out
+
+
+def _nlink():
+    return NLinkPendulum(N_GLOBAL, LINKS, max_episode_length=6, device="cpu")
+
+
+def fused_ff(world):
+    """Feedforward PPO split, fused and at K=2 on the mesh."""
+    return _dispatch_modes(lambda keys: OnPolicyRunner(_nlink(), ppo_cfg(**keys), device="cpu"))
+
+
+def fused_gru(world):
+    """GRU PPO split, fused and at K=2 on the mesh."""
+    return _dispatch_modes(lambda keys: OnPolicyRunner(_nlink(), ppo_cfg(recurrent=True, **keys), device="cpu"))
+
+
+def fused_distill(world, out_dir=None):
+    """The GRU student's distillation through the runner on the device env
+    (``teacher.pt`` loaded), split, fused and at K=2."""
+    def make(keys):
+        runner = DistillationRunner(_nlink(), distill_cfg(**keys), device="cpu")
+        runner.load(os.path.join(out_dir, "teacher.pt"))
+        return runner
+
+    return _dispatch_modes(make)
+
+
+def fused_tp_headline(world):
+    """The headline's shape cut down (bf16 trunks [16, 16, 16], fp32 heads)
+    on ``world`` model ranks, split, fused and at K=2."""
+    return _dispatch_modes(lambda keys: OnPolicyRunner(
+        _nlink(), ppo_cfg(hidden=(16, 16, 16), dtype=torch.bfloat16, model_parallel_size=world, **keys),
+        device="cpu"))
+
+
+def train_state(runner) -> dict:
+    """The checkpointed training state: the full policy state, the
+    optimizer's moments and count, the learning rate."""
+    opt = runner.alg.optimizer_state()
+    return {"policy": full_state(runner.alg), "mu": {k: v.clone() for k, v in opt["mu"].items()},
+            "nu": {k: v.clone() for k, v in opt["nu"].items()}, "count": opt["count"].clone(),
+            "lr": runner.alg.lr.clone()}
+
+
+def fused_resume(world, out_dir=None):
+    """K=2 on the mesh with a ``log_dir``: 4 iterations save ``model_1.pt``
+    and ``model_3.pt`` at the groups' ends (rank 0 writes); a fresh K=2
+    runner resumes from ``model_1.pt`` and trains 2 more. Returns the state
+    it loaded, that of a 2-iteration K=2 run, and what the resume logged."""
+    cfg = ppo_cfg(iterations_per_dispatch=2, save_interval=2)
+    log_dir = os.path.join(out_dir, "resume")
+    OnPolicyRunner(_nlink(), cfg, log_dir=log_dir, device="cpu").learn(4)
+    two = OnPolicyRunner(_nlink(), cfg, device="cpu")
+    two.learn(2)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()  # rank 0 has written the checkpoints
+    resumed = OnPolicyRunner(_nlink(), cfg, device="cpu")
+    resumed.load(os.path.join(log_dir, "model_1.pt"))
+    loaded = train_state(resumed)
+    start = resumed.current_learning_iteration
+    resumed.learn(2)
+    return {"loaded": loaded, "two": train_state(two), "start": start,
+            "logged": [row["iteration"] for row in resumed.history], "files": sorted(os.listdir(log_dir))}
+
+
+class InjectedRunner(OnPolicyRunner):
+    """A runner whose fused iteration ``i`` takes the action noise and
+    permutation ``draws["noise"][i]`` / ``draws["perm"][i]`` (another
+    implementation's). The iteration counter is a Python int, so this runs
+    only where the fused iteration runs eagerly: on the CPU."""
+
+    draws: dict
+    drawn = 0
+
+    def _graph_step(self, cs):
+        i, self.drawn = self.drawn, self.drawn + 1
+        cs, rollout, cm = self.alg.collect(self.step_env, cs, self.num_steps_per_env,
+                                           action_noise=self.draws["noise"][i])
+        cs, um = self.alg.update(cs, rollout, perm=self.draws["perm"][i])
+        return cs, {**cm, **um}
+
+
+def jax_parity_fused(world, out_dir=None):
+    """A fused ``OnPolicyRunner`` on the mesh with the JAX fused runner's
+    start (``jax_fused_inputs.pt``, made by the test from the JAX package's
+    2-device ``fuse_iteration`` runner): its weights and normalizers, this
+    rank's shard of the env state and obs, each iteration's global action
+    noise and permutation. No episode ends inside the windows."""
+    inputs = torch.load(os.path.join(out_dir, "jax_fused_inputs.pt"), weights_only=False)
+    cfg = {"num_steps_per_env": inputs["num_steps"], "save_interval": 100, "seed": 1, "obs_groups": GROUPS,
+           "fuse_iteration": True, "policy": {"class_name": "ActorCritic", **inputs["policy_kw"]},
+           "algorithm": {"class_name": "PPO", **inputs["ppo_kw"]}}
+    runner = InjectedRunner(NLinkPendulum(N_GLOBAL, inputs["links"], max_episode_length=1000, device="cpu"), cfg,
+                            device="cpu")
+    runner.draws = inputs
+    runner.alg.policy.load_state_dict(inputs["state"])
+    offset, n = (0, N_GLOBAL) if runner.mesh is None else local_slice(runner.mesh, N_GLOBAL)
+    cs = runner.collect_state
+    for k in ("theta", "omega", "episode_length"):
+        setattr(cs.env_state, k, inputs[k][offset:offset + n].clone())
+    cs.obs = {k: v[offset:offset + n].clone() for k, v in inputs["obs"].items()}
+    runner.learn(len(inputs["noise"]))
+    return {"losses": [row["metrics"] for row in runner.history], "state": full_state(runner.alg)}
+
+
+SCENARIOS = {f.__name__: f for f in (dp_ff, dp_gru, dp_options, dp_distill, dp_ff_odd, dp_ff_limits, host_ff,
+                                     host_ff_fused, host_gru, host_distill, tp_ff, tp_ff_bf16, tp_grads_bf16, tp_gru,
+                                     tp_checkpoint, collectives, refusals, jax_parity, jax_parity_tp,
+                                     jax_parity_limits, jax_parity_fused, window_dp, window_tp, fused_ff, fused_gru,
+                                     fused_distill, fused_tp_headline, fused_resume)}
 #: the scenarios that read or write files in the run's directory
-NEEDS_DIR = ("tp_checkpoint", "jax_parity", "jax_parity_tp", "window_dp", "window_tp")
+NEEDS_DIR = ("tp_checkpoint", "jax_parity", "jax_parity_tp", "window_dp", "window_tp", "fused_distill",
+             "fused_resume", "jax_parity_fused", "jax_parity_limits")
 
 
 def run_scenario(name: str, world: int, out_dir: str) -> dict:
