@@ -164,11 +164,12 @@ Phases, each fatal on failure:
    ranks (``dp2_ppo_ff256x3_bf16``: each rank replays its fixed half of
    every global minibatch, 12,288 rows in every minibatch of every update
    on both ranks, from the window rows the ranks gather; the losses at the
-   bf16 bars), and each rank checks first that a fused or K=2 runner and a
-   fused host-env runner over the Gloo group on the card raise
-   ``ValueError``. 7d (in 7a's NCCL group of one): the GRU flagship, the
-   LSTM bf16 flagship, the headline and the GRU student through the mesh
-   path with ``fuse_iteration`` and with ``iterations_per_dispatch: 2``,
+   bf16 bars), and each rank checks first that a fused or K=2 runner over
+   the Gloo group on the card raises ``ValueError`` and that a fused
+   host-env runner on it trains split (no graph, the split iteration's
+   launches, finite metrics), as the JAX runner does. 7d (in 7a's NCCL
+   group of one): the GRU flagship, the LSTM bf16 flagship, the headline
+   and the GRU student through the mesh path with ``fuse_iteration`` and with ``iterations_per_dispatch: 2``,
    their NCCL collectives captured in the graph, each for 2 iterations with
    the counters zeroed just before and read just after (40 launches of
    each ``gru_x_*`` / ``lstm_x_*``; the student 4/2/2), then 2 more
@@ -178,6 +179,30 @@ Phases, each fatal on failure:
    each mode's steady env-steps/s beside the plain fused rate, the
    capture's seconds, the graph pool's bytes, the launches and the
    collectives issued an iteration.
+8. The simulator adapters (after phase 6, before phase 7). The card's
+   machine has neither MuJoCo nor MJX nor Brax, so the script's own doubles
+   stand in: ``ChainMJX``, an MJX-shaped simulator on torch tensors (a
+   damped chain of 5 point masses an env, ``nq = nv = nu = 5``, a ``Data``
+   dataclass of ``qpos``, ``qvel``, ``ctrl``), and ``ChainBrax``, a
+   Brax-shaped single env of the same chain (``obs = [x, v]``, terminal
+   when any ``|x|`` leaves the bound, a ``metrics`` dict). First each
+   adapter's reset and 24 steps of 4096 envs under a fixed action sequence
+   (time-outs and terminals both) on the card against the CPU: the keys,
+   the reset's draws, the dones, time-outs and episode counters bit for
+   bit, the states at ``SIM_TOL``. 8a ``mjx_recurrent_gru256``: the GRU-256
+   flagship on 4096 ``MJXEnv`` envs (``done_fn`` set, episode length 400)
+   and 8b ``brax_recurrent_lstm256_bf16``: the LSTM-256 bf16 flagship on
+   4096 ``BraxVecEnv`` envs, each eager, fused and at K=2, 2 iterations with
+   the counters zeroed just before and read just after (40 launches of each
+   ``gru_x_*`` / ``lstm_x_*``, none of any other), then 2 more; the graphed
+   runs' state, metrics and launches bit for bit the eager run's after both;
+   ``phase8 {...}`` lines give each mode's steady env-steps/s beside phase
+   4b's flagship rates, the capture's seconds, the graph pool's bytes, the
+   launches and the ``extras/`` metrics (8b: the double's ``max_abs_x``,
+   which the writer logs as ``Episode/max_abs_x``). 8c:
+   ``MultiSeedRunner`` with 2 seeds x 512 ``MJXEnv`` envs and the GRU
+   flagship's policy, 2 eager iterations (``gru_xp_*`` at G=4, 40 each),
+   finite. Their kernel shapes (D=10) are held in phase 3 (``SIM_SHAPES``).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -187,6 +212,7 @@ without CUDA or when any phase fails.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -195,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -206,16 +233,20 @@ import rsl_rl_tpu_torch.algorithms.ppo as ppo_module
 from rsl_rl_tpu_torch.algorithms.ppo import PPO, CollectState
 from rsl_rl_tpu_torch.algorithms.host_collect import PHASES
 from rsl_rl_tpu_torch.env import (
+    BraxVecEnv,
     CartPoleSwingUp,
     DomainRandomizedNLink,
     Hopper,
     HostVecEnv,
+    MJXEnv,
     NLinkPendulum,
     PartiallyObservableNLink,
     PointMass,
     Reacher,
     SparseGoalReach,
 )
+from rsl_rl_tpu_torch.env.mjx_env import MJXState
+from rsl_rl_tpu_torch.env.nlink import hash_draws, uniform_draws
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
 from rsl_rl_tpu_torch.parallel import distributed_init, gather_tree_tp
@@ -1128,14 +1159,19 @@ def run_state(runner) -> list[torch.Tensor]:
 
 
 def dispatch_runs(name, make_runner, smi, modes=tuple(DISPATCH_MODES), iterations=ITERATIONS,
-                  expected=None) -> dict:
+                  expected=None, steady=0, report=None) -> dict:
     """Train the slice eagerly, fused and at K=2 (``DISPATCH_MODES``, or the
-    ``modes`` given) for ``iterations`` from the same seed; fail unless the
-    graphed runs' state, metrics and launches equal the eager run's bit for
-    bit and their metrics are finite, and, with ``expected``, unless the
-    eager run launched what it says. Prints the steady env-steps/s of the
-    runs, the capture's seconds and the graph pool's bytes. Returns the
-    kernels the eager run launched."""
+    ``modes`` given) for ``iterations`` from the same seed, the counters
+    zeroed just before and read just after, then ``steady`` more
+    iterations; fail unless the graphed runs' state, metrics and launches
+    equal the eager run's bit for bit (after ``iterations`` and after the
+    ``steady`` more) and their metrics are finite, and, with ``expected``,
+    unless the eager run launched what it says. Prints the steady
+    env-steps/s of the runs (the ``steady`` iterations; without them
+    iterations 1.., at K=2 2..), the captures' seconds, the graph pools'
+    bytes and the eager run's ``extras/`` metrics, and puts them into the
+    dict ``report`` where one is given. Returns the kernels the eager run
+    launched."""
     runs = {}
     for mode in modes:
         runner = make_runner(DISPATCH_MODES[mode])
@@ -1143,16 +1179,20 @@ def dispatch_runs(name, make_runner, smi, modes=tuple(DISPATCH_MODES), iteration
         runner.learn(iterations)
         torch.cuda.synchronize()
         counts = all_counts()
+        first = run_state(runner) if steady else None
+        if steady:
+            runner.learn(steady)
+            torch.cuda.synchronize()
         for row in runner.history:
             bad = {k: v for k, v in row["metrics"].items() if not np.isfinite(v).all()}
             if bad:
                 fail(f"{name} {mode}: non-finite metrics in iteration {row['iteration']}: {bad}")
-        steady = runner.history[2:] if mode == "k2" else runner.history[1:]
+        rows = runner.history[iterations:] if steady else runner.history[2:] if mode == "k2" else runner.history[1:]
         graph = runner.iteration_graph
         runs[mode] = {
-            "state": run_state(runner), "counts": counts,
+            "first": first, "state": run_state(runner), "counts": counts,
             "metrics": [{k: np.asarray(v) for k, v in row["metrics"].items()} for row in runner.history],
-            "steps_per_s": float(np.mean([row["steps_per_s"] for row in steady])),
+            "steps_per_s": float(np.mean([row["steps_per_s"] for row in rows])),
             "capture_s": None if graph is None else graph.capture_s,
             "pool_bytes": None if graph is None else graph.pool_bytes,
         }
@@ -1166,22 +1206,29 @@ def dispatch_runs(name, make_runner, smi, modes=tuple(DISPATCH_MODES), iteration
     for mode in modes[1:]:
         run = runs[mode]
         differ = [i for i, (a, b) in enumerate(zip(eager["state"], run["state"])) if not torch.equal(a, b)]
+        differ_first = [i for i, (a, b) in enumerate(zip(eager["first"] or [], run["first"] or []))
+                        if not torch.equal(a, b)]
         same_metrics = all(a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
                            for a, b in zip(eager["metrics"], run["metrics"]))
         launched = {k: n for k, n in run["counts"].items() if n}
-        print(f"dispatch {name} {mode}: state equal to eager bit for bit: {not differ}"
-              f" ({len(run['state'])} tensors, differing {differ}); metrics equal: {same_metrics};"
+        print(f"dispatch {name} {mode}: state equal to eager bit for bit: {not differ and not differ_first}"
+              f" ({len(run['state'])} tensors, differing {differ}"
+              + (f", after the first {iterations} iterations {differ_first}" if steady else "")
+              + f"); metrics equal: {same_metrics};"
               f" launches {launched or 'none'}, as eager: {run['counts'] == eager['counts']};"
               f" capture {run['capture_s']} s, graph pool {run['pool_bytes']} bytes; reserved after its release"
               f" {run['reserved_after']} bytes (after the eager run's {eager['reserved_after']})")
-        if differ or len(run["state"]) != len(eager["state"]) or not same_metrics:
+        if differ or differ_first or len(run["state"]) != len(eager["state"]) or not same_metrics:
             fail(f"{name}: the {mode} run's state or metrics differ from the eager run's")
         if run["counts"] != eager["counts"]:
             fail(f"{name}: the {mode} run launched {run['counts']}, the eager run {eager['counts']}")
-    print(f"dispatch {name} steady env-steps/s: " + json.dumps(
-        {**{mode: runs[mode]["steps_per_s"] for mode in modes},
-         "fused_capture_s": runs["fused"]["capture_s"], "fused_pool_bytes": runs["fused"]["pool_bytes"],
-         "card": smi}))
+    summary = {**{mode: runs[mode]["steps_per_s"] for mode in modes},
+               **{f"{mode}_capture_s": runs[mode]["capture_s"] for mode in modes[1:]},
+               **{f"{mode}_pool_bytes": runs[mode]["pool_bytes"] for mode in modes[1:]},
+               "extras": sorted(k for k in eager["metrics"][-1] if k.startswith("extras/")), "card": smi}
+    print(f"dispatch {name} steady env-steps/s: " + json.dumps(summary))
+    if report is not None:
+        report.update(summary)
     if expected is not None:
         return check_launches(f"{name} eager", eager["counts"], expected)
     return {k: n for k, n in eager["counts"].items() if n}
@@ -2021,34 +2068,49 @@ def record_shares() -> dict:
     return shares
 
 
-def refuse_fused_on_gloo(teacher_path, device, num_envs, rank) -> None:
-    """On the card a fused runner over this Gloo group, and a fused host-env
-    runner on it, raise ``ValueError`` (the first naming the backend);
-    prints a ``phase7`` line, exits non-zero otherwise. On the CPU the
-    Gloo group captures nothing, so nothing is refused."""
+def check_fused_on_gloo(teacher_path, device, num_envs, rank) -> None:
+    """On the card a fused runner over this Gloo group raises
+    ``ValueError`` naming the backend, and a fused host-env runner on it
+    trains split, as the JAX runner does: one iteration with no graph, this
+    rank's launches of the split iteration (10 of each ``gru_x_*``: two of
+    the four minibatches, 5 epochs) and finite metrics. Prints a ``phase7``
+    line, exits non-zero otherwise. On the CPU the Gloo group captures
+    nothing, so nothing is refused."""
     if device != "cuda":
         return
-    host = num_envs // PARALLEL_WORLD
     cases = {"fused device env": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
                                                          {**copy.deepcopy(PPO_FF256X3_BF16), "fuse_iteration": True},
-                                                         device=device), "gloo"),
+                                                         device=device)),
              "k2 device env": (lambda: OnPolicyRunner(NLinkPendulum(num_envs, NUM_LINKS, device=device),
                                                       {**copy.deepcopy(RECURRENT_GRU256), "iterations_per_dispatch": 2},
-                                                      device=device), "gloo"),
-             "fused host env": (lambda: OnPolicyRunner(HostNLink(host, env_offset=rank * host, seed=1),
-                                                       {**copy.deepcopy(RECURRENT_GRU256), "fuse_iteration": True},
-                                                       device=device), "host env")}
+                                                      device=device))}
     messages = {}
-    for case, (make, words) in cases.items():
+    for case, make in cases.items():
         try:
             make()
         except ValueError as e:
             messages[case] = str(e)
-            if words not in str(e):
-                fail(f"rank {rank}: {case} raised without naming {words!r}: {e}")
+            if "gloo" not in str(e):
+                fail(f"rank {rank}: {case} raised without naming 'gloo': {e}")
             continue
         fail(f"rank {rank}: a {case} runner over a Gloo group on the card did not raise")
-    print("phase7 " + json.dumps({"rank": rank, "refused": messages}), flush=True)
+    host = num_envs // PARALLEL_WORLD
+    runner = OnPolicyRunner(HostNLink(host, env_offset=rank * host, seed=1),
+                            {**copy.deepcopy(RECURRENT_GRU256), "fuse_iteration": True}, device=device)
+    reset_counts()
+    runner.learn(1)
+    torch.cuda.synchronize()
+    alg = RECURRENT_GRU256["algorithm"]
+    split = check_launches(f"fused host env rank {rank}", all_counts(),
+                           {k: alg["num_learning_epochs"] * alg["num_mini_batches"] // PARALLEL_WORLD
+                            for k in FAMILIES["gru"]["kernels"]})
+    finite = all(np.isfinite(v).all() for v in runner.history[0]["metrics"].values())
+    if runner.fuse_iteration or runner.iteration_graph is not None or not finite:
+        fail(f"rank {rank}: a fused host-env runner over a Gloo group did not train split with finite metrics"
+             f" (fuse_iteration {runner.fuse_iteration}, graph {runner.iteration_graph}, finite {finite})")
+    print("phase7 " + json.dumps({"rank": rank, "refused": messages,
+                                  "fused host env": {"trains_split": True, "launches": split,
+                                                     "finite_metrics": finite}}), flush=True)
 
 
 def parallel_rank(rank, init_file, out_dir, teacher_path, device, num_envs) -> None:
@@ -2064,7 +2126,7 @@ def parallel_rank(rank, init_file, out_dir, teacher_path, device, num_envs) -> N
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     distributed_init(backend="gloo", init_method=f"file://{init_file}", rank=rank, world_size=PARALLEL_WORLD)
-    refuse_fused_on_gloo(teacher_path, device, num_envs, rank)
+    check_fused_on_gloo(teacher_path, device, num_envs, rank)
     runners = {}
     scenarios = parallel_scenarios(teacher_path, device, num_envs, rank)
     for name, (make, expected) in scenarios.items():
@@ -2559,6 +2621,222 @@ def parallel_slices(smi, teacher_path, tmp, device="cuda", num_envs=NUM_ENVS) ->
     return launches
 
 
+# ---- phase 8: the simulator adapters (MJXEnv, BraxVecEnv) on the card
+#: the chain doubles: masses a chain, the spring between neighbours (the
+#: ends tied to fixed walls), the damping, the time step, the control bound,
+#: the terminal |x| and the reset draws' scale
+CHAIN_SIZE, CHAIN_SPRING, CHAIN_DAMPING, CHAIN_DT = 5, 2.0, 0.2, 0.05
+CHAIN_CTRL, CHAIN_BOUND, CHAIN_NOISE = 5.0, 1.0, 0.1
+#: 8a and 8b: iterations with the counters zeroed, then steady ones timed;
+#: the episode length of the slices and of the card-against-CPU check
+SIM_ITERATIONS, SIM_STEADY = 2, 2
+SIM_EPISODE, SIM_CHECK_EPISODE, SIM_CHECK_STEPS = 400, 16, 24
+#: 8c: seeds x envs a seed
+SIM_SEEDS, SIM_ENVS_PER_SEED = 2, 512
+#: the kernel shapes of phase 8's slices, held in phase 3: (family, streams,
+#: B, bf16) at T=24, H=256 and D=10 (the chain's [x, v])
+SIM_SHAPES = {"mjx_recurrent_gru256": ("gru", 2, 1024, False),
+              "brax_recurrent_lstm256_bf16": ("lstm", 2, 1024, True),
+              "multiseed2_mjx_recurrent_gru256": ("gru_xp", 2 * SIM_SEEDS, SIM_ENVS_PER_SEED // 4, False)}
+#: the card's states against the CPU's after SIM_CHECK_STEPS steps of the
+#: same actions: the chain's ops are elementwise (one IEEE rounding each on
+#: both devices), the reward's sum over the chain may add in another order
+SIM_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+@dataclasses.dataclass
+class ChainData:
+    """One env's state of the MJX-shaped chain double."""
+
+    qpos: torch.Tensor
+    qvel: torch.Tensor
+    ctrl: torch.Tensor
+
+
+def chain_accel(x, v, u):
+    """A damped chain of point masses tied by springs to its neighbours and,
+    at its ends, to fixed walls, under the clipped controls ``u``: one env."""
+    left = torch.nn.functional.pad(x[:-1], (1, 0))
+    right = torch.nn.functional.pad(x[1:], (0, 1))
+    spring = CHAIN_SPRING * (left + right - 2.0 * x)
+    return torch.clamp(u, -CHAIN_CTRL, CHAIN_CTRL) + spring - CHAIN_DAMPING * v
+
+
+class ChainMJX:
+    """Smoke-test scaffolding, not a package feature: an MJX-shaped
+    simulator on torch tensors (``put_model``, ``make_data``, ``forward``,
+    ``step`` of one env, which ``MJXEnv`` maps over the envs), the chain of
+    ``CHAIN_SIZE`` masses, one degree of freedom and one motor each. The
+    card's machine has no MuJoCo, MJX or JAX."""
+
+    @staticmethod
+    def put_model(m, device=None):
+        return types.SimpleNamespace(nq=m.nq, nv=m.nv, nu=m.nu, opt=m.opt, device=device)
+
+    @staticmethod
+    def make_data(model) -> ChainData:
+        zeros = torch.zeros(model.nq, device=model.device)
+        return ChainData(qpos=zeros, qvel=zeros.clone(), ctrl=zeros.clone())
+
+    @staticmethod
+    def forward(model, data: ChainData) -> ChainData:
+        return data
+
+    @staticmethod
+    def step(model, data: ChainData) -> ChainData:
+        qvel = data.qvel + model.opt.timestep * chain_accel(data.qpos, data.qvel, data.ctrl)
+        return dataclasses.replace(data, qpos=data.qpos + model.opt.timestep * qvel, qvel=qvel)
+
+
+def chain_model():
+    """The host model's fields as ``MJXEnv`` reads them."""
+    return types.SimpleNamespace(nq=CHAIN_SIZE, nv=CHAIN_SIZE, nu=CHAIN_SIZE,
+                                 opt=types.SimpleNamespace(timestep=CHAIN_DT))
+
+
+def chain_reward(x, v, u):
+    return -(torch.sum(x * x) + 0.1 * torch.sum(v * v) + 0.01 * torch.sum(u * u))
+
+
+def make_mjx_chain(num_envs, device, episode_length=SIM_EPISODE) -> MJXEnv:
+    """``MJXEnv`` over :class:`ChainMJX`: obs ``[x, v]``, terminal when any
+    ``|x|`` leaves ``CHAIN_BOUND``."""
+    return MJXEnv(chain_model(), num_envs, episode_length,
+                  obs_fn=lambda mx, d: {"policy": torch.cat([d.qpos, d.qvel])},
+                  reward_fn=lambda mx, d, a: chain_reward(d.qpos, d.qvel, a),
+                  done_fn=lambda mx, d: (torch.abs(d.qpos) > CHAIN_BOUND).any(),
+                  reset_noise_scale=CHAIN_NOISE, sim=ChainMJX, device=device)
+
+
+@dataclasses.dataclass
+class ChainBraxState:
+    pipeline: dict
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    metrics: dict
+
+
+class ChainBrax:
+    """Smoke-test scaffolding, not a package feature: a Brax-shaped single
+    env on torch tensors of the same chain, ``obs = [x, v]``, terminal (a
+    float ``done``, as Brax's) when any ``|x|`` leaves ``CHAIN_BOUND``,
+    ``metrics`` the largest ``|x|``; a reset draws ``x`` in ``[-CHAIN_NOISE,
+    CHAIN_NOISE)`` from its key."""
+
+    action_size, dt = CHAIN_SIZE, CHAIN_DT
+
+    @staticmethod
+    def _state(x, v, reward, done):
+        return ChainBraxState(pipeline={"x": x, "v": v}, obs=torch.cat([x, v]), reward=reward, done=done,
+                              metrics={"max_abs_x": torch.abs(x).max()})
+
+    def reset(self, key):
+        _, bits = hash_draws(key.reshape(1), CHAIN_SIZE)
+        x = uniform_draws(bits[0], -CHAIN_NOISE, 2 * CHAIN_NOISE)
+        zero = torch.zeros_like(x)
+        return self._state(x, zero, zero.sum(), zero.sum())
+
+    def step(self, state, action):
+        x, v = state.pipeline["x"], state.pipeline["v"]
+        v = v + CHAIN_DT * chain_accel(x, v, action)
+        x = x + CHAIN_DT * v
+        done = (torch.abs(x) > CHAIN_BOUND).any().to(torch.float32)
+        return self._state(x, v, chain_reward(x, v, action), done)
+
+
+def make_brax_chain(num_envs, device, episode_length=SIM_EPISODE) -> BraxVecEnv:
+    return BraxVecEnv(ChainBrax(), num_envs, episode_length, device=device)
+
+
+SIM_ENVS = {"MJXEnv": make_mjx_chain, "BraxVecEnv": make_brax_chain}
+
+
+def sim_trace(make_env, device) -> list:
+    """The adapter's reset and SIM_CHECK_STEPS steps of NUM_ENVS envs under
+    a fixed action sequence (episodes end by time-out and by terminal): each
+    step's keys, episode counters and dones, and the sim
+    state (the reset's: the draws), on the CPU."""
+    env = make_env(NUM_ENVS, device, SIM_CHECK_EPISODE)
+    state, _ = env.reset(3)
+    rng = np.random.default_rng(5)  # a steady push an env (some chains leave the bound), and noise
+    shape = (SIM_CHECK_STEPS, NUM_ENVS, env.num_actions)
+    actions = torch.from_numpy((rng.uniform(-6.0, 6.0, shape[1:]) + rng.normal(0.0, 0.5, shape)).astype(np.float32))
+    rows = []
+    for a in [None, *actions]:
+        if a is not None:
+            state, _, _, done, extras = env.step(state, a.to(device))
+        leaves = flatten(state.data if isinstance(state, MJXState) else state.brax)[0]
+        rows.append({"rng": state.rng.cpu(), "episode_length": state.episode_length.cpu(),
+                     "done": None if a is None else done.cpu(),
+                     "time_outs": None if a is None else extras["time_outs"].cpu(),
+                     "sim": [t.cpu() for t in leaves]})
+    return rows
+
+
+def check_sim_draws(device="cuda") -> None:
+    """Each adapter's reset draws and steps on the card against the CPU's:
+    the keys, the reset's draws, the dones and time-outs and the episode
+    counters bit for bit, the sim state after each step at SIM_TOL."""
+    for name, make_env in SIM_ENVS.items():
+        cpu, card = sim_trace(make_env, "cpu"), sim_trace(make_env, device)
+        exact = all(torch.equal(a[k], b[k]) for a, b in zip(cpu, card) for k in ("rng", "episode_length")
+                    if a[k] is not None)
+        exact &= all(torch.equal(a[k], b[k]) for a, b in zip(cpu[1:], card[1:]) for k in ("done", "time_outs"))
+        draws = all(torch.equal(a, b) for a, b in zip(cpu[0]["sim"], card[0]["sim"]))
+        worst = max(float((a - b).abs().max()) for x, y in zip(cpu, card) for a, b in zip(x["sim"], y["sim"]))
+        close = all(torch.allclose(a, b, **SIM_TOL) for x, y in zip(cpu, card) for a, b in zip(x["sim"], y["sim"]))
+        dones = torch.stack([r["done"] for r in cpu[1:]])
+        time_outs = torch.stack([r["time_outs"] for r in cpu[1:]])
+        print(f"{name} on the card against the CPU over a reset and {SIM_CHECK_STEPS} steps of {NUM_ENVS} envs:"
+              f" keys, episode counters, dones and time-outs bit for bit: {exact}; the reset's draws bit for bit:"
+              f" {draws}; states max_abs_err {worst:.3e} (rtol {SIM_TOL['rtol']:g} atol {SIM_TOL['atol']:g}):"
+              f" {close}; {int(time_outs.sum())} time-outs, {int((dones & ~time_outs).sum())} terminals")
+        if not (exact and draws and close) or not time_outs.any() or not (dones & ~time_outs).any():
+            fail(f"{name}: its draws or steps on the card differ from the CPU's, or the check saw no time-out"
+                 " or no terminal")
+
+
+def sim_slices(smi, flagship_rates, device="cuda", num_envs=NUM_ENVS, envs_per_seed=SIM_ENVS_PER_SEED) -> dict:
+    """Phase 8; returns ``{slice: {kernel: launches}}``. A CPU rehearsal
+    passes ``device="cpu"`` and small counts."""
+    start = time.perf_counter()
+    check_sim_draws(device)
+    by_slice = {}
+
+    def ppo(make_env, cfg):
+        return lambda keys: OnPolicyRunner(make_env(num_envs, device), {**copy.deepcopy(cfg), **keys}, device=device)
+
+    # 8a, 8b: (the env, the flagship, the extras/ metric logged as Episode/*)
+    for name, (make_env, flagship, logged) in {
+            "mjx_recurrent_gru256": (make_mjx_chain, "recurrent_gru256", None),
+            "brax_recurrent_lstm256_bf16": (make_brax_chain, "recurrent_lstm256_bf16", "extras/max_abs_x")}.items():
+        (family, cfg), report = SLICES[flagship], {}
+        by_slice[name] = dispatch_runs(name, ppo(make_env, cfg), smi, iterations=SIM_ITERATIONS,
+                                       expected=ppo_launches(family, cfg, SIM_ITERATIONS), steady=SIM_STEADY,
+                                       report=report)
+        print("phase8 " + json.dumps({"slice": name, **report, "phase4b": {flagship: flagship_rates[flagship]},
+                                      "launches": by_slice[name]}), flush=True)
+        if device == "cuda" and None in (report["fused_capture_s"], report["k2_capture_s"]):
+            fail(f"{name}: a graphed run captured no graph")
+        if logged is not None and logged not in report["extras"]:
+            fail(f"{name}: the env's metrics did not reach the iteration's scalars ({logged})")
+
+    # 8c: the GRU flagship's policy on 2 seeds x 512 envs (gru_xp_* at G=4)
+    name = "multiseed2_mjx_recurrent_gru256"
+    runner = MultiSeedRunner(make_mjx_chain(envs_per_seed, device), copy.deepcopy(RECURRENT_GRU256), SIM_SEEDS,
+                             device=device)
+    reset_counts()
+    runner.learn(SIM_ITERATIONS)
+    torch.cuda.synchronize()
+    by_slice[name] = check_launches(name, all_counts(), ppo_launches("gru_xp", RECURRENT_GRU256, SIM_ITERATIONS))
+    print_history(name, runner)
+    print("phase8 " + json.dumps({"slice": name, "eager_env_steps_per_s": [r["steps_per_s"] for r in runner.history],
+                                  "launches": by_slice[name], "card": smi}), flush=True)
+    print(f"phase 8: {time.perf_counter() - start:.1f} s")
+    return by_slice
+
+
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
     """The kernel's line of the JSON result: fp32-mode time, plain time, bound
     and library time, and the bf16-mode time, plain time and bound."""
@@ -2703,6 +2981,16 @@ def main() -> None:
             summary.append(f"{name} max_abs_err={path_err[label][name]:.3e} (max |plain|"
                            f" {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'}")
         print(f"check {label} S={S} T={T} B={b} D={d} H={h} fp32: " + "; ".join(summary))
+    # phase 8's shapes: the chain doubles' 10-wide obs, in the slices' operand modes
+    for i, (label, (family, S, b, bf16)) in enumerate(SIM_SHAPES.items()):
+        res, repeat = check_kernels(family, S, T, b, 2 * CHAIN_SIZE, H, bf16, seed=700 + i)
+        for name, checks in res.items():
+            passed[name] = passed[name] and all(o for _, _, o in checks)
+            if name in repeat:
+                repeatable[name] = repeatable[name] and repeat[name]
+        print(f"check {label} S={S} T={T} B={b} D={2 * CHAIN_SIZE} H={H} {'bf16' if bf16 else 'fp32'}: "
+              + "; ".join(f"{name} max_abs_err={max(e for e, _, _ in c):.3e} (max |plain| {max(m for _, m, _ in c):.3g})"
+                          f" {'ok' if all(o for _, _, o in c) else 'FAIL'}" for name, c in res.items()))
     # the xproj shapes of phase 4d's studies, in both operand modes
     study_err = {}
     for i, (label, (family, S, b, d, h, t, _)) in enumerate(STUDY_SHAPES.items()):
@@ -2740,14 +3028,17 @@ def main() -> None:
         by_slice.update(distill_launches_)
 
         # ---- 4b. whole-iteration dispatch against eager
+        flagship_rates = {name: {} for name in SLICES}
         for name, make_runner in dispatch_slices(teacher_path).items():
-            dispatch_runs(name, make_runner, smi)
+            dispatch_runs(name, make_runner, smi, report=flagship_rates.get(name))
         # ---- 4c. RND, symmetry, the 40-seed study, the optimizers
         by_slice.update(path_slices(smi))
         # ---- 4d. RND, symmetry, PBT and students in the study; evaluation; save_seed
         by_slice.update(study_slices(smi, teacher_path, tmp))
         # ---- 6. the host-env path, the remaining envs, export
         by_slice.update(host_slices(smi, teacher_path, tmp, T, B))
+        # ---- 8. the simulator adapters
+        by_slice.update(sim_slices(smi, flagship_rates))
         # ---- 7. data and tensor parallelism on torch.distributed
         by_slice.update(parallel_slices(smi, teacher_path, tmp))
     launches = {k: {} for k in all_counts()}

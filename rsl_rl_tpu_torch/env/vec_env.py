@@ -23,8 +23,11 @@ from __future__ import annotations
 import abc
 import copy
 from dataclasses import dataclass
+from typing import Any, Callable
 
 import torch
+
+from rsl_rl_tpu_torch.utils.cuda_graph import flatten
 
 
 @dataclass
@@ -52,6 +55,39 @@ def check_episode_length(value, num_envs: int, num_global: int | None = None) ->
     if isinstance(value, torch.Tensor) and value.numel() not in (num_envs, num_global):
         whole = "" if num_global in (None, num_envs) else f" (nor for the global {num_global})"
         raise ValueError(f"max_episode_length has {value.numel()} entries for {num_envs} envs{whole}")
+
+
+def vmap_tree(fn: Callable, *trees) -> Any:
+    """``fn`` of one env mapped over the leading env axis of ``trees`` with
+    ``torch.func.vmap``, where each tree is a tensor or a tree of
+    dataclasses, dicts, tuples and lists of tensors (a simulator's ``Data``,
+    which is no torch pytree): the trees go in as their tensors and are
+    rebuilt, one env's, inside ``fn``, whose result comes back the same way.
+    Leaves of the result that are not tensors pass through; a tensor of the
+    result that does not depend on the inputs comes back expanded over the
+    envs (a view)."""
+    flat = [flatten(t) for t in trees]
+    out_build = []
+
+    def one(*leaf_lists):
+        leaves, build = flatten(fn(*(b(list(ls)) for (_, b), ls in zip(flat, leaf_lists))))
+        out_build.append(build)
+        return leaves
+
+    leaves = torch.func.vmap(one)(*(ls for ls, _ in flat))
+    return out_build[0](list(leaves))
+
+
+def where_tree(done: torch.Tensor, fresh, tree) -> Any:
+    """``tree`` with each tensor leaf replaced by ``fresh``'s where ``done``
+    ``[N]`` is set (an auto-reset): both trees of one structure, every tensor
+    leaf with the leading env axis."""
+    leaves, build = flatten(tree)
+    fresh_leaves, _ = flatten(fresh)
+    if len(fresh_leaves) != len(leaves):
+        raise ValueError(f"a fresh state of {len(fresh_leaves)} tensors for a state of {len(leaves)}")
+    return build([torch.where(done.reshape((-1,) + (1,) * (t.ndim - 1)), f, t)
+                  for f, t in zip(fresh_leaves, leaves)])
 
 
 class VecEnv(abc.ABC):

@@ -47,6 +47,11 @@ def normalize(state: RunningNormState, x: torch.Tensor) -> torch.Tensor:
     return (x - state.mean) / (state.std + state.eps)
 
 
+def denormalize(state: RunningNormState, y: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`normalize`: ``y * (std + eps) + mean``."""
+    return y * (state.std + state.eps) + state.mean
+
+
 @torch.no_grad()
 def update_running_norm(state: RunningNormState, x: torch.Tensor) -> RunningNormState:
     """Fold a batch into the moments, in place; returns ``state``.

@@ -40,8 +40,9 @@ card) are captured with it, and the ranks replay in lockstep, issuing the
 same collectives in the same order; saves, evaluations and the git state
 happen at group boundaries, outside the graph. On CUDA a group of another
 backend (Gloo stages its collectives through the host) raises
-``ValueError``, as does a host env asked to fuse: nothing falls back to
-eager.
+``ValueError``: nothing falls back to eager. A host env asked to fuse trains
+split on every device, as the JAX runner does (its iteration steps on the
+host between device steps, so it is no device program).
 """
 
 from __future__ import annotations
@@ -94,11 +95,8 @@ class TrainingLoop:
         self.fuse_iteration = bool(self.cfg.get("fuse_iteration")) or self.iterations_per_dispatch > 1
         self.eval_interval = int(self.cfg.get("eval_interval") or 0)
         if not getattr(self.env, "is_jax", True):
-            # a host env steps on the host: no iteration is one device program
-            if self.fuse_iteration and mesh is not None and self.device.type == "cuda":
-                raise ValueError("fuse_iteration / iterations_per_dispatch > 1 with a host env on a CUDA mesh: the"
-                                 " host env steps on the host between device steps, so its iteration is no CUDA"
-                                 " graph and the runner trains split. Leave fuse_iteration unset.")
+            # a host env steps on the host: no iteration is one device program,
+            # so fuse_iteration resolves to the split iteration on every device
             if self.iterations_per_dispatch > 1:
                 raise ValueError("iterations_per_dispatch > 1 requires a functional (device) env: host envs"
                                  " step on the host, so iterations cannot batch into one device program.")

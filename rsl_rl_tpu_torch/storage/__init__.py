@@ -1,1 +1,5 @@
-"""Subpackage of the PyTorch/CUDA port; see the module docstrings."""
+"""Rollout storage and minibatch indexing."""
+
+from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs
+
+__all__ = ["Rollout", "recurrent_minibatch_starts", "slice_envs"]

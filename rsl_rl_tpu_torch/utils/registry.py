@@ -29,3 +29,8 @@ def resolve(kind: str, name_or_cls: str | type) -> Any:
             f"Unknown {kind} class '{name_or_cls}'. Registered: {sorted(registry)}."
         )
     return registry[name_or_cls]
+
+
+def registered(kind: str) -> dict[str, Any]:
+    """A copy of the ``{name: class}`` registry of ``kind``."""
+    return dict(_REGISTRIES.get(kind, {}))

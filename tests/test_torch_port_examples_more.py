@@ -4,9 +4,9 @@ tiny arguments (``--device cpu``) and a temporary log dir, as
 (GRU and LSTM), ``train_domain_randomized_torch.py``,
 ``train_multiseed_torch.py`` (with the best seed's export),
 ``train_pbt_torch.py``, ``distill_student_torch.py``,
-``distill_privileged_torch.py`` and ``export_policy_torch.py`` on a
-checkpoint of ``train_pendulum_torch.py``. A file of its own, so that
-``--dist loadfile`` runs these subprocesses beside
+``distill_privileged_torch.py``, ``export_policy_torch.py`` on a
+checkpoint of ``train_pendulum_torch.py`` and ``train_mjx_torch.py``. A
+file of its own, so that ``--dist loadfile`` runs these subprocesses beside
 ``tests/test_torch_port_examples.py``'s."""
 
 from __future__ import annotations
@@ -94,3 +94,19 @@ def test_export_policy_torch(tmp_path):
     action = load_policy(str(out / "policy.pt2"))({"policy": torch.zeros(4, 3)})
     assert action.shape == (4, 1) and torch.isfinite(action).all()
     assert "actor.0.weight" in torch.load(out / "reference_state_dict.pt")
+
+
+def test_train_mjx_torch(tmp_path):
+    """Without ``--sim`` the script exits with the adapter's message (no torch
+    package provides MJX's functions), as ``examples/train_mjx.py`` does
+    without ``mujoco-mjx``; with the torch double of
+    ``tests/torch_port_sim_doubles.py`` it trains, reloads its checkpoint and
+    evaluates (where ``mujoco`` builds the host model)."""
+    res = run_example("train_mjx_torch.py", "--device", "cpu", "--num-envs", "4", "--iterations", "2")
+    assert res.returncode != 0
+    assert "no torch package provides" in res.stderr, res.stderr[-3000:]
+    pytest.importorskip("mujoco")
+    res = run_example("train_mjx_torch.py", "--sim", "tests.torch_port_sim_doubles:mjx", "--device", "cpu",
+                      "--num-envs", "4", "--iterations", "2", "--log-dir", str(tmp_path))
+    assert_ok(res, "Learning iteration 1/2", "deterministic eval return over 200 steps")
+    assert (tmp_path / "model_1.pt").exists()

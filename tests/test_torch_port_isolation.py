@@ -16,7 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rsl_rl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rsl_rl_tpu")
-EXAMPLES = ["train_pendulum_torch", "train_mujoco_host_torch", "play_torch", "train_multihost_torch"]
+EXAMPLES = ["train_pendulum_torch", "train_mujoco_host_torch", "play_torch", "train_multihost_torch", "train_mjx_torch"]
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "parity_torch.py", ROOT / "parallel_drift.py"] + [
     ROOT / "examples" / f"{e}.py" for e in EXAMPLES]
 SOURCES = sorted(PORT.rglob("*.py")) + SCRIPTS
