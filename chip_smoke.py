@@ -203,6 +203,19 @@ Phases, each fatal on failure:
    ``MultiSeedRunner`` with 2 seeds x 512 ``MJXEnv`` envs and the GRU
    flagship's policy, 2 eager iterations (``gru_xp_*`` at G=4, 40 each),
    finite. Their kernel shapes (D=10) are held in phase 3 (``SIM_SHAPES``).
+9. The learning-quality studies' configs (after phase 8, before phase 7),
+   each built as its script builds it and trained 2 fused iterations with
+   the counters zeroed just before and read just after, its envs' episodes
+   cut to one window so that each iteration completes some:
+   ``convergence_torch.py``'s ``gru_fp32``, ``lstm_bf16`` and ``ff_bf16``
+   at full width (4096 envs; 40 launches of each ``gru_x_*`` / ``lstm_x_*``
+   at S=2, none for the headline) and ``parity_torch.py``'s ``e`` (GRU-64
+   on 64 ``PartiallyObservablePendulum`` envs: 40 of each ``gru_x_*`` at
+   H=64), ``f`` (no kernel) and ``f_rec`` (the GRU-64 student at S=1, 3
+   replays of its 8-step segments an iteration: 6 of each ``gru_x_*``),
+   the students' teachers from ``parity_teachers/``. Each curve must be
+   finite; ``phase9 {...}`` lines give the curve, the launches and the
+   seconds of each, and the phase prints its own seconds.
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -227,6 +240,8 @@ import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
+import convergence_torch
+import parity_torch
 from parity_torch import train_cfg as parity_cfg
 from rsl_rl_tpu_torch.algorithms.distillation import chunks_between
 import rsl_rl_tpu_torch.algorithms.ppo as ppo_module
@@ -834,7 +849,7 @@ def distill_launches(family, cfg, iterations) -> dict:
     the chunks of the tail that fills no segment forward only."""
     T, alg = cfg["num_steps_per_env"], cfg["algorithm"]
     total, seg = alg["num_learning_epochs"] * T, alg["gradient_length"]
-    trained = len(chunks_between(0, total // seg * seg, T))
+    trained = sum(len(chunks_between(k * seg, (k + 1) * seg, T)) for k in range(total // seg))
     tail = len(chunks_between(total // seg * seg, total, T))
     fwd, bwd, wgrad = FAMILIES[family]["kernels"]
     return {fwd: iterations * (trained + tail), bwd: iterations * trained, wgrad: iterations * trained}
@@ -2837,6 +2852,52 @@ def sim_slices(smi, flagship_rates, device="cuda", num_envs=NUM_ENVS, envs_per_s
     return by_slice
 
 
+# ---- phase 9: the learning-quality studies' configs
+STUDY_ITERATIONS = 2
+#: name -> (the runner of seed 1 on a device, the kernel family its replays
+#: launch, "ff" for none)
+STUDY_RUNS = {
+    **{f"convergence_{name}": (lambda device, name=name: convergence_torch.make_runner(name, 1, device),
+                               convergence_torch.STUDIES[name][2])
+       for name in convergence_torch.STUDIES},
+    "parity_e": (lambda device: parity_torch.study_runner("e", 1, device), "gru"),
+    "parity_f": (lambda device: parity_torch.study_runner("f", 1, device), "ff"),
+    "parity_f_rec": (lambda device: parity_torch.study_runner("f_rec", 1, device), "gru"),
+}
+
+
+def study_config_slices(smi, device="cuda") -> dict:
+    """Phase 9; returns ``{slice: {kernel: launches}}``. A CPU rehearsal
+    passes ``device="cpu"``."""
+    start = time.perf_counter()
+    by_slice = {}
+    for name, (make, family) in STUDY_RUNS.items():
+        t0 = time.perf_counter()
+        runner = make(device)
+        runner.env.max_episode_length = runner.num_steps_per_env  # each iteration completes episodes
+        reset_counts()
+        parity_torch.quiet_learn(runner, STUDY_ITERATIONS)
+        torch.cuda.synchronize()
+        cfg = runner.cfg
+        if family == "ff":
+            expected = {}
+        elif runner.training_type == "distillation":
+            expected = distill_launches(family, cfg, STUDY_ITERATIONS)
+        else:
+            expected = ppo_launches(family, cfg, STUDY_ITERATIONS)
+        by_slice[name] = check_launches(name, all_counts(), expected)
+        curve = [float(parity_torch.curve_point(h["metrics"], "ep_reward_sum")) for h in runner.history]
+        print_history(name, runner)
+        print("phase9 " + json.dumps({"slice": name, "curve": curve, "launches": by_slice[name],
+                                      "seconds": time.perf_counter() - t0, "card": smi}), flush=True)
+        if len(curve) != STUDY_ITERATIONS or not all(math.isfinite(v) for v in curve):
+            fail(f"{name}: the study's curve is not finite: {curve}")
+        del runner
+        gc.collect()
+    print(f"phase 9: {time.perf_counter() - start:.1f} s")
+    return by_slice
+
+
 def kernel_entry(name, family, launches, max_abs, passed, times, library_ms, ops, nbytes, peaks):
     """The kernel's line of the JSON result: fp32-mode time, plain time, bound
     and library time, and the bf16-mode time, plain time and bound."""
@@ -3039,6 +3100,8 @@ def main() -> None:
         by_slice.update(host_slices(smi, teacher_path, tmp, T, B))
         # ---- 8. the simulator adapters
         by_slice.update(sim_slices(smi, flagship_rates))
+        # ---- 9. the learning-quality studies' configs
+        by_slice.update(study_config_slices(smi))
         # ---- 7. data and tensor parallelism on torch.distributed
         by_slice.update(parallel_slices(smi, teacher_path, tmp))
     launches = {k: {} for k in all_counts()}

@@ -2,7 +2,8 @@
 """The JAX package's side of the feedforward NLink parity protocol, run as a
 multi-seed study and as single-seed runs, on the CPU.
 
-    JAX_PLATFORMS=cpu python3 parity_jax_study.py [--study-seeds 40] [--single-seeds 10]
+    JAX_PLATFORMS=cpu python3 parity_jax_study.py [--study-seeds 40] [--single-seeds 10] [--seed-offset 0]
+    JAX_PLATFORMS=cpu python3 parity_jax_study.py --merge FILE [FILE ...] [--out FILE]
 
 The committed JAX bands of the feedforward study (``benchmarks/results/
 parity_nlink{,_b,_c}.json``) come from single-seed runners
@@ -17,8 +18,14 @@ per-seed finals (the nan-aware mean of the last 20 iterations' mean
 reward) and curves to ``parity_jax_results.json``, and, where
 ``parity_torch_results.json`` holds the port's ``b40`` and ``b_single``
 studies, prints Welch's t and Mann-Whitney U p-values of each port study
-against the JAX run of the same form. It needs JAX, so it runs where the
-JAX package does, not on the card's machine.
+against the JAX run of the same form. ``--seed-offset K`` runs the single
+seeds ``K + 1 ..`` and ``--study-seeds 0`` skips the study; ``--merge``
+pools the single seeds of earlier ``--out`` files (it trains nothing). Where
+the single seeds are 41-80 and ``parity_torch_results.json`` holds the
+port's pooled ``b80_single``, the script also holds those 80 port seeds
+against 80 JAX single seeds: the committed files' 40 (``b40_single``'s JAX
+side) and these 40. It needs JAX, so it runs where the JAX package does, not
+on the card's machine.
 """
 
 from __future__ import annotations
@@ -62,28 +69,28 @@ def run_study(num_seeds: int) -> np.ndarray:
     return np.stack(points, axis=1)
 
 
-def main() -> None:
-    p = argparse.ArgumentParser()
-    p.add_argument("--study-seeds", type=int, default=40)
-    p.add_argument("--single-seeds", type=int, default=10)
-    p.add_argument("--out", default=os.path.join(ROOT, "parity_jax_results.json"))
-    args = p.parse_args()
+def p_values(port: np.ndarray, jax_: np.ndarray) -> dict:
     from scipy import stats
 
-    results = {"platform": jax.devices()[0].platform, "jax": jax.__version__, "iterations": ITERATIONS}
-    start = time.perf_counter()
-    study = run_study(args.study_seeds)
-    results["study"] = {"seeds": args.study_seeds, "wall_s": time.perf_counter() - start,
-                        "finals": finals(study).tolist(),
-                        "curves": [[None if np.isnan(v) else float(v) for v in c] for c in study]}
-    start = time.perf_counter()
-    single = np.asarray([run_ours(s, ITERATIONS) for s in range(1, args.single_seeds + 1)], np.float64)
-    results["single"] = {"seeds": list(range(1, args.single_seeds + 1)), "wall_s": time.perf_counter() - start,
-                         "finals": finals(single).tolist(),
-                         "curves": [[None if np.isnan(v) else float(v) for v in c] for c in single]}
+    return {"welch_t_p": float(stats.ttest_ind(port, jax_, equal_var=False).pvalue),
+            "mann_whitney_u_p": float(stats.mannwhitneyu(port, jax_, alternative="two-sided").pvalue)}
+
+
+def against_port(results: dict) -> None:
+    """Each JAX form held against the port's study of the same form (what
+    ``parity_torch_results.json`` holds), printed and stored."""
     port_path = os.path.join(ROOT, "parity_torch_results.json")
     port = json.load(open(port_path))["studies"] if os.path.exists(port_path) else {}
-    for form, port_study in (("study", "b40"), ("single", "b_single")):
+    single_seeds = results.get("single", {}).get("seeds", [])
+    forms = [("study", "b40"), ("single", "b_single")]
+    if single_seeds == list(range(41, 81)):
+        forms = [("single", "b40_single_s41"), ("single80", "b80_single")]
+        if "b40_single" in port:  # the committed files' 40 JAX seeds and these 40
+            results["single80"] = {"seeds": list(range(1, 81)),
+                                   "finals": port["b40_single"]["jax"]["per_seed"] + results["single"]["finals"]}
+    for form, port_study in forms:
+        if form not in results:
+            continue
         jax_finals = np.asarray(results[form]["finals"])
         line = {"form": form, "jax_mean": float(jax_finals.mean()), "jax_std": float(jax_finals.std()),
                 "jax_seeds": len(jax_finals)}
@@ -91,11 +98,42 @@ def main() -> None:
             port_finals = np.asarray(port[port_study]["port"]["per_seed"])
             line.update(port_study=port_study, port_mean=float(port_finals.mean()),
                         port_std=float(port_finals.std()), port_seeds=len(port_finals),
-                        welch_t_p=float(stats.ttest_ind(port_finals, jax_finals, equal_var=False).pvalue),
-                        mann_whitney_u_p=float(stats.mannwhitneyu(port_finals, jax_finals,
-                                                                  alternative="two-sided").pvalue))
+                        **p_values(port_finals, jax_finals))
         results[f"{form}_against_port"] = line
         print(json.dumps(line), flush=True)
+
+
+def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--study-seeds", type=int, default=40, help="0 skips the multi-seed study")
+    p.add_argument("--single-seeds", type=int, default=10)
+    p.add_argument("--seed-offset", type=int, default=0, help="run the single seeds OFFSET+1..")
+    p.add_argument("--merge", nargs="+", metavar="FILE", help="pool these files' single seeds (trains nothing)")
+    p.add_argument("--out", default=os.path.join(ROOT, "parity_jax_results.json"))
+    args = p.parse_args()
+
+    results = {"platform": jax.devices()[0].platform, "jax": jax.__version__, "iterations": ITERATIONS}
+    if args.merge:
+        parts = [json.load(open(path))["single"] for path in args.merge]
+        order = np.argsort([s for part in parts for s in part["seeds"]])
+        pooled = {k: [v for part in parts for v in part[k]] for k in ("seeds", "finals", "curves")}
+        results["single"] = {k: [v[i] for i in order] for k, v in pooled.items()}
+        results["single"]["wall_s"] = sum(part["wall_s"] for part in parts)
+        results["single"]["merged_from"] = [os.path.basename(path) for path in args.merge]
+    else:
+        if args.study_seeds:
+            start = time.perf_counter()
+            study = run_study(args.study_seeds)
+            results["study"] = {"seeds": args.study_seeds, "wall_s": time.perf_counter() - start,
+                                "finals": finals(study).tolist(),
+                                "curves": [[None if np.isnan(v) else float(v) for v in c] for c in study]}
+        start = time.perf_counter()
+        seeds = list(range(args.seed_offset + 1, args.seed_offset + args.single_seeds + 1))
+        single = np.asarray([run_ours(s, ITERATIONS) for s in seeds], np.float64)
+        results["single"] = {"seeds": seeds, "wall_s": time.perf_counter() - start,
+                             "finals": finals(single).tolist(),
+                             "curves": [[None if np.isnan(v) else float(v) for v in c] for c in single]}
+    against_port(results)
     with open(args.out, "w") as f:
         json.dump(results, f)
 

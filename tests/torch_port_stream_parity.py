@@ -2,7 +2,7 @@
 package's own random streams.
 
     JAX_PLATFORMS=cpu python tests/torch_port_stream_parity.py --seeds 1 2 3 [--iterations 500] [--out FILE]
-        [--draws all|noise|perm|resets]
+        [--draws all|noise|perm|resets] [--init jax|port]
     JAX_PLATFORMS=cpu python tests/torch_port_stream_parity.py --summarize FILE [FILE ...] --out SUMMARY
 
 Each seed is one single-seed run of ``benchmarks/parity_nlink.py``'s
@@ -25,6 +25,12 @@ as ``OnPolicyRunner`` seeds them for that seed (the algorithm's generator
 from ``seed + 1``, the env's per-env keys from ``seed``); the initial
 policy and env state stay the JAX runner's. ``all`` (the default) swaps in
 all three.
+
+``--init port`` starts from the port's own initial policy and env state
+instead, seeded as ``OnPolicyRunner`` seeds them (the policy's generator
+from ``seed``, the env's reset from ``seed``), with the JAX streams of
+``--draws`` after it: the arm that tells a fault of the port's
+initialisation or initial env draws from one of its streams.
 """
 
 from __future__ import annotations
@@ -58,33 +64,37 @@ def _t(x):
     return torch.tensor(np.asarray(x))
 
 
-def stream_run(seed: int, iterations: int, max_episode_length: int = MAX_EPISODE_LENGTH, draws=STREAMS):
+def stream_run(seed: int, iterations: int, max_episode_length: int = MAX_EPISODE_LENGTH, draws=STREAMS,
+               init: str = "jax"):
     """The port's curve (one mean completed-episode reward an iteration, nan
     where none completed) and per-iteration metrics, with the JAX run's
-    streams named in ``draws`` and the port's own for the others, and the
-    JAX runner it started from."""
+    streams named in ``draws`` and the port's own for the others, from the
+    JAX runner's initial policy and env state (``init="jax"``) or the port's
+    own (``init="port"``), and the JAX runner whose streams it took."""
     jenv = JaxNLink(num_envs=NUM_ENVS, num_links=NUM_LINKS, max_episode_length=max_episode_length)
     jax_runner = JaxRunner(jenv, train_cfg(seed), log_dir=None)
     ts, cs = jax_runner.train_state, jax_runner.collect_state
     cfg = train_cfg(seed)
     policy_kw = {k: v for k, v in cfg["policy"].items() if k != "class_name"}
     alg_kw = {k: v for k, v in cfg["algorithm"].items() if k != "class_name"}
-    policy = ActorCritic({k: _t(v) for k, v in cs.obs.items()}, cfg["obs_groups"], NUM_LINKS, device="cpu",
-                         **policy_kw)
-    ps = jax.device_get(ts.policy)
-    norm = {k: None if v is None else {f: np.asarray(getattr(v, f)) for f in ("mean", "var", "count")}
-            for k, v in ps.norm.items()}
-    from_jax_state(ps.params, norm, policy)
-    ppo = PPO(policy, seed=seed + 1, **alg_kw)  # the runner's seed of the algorithm's generator
     env = NLinkPendulum(NUM_ENVS, NUM_LINKS, max_episode_length=max_episode_length, device="cpu")
+    if init == "port":  # as OnPolicyRunner builds them for this seed
+        env_state, obs = env.reset(seed)
+        policy = ActorCritic(obs, cfg["obs_groups"], NUM_LINKS, device="cpu", seed=seed, **policy_kw)
+    else:
+        obs = {k: _t(v) for k, v in cs.obs.items()}
+        policy = ActorCritic(obs, cfg["obs_groups"], NUM_LINKS, device="cpu", **policy_kw)
+        ps = jax.device_get(ts.policy)
+        norm = {k: None if v is None else {f: np.asarray(getattr(v, f)) for f in ("mean", "var", "count")}
+                for k, v in ps.norm.items()}
+        from_jax_state(ps.params, norm, policy)
+        st = jax.device_get(cs.env_state)
+        env_state = NLinkState(_t(st.episode_length), _t(st.theta), _t(st.omega), env_keys(seed, NUM_ENVS))
+    ppo = PPO(policy, seed=seed + 1, **alg_kw)  # the runner's seed of the algorithm's generator
     fresh = []  # the JAX env's reset draws, one entry a step
     if "resets" in draws:
         env._sample_init = lambda rng: (rng, fresh.pop(0))
-    st = jax.device_get(cs.env_state)
-    port_cs = CollectState(env_state=NLinkState(_t(st.episode_length), _t(st.theta), _t(st.omega),
-                                                env_keys(seed, NUM_ENVS)),
-                           obs={k: _t(v) for k, v in cs.obs.items()}, carry=(),
-                           stats=init_episode_stats(NUM_ENVS, "cpu"))
+    port_cs = CollectState(env_state=env_state, obs=obs, carry=(), stats=init_episode_stats(NUM_ENVS, "cpu"))
 
     @jax.jit
     def reset_draws(rng):
@@ -132,12 +142,13 @@ def summarize(paths, out_path, against: str = "parity_torch_results.json") -> di
     from scipy import stats
 
     runs = [json.load(open(p)) for p in paths]
-    if len({(r["draws"], r["iterations"]) for r in runs}) != 1:
-        raise ValueError("the files mix --draws or --iterations settings")
+    if len({(r["draws"], r.get("init", "jax"), r["iterations"]) for r in runs}) != 1:
+        raise ValueError("the files mix --draws, --init or --iterations settings")
     seeds = {k: v for r in runs for k, v in r["seeds"].items()}
     finals = np.array([v["final"] for v in seeds.values()])
     ref = json.load(open(against))["studies"]["b40_single"]
     summary = {"script": "tests/torch_port_stream_parity.py", "draws": runs[0]["draws"],
+               "init": runs[0].get("init", "jax"),
                "iterations": runs[0]["iterations"], "platform": "cpu", "num_seeds": len(seeds),
                "finals_mean": float(finals.mean()), "finals_std": float(finals.std(ddof=1)),
                "finals_median": float(np.median(finals))}
@@ -158,6 +169,8 @@ def main() -> None:
     p.add_argument("--out", default=None)
     p.add_argument("--draws", choices=("all",) + STREAMS, default="all",
                    help="the JAX stream to swap in alone (default: all three)")
+    p.add_argument("--init", choices=("jax", "port"), default="jax",
+                   help="start from the JAX runner's initial policy and env state or the port's own")
     p.add_argument("--summarize", nargs="+", metavar="FILE",
                    help="pool these --out files into --out, against parity_torch_results.json's b40_single")
     args = p.parse_args()
@@ -169,12 +182,12 @@ def main() -> None:
     torch.set_num_threads(2)
     out = {}
     for seed in args.seeds:
-        curve, _, _ = stream_run(seed, args.iterations, draws=draws)
+        curve, _, _ = stream_run(seed, args.iterations, draws=draws, init=args.init)
         out[seed] = {"final": final(curve), "curve": [None if np.isnan(v) else v for v in curve]}
         print(json.dumps({"seed": seed, "final": out[seed]["final"]}), flush=True)
         if args.out:  # after every seed, so a cut run keeps what it finished
             with open(args.out, "w") as f:
-                json.dump({"draws": args.draws, "iterations": args.iterations, "seeds": out}, f)
+                json.dump({"draws": args.draws, "init": args.init, "iterations": args.iterations, "seeds": out}, f)
 
 
 if __name__ == "__main__":
