@@ -215,7 +215,8 @@ Phases, each fatal on failure:
    replays of its 8-step segments an iteration: 6 of each ``gru_x_*``),
    the students' teachers from ``parity_teachers/``. Each curve must be
    finite; ``phase9 {...}`` lines give the curve, the launches and the
-   seconds of each, and the phase prints its own seconds.
+   seconds of each, and the phase prints its own seconds. Their kernel
+   shapes are held in phase 3 (``STUDY_CONFIG_SHAPES``).
 
 Prints ``{"kernels": [...]}`` on the line before the last and, as the last
 line, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2864,6 +2865,20 @@ STUDY_RUNS = {
     "parity_f": (lambda device: parity_torch.study_runner("f", 1, device), "ff"),
     "parity_f_rec": (lambda device: parity_torch.study_runner("f_rec", 1, device), "gru"),
 }
+#: the kernel shapes of phase 9's studies, held in phase 3: (family, streams,
+#: T, B, D, H, bf16). The flagships' paired actor and critic replays of a
+#: minibatch of 4096 ``PartiallyObservableNLink`` envs ([cos, sin] of 5
+#: links), ``e``'s of 64 ``PartiallyObservablePendulum`` envs ([cos, sin]),
+#: and ``f_rec``'s student, one stream over all 64 envs, a segment of
+#: ``gradient_length`` steps
+STUDY_CONFIG_SHAPES = {
+    "convergence_gru_fp32": ("gru", 2, convergence_torch.NUM_STEPS, convergence_torch.NUM_ENVS // 4,
+                             2 * convergence_torch.NUM_LINKS, 256, False),
+    "convergence_lstm_bf16": ("lstm", 2, convergence_torch.NUM_STEPS, convergence_torch.NUM_ENVS // 4,
+                              2 * convergence_torch.NUM_LINKS, 256, True),
+    "parity_e": ("gru", 2, 24, parity_torch.NUM_ENVS // 4, 2, 64, False),
+    "parity_f_rec": ("gru", 1, 8, parity_torch.NUM_ENVS, 2, 64, False),
+}
 
 
 def study_config_slices(smi, device="cuda") -> dict:
@@ -3042,14 +3057,16 @@ def main() -> None:
             summary.append(f"{name} max_abs_err={path_err[label][name]:.3e} (max |plain|"
                            f" {max(m for _, m, _ in checks):.3g}) {'ok' if ok else 'FAIL'}")
         print(f"check {label} S={S} T={T} B={b} D={d} H={h} fp32: " + "; ".join(summary))
-    # phase 8's shapes: the chain doubles' 10-wide obs, in the slices' operand modes
-    for i, (label, (family, S, b, bf16)) in enumerate(SIM_SHAPES.items()):
-        res, repeat = check_kernels(family, S, T, b, 2 * CHAIN_SIZE, H, bf16, seed=700 + i)
+    # phase 8's shapes (the chain doubles' 10-wide obs) and phase 9's study
+    # configs, in their operand modes
+    sim = {label: (family, S, T, b, 2 * CHAIN_SIZE, H, bf16) for label, (family, S, b, bf16) in SIM_SHAPES.items()}
+    for i, (label, (family, S, t, b, d, h, bf16)) in enumerate({**sim, **STUDY_CONFIG_SHAPES}.items()):
+        res, repeat = check_kernels(family, S, t, b, d, h, bf16, seed=700 + i)
         for name, checks in res.items():
             passed[name] = passed[name] and all(o for _, _, o in checks)
             if name in repeat:
                 repeatable[name] = repeatable[name] and repeat[name]
-        print(f"check {label} S={S} T={T} B={b} D={2 * CHAIN_SIZE} H={H} {'bf16' if bf16 else 'fp32'}: "
+        print(f"check {label} S={S} T={t} B={b} D={d} H={h} {'bf16' if bf16 else 'fp32'}: "
               + "; ".join(f"{name} max_abs_err={max(e for e, _, _ in c):.3e} (max |plain| {max(m for _, m, _ in c):.3g})"
                           f" {'ok' if all(o for _, _, o in c) else 'FAIL'}" for name, c in res.items()))
     # the xproj shapes of phase 4d's studies, in both operand modes

@@ -11,7 +11,13 @@ envs of 5 links, T=24, 5 epochs x 4 minibatches, ``noise_std_floor=0.01``
 replay (``fuse_iteration=True``). A curve holds each iteration's mean reward
 over the episodes completed in it (nan when none completed); a seed's final
 is the mean of the non-nan points among its last 100 iterations
-(``convergence_tpu.py``'s ``final_mean_reward_100``). The studies:
+(``convergence_tpu.py``'s ``final_mean_reward_100``). One difference of
+form: each JAX seed starts from ``_build``'s fixed initial parameters
+(``PRNGKey(1)``) and collect state (``PRNGKey(2)``) and varies only the
+training key (``fold_in(ts.rng, seed)``); here the seed also draws the
+initial policy and the envs' initial state, as ``OnPolicyRunner`` seeds
+them, so the port's band holds the initialisation's variance too. The
+studies:
 
 - ``gru_fp32``: ``ActorCriticRecurrent`` with GRU-256 memories and [256,
   256] heads, fp32, on ``PartiallyObservableNLink``, 1000 iterations, 8 seeds;

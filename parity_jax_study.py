@@ -15,16 +15,17 @@ envs of 5 links, ``max_episode_length=400``, 500 iterations): one
 ``MultiSeedRunner`` of ``--study-seeds`` seeds (seed 1), and
 ``--single-seeds`` single-seed runs (seeds 1, 2, ...). It writes the
 per-seed finals (the nan-aware mean of the last 20 iterations' mean
-reward) and curves to ``parity_jax_results.json``, and, where
-``parity_torch_results.json`` holds the port's ``b40`` and ``b_single``
-studies, prints Welch's t and Mann-Whitney U p-values of each port study
-against the JAX run of the same form. ``--seed-offset K`` runs the single
-seeds ``K + 1 ..`` and ``--study-seeds 0`` skips the study; ``--merge``
-pools the single seeds of earlier ``--out`` files (it trains nothing). Where
-the single seeds are 41-80 and ``parity_torch_results.json`` holds the
-port's pooled ``b80_single``, the script also holds those 80 port seeds
-against 80 JAX single seeds: the committed files' 40 (``b40_single``'s JAX
-side) and these 40. It needs JAX, so it runs where the JAX package does, not
+reward) and curves to ``parity_jax_results.json``. ``--seed-offset K`` runs
+the single seeds ``K + 1 ..`` and ``--study-seeds 0`` skips the study;
+``--merge`` pools the single seeds of earlier ``--out`` files by seed (it
+trains nothing). Then it holds every port study stored in
+``parity_torch_results.json`` against the JAX finals of the port study's
+own seeds in the same form (``b40`` against the study; ``b_single``,
+``b40_single``, their ``_s<seed>`` sets and what ``parity_torch.py --pool``
+made of them against single runs: the committed files' seeds 1-40, this
+run's in their place), wherever this run gave some of those seeds, and
+prints and stores Welch's t and Mann-Whitney U p-values under
+``against_port``. It needs JAX, so it runs where the JAX package does, not
 on the card's machine.
 """
 
@@ -33,8 +34,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
-import warnings
 
 import jax
 import numpy as np
@@ -43,15 +44,15 @@ from benchmarks.parity_nlink import MAX_EPISODE_LENGTH, NUM_LINKS, run_ours
 from benchmarks.parity_pendulum import train_cfg
 from rsl_rl_tpu.env import NLinkPendulum
 from rsl_rl_tpu.runners import MultiSeedRunner
+from parity_torch import finals, jax_finals, p_values
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-ITERATIONS, NUM_ENVS, WINDOW = 500, 64, 20
-
-
-def finals(curves: np.ndarray) -> np.ndarray:
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
-        return np.nanmean(curves[:, -WINDOW:], axis=1)
+ITERATIONS, NUM_ENVS = 500, 64
+#: the committed JAX single-seed runs of the protocol (seeds 1-10, 11-20, 21-40)
+COMMITTED = ("parity_nlink.json", "parity_nlink_b.json", "parity_nlink_c.json")
+#: the port's studies of each JAX form: one ``MultiSeedRunner`` of seeds
+#: 1..N, or a runner a seed
+FORMS = {"b40": "study", "b_single": "single", "b40_single": "single"}
 
 
 def run_study(num_seeds: int) -> np.ndarray:
@@ -69,37 +70,49 @@ def run_study(num_seeds: int) -> np.ndarray:
     return np.stack(points, axis=1)
 
 
-def p_values(port: np.ndarray, jax_: np.ndarray) -> dict:
-    from scipy import stats
+def single_finals(results: dict) -> dict[int, float]:
+    """JAX single-seed finals by seed: the committed files' (``COMMITTED``),
+    then this run's, which take a seed's place."""
+    table = {}
+    for name in COMMITTED:
+        with open(os.path.join(ROOT, "benchmarks", "results", name)) as f:
+            seeds = json.load(f)["seeds"]
+        table.update(zip(seeds, jax_finals(name)[0].tolist()))
+    single = results.get("single", {})
+    table.update(zip(single.get("seeds", []), single.get("finals", [])))
+    return table
 
-    return {"welch_t_p": float(stats.ttest_ind(port, jax_, equal_var=False).pvalue),
-            "mann_whitney_u_p": float(stats.mannwhitneyu(port, jax_, alternative="two-sided").pvalue)}
+
+def form_of(name: str, port: dict) -> str | None:
+    """The JAX form a stored port study has (``study`` or ``single``): that
+    of the study it was pooled from, or of its name less a ``_s<seed>``."""
+    if "pooled_from" in port[name]:
+        return form_of(port[name]["pooled_from"][0], port)
+    return FORMS.get(re.sub(r"_s\d+$", "", name))
 
 
 def against_port(results: dict) -> None:
-    """Each JAX form held against the port's study of the same form (what
-    ``parity_torch_results.json`` holds), printed and stored."""
+    """Every stored port study (``parity_torch_results.json``) held against
+    the JAX finals of its own seeds, of the same form, where this run gave
+    some of them; printed and stored under ``against_port``."""
     port_path = os.path.join(ROOT, "parity_torch_results.json")
     port = json.load(open(port_path))["studies"] if os.path.exists(port_path) else {}
-    single_seeds = results.get("single", {}).get("seeds", [])
-    forms = [("study", "b40"), ("single", "b_single")]
-    if single_seeds == list(range(41, 81)):
-        forms = [("single", "b40_single_s41"), ("single80", "b80_single")]
-        if "b40_single" in port:  # the committed files' 40 JAX seeds and these 40
-            results["single80"] = {"seeds": list(range(1, 81)),
-                                   "finals": port["b40_single"]["jax"]["per_seed"] + results["single"]["finals"]}
-    for form, port_study in forms:
-        if form not in results:
+    run_seeds = {"study": set(range(1, results["study"]["seeds"] + 1)) if "study" in results else set(),
+                 "single": set(results.get("single", {}).get("seeds", []))}
+    tables = {"study": dict(zip(sorted(run_seeds["study"]), results.get("study", {}).get("finals", []))),
+              "single": single_finals(results)}
+    results["against_port"] = {}
+    for name, study in port.items():
+        form = form_of(name, port)
+        seeds = study.get("seed_list", list(range(1, study["seeds"] + 1)))
+        if form is None or not set(seeds) & run_seeds[form] or not set(seeds) <= set(tables[form]):
             continue
-        jax_finals = np.asarray(results[form]["finals"])
-        line = {"form": form, "jax_mean": float(jax_finals.mean()), "jax_std": float(jax_finals.std()),
-                "jax_seeds": len(jax_finals)}
-        if port_study in port:
-            port_finals = np.asarray(port[port_study]["port"]["per_seed"])
-            line.update(port_study=port_study, port_mean=float(port_finals.mean()),
-                        port_std=float(port_finals.std()), port_seeds=len(port_finals),
-                        **p_values(port_finals, jax_finals))
-        results[f"{form}_against_port"] = line
+        jax_ = np.asarray([tables[form][s] for s in seeds])
+        port_finals = np.asarray(study["port"]["per_seed"])
+        line = {"form": form, "port_study": name, "seeds": f"{min(seeds)}-{max(seeds)}",
+                "jax_mean": float(jax_.mean()), "jax_std": float(jax_.std()), "port_mean": float(port_finals.mean()),
+                "port_std": float(port_finals.std()), "n": len(seeds), **p_values(port_finals, jax_)}
+        results["against_port"][name] = line
         print(json.dumps(line), flush=True)
 
 
@@ -115,11 +128,13 @@ def main() -> None:
     results = {"platform": jax.devices()[0].platform, "jax": jax.__version__, "iterations": ITERATIONS}
     if args.merge:
         parts = [json.load(open(path))["single"] for path in args.merge]
-        order = np.argsort([s for part in parts for s in part["seeds"]])
-        pooled = {k: [v for part in parts for v in part[k]] for k in ("seeds", "finals", "curves")}
-        results["single"] = {k: [v[i] for i in order] for k, v in pooled.items()}
-        results["single"]["wall_s"] = sum(part["wall_s"] for part in parts)
-        results["single"]["merged_from"] = [os.path.basename(path) for path in args.merge]
+        by_seed = {s: (f, c) for part in parts for s, f, c in zip(part["seeds"], part["finals"], part["curves"])}
+        seeds = sorted(by_seed)
+        results["single"] = {"seeds": seeds, "finals": [by_seed[s][0] for s in seeds],
+                             "curves": [by_seed[s][1] for s in seeds],
+                             "wall_s": sum(part["wall_s"] for part in parts),
+                             "merged_from": [name for path, part in zip(args.merge, parts)
+                                             for name in part.get("merged_from", [os.path.basename(path)])]}
     else:
         if args.study_seeds:
             start = time.perf_counter()

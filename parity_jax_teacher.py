@@ -55,7 +55,7 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--seeds", type=int, nargs="+", default=list(range(1, 11)))
     p.add_argument("--studies", nargs="+", default=list(STUDIES), choices=list(STUDIES))
-    p.add_argument("--iterations", type=int, default=None, help="shorten the students (a rehearsal)")
+    p.add_argument("--iterations", type=int, default=None, help="the students' iterations (default: the protocol's)")
     p.add_argument("--teachers", default=os.path.join(ROOT, "parity_teachers"))
     p.add_argument("--out", default=os.path.join(ROOT, "parity_jax_distill_results.json"))
     args = p.parse_args()

@@ -18,6 +18,8 @@
 - Two iterations of every new study at 64 envs on the CPU give finite
   curves (the envs' episodes cut to one window so that each iteration
   completes some).
+- ``chip_smoke.py`` phase 3 holds the kernels at every shape a study's
+  iteration replays (``STUDY_CONFIG_SHAPES``), recorded on the CPU.
 - The port's initial MLP weights follow the JAX package's distributions,
   layer by layer at the parity config's widths (obs 15, [128, 128], 5
   actions), with the default init (through ``ActorCritic``, as the studies
@@ -43,6 +45,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import bench  # noqa: E402
+import chip_smoke  # noqa: E402
 import convergence_torch  # noqa: E402
 import parity_torch  # noqa: E402
 from benchmarks import parity_distillation, parity_pendulum  # noqa: E402
@@ -53,6 +56,7 @@ from rsl_rl_tpu.networks.mlp import MLP as JaxMLP  # noqa: E402
 from rsl_rl_tpu.utils.torch_deploy import import_torch_checkpoint as jax_import_torch_checkpoint  # noqa: E402
 from rsl_rl_tpu_torch.modules import ActorCritic  # noqa: E402
 from rsl_rl_tpu_torch.networks.mlp import MLP  # noqa: E402
+from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn  # noqa: E402
 
 #: the keys only one side has: the port's graphed iterations, the JAX
 #: scripts' log writer
@@ -241,6 +245,29 @@ def test_two_iteration_rehearsal_gives_finite_curves(study):
     curve = [float(parity_torch.curve_point(h["metrics"], "ep_reward_sum")) for h in runner.history]
     assert len(curve) == 2 and all(math.isfinite(v) for v in curve), curve
     assert all(math.isfinite(v) for h in runner.history for v in h["metrics"].values())
+
+
+@pytest.mark.parametrize("label", list(chip_smoke.STUDY_CONFIG_SHAPES))
+def test_smoke_holds_each_studys_kernel_shapes(label, monkeypatch):
+    """Every x-kernel shape a study's iteration replays is the one
+    ``chip_smoke.py`` phase 3 holds against the plain version: the plain
+    forwards record (family, S, T, B, D, H, bf16) over one CPU iteration, the
+    flagships' B scaled from 4096 envs to the rehearsal's."""
+    torch.set_num_threads(2)
+    seen = set()
+    # each plain forward's name and the places of its wh [S, H, G H] and xs
+    for family, module, name, wh in (("gru", gru_rnn, "gru_x_plain_fwd", 2), ("lstm", lstm_rnn, "lstm_x_plain_fwd", 1)):
+        def record(*args, family=family, fwd=getattr(module, name), wh=wh):
+            S, T, B, D = args[5].shape
+            seen.add((family, S, T, B, D, args[wh].shape[-2], bool(args[-1])))
+            return fwd(*args)
+        monkeypatch.setattr(module, name, record)
+    runner = _short_episodes(REHEARSALS[label.split("_", 1)[1]]())
+    parity_torch.quiet_learn(runner, 1)
+    family, S, T, B, D, H, bf16 = chip_smoke.STUDY_CONFIG_SHAPES[label]
+    if label.startswith("convergence_"):
+        B = B * NUM_ENVS // convergence_torch.NUM_ENVS
+    assert seen == {(family, S, T, B, D, H, bf16)}
 
 
 def _ks(port: dict, jax_: dict) -> dict:
