@@ -113,9 +113,10 @@ Phases, each fatal on failure:
    kernel an iteration, none of any other): finite metrics, the buffer
    randomized in place (the same ndarray, clocks spread over ``[0,
    max_episode_length)``), finished episodes; then 2 iterations with the
-   collection's phases fenced (``host ... collection split`` line: the act
-   step on the card, the action's copy to the host, the env step, the copies
-   back, the step processing; beside the untimed steady env-steps/s and the
+   collection's phases from the tracer's records (``host ... collection
+   split`` line: the act step on the card and the step processing between
+   device stamps, the action's copy to the host, the env step and the
+   copies back on the host clock; beside the steady env-steps/s and the
    card), the kernel replay of a host window against acting, the same
    config with ``fuse_iteration=True`` (runs split, the same launches), and
    ``iterations_per_dispatch=2`` and ``eval_interval=1`` refused. 6b:
@@ -269,7 +270,7 @@ from rsl_rl_tpu_torch.parallel import distributed_init, gather_tree_tp
 from rsl_rl_tpu_torch.parallel.mesh import local_slice
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
 from rsl_rl_tpu_torch.storage.rollout import Rollout, slice_envs, tree_map
-from rsl_rl_tpu_torch.utils import cuda_build
+from rsl_rl_tpu_torch.utils import cuda_build, trace
 from rsl_rl_tpu_torch.utils.cuda_graph import flatten
 from rsl_rl_tpu_torch.utils.evaluation import EVAL_KEYS, evaluate_policy
 from rsl_rl_tpu_torch.utils.export import export_policy, load_policy
@@ -1632,10 +1633,10 @@ def host_gru_slice(smi, T, B) -> tuple[dict, OnPolicyRunner]:
     """6a: the GRU-256 flagship on :class:`HostNLink` through
     ``OnPolicyRunner.learn(init_at_random_ep_len=True)``, the counters zeroed
     just before and read just after; checks finite metrics, the buffer
-    randomized in place, finished episodes, then times two iterations with
-    the collection's phases fenced, holds the kernel replay of a host window
-    against acting, and runs ``fuse_iteration=True`` (eager, the same
-    launches) and the refused keys. Returns the launches and the runner."""
+    randomized in place, finished episodes, then reads the collection's
+    phases of two iterations from the tracer, holds the kernel replay of a
+    host window against acting, and runs ``fuse_iteration=True`` (eager, the
+    same launches) and the refused keys. Returns the launches and the runner."""
     name = "recurrent_gru256_host"
     cfg = RECURRENT_GRU256
     env = HostNLink()
@@ -1656,23 +1657,24 @@ def host_gru_slice(smi, T, B) -> tuple[dict, OnPolicyRunner]:
         fail(f"{name}: the episode clocks were not randomized in place, or no episode finished")
     steady = runner.history[1:]
 
-    # the collection's phases, each fenced (costs a synchronization a phase and step)
-    runner.host_collect.timings = timings = {}
+    # the collection's phases, from the tracer's records of two iterations
+    # (act and process between device stamps, the rest on the host clock)
     runner.learn(2)
     timed = runner.history[-2:]
+    records = list(trace.records)[-2:]
     collection_s = sum(row["collection_s"] for row in timed)
+    phase_s = {k: sum(r.ms(k) for r in records) * 1e-3 for k in PHASES}
     report = {
         "steady_env_steps_per_s": float(np.mean([row["steps_per_s"] for row in steady])),
         "steady_collection_s": float(np.mean([row["collection_s"] for row in steady])),
         "steady_learn_s": float(np.mean([row["learn_s"] for row in steady])),
         "timed_env_steps_per_s": float(np.mean([row["steps_per_s"] for row in timed])),
         "timed_collection_s": collection_s / 2,
-        "phase_s": {k: timings[k] / 2 for k in PHASES},
-        "phase_share_of_collection": {k: timings[k] / collection_s for k in PHASES},
+        "phase_s": {k: v / 2 for k, v in phase_s.items()},
+        "phase_share_of_collection": {k: v / collection_s for k, v in phase_s.items()},
         "card": smi,
     }
     print(f"host {name} env-steps/s and collection split (per iteration): {json.dumps(report)}")
-    runner.host_collect.timings = None
 
     # the kernel replay of a host window reproduces the acting-time outputs
     policy = runner.alg.policy

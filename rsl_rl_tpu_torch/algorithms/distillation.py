@@ -68,6 +68,7 @@ from rsl_rl_tpu_torch.modules.policy import seed_call
 from rsl_rl_tpu_torch.networks.memory import mask_carry
 from rsl_rl_tpu_torch.ops import distributions
 from rsl_rl_tpu_torch.storage.rollout import Rollout, tree_map
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.registry import register
 
 
@@ -193,13 +194,8 @@ class Distillation(Trainer):
         ``PPO.make_host_collect_fn`` with the student's sampled action, the
         teacher's action recorded as ``privileged_actions``, and a step's
         processing the student's normalizer update and the done envs' carry
-        reset. ``collect.timings`` and a ``bridge`` as there."""
-        from rsl_rl_tpu_torch.algorithms.host_collect import (
-            HostEpisodeTracker,
-            PhaseTimer,
-            host_step,
-            stack_trajectory,
-        )
+        reset. The tracer's phases and a ``bridge`` as there."""
+        from rsl_rl_tpu_torch.algorithms.host_collect import HostEpisodeTracker, host_step, stack_trajectory
 
         if bridge is not None:
             self.distribute(bridge.mesh)
@@ -207,7 +203,6 @@ class Distillation(Trainer):
 
         @torch.no_grad()
         def collect(cs: CollectState, action_noise: torch.Tensor | None = None):
-            timer = PhaseTimer(collect.timings, device)
             obs, carry = cs.obs, cs.carry
             carry0 = carry
             tracker = HostEpisodeTracker(cs.stats, device)
@@ -215,21 +210,21 @@ class Distillation(Trainer):
             traj = {k: [] for k in ("obs", "actions", "privileged_actions", "rewards", "dones")}
             stds = []
             for t in range(num_steps_per_env):
-                mean, std, carry = policy.act(obs, carry)
-                noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
-                action = distributions.sample(mean, std, noise, self.generator)
-                privileged, carry = policy.evaluate(obs, carry)
-                timer.mark("act")
-                (next_obs, rew, done, _), (rew_np, done_np, extras) = host_step(env, action, device, timer)
-                policy.update_normalization(next_obs)
-                carry = policy.reset_carry(carry, done)
-                for k, v in (("obs", obs), ("actions", action), ("privileged_actions", privileged),
-                             ("rewards", rew), ("dones", done)):
-                    traj[k].append(v)
-                stds.append(std.mean())
-                obs = next_obs
-                tracker.step(rew_np, zero_irew, done_np, extras)
-                timer.mark("process")
+                with trace.interval("act"):
+                    mean, std, carry = policy.act(obs, carry)
+                    noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
+                    action = distributions.sample(mean, std, noise, self.generator)
+                    privileged, carry = policy.evaluate(obs, carry)
+                (next_obs, rew, done, _), (rew_np, done_np, extras) = host_step(env, action, device)
+                with trace.interval("process"):
+                    policy.update_normalization(next_obs)
+                    carry = policy.reset_carry(carry, done)
+                    for k, v in (("obs", obs), ("actions", action), ("privileged_actions", privileged),
+                                 ("rewards", rew), ("dones", done)):
+                        traj[k].append(v)
+                    stds.append(std.mean())
+                    obs = next_obs
+                    tracker.step(rew_np, zero_irew, done_np, extras)
 
             stacked = stack_trajectory(traj)
             if bridge is not None:
@@ -241,7 +236,6 @@ class Distillation(Trainer):
             metrics = global_metrics(metrics, self.mesh, local)
             return CollectState(env_state=(), obs=obs, carry=carry, stats=tracker.stats()), rollout, metrics
 
-        collect.timings = None
         return collect
 
     # ---------------------------------------------------------------- update

@@ -8,58 +8,37 @@ stacking of the window; only what they record a step differs.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from rsl_rl_tpu_torch.algorithms.ppo import ACC_KEYS, EpisodeStats
+from rsl_rl_tpu_torch.utils import trace
 
-#: the phases of a host window that :class:`PhaseTimer` times: the policy's
-#: act step on its device, the action's copy to the host, the env's step,
-#: the copies of obs, rewards and dones to the device, and the step
-#: processing (normalizers, rewards, carry resets) on the device
+#: the phases of a host window, booked to the tracer's record of the
+#: iteration (``utils/trace.py``): the policy's act step on its device and
+#: the step processing (normalizers, rewards, carry resets) on the device,
+#: each between two device stamps, and the action's copy to the host, the
+#: env's step and the copies of obs, rewards and dones to the device, each on
+#: the host clock
 PHASES = ("act", "to_host", "env_step", "to_device", "process")
 
 
-class PhaseTimer:
-    """Seconds a phase of a host window, added into ``timings`` (a dict,
-    keys :data:`PHASES`); with ``timings=None`` it does nothing. When
-    timing, each mark synchronizes the device first, so a phase's seconds
-    hold the device work it launched; that costs one synchronization a phase
-    and step, which the untimed loop does not pay."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings = timings
-        self.device = device
-        self.last = time.perf_counter()
-
-    def mark(self, phase: str) -> None:
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[phase] = self.timings.get(phase, 0.0) + now - self.last
-        self.last = now
-
-
-def host_step(env, action: torch.Tensor, device: torch.device, timer: PhaseTimer):
+def host_step(env, action: torch.Tensor, device: torch.device):
     """Copy ``action`` to the host, step the host env, and copy what it
     returns to ``device``: ``(obs, rewards, dones, time_outs)`` as tensors
     (obs and rewards fp32, dones bool, time-outs fp32, zero where the env
     reports none), then the host's ``(rewards, dones, extras)``."""
-    action_np = action.cpu().numpy()
-    timer.mark("to_host")
-    obs_np, rew_np, done_np, extras = env.step(action_np)
-    timer.mark("env_step")
-    rew_np = np.asarray(rew_np, np.float32)
-    done_np = np.asarray(done_np, bool)
-    time_outs = np.asarray(extras.get("time_outs", np.zeros_like(done_np)), np.float32)
-    obs = {k: torch.as_tensor(np.asarray(v, np.float32), device=device) for k, v in obs_np.items()}
-    tensors = (obs, torch.as_tensor(rew_np, device=device), torch.as_tensor(done_np, device=device),
-               torch.as_tensor(time_outs, device=device))
-    timer.mark("to_device")
+    with trace.host_phase("to_host"):
+        action_np = action.cpu().numpy()
+    with trace.host_phase("env_step"):
+        obs_np, rew_np, done_np, extras = env.step(action_np)
+    with trace.host_phase("to_device"):
+        rew_np = np.asarray(rew_np, np.float32)
+        done_np = np.asarray(done_np, bool)
+        time_outs = np.asarray(extras.get("time_outs", np.zeros_like(done_np)), np.float32)
+        obs = {k: torch.as_tensor(np.asarray(v, np.float32), device=device) for k, v in obs_np.items()}
+        tensors = (obs, torch.as_tensor(rew_np, device=device), torch.as_tensor(done_np, device=device),
+                   torch.as_tensor(time_outs, device=device))
     return tensors, (rew_np, done_np, extras)
 
 

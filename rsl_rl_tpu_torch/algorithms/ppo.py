@@ -69,6 +69,7 @@ from rsl_rl_tpu_torch.ops.running_norm import RunningNormState
 from rsl_rl_tpu_torch.parallel.mesh import global_mean_std
 from rsl_rl_tpu_torch.parallel.tp import shard_module_tp, sharded_mask
 from rsl_rl_tpu_torch.storage.rollout import Rollout, recurrent_minibatch_starts, slice_envs, tree_map
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.registry import register
 from rsl_rl_tpu_torch.utils.resolvers import resolve_optimizer, string_to_callable
 
@@ -679,7 +680,8 @@ class PPO(Trainer):
             log_p = distributions.log_prob(mean, std, action)
             value, carry = policy.value(obs, carry)
 
-            env_state, next_obs, rew, done, extras = env.step(env_state, action)
+            with trace.interval("env"):
+                env_state, next_obs, rew, done, extras = env.step(env_state, action)
             done_f = done.to(torch.float32)
             policy.update_normalization(next_obs)
             total_rew, irew = rew, torch.zeros_like(rew)
@@ -728,8 +730,10 @@ class PPO(Trainer):
         rewards and dones. The window stacks into the time-major
         ``Rollout`` (with ``carry0`` for a recurrent policy) that
         :meth:`update` takes. ``action_noise [T, N, A]`` replaces the
-        normal draws, as in :meth:`collect`. ``collect.timings``: set it to a
-        dict to add each phase's seconds there (``host_collect.PHASES``).
+        normal draws, as in :meth:`collect`. Inside a runner's iteration each
+        step books its phases to the tracer's record (``utils/trace.py``,
+        ``host_collect.PHASES``): ``act`` and ``process`` between device
+        stamps, ``to_host``, ``env_step`` and ``to_device`` on the host clock.
 
         With a ``HostShardingBridge`` (``parallel/host_dp.py``) ``env`` is
         this rank's shard and the algorithm trains on the bridge's mesh
@@ -738,12 +742,7 @@ class PPO(Trainer):
         global, while the episode statistics stay this rank's (rank 0 logs),
         as in ``host_dp.py:25-28``.
         """
-        from rsl_rl_tpu_torch.algorithms.host_collect import (
-            HostEpisodeTracker,
-            PhaseTimer,
-            host_step,
-            stack_trajectory,
-        )
+        from rsl_rl_tpu_torch.algorithms.host_collect import HostEpisodeTracker, host_step, stack_trajectory
 
         if bridge is not None:
             self.distribute(bridge.mesh)
@@ -751,7 +750,6 @@ class PPO(Trainer):
 
         @torch.no_grad()
         def collect(cs: CollectState, action_noise: torch.Tensor | None = None):
-            timer = PhaseTimer(collect.timings, device)
             obs, carry = cs.obs, cs.carry
             carry0 = carry
             tracker = HostEpisodeTracker(cs.stats, device)
@@ -760,27 +758,27 @@ class PPO(Trainer):
             zero_irew = np.zeros(env.num_envs, np.float32)
             traj = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs", "mu", "sigma")}
             for t in range(num_steps_per_env):
-                mean, std, carry = policy.act(obs, carry)
-                noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
-                action = distributions.sample(mean, std, noise, self.generator)
-                log_p = distributions.log_prob(mean, std, action)
-                value, carry = policy.value(obs, carry)
-                timer.mark("act")
-                (next_obs, rew, done, time_outs), (rew_np, done_np, extras) = host_step(env, action, device, timer)
+                with trace.interval("act"):
+                    mean, std, carry = policy.act(obs, carry)
+                    noise = step_noise(mean, action_noise, t, self.mesh, self.generator)
+                    action = distributions.sample(mean, std, noise, self.generator)
+                    log_p = distributions.log_prob(mean, std, action)
+                    value, carry = policy.value(obs, carry)
+                (next_obs, rew, done, time_outs), (rew_np, done_np, extras) = host_step(env, action, device)
 
-                policy.update_normalization(next_obs)
-                irew = torch.zeros_like(rew)
-                if rnd is not None:
-                    rnd.update_normalization(next_obs)
-                    irew, _ = rnd.get_intrinsic_reward(next_obs)
-                total_rew = rew + irew + self.gamma * value * time_outs
-                carry = policy.reset_carry(carry, done)
-                for k, v in (("obs", obs), ("actions", action), ("rewards", total_rew), ("dones", done),
-                             ("values", value), ("log_probs", log_p), ("mu", mean), ("sigma", std)):
-                    traj[k].append(v)
-                obs = next_obs
-                tracker.step(rew_np, irew.cpu().numpy() if rnd is not None else zero_irew, done_np, extras)
-                timer.mark("process")
+                with trace.interval("process"):
+                    policy.update_normalization(next_obs)
+                    irew = torch.zeros_like(rew)
+                    if rnd is not None:
+                        rnd.update_normalization(next_obs)
+                        irew, _ = rnd.get_intrinsic_reward(next_obs)
+                    total_rew = rew + irew + self.gamma * value * time_outs
+                    carry = policy.reset_carry(carry, done)
+                    for k, v in (("obs", obs), ("actions", action), ("rewards", total_rew), ("dones", done),
+                                 ("values", value), ("log_probs", log_p), ("mu", mean), ("sigma", std)):
+                        traj[k].append(v)
+                    obs = next_obs
+                    tracker.step(rew_np, irew.cpu().numpy() if rnd is not None else zero_irew, done_np, extras)
 
             stacked = stack_trajectory(traj)
             if bridge is not None:
@@ -794,7 +792,6 @@ class PPO(Trainer):
             metrics = global_metrics(metrics, self.mesh, local)
             return CollectState(env_state=(), obs=obs, carry=carry, stats=tracker.stats()), rollout, metrics
 
-        collect.timings = None
         return collect
 
     # ---------------------------------------------------------------- update

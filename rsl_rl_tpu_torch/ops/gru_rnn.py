@@ -92,7 +92,6 @@ import torch
 
 from rsl_rl_tpu_torch.ops.rnn_common import (
     X_STREAM_MAX_D,
-    LaunchCounts,
     batch_first,
     check,
     check_hidden,
@@ -109,6 +108,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     stream,
     wgrad_scratch,
 )
+from rsl_rl_tpu_torch.utils.trace import LaunchCounts
 
 #: launches of the x-streaming kernels (``gru_x_*``) and of the xproj kernels (``gru_xp_*``)
 launch_counts = LaunchCounts()

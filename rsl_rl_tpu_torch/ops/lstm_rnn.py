@@ -85,7 +85,6 @@ import torch
 
 from rsl_rl_tpu_torch.ops.rnn_common import (
     X_STREAM_MAX_D,
-    LaunchCounts,
     batch_first,
     check,
     check_hidden,
@@ -102,6 +101,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     stream,
     wgrad_scratch,
 )
+from rsl_rl_tpu_torch.utils.trace import LaunchCounts
 
 #: launches of the x-streaming kernels (``lstm_x_*``) and of the xproj kernels (``lstm_xp_*``)
 launch_counts = LaunchCounts()

@@ -1,7 +1,8 @@
 """What the GRU and LSTM window replays (``ops/gru_rnn.py``,
 ``ops/lstm_rnn.py``) share: the operand rounding of the bf16 mode, the
-compute-dtype rule, launch counters, the checks of the kernel wrappers and the
-batching of the replays' ``torch.func.vmap`` rules."""
+compute-dtype rule, the checks of the kernel wrappers and the batching of
+the replays' ``torch.func.vmap`` rules (their launch counters are
+``utils/trace.py``'s ``LaunchCounts``)."""
 
 from __future__ import annotations
 
@@ -29,18 +30,6 @@ WGRAD_TILE_COLS = 128
 WGRAD_TAIL = 16
 WGRAD_MIN_SPLIT_ROWS = 256
 WGRAD_MAX_SPLITS = 64
-
-
-@dataclass
-class LaunchCounts:
-    """Launches of each kernel since the last :meth:`reset`."""
-
-    fwd_launches: int = 0
-    bwd_launches: int = 0
-    wgrad_launches: int = 0
-
-    def reset(self) -> None:
-        self.fwd_launches = self.bwd_launches = self.wgrad_launches = 0
 
 
 def op(x: torch.Tensor, bf16: bool) -> torch.Tensor:

@@ -17,7 +17,9 @@ hand:
 
 Without an initialized process group :func:`make_mesh` gives the one-rank
 mesh, whose collectives do nothing. An initialized group of one (an NCCL
-group on one card) runs every collective.
+group on one card) runs every collective. Inside an iteration each
+collective that runs lies between two of the tracer's device stamps
+(``exchange``, ``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from rsl_rl_tpu_torch.storage.rollout import tree_map
+from rsl_rl_tpu_torch.utils import trace
 
 
 def distributed_init(**kwargs) -> bool:
@@ -105,13 +108,15 @@ class Mesh:
     def data_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the data group, in place; returns ``t``."""
         if self.data_group is not None:
-            dist.all_reduce(t, group=self.data_group)
+            with trace.interval("exchange"):
+                dist.all_reduce(t, group=self.data_group)
         return t
 
     def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the model group, in place; returns ``t``."""
         if self.model_group is not None:
-            dist.all_reduce(t, group=self.model_group)
+            with trace.interval("exchange"):
+                dist.all_reduce(t, group=self.model_group)
         return t
 
     def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -119,7 +124,8 @@ class Mesh:
         if self.model_size == 1:
             return t
         parts = [torch.empty_like(t) for _ in range(self.model_size)]
-        dist.all_gather(parts, t.contiguous(), group=self.model_group)
+        with trace.interval("exchange"):
+            dist.all_gather(parts, t.contiguous(), group=self.model_group)
         return torch.cat(parts, dim=dim)
 
     def data_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -127,13 +133,15 @@ class Mesh:
         if self.data_group is None:
             return t
         parts = [torch.empty_like(t) for _ in range(self.data_size)]
-        dist.all_gather(parts, t.contiguous(), group=self.data_group)
+        with trace.interval("exchange"):
+            dist.all_gather(parts, t.contiguous(), group=self.data_group)
         return torch.cat(parts, dim=dim)
 
     def data_broadcast_(self, t: torch.Tensor) -> torch.Tensor:
         """Overwrite ``t`` with data rank 0's, in place; returns ``t``."""
         if self.data_group is not None and self.data_size > 1:
-            dist.broadcast(t, src=self.model_rank, group=self.data_group)
+            with trace.interval("exchange"):
+                dist.broadcast(t, src=self.model_rank, group=self.data_group)
         return t
 
 

@@ -29,6 +29,7 @@ from rsl_rl_tpu_torch.modules.symmetry import resolve_symmetry_config
 from rsl_rl_tpu_torch.runners.multiseed import make_multiseed_train
 from rsl_rl_tpu_torch.runners.pbt import init_pbt_state, make_pbt_step
 from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.evaluation import eval_seed, evaluate_policy
@@ -125,21 +126,24 @@ class MultiSeedRunner(TrainingLoop):
 
     def _split_iteration(self):
         start = time.perf_counter()
-        cs, rollout, cm = self.alg.collect_stacked(self.env, self.train_state, self.collect_state,
-                                                   self.num_steps_per_env)
+        with trace.span("alg.collect"):
+            cs, rollout, cm = self.alg.collect_stacked(self.env, self.train_state, self.collect_state,
+                                                       self.num_steps_per_env)
         self._sync()
         collection_time = time.perf_counter() - start
 
-        start = time.perf_counter()
-        _, cs, um = self.alg.update_stacked(self.train_state, cs, rollout)
-        metrics = {**cm, **um}
-        if self.pbt_state is not None:
-            metrics = self._pbt_step(self.train_state, self.pbt_state, metrics)
-        self._sync()
-        learn_time = time.perf_counter() - start
+        with trace.span("alg.update"):
+            start = time.perf_counter()
+            _, cs, um = self.alg.update_stacked(self.train_state, cs, rollout)
+            metrics = {**cm, **um}
+            if self.pbt_state is not None:
+                metrics = self._pbt_step(self.train_state, self.pbt_state, metrics)
+            self._sync()
+            learn_time = time.perf_counter() - start
+            metrics = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
 
         self.collect_state = cs
-        return {k: v.detach().cpu().numpy() for k, v in metrics.items()}, collection_time, learn_time
+        return metrics, collection_time, learn_time
 
     # the fused iteration (training_loop.TrainingLoop): the train state, the
     # collect state and the PBT state are its state tree

@@ -64,6 +64,7 @@ from rsl_rl_tpu_torch.parallel.host_dp import HostShardingBridge
 from rsl_rl_tpu_torch.parallel.mesh import local_slice, make_tp_mesh
 from rsl_rl_tpu_torch.parallel.tp import gather_tree_tp, reshard_module_tp, shard_tree_tp, unshard_module_tp
 from rsl_rl_tpu_torch.runners.training_loop import TrainingLoop
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.evaluation import eval_seed, evaluate_policy
@@ -149,8 +150,7 @@ class OnPolicyRunner(TrainingLoop):
         self._host_bridge = None
         if not self.is_jax_env and self.mesh is not None:
             self._host_bridge = HostShardingBridge(self.mesh, self.device)
-        #: the host env's collection window (``make_host_collect_fn``); its
-        #: ``timings`` attribute times the window's phases when set to a dict
+        #: the host env's collection window (``make_host_collect_fn``)
         self.host_collect = None if self.is_jax_env else self.alg.make_host_collect_fn(
             env, self.num_steps_per_env, bridge=self._host_bridge)
 
@@ -209,21 +209,31 @@ class OnPolicyRunner(TrainingLoop):
             self.env.episode_length_buf = values.astype(np.asarray(buf).dtype)
 
     def _split_iteration(self):
+        # the device stamps (utils/trace.py) bracket collect and update; the
+        # update's span also holds the read of the metrics and the stamps
         start = time.perf_counter()
-        if self.is_jax_env:
-            cs, rollout, cm = self.alg.collect(self.step_env, self.collect_state, self.num_steps_per_env)
-        else:
-            cs, rollout, cm = self.host_collect(self.collect_state)
+        with trace.span("alg.collect"):
+            trace.begin_iteration(self.device)
+            if self.is_jax_env:
+                cs, rollout, cm = self.alg.collect(self.step_env, self.collect_state, self.num_steps_per_env)
+            else:
+                cs, rollout, cm = self.host_collect(self.collect_state)
+            trace.end_collection()
         self._sync()
         collection_time = time.perf_counter() - start
 
-        start = time.perf_counter()
-        cs, um = self.alg.update(cs, rollout)
-        self._sync()
-        learn_time = time.perf_counter() - start
+        with trace.span("alg.update"):
+            start = time.perf_counter()
+            cs, um = self.alg.update(cs, rollout)
+            trace.end_iteration()
+            self._sync()
+            learn_time = time.perf_counter() - start
+            metrics = {k: float(v) for k, v in {**cm, **um}.items()}
+            stamps = trace.take_stamps()
+            trace.book(trace.current(), stamps.labels, stamps.read(), stamps.clock)
 
         self.collect_state = cs
-        return {k: float(v) for k, v in {**cm, **um}.items()}, collection_time, learn_time
+        return metrics, collection_time, learn_time
 
     # the fused iteration (training_loop.TrainingLoop): the collect state is
     # its state tree; the policy and optimizer update in place
@@ -235,8 +245,11 @@ class OnPolicyRunner(TrainingLoop):
         self.collect_state = cs
 
     def _graph_step(self, cs):
+        trace.begin_iteration(self.device)
         cs, rollout, cm = self.alg.collect(self.step_env, cs, self.num_steps_per_env)
+        trace.end_collection()
         cs, um = self.alg.update(cs, rollout)
+        trace.end_iteration()
         return cs, {**cm, **um}
 
     def _to_host(self, metrics: dict) -> dict:

@@ -23,7 +23,15 @@ after its save) and writes its ``Eval/*`` scalars, the git state of :attr:`git_s
 the first iteration (or group), and ``profiler_trace_iterations = [first,
 last]`` traces the groups holding those iterations with ``torch.profiler``
 into ``<log_dir>/profile``. A run that resumes past ``first`` starts no
-trace and stops none.
+trace and stops none. That trace carries the program's own spans
+(``utils/trace.py``): ``iteration`` around each group, ``dispatch.replay``,
+``dispatch.read_metrics`` (fused) or ``alg.collect``, ``alg.update``
+(split), ``runner.log`` and ``gc``.
+
+Every iteration opens a record in the tracer's ring (``utils/trace.py``),
+numbered as it is logged: the host spans above, the collector's pauses, and
+the runner's device stamps (start, the end of collection, each env step and
+collective, the end), which a fused group reads with its metrics.
 
 A runner provides ``_split_iteration()`` -> ``(metrics, collection_s,
 learn_s)`` (host metrics), the fused iteration ``_graph_step(tree) ->
@@ -55,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 import rsl_rl_tpu_torch
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.cuda_graph import IterationGraph
 from rsl_rl_tpu_torch.utils.git_state import store_code_state
 from rsl_rl_tpu_torch.utils.writers import make_writer
@@ -137,14 +146,20 @@ class TrainingLoop:
         while it < tot_iter:
             k = min(group, tot_iter - it)
             self._trace_start(window, it, k)
-            rows = self._dispatch(k) if self.fuse_iteration else [self._split_iteration()]
-            self._trace_stop(window, it, k)
+            records = [trace.open_iteration(it + j) for j in range(k)]
             save_due = eval_due = False
-            for j, (metrics, collection_s, learn_s) in enumerate(rows):
-                self.current_learning_iteration = it + j
-                self._log(it + j, start_iter, tot_iter, metrics, collection_s, learn_s)
-                save_due |= self.log_dir is not None and (it + j) % self.save_interval == 0
-                eval_due |= self.log_dir is not None and self.eval_interval > 0 and (it + j) % self.eval_interval == 0
+            with trace.span("iteration", None, book=False):
+                trace.focus(records[0])
+                rows = self._dispatch(records) if self.fuse_iteration else [self._split_iteration()]
+                for j, (metrics, collection_s, learn_s) in enumerate(rows):
+                    trace.focus(records[j])
+                    self.current_learning_iteration = it + j
+                    with trace.span("runner.log"):
+                        self._log(it + j, start_iter, tot_iter, metrics, collection_s, learn_s)
+                    save_due |= self.log_dir is not None and (it + j) % self.save_interval == 0
+                    eval_due |= (self.log_dir is not None and self.eval_interval > 0
+                                 and (it + j) % self.eval_interval == 0)
+            self._trace_stop(window, it, k)
             if save_due:
                 self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"))
             if eval_due:
@@ -153,6 +168,7 @@ class TrainingLoop:
             if it == start_iter:
                 self._store_git_state()
             it += k
+        trace.focus(None)  # what runs after the loop is no iteration's
         if self.log_dir is not None:
             self.save(os.path.join(self.log_dir, f"model_{self.current_learning_iteration}.pt"))
         if self.writer is not None:
@@ -162,12 +178,21 @@ class TrainingLoop:
         """The generators the fused iteration draws from."""
         return [self.alg.generator]
 
-    def _dispatch(self, k: int) -> list:
-        """``k`` runs of the fused iteration and one read of their metrics."""
+    def _dispatch(self, records: list) -> list:
+        """A run of the fused iteration for each of the tracer's ``records``
+        and one read of their metrics, which books each run's stamps."""
         graph = self.iteration_graph
+        k = len(records)
         start = time.perf_counter()
-        packs = [graph.run() for _ in range(k)]
-        metrics = graph.unpack(packs)
+        packs = []
+        for record in records:
+            trace.focus(record)
+            with trace.span("dispatch.replay"):
+                packs.append(graph.run())
+        with trace.span("dispatch.read_metrics"):
+            metrics = graph.unpack(packs)
+            for record, stamps in zip(records, graph.stamps):
+                trace.book(record, graph.stamp_labels, stamps, str(self.device))
         elapsed = time.perf_counter() - start
         self._set_graph_state(graph.state)
         return [(self._to_host(m), elapsed / k, 0.0) for m in metrics]

@@ -26,6 +26,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+#: sources built alone at their first use, not with the rest: the tracer's
+#: stamp (``utils/trace.py``), which runs that launch no other kernel load
+SOLO = ("stamp",)
+
 _LOADED: dict[str, ctypes.CDLL] = {}
 #: ``{source name: {"seconds": float, "ptxas": str}}`` of builds this process ran
 BUILD_LOG: dict[str, dict] = {}
@@ -54,13 +58,15 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_sources_hash()}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every ``csrc/*.cu`` that has no current build, in parallel.
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every ``csrc/*.cu`` but the :data:`SOLO` ones (or those of
+    ``names``) that has no current build, in parallel.
 
     Raises ``RuntimeError`` with the compiler's output when a build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {p.stem: (p, _target(p.stem)) for p in sorted(CSRC_DIR.glob("*.cu"))}
+    targets = {p.stem: (p, _target(p.stem)) for p in sorted(CSRC_DIR.glob("*.cu"))
+               if (p.stem not in SOLO if names is None else p.stem in names)}
     procs = {}
     for name, (src, out) in targets.items():
         if out.exists():
@@ -88,11 +94,12 @@ def build_all() -> dict[str, Path]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it on first use."""
+    """The loaded library of ``csrc/<name>.cu``, building it on first use
+    (with every other library not built yet, a :data:`SOLO` one alone)."""
     lib = _LOADED.get(name)
     if lib is None:
         path = _target(name)
         if not path.exists():
-            path = build_all()[name]
+            path = build_all([name] if name in SOLO else None)[name]
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib

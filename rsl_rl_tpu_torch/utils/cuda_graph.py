@@ -20,9 +20,14 @@ explicit generators the iteration draws from are registered with the graph
 Philox offsets from the device and advances them as the eager calls would,
 so the draws are fresh each replay and equal the eager run's. A capture or
 replay error raises; nothing falls back to eager. The kernels' launch
-counters (``ops/rnn_common.py`` ``LaunchCounts``) count in the Python
+counters (``utils/trace.py`` ``LaunchCounts``) count in the Python
 wrappers, which a replay does not run: the counts that the capture added are
-taken back, and every replay adds them again.
+taken back, and every replay adds them again. The marks of the tracer
+(``utils/trace.py``) that the iteration places are captured with it: their
+buffer is packed with the metrics, so each replay carries its own stamps
+home in :meth:`IterationGraph.unpack`'s one transfer. The warm-up's and the
+capture's seconds are the tracer's set-up spans ``graph.warmup`` and
+``graph.capture``.
 
 On a mesh the iteration's collectives are captured with it: each rank
 captures its own graph after a warm-up whose collectives create the NCCL
@@ -43,7 +48,8 @@ import numpy as np
 import torch
 
 from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
-from rsl_rl_tpu_torch.ops.rnn_common import LaunchCounts
+from rsl_rl_tpu_torch.utils import trace
+from rsl_rl_tpu_torch.utils.trace import LaunchCounts
 
 _COUNT_FIELDS = tuple(f.name for f in dataclasses.fields(LaunchCounts))
 
@@ -115,6 +121,10 @@ class IterationGraph:
         self.device = torch.device(device)
         self.generators = list(generators)
         self.metric_keys: list[str] | None = None
+        #: the labels of the marks the iteration places (None: it places
+        #: none) and, after :meth:`unpack`, each run's readings of them
+        self.stamp_labels: list | None = None
+        self.stamps: list[np.ndarray] = []
         self.capture_s: float | None = None
         self.pool_bytes: int | None = None
         self._leaves: list[torch.Tensor] | None = None
@@ -145,6 +155,7 @@ class IterationGraph:
 
     def _iterate(self) -> torch.Tensor:
         state, metrics = self.step(self.state)
+        stamps = trace.take_stamps()
         out, _ = flatten(state)
         with torch.no_grad():
             for dst, src in zip(self._leaves, out):
@@ -153,7 +164,12 @@ class IterationGraph:
             if self.metric_keys is None:
                 self.metric_keys = list(metrics)
                 self._metric_shapes = [tuple(metrics[k].shape) for k in self.metric_keys]
-            return torch.cat([metrics[k].detach().to(torch.float32).reshape(-1) for k in self.metric_keys])
+            parts = [metrics[k].detach().to(torch.float32).reshape(-1) for k in self.metric_keys]
+            self.stamp_labels = None if stamps is None else list(stamps.labels)
+            if stamps is not None:
+                # the int64 marks ride in the metrics' float32 tensor bit for bit
+                parts.append(stamps.values().view(torch.float32))
+            return torch.cat(parts)
 
     def run(self) -> torch.Tensor:
         """One iteration; its packed metrics, a fresh tensor (no sync)."""
@@ -175,6 +191,7 @@ class IterationGraph:
         # capture would keep a cuBLAS workspace each for the process's life
         capture = torch.cuda.graph(graph)
         main, side = torch.cuda.current_stream(self.device), capture.capture_stream
+        warmup_start = time.perf_counter()
         side.wait_stream(main)
         with torch.cuda.stream(side):
             packed = self._iterate()
@@ -183,6 +200,7 @@ class IterationGraph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         torch.cuda.synchronize(self.device)
+        trace.setup["graph.warmup"] = time.perf_counter() - warmup_start
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = _read_counts()
@@ -201,7 +219,7 @@ class IterationGraph:
             if collecting:
                 gc.enable()
         torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - start
+        self.capture_s = trace.setup["graph.capture"] = time.perf_counter() - start
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         after = _read_counts()
         self._launches = [[a - b for a, b in zip(ra, rb)] for ra, rb in zip(after, before)]
@@ -211,9 +229,11 @@ class IterationGraph:
 
     def unpack(self, packs: list[torch.Tensor]) -> list[dict[str, np.ndarray]]:
         """The metrics of runs (their :meth:`run` outputs), read to the host
-        in one transfer: one ``{key: value}`` a run."""
+        in one transfer: one ``{key: value}`` a run. Each run's stamps (the
+        marks its iteration placed, ``utils/trace.py``) are left in
+        :attr:`stamps`, in the order of :attr:`stamp_labels`."""
         host = torch.stack(packs).cpu().numpy()
-        out = []
+        out, self.stamps = [], []
         for row in host:
             metrics, off = {}, 0
             for k, shape in zip(self.metric_keys, self._metric_shapes):
@@ -221,6 +241,8 @@ class IterationGraph:
                 metrics[k] = row[off:off + n].reshape(shape)
                 off += n
             out.append(metrics)
+            if self.stamp_labels is not None:
+                self.stamps.append(row[off:].copy().view(np.int64))
         return out
 
     def release(self) -> None:

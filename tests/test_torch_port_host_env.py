@@ -44,6 +44,7 @@ from rsl_rl_tpu_torch.modules import (  # noqa: E402
     StudentTeacherRecurrent,
 )
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner  # noqa: E402
+from rsl_rl_tpu_torch.utils import trace  # noqa: E402
 from rsl_rl_tpu_torch.utils.weights import from_jax_state  # noqa: E402
 
 N, T = 16, 16
@@ -260,10 +261,19 @@ def test_host_window_and_update_match_jax(name):
     ppo = PPO(policy, **PPO_KW)
     cs = ppo.init_collect_state((), obs, N)
     collect = ppo.make_host_collect_fn(env, T)
-    collect.timings = {}
+    # the window's phases go to the tracer's record of the running iteration
+    record = trace.open_iteration(0)
+    trace.begin_iteration("cpu")
     cs, got, metrics = collect(cs, action_noise=_jax_noise(ts0.rng, (N, 1)))
+    trace.end_collection()
+    trace.end_iteration()
+    stamps = trace.take_stamps()
+    trace.book(record, stamps.labels, stamps.read(), stamps.clock)
+    trace.focus(None)
 
-    assert set(collect.timings) == {"act", "to_host", "env_step", "to_device", "process"}
+    phases = {"act", "to_host", "env_step", "to_device", "process"}
+    assert phases <= set(record.spans)
+    assert all(record.spans[k].parent == "collect" and record.spans[k].count == T for k in phases)
     for what in ("actions", "values", "log_probs", "mu", "sigma", "rewards"):
         _close(getattr(got, what), getattr(rollout, what), what)
     _close(got.obs["policy"], rollout.obs["policy"], "obs")
