@@ -36,7 +36,7 @@ Phases, each fatal on failure:
    ``multiseed8_recurrent_lstm256_bf16``, the same policies for 8 seeds of
    512 envs each (4096 in all); ``ppo_ff256x3_bf16``, the feedforward
    headline (``ActorCritic`` [256, 256, 256], bf16 trunks, 4096 envs), which
-   launches no kernel; then the teacher -> student flow on 4096
+   launches no replay kernel; then the teacher -> student flow on 4096
    ``DomainRandomizedNLink`` envs: the privileged teacher
    (``ppo_ff256x3_bf16_dr``, 2 iterations) saved with
    ``OnPolicyRunner.save`` and loaded into ``DistillationRunner`` (its
@@ -48,9 +48,12 @@ Phases, each fatal on failure:
    (and, across seeds, distinct) metrics, and that the kernel replay of a
    collected window reproduces the acting-time policy (per seed; for the
    students the replay of the update's chunks, for the headline the batched
-   MLPs). First, the random draws (per-env keys in their state) of both
+   MLPs). The PPO slices and the teacher must launch the env step kernel
+   once a step of the collection, and no more. First, the random draws (per-env keys in their state) of both
    envs and of the four of phase 6c on the card must equal the CPU's bit for
-   bit, through a reset and a step.
+   bit, through a reset and a step; then the env step kernel
+   (``csrc/nlink.cu``, one launch a step) must equal the plain step on the
+   card bit for bit over 50 steps of 4096 envs of each NLink class.
 4b. Whole-iteration dispatch: for ``recurrent_gru256``,
    ``recurrent_lstm256_bf16``, the two multi-seed slices, ``ppo_ff256x3_bf16``
    and ``distill_gru256_bf16`` (from phase 4's saved teacher), three runners
@@ -98,7 +101,10 @@ Phases, each fatal on failure:
    stream from L2), and how many clusters of 16 CTAs the card runs at once
    with the shared memory a 16-CTA layout of the xproj forwards would need.
    The x-streaming kernels also at the GRU and LSTM students' shape (S=1,
-   T=15, B=4096), beside cuDNN and their bounds.
+   T=15, B=4096), beside cuDNN and their bounds. Last, the env step kernel
+   at 4096 envs of 5 links beside the plain step: one step eager, and a
+   24-step collection replayed as a CUDA graph, with the step's bound
+   (``time nlink_step ...`` line, ``nlink_step`` in the JSON).
 
 6. The host-env path (run after phase 4d, so that it loads phase 4's
    teacher), each step fatal. The card's machine has neither MuJoCo nor
@@ -265,7 +271,7 @@ from rsl_rl_tpu_torch.env import (
 from rsl_rl_tpu_torch.env.mjx_env import MJXState
 from rsl_rl_tpu_torch.env.nlink import hash_draws, uniform_draws
 from rsl_rl_tpu_torch.networks.memory import memory_sequence, paired_sequence
-from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
+from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn, nlink_step
 from rsl_rl_tpu_torch.parallel import distributed_init, gather_tree_tp
 from rsl_rl_tpu_torch.parallel.mesh import local_slice
 from rsl_rl_tpu_torch.runners import DistillationRunner, MultiSeedRunner, OnPolicyRunner
@@ -826,16 +832,27 @@ def all_counts() -> dict:
 def reset_counts() -> None:
     for fam in FAMILIES.values():
         getattr(fam["module"], fam["counts"]).reset()
+    nlink_step.launches = 0
 
 
-def check_launches(name, counts, expected: dict) -> dict:
+def check_launches(name, counts, expected: dict, env_steps: int | None = None) -> dict:
     """Fail unless the slice launched each kernel as often as ``expected``
-    says and no other; returns the kernels it launched."""
+    says and no other, and, where ``env_steps`` is given, the env step
+    kernel once a step of its envs; returns the replay kernels it launched."""
     want = {k: expected.get(k, 0) for k in counts}
-    print(f"{name} launches: {counts} (expected {expected or 'none'}, 0 of the others)")
+    env = "" if env_steps is None else f"; env step kernel {nlink_step.launches} (expected {env_steps})"
+    print(f"{name} launches: {counts} (expected {expected or 'none'}, 0 of the others){env}")
     if counts != want:
         fail(f"{name}: main path launches {counts}, expected {want}")
+    if env_steps is not None and nlink_step.launches != env_steps:
+        fail(f"{name}: main path launches the env step kernel {nlink_step.launches} times, expected {env_steps}")
     return {k: v for k, v in counts.items() if v}
+
+
+def env_steps(cfg, iterations=ITERATIONS) -> int:
+    """The env step kernel's launches in ``iterations`` of a slice on NLink
+    envs on the card: one a step of the collection, whatever the batch."""
+    return iterations * cfg["num_steps_per_env"]
 
 
 def ppo_launches(family, cfg, iterations=ITERATIONS) -> dict:
@@ -965,6 +982,104 @@ def check_env_draws() -> None:
             fail(f"{name}'s random draws differ between the card and the CPU")
 
 
+NLINK_KERNEL_STEPS = 50
+
+
+def _nlink_start(env, seed: int):
+    """A reset state of ``env`` with scattered clocks, angles and speeds."""
+    state, _ = env.reset(seed)
+    state = env.randomize_episode_length(state)
+    g = torch.Generator().manual_seed(seed)
+    n, links = state.theta.shape
+    state.theta = (torch.rand(n, links, generator=g) * 6 - 3).to(env.device)
+    state.omega = (torch.randn(n, links, generator=g) * 8).to(env.device)
+    return state
+
+
+def check_nlink_step() -> None:
+    """The env step kernel (``csrc/nlink.cu``, what ``env.step`` launches on
+    the card) against the plain step on the card, bit for bit, over
+    ``NLINK_KERNEL_STEPS`` steps of the three NLink classes at the main
+    path's shape, one launch a step."""
+    for cls in (NLinkPendulum, PartiallyObservableNLink, DomainRandomizedNLink):
+        env = cls(NUM_ENVS, NUM_LINKS, max_episode_length=20, device="cuda")
+        state = plain_state = _nlink_start(env, 4)
+        g = torch.Generator().manual_seed(5)
+        launches, same = nlink_step.launches, True
+        for _ in range(NLINK_KERNEL_STEPS):
+            a = (torch.randn(NUM_ENVS, NUM_LINKS, generator=g) * 8).cuda()
+            got, want = env.step(state, a), env._step_plain(plain_state, a)
+            same &= all(torch.equal(getattr(got[0], k), getattr(want[0], k)) for k in vars(want[0]))
+            same &= all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+            same &= torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+            state, plain_state = got[0], want[0]
+        launches = nlink_step.launches - launches
+        print(f"nlink_step {cls.__name__} N={NUM_ENVS} L={NUM_LINKS}: {NLINK_KERNEL_STEPS} steps bit for bit"
+              f" the plain step's: {same}; launches {launches}")
+        if not same or launches != NLINK_KERNEL_STEPS:
+            fail(f"the env step kernel disagrees with the plain step ({cls.__name__})")
+
+
+def nlink_step_work(n: int, links: int, substeps: int = 4) -> tuple[int, int]:
+    """Operations and bytes of one step of ``n`` envs (a sine, cosine,
+    division or square root counts as one operation): the plain step's ops,
+    every input read once, every output written once."""
+    L = links
+    sub = (L * L  # theta_i - theta_j
+           + L * L + L * (L + 1) // 2  # sines, cosines
+           + 2 * L * L + L  # C's terms and omega^2
+           + L * (L + 1) // 2  # M
+           + L * (L - 1)  # C's sums
+           + 2 * L + 4 * L  # G, rhs
+           + (L ** 3 - L) // 3 + L + L * (L - 1) // 2  # Cholesky
+           + 2 * L * (L - 1) + 2 * L  # the two solves
+           + 5 * L)  # Euler, the speed clamp
+    ops = n * (substeps * sub + 2 * L + 3 * L + 3 * (L - 1) + 5)
+    nbytes = n * (3 * L * 4 + 4 + 8) + n * (2 * L * 4 + 4 + 8 + 4 + 1 + 4)
+    return ops, nbytes
+
+
+def time_nlink_step(smi: str, peaks: dict, reps: int = 200) -> dict:
+    """The env step kernel at the main path's shape beside the plain step on
+    the card: one step eager, and a 24-step collection replayed as a CUDA
+    graph (the benchmark's cells' form), with the bound of the step."""
+    env = NLinkPendulum(NUM_ENVS, NUM_LINKS, max_episode_length=400, device="cuda")
+    state = _nlink_start(env, 9)
+    a = (torch.randn(NUM_ENVS, NUM_LINKS) * 8).cuda()
+    T = PPO_FF256X3_BF16["num_steps_per_env"]
+
+    def collection(step):
+        s = state
+        for _ in range(T):
+            s, *_ = step(s, a)
+
+    row = {"name": "nlink_step", "N": NUM_ENVS, "L": NUM_LINKS, "card": smi,
+           "kernel_step_ms": time_ms(lambda: env.step(state, a), reps),
+           "plain_step_ms": time_ms(lambda: env._step_plain(state, a), max(reps // 10, 5))}
+    for name, step in (("kernel", env.step), ("plain", env._step_plain)):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            collection(step)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        start = time.perf_counter()
+        with torch.cuda.graph(graph):
+            collection(step)
+        torch.cuda.synchronize()
+        row[f"{name}_collection_capture_s"] = time.perf_counter() - start
+        row[f"{name}_collection_graphed_ms"] = time_ms(graph.replay, 50)
+        del graph
+    ops, nbytes = nlink_step_work(NUM_ENVS, NUM_LINKS)
+    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes, peaks, False)
+    row.update(ops=ops, bytes=nbytes)
+    print(f"time nlink_step N={NUM_ENVS} L={NUM_LINKS}: kernel {row['kernel_step_ms']:.4f} ms a step, plain"
+          f" {row['plain_step_ms']:.4f} ms; graphed {T}-step collection kernel"
+          f" {row['kernel_collection_graphed_ms']:.4f} ms, plain {row['plain_collection_graphed_ms']:.4f} ms;"
+          f" bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    return row
+
+
 def run_slice(name, family, cfg, T, B):
     """Train ``cfg`` for ITERATIONS through ``OnPolicyRunner.learn`` with the
     launch counters zeroed just before and read just after; then hold the
@@ -975,7 +1090,7 @@ def run_slice(name, family, cfg, T, B):
     reset_counts()
     runner.learn(ITERATIONS)
     torch.cuda.synchronize()
-    launches = check_launches(name, all_counts(), ppo_launches(family, cfg))
+    launches = check_launches(name, all_counts(), ppo_launches(family, cfg), env_steps(cfg))
     print_history(name, runner)
 
     # the kernel replay of a fresh window reproduces the acting-time outputs
@@ -1006,7 +1121,7 @@ def run_multiseed_slice(name, family, cfg, T, B):
     reset_counts()
     runner.learn(ITERATIONS)
     torch.cuda.synchronize()
-    launches = check_launches(name, all_counts(), ppo_launches(family, cfg))
+    launches = check_launches(name, all_counts(), ppo_launches(family, cfg), env_steps(cfg))
     print_history(name, runner)
     for row in runner.history:
         for k in ("Loss/value_function", "Loss/surrogate"):
@@ -1046,14 +1161,15 @@ def freeze(norm) -> None:
 def run_ff_slice(name, cfg, T):
     """Train the feedforward headline for ITERATIONS through
     ``OnPolicyRunner.learn`` with the launch counters zeroed just before and
-    read just after (it launches no kernel); then hold the update's batched
-    MLPs over a collected window against the acting-time outputs."""
+    read just after (it launches no replay kernel, and the env step kernel
+    once a step); then hold the update's batched MLPs over a collected
+    window against the acting-time outputs."""
     env = NLinkPendulum(NUM_ENVS, NUM_LINKS, device="cuda")
     runner = OnPolicyRunner(env, cfg, device="cuda")
     reset_counts()
     runner.learn(ITERATIONS)
     torch.cuda.synchronize()
-    check_launches(name, all_counts(), {})
+    check_launches(name, all_counts(), {}, env_steps(cfg))
     print_history(name, runner)
     policy = runner.alg.policy
     freeze(policy.norm_actor)
@@ -1140,7 +1256,7 @@ def run_distill_slices(T, tmp) -> tuple[dict, str]:
     reset_counts()
     teacher.learn(TEACHER_ITERATIONS)
     torch.cuda.synchronize()
-    check_launches("ppo_ff256x3_bf16_dr", all_counts(), {})
+    check_launches("ppo_ff256x3_bf16_dr", all_counts(), {}, env_steps(PPO_FF256X3_BF16_DR, TEACHER_ITERATIONS))
     print_history("ppo_ff256x3_bf16_dr", teacher)
     launches = {}
     path = os.path.join(tmp, f"model_{teacher.current_learning_iteration}.pt")
@@ -3097,6 +3213,7 @@ def main() -> None:
 
     # ---- 4. the slices
     check_env_draws()
+    check_nlink_step()
     by_slice = {}
     for name, (family, cfg) in SLICES.items():
         by_slice[name] = run_slice(name, family, cfg, T, B)
@@ -3230,6 +3347,7 @@ def main() -> None:
         next(k for k in kernels if k["name"] == name)["path_shapes"] = shapes
     for name, shapes in study_shape_times(peaks, study_err).items():
         next(k for k in kernels if k["name"] == name)["study_shapes"] = shapes
+    kernels.append(time_nlink_step(smi, peaks))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

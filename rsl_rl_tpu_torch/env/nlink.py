@@ -18,6 +18,11 @@ that env's next key and its reset draws from it with a counter-based hash
 (:func:`hash_draws`), so ``step(state, a)`` is a function of its arguments
 and the rows of a stacked state step as the state made of those rows. The
 hash is not JAX's threefry, so the draws differ from the JAX env's.
+
+``step`` takes its path from the state's device: on a CUDA device the whole
+step is one launch of a hand-written kernel (``csrc/nlink.cu``, through
+``ops/nlink_step.py``) that rounds each op as the plain step does on the
+card; elsewhere the plain PyTorch step below runs op by op.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from dataclasses import dataclass
 import torch
 
 from rsl_rl_tpu_torch.env.vec_env import EnvState, VecEnv, as_episode_length, check_episode_length
+from rsl_rl_tpu_torch.ops import nlink_step
 from rsl_rl_tpu_torch.utils.device import resolve_device
 from rsl_rl_tpu_torch.utils.registry import register
 
@@ -39,6 +45,12 @@ def _int64(v: int) -> int:
     return v - 2**64 if v >= 2**63 else v
 
 
+#: the reset draws' ranges ``(low, width)``: theta in [-0.1, 0.1), omega in [-0.05, 0.05)
+_THETA_DRAW, _OMEGA_DRAW = (-0.1, 0.2), (-0.05, 0.1)
+#: the floor of the Cholesky factor's pivots before their square roots
+_PIVOT_FLOOR = 1e-9
+#: the reward's costs on the mean squared joint speed and the mean squared torque
+_SPEED_COST, _EFFORT_COST = 0.05, 0.01
 #: splitmix64's increment and finalizer multipliers (as signed int64)
 _GOLDEN = _int64(0x9E3779B97F4A7C15)
 _MIX1 = _int64(0xBF58476D1CE4E5B9)
@@ -134,10 +146,13 @@ class NLinkPendulum(VecEnv):
         K = cummass[torch.maximum(idx[:, None], idx[None, :])]  # [L, L]
         self._coup = K * (self.lengths[:, None] * self.lengths[None, :])
         self._gdiag = self.g * self.lengths * torch.diagonal(K)
-        # the reset draws' ranges, theta in [-0.1, 0.1) then omega in [-0.05, 0.05)
-        self._draw_width = torch.tensor([0.2] * num_links + [0.1] * num_links, **f32)
-        self._draw_low = torch.tensor([-0.1] * num_links + [-0.05] * num_links, **f32)
+        (theta_low, theta_width), (omega_low, omega_width) = _THETA_DRAW, _OMEGA_DRAW
+        self._draw_width = torch.tensor([theta_width] * num_links + [omega_width] * num_links, **f32)
+        self._draw_low = torch.tensor([theta_low] * num_links + [omega_low] * num_links, **f32)
         self._total_len = float(self.lengths.sum())
+        #: the hash draws a reset takes: theta's and omega's 2L, and a
+        #: subclass's per-episode fields past them (:meth:`_extra_fields`)
+        self.reset_draws = 2 * num_links
 
     # ------------------------------------------------------------- dynamics
 
@@ -154,7 +169,7 @@ class NLinkPendulum(VecEnv):
                 for k in range(j):
                     s = s - low[i][k] * low[j][k]
                 if i == j:
-                    low[i][j] = torch.sqrt(torch.clamp(s, min=1e-9))
+                    low[i][j] = torch.sqrt(torch.clamp(s, min=_PIVOT_FLOOR))
                 else:
                     low[i][j] = s / low[j][j]
         y = [None] * n
@@ -225,11 +240,18 @@ class NLinkPendulum(VecEnv):
 
     def _sample_init(self, rng: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """Each env's next key and the fields of a fresh episode drawn from
-        its key, ``{"theta", "omega"}``: fp32 uniforms from the top 24 bits
-        of each draw."""
-        rng, bits = hash_draws(rng, 2 * self.num_links)
-        draws = uniform_draws(bits, self._draw_low, self._draw_width)
-        return rng, {"theta": draws[:, : self.num_links], "omega": draws[:, self.num_links :]}
+        its key, ``{"theta", "omega"}`` (fp32 uniforms from the top 24 bits
+        of each of the first ``2L`` draws) and :meth:`_extra_fields` of the
+        rest of its :attr:`reset_draws`."""
+        L = self.num_links
+        rng, bits = hash_draws(rng, self.reset_draws)
+        draws = uniform_draws(bits[:, : 2 * L], self._draw_low, self._draw_width)
+        return rng, {"theta": draws[:, :L], "omega": draws[:, L:], **self._extra_fields(bits[:, 2 * L :])}
+
+    def _extra_fields(self, bits: torch.Tensor) -> dict[str, torch.Tensor]:
+        """A subclass's per-episode fields from a reset's draws past theta's
+        and omega's, ``[N, reset_draws - 2L]`` int64 bit patterns: none here."""
+        return {}
 
     def _next_state(self, state: NLinkState | None, fresh: dict, done: torch.Tensor | None,
                     **fields) -> NLinkState:
@@ -257,6 +279,28 @@ class NLinkPendulum(VecEnv):
         return random_episode_lengths(state, self.max_episode_length)
 
     def step(self, state: NLinkState, actions: torch.Tensor):
+        """The plain step below on the CPU; on a CUDA device one launch of
+        the step kernel, which gives the plain step's bits there."""
+        if state.theta.is_cuda:
+            return self._step_kernel(state, actions)
+        return self._step_plain(state, actions)
+
+    def _step_kernel(self, state: NLinkState, actions: torch.Tensor):
+        coup, gdiag = self._coupling(state)
+        out = nlink_step.step(
+            state.theta, state.omega, actions, state.episode_length, state.rng, self.max_episode_length,
+            coup, gdiag, self.lengths, reset_draws=self.reset_draws, n_substeps=self.n_substeps,
+            h=self.dt / self.n_substeps, max_torque=self.max_torque, max_speed=self.max_speed,
+            damping=self.damping, total_len=self._total_len, theta_range=_THETA_DRAW, omega_range=_OMEGA_DRAW,
+            pivot_floor=_PIVOT_FLOOR, speed_cost=_SPEED_COST, effort_cost=_EFFORT_COST)
+        state = self._next_state(
+            state, self._extra_fields(out.extra_bits), out.done,
+            episode_length=out.episode_length, theta=out.theta, omega=out.omega, rng=out.rng,
+        )
+        extras = {"time_outs": out.done, "log": {"nlink/tip_height": out.height}}
+        return state, self._obs(state), out.reward, out.done, extras
+
+    def _step_plain(self, state: NLinkState, actions: torch.Tensor):
         u = torch.clamp(actions, -self.max_torque, self.max_torque)
         tau = self._joint_to_generalized(u)
         theta, omega = state.theta, state.omega
@@ -268,8 +312,8 @@ class NLinkPendulum(VecEnv):
         height = self._tip_height(theta) / self._total_len  # [-1, 1]
         reward = (
             height
-            - 0.05 * torch.mean(omega**2, dim=-1)
-            - 0.01 * torch.mean(u**2, dim=-1)
+            - _SPEED_COST * torch.mean(omega**2, dim=-1)
+            - _EFFORT_COST * torch.mean(u**2, dim=-1)
         )
 
         episode_length = state.episode_length + 1
@@ -332,6 +376,7 @@ class DomainRandomizedNLink(NLinkPendulum):
         device: str | torch.device = "cuda",
     ):
         super().__init__(num_envs, num_links, max_episode_length, device)
+        self.reset_draws = 3 * num_links  # and L more for mass_scale
         lo, hi = mass_scale_range
         if not 0 < lo <= hi:
             raise ValueError(f"mass_scale_range must satisfy 0 < lo <= hi, got {mass_scale_range}")
@@ -345,18 +390,14 @@ class DomainRandomizedNLink(NLinkPendulum):
 
     # --------------------------------------------------------- randomization
 
-    def _sample_init(self, rng: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """The base reset state from the first ``2L`` draws of each env's
-        key and ``mass_scale``, log-uniform in ``mass_scale_range``, from the
-        next ``L``."""
-        L = self.num_links
-        rng, bits = hash_draws(rng, 3 * L)
-        draws = uniform_draws(bits[:, : 2 * L], self._draw_low, self._draw_width)
-        u = _shr(bits[:, 2 * L :], 40).to(torch.float32) / 2**24
+    def _extra_fields(self, bits: torch.Tensor) -> dict[str, torch.Tensor]:
+        """``mass_scale``, log-uniform in ``mass_scale_range``, from the ``L``
+        draws past the base reset state's ``2L``."""
+        u = _shr(bits, 40).to(torch.float32) / 2**24
         # exp in fp64, rounded to fp32: the same bits on the CPU and the card
         # (their fp32 exp differ in the last place)
         mass_scale = torch.exp((self._log_lo + u * (self._log_hi - self._log_lo)).double()).float()
-        return rng, {"theta": draws[:, :L], "omega": draws[:, L:], "mass_scale": mass_scale}
+        return {"mass_scale": mass_scale}
 
     def _next_state(self, state, fresh, done, **fields) -> DomainRandomizedNLinkState:
         mass_scale = fresh["mass_scale"]

@@ -1,6 +1,7 @@
-"""Compute ops: distribution math, GAE, running normalization, and the GRU
-and LSTM replays with their CUDA kernels (``gru_rnn``, ``lstm_rnn``,
-imported by path).
+"""Compute ops: distribution math, GAE, running normalization, the GRU and
+LSTM replays with their CUDA kernels (``gru_rnn``, ``lstm_rnn``) and the
+N-link pendulum's step kernel (``nlink_step``), the last three imported by
+path.
 
 The JAX package's ``init_running_norm`` and
 ``init_discounted_variation_norm`` have no counterpart: the port's

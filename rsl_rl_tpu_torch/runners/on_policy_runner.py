@@ -230,7 +230,7 @@ class OnPolicyRunner(TrainingLoop):
             learn_time = time.perf_counter() - start
             metrics = {k: float(v) for k, v in {**cm, **um}.items()}
             stamps = trace.take_stamps()
-            trace.book(trace.current(), stamps.labels, stamps.read(), stamps.clock)
+            trace.book(trace.current(), stamps.labels, stamps.read(), stamps.clock, stamps.counts)
 
         self.collect_state = cs
         return metrics, collection_time, learn_time

@@ -192,7 +192,7 @@ class TrainingLoop:
         with trace.span("dispatch.read_metrics"):
             metrics = graph.unpack(packs)
             for record, stamps in zip(records, graph.stamps):
-                trace.book(record, graph.stamp_labels, stamps, str(self.device))
+                trace.book(record, graph.stamp_labels, stamps, str(self.device), graph.stamp_counts)
         elapsed = time.perf_counter() - start
         self._set_graph_state(graph.state)
         return [(self._to_host(m), elapsed / k, 0.0) for m in metrics]

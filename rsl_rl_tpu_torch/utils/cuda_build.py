@@ -27,8 +27,9 @@ NVCC_FLAGS = [
 ]
 
 #: sources built alone at their first use, not with the rest: the tracer's
-#: stamp (``utils/trace.py``), which runs that launch no other kernel load
-SOLO = ("stamp",)
+#: stamp (``utils/trace.py``) and the env step (``ops/nlink_step.py``), which
+#: runs that launch no replay kernel load
+SOLO = ("stamp", "nlink")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 #: ``{source name: {"seconds": float, "ptxas": str}}`` of builds this process ran

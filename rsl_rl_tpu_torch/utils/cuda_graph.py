@@ -20,14 +20,16 @@ explicit generators the iteration draws from are registered with the graph
 Philox offsets from the device and advances them as the eager calls would,
 so the draws are fresh each replay and equal the eager run's. A capture or
 replay error raises; nothing falls back to eager. The kernels' launch
-counters (``utils/trace.py`` ``LaunchCounts``) count in the Python
-wrappers, which a replay does not run: the counts that the capture added are
-taken back, and every replay adds them again. The marks of the tracer
-(``utils/trace.py``) that the iteration places are captured with it: their
-buffer is packed with the metrics, so each replay carries its own stamps
-home in :meth:`IterationGraph.unpack`'s one transfer. The warm-up's and the
-capture's seconds are the tracer's set-up spans ``graph.warmup`` and
-``graph.capture``.
+counters (``utils/trace.py`` ``LaunchCounts``, and the env step kernel's
+``ops/nlink_step.py`` ``launches``) count in the Python wrappers, which a
+replay does not run: the counts that the capture added are taken back, and
+every replay adds them again. The marks of the tracer (``utils/trace.py``)
+that the iteration places are captured with it: their buffer is packed with
+the metrics, so each replay carries its own stamps home in
+:meth:`IterationGraph.unpack`'s one transfer, and the counts placed between
+them (:attr:`IterationGraph.stamp_counts`) are each replay's. The warm-up's
+and the capture's seconds are the tracer's set-up spans ``graph.warmup``
+and ``graph.capture``.
 
 On a mesh the iteration's collectives are captured with it: each rank
 captures its own graph after a warm-up whose collectives create the NCCL
@@ -47,7 +49,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn
+from rsl_rl_tpu_torch.ops import gru_rnn, lstm_rnn, nlink_step
 from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.trace import LaunchCounts
 
@@ -55,18 +57,23 @@ _COUNT_FIELDS = tuple(f.name for f in dataclasses.fields(LaunchCounts))
 
 
 def launch_counters() -> tuple[LaunchCounts, ...]:
-    """Every kernel family's launch counter."""
+    """Every memory-replay kernel family's launch counter."""
     return (gru_rnn.launch_counts, gru_rnn.xp_launch_counts, lstm_rnn.launch_counts, lstm_rnn.xp_launch_counts)
 
 
-def _read_counts() -> list[list[int]]:
-    return [[getattr(c, f) for f in _COUNT_FIELDS] for c in launch_counters()]
+def _counted() -> list[tuple[Any, str]]:
+    """Every launch count a replay adds back: the replay kernels' fields and
+    the env step kernel's."""
+    return [(c, f) for c in launch_counters() for f in _COUNT_FIELDS] + [(nlink_step, "launches")]
 
 
-def _add_counts(counts: list[list[int]], times: int = 1) -> None:
-    for counter, row in zip(launch_counters(), counts):
-        for f, n in zip(_COUNT_FIELDS, row):
-            setattr(counter, f, getattr(counter, f) + times * n)
+def _read_counts() -> list[int]:
+    return [getattr(owner, f) for owner, f in _counted()]
+
+
+def _add_counts(counts: list[int], times: int = 1) -> None:
+    for (owner, f), n in zip(_counted(), counts):
+        setattr(owner, f, getattr(owner, f) + times * n)
 
 
 def flatten(tree: Any) -> tuple[list[torch.Tensor], Callable[[list[torch.Tensor]], Any]]:
@@ -122,8 +129,10 @@ class IterationGraph:
         self.generators = list(generators)
         self.metric_keys: list[str] | None = None
         #: the labels of the marks the iteration places (None: it places
-        #: none) and, after :meth:`unpack`, each run's readings of them
+        #: none), the counts placed between them, and, after :meth:`unpack`,
+        #: each run's readings of them
         self.stamp_labels: list | None = None
+        self.stamp_counts: dict[str, int] = {}
         self.stamps: list[np.ndarray] = []
         self.capture_s: float | None = None
         self.pool_bytes: int | None = None
@@ -166,6 +175,7 @@ class IterationGraph:
                 self._metric_shapes = [tuple(metrics[k].shape) for k in self.metric_keys]
             parts = [metrics[k].detach().to(torch.float32).reshape(-1) for k in self.metric_keys]
             self.stamp_labels = None if stamps is None else list(stamps.labels)
+            self.stamp_counts = {} if stamps is None else dict(stamps.counts)
             if stamps is not None:
                 # the int64 marks ride in the metrics' float32 tensor bit for bit
                 parts.append(stamps.values().view(torch.float32))
@@ -222,7 +232,7 @@ class IterationGraph:
         self.capture_s = trace.setup["graph.capture"] = time.perf_counter() - start
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         after = _read_counts()
-        self._launches = [[a - b for a, b in zip(ra, rb)] for ra, rb in zip(after, before)]
+        self._launches = [a - b for a, b in zip(after, before)]
         _add_counts(self._launches, -1)  # the capture launched nothing
         self._graph = graph
         return packed

@@ -27,6 +27,9 @@ and readers (the benchmark's, the tests') take the records from here.
   and ``process``, and the record's ``gap_ms``: from the previous
   iteration's last mark on that clock to this one's first, the time the
   device stood waiting on the host.
+- **Counts** (:func:`count`): a kernel's launches inside the iteration's
+  marks (``env.kernel``, the env step kernel's, ``ops/nlink_step.py``),
+  captured with them and booked as the record's :attr:`Record.counts`.
 - **Host spans** (:func:`span`): the host clock's seconds of ``alg.collect``,
   ``alg.update``, ``dispatch.replay``, ``dispatch.read_metrics`` and
   ``runner.log``, each also a ``torch.profiler.record_function`` range while
@@ -93,7 +96,8 @@ class Record:
     process's iterations, its spans by name and, once its marks are booked,
     the clock they read (the device's), its first and last mark (ns), the
     gap before it (ms; None for the first iteration on that clock), how many
-    marks it placed and whether they never go back in time."""
+    marks it placed, whether they never go back in time, and the counts
+    (:func:`count`) booked with its marks."""
 
     iteration: int
     index: int
@@ -104,6 +108,7 @@ class Record:
     gap_ms: float | None = None
     marks: int = 0
     ordered: bool | None = None
+    counts: dict[str, int] = field(default_factory=dict)
 
     def add(self, name: str, ms: float, parent: str | None = "iteration", clock: str = "host") -> None:
         span = self.spans.get(name)
@@ -226,7 +231,8 @@ class Stamps:
     """The marks one run of an iteration places: their labels ``(name,
     BEGIN | END)`` in order and, on CUDA, the int64 buffer the stamp kernel
     writes (one slot a mark; allocated with the iteration, so a graph
-    captures it), on the CPU the host clock's readings (ns)."""
+    captures it), on the CPU the host clock's readings (ns); and the counts
+    (:func:`count`) placed between them."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -235,6 +241,7 @@ class Stamps:
         self.cuda = self.device.type == "cuda"
         self.buffer = torch.empty(STAMP_SLOTS, dtype=torch.int64, device=self.device) if self.cuda else None
         self.host: list[int] = []
+        self.counts: dict[str, int] = {}
 
     def mark(self, name: str, edge: str) -> None:
         slot = len(self.labels)
@@ -279,6 +286,13 @@ def end_iteration() -> None:
     _finished, _stamps = _stamps, None
 
 
+def count(name: str) -> None:
+    """Add one to the count ``name`` of the iteration's marks (a kernel's
+    launch inside it); outside an iteration's marks, nothing."""
+    if _stamps is not None:
+        _stamps.counts[name] = _stamps.counts.get(name, 0) + 1
+
+
 def take_stamps() -> Stamps | None:
     """The marks of the iteration ended last and not taken yet, else None."""
     global _finished
@@ -308,12 +322,15 @@ def interval(name: str):
     return _IDLE if _stamps is None else _Interval(_stamps, name)
 
 
-def book(record: Record | None, labels: list, ns, clock: str) -> None:
+def book(record: Record | None, labels: list, ns, clock: str, counts: dict[str, int] | None = None) -> None:
     """Turn an iteration's marks (``labels`` and their ``ns`` readings on
-    ``clock``) into ``record``'s stamped spans and gap (module docstring);
-    without a record (an iteration run outside the loop) nothing."""
+    ``clock``) into ``record``'s stamped spans and gap (module docstring),
+    and add its ``counts``; without a record (an iteration run outside the
+    loop) nothing."""
     if record is None or not labels:
         return
+    for name, n in (counts or {}).items():
+        record.counts[name] = record.counts.get(name, 0) + n
     ns = [int(t) for t in ns]
     split = next((i for i, (name, _) in enumerate(labels) if name == "collect"), len(ns) - 1)
     first, last = ns[0], ns[-1]
