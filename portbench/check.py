@@ -20,9 +20,10 @@ largest over the checked steps:
   ``grad_gap``; leaves whose reference gradient is under a thousandth of the
   median leaf's (nought to rounding, moved by Adam's round-off alone) are
   left out. A step that leaves its parameters unchanged reads 1.
-- ``state_gap``: the state the step hands on (env state, obs, the
-  memories' carry, the normalizers' moments): by the worst leaf, the norm of
-  the two sides' difference against the reference's norm of that leaf.
+- ``state_gap``: the state the step hands on (env state, obs, every leaf
+  of the memories' carry, the normalizers' moments): by the worst leaf, the
+  norm of the two sides' difference against the reference's norm of that
+  leaf.
 """
 
 from __future__ import annotations
@@ -52,13 +53,23 @@ def leaf_gaps(side: dict, reference: dict, names) -> dict[str, float]:
 
 
 def state_leaves(state: dict) -> dict:
+    """The state's tensors by name; a memory's carry is ``carry.<which>``
+    where it is one tensor, ``carry.<which>.<i>`` for the ``i``-th of a tuple."""
     out = {"env.theta": state["env"]["theta"], "env.omega": state["env"]["omega"],
            "env.episode_length": state["env"]["episode_length"], "obs": state["obs"]}
     for which, (mean, var, _) in state["norms"].items():
         out[f"norm.{which}.mean"], out[f"norm.{which}.var"] = mean, var
-    for which, h in (state["carry"] or {}).items():
-        out[f"carry.{which}"] = h
+    for which, carry in (state["carry"] or {}).items():
+        _carry_leaves(f"carry.{which}", carry, out)
     return out
+
+
+def _carry_leaves(name: str, carry, out: dict) -> None:
+    if isinstance(carry, torch.Tensor):
+        out[name] = carry
+        return
+    for i, c in enumerate(carry):
+        _carry_leaves(f"{name}.{i}", c, out)
 
 
 def state_gap(side: dict, reference: dict) -> float:

@@ -6,11 +6,12 @@ configuration, ``configs/<config>.json`` (the env, the runner's
 ``mixes/<traffic>.json`` (the dispatch, the ranks, the envs a rank, the
 iterations the trace covers); ``limits/<cell>.json`` holds the limits of
 the numbers that decide ``correct``, and every metric is read by
-``metrics/<metric>.py``. A run builds the port's ``OnPolicyRunner`` from
-those files and the seed, hands it weights made from the seed on the
-device, drives it through the checked steps (the window's own call,
-``learn``), warm, then through ``learn`` for the window, optionally
-traces a steady stretch after it, and finally runs the plain reference
+``metrics/<metric>.py``; the reference follows a recurrent policy's memory
+through ``reference/cells/<rnn_type>.py``. A run builds the port's
+``OnPolicyRunner`` from those files and the seed, hands it weights made
+from the seed on the device, drives it through the checked steps (the
+window's own call, ``learn``), warm, then through ``learn`` for the window,
+optionally traces a steady stretch after it, and finally runs the plain reference
 (``reference/``) over the checked steps from the same weights and draws.
 """
 
@@ -47,7 +48,8 @@ def _read_json(path: Path, what: str) -> dict:
 
 
 def load_spec(cell_name: str, root: Path = ROOT) -> dict:
-    """The cell's entry, configuration, mix and limits, and the metrics that
+    """The cell's entry, configuration, mix and limits, the reference's
+    memory family (``memory``: :func:`load_memory`), and the metrics that
     apply to it (``end_to_end`` and ``per_layer``, each entry with its reader)."""
     bench = _read_json(root / "BENCHMARK.json", "the benchmark")
     cells = {c["name"]: c for c in bench["workloads"]}
@@ -55,9 +57,11 @@ def load_spec(cell_name: str, root: Path = ROOT) -> dict:
         raise SpecError(f"no workload {cell_name!r} in BENCHMARK.json (has {sorted(cells)})")
     cell = cells[cell_name]
     base = root / "portbench"
+    config = _read_json(base / "configs" / f"{cell['config']}.json", f"configuration {cell['config']}")
     spec = {
         "cell": cell,
-        "config": _read_json(base / "configs" / f"{cell['config']}.json", f"configuration {cell['config']}"),
+        "config": config,
+        "memory": load_memory(config["train_cfg"]["policy"], root),
         "mix": _read_json(base / "mixes" / f"{cell['traffic']}.json", f"traffic {cell['traffic']}"),
         "limits": _read_json(base / "limits" / f"{cell_name}.json", f"limits of {cell_name}"),
         "run_seconds": bench["run_seconds"],
@@ -73,10 +77,41 @@ def load_reader(metric: str, root: Path = ROOT):
     path = root / "portbench" / "metrics" / f"{metric}.py"
     if not path.is_file():
         raise SpecError(f"metric {metric}: no reader {path}")
-    module_spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
+    return _load_module(f"portbench_metric_{metric}", path).read
+
+
+def load_memory(policy: dict, root: Path = ROOT):
+    """The reference's memory family of a recurrent ``policy``, the module
+    ``reference/cells/<rnn_type>.py`` (the port's default ``rnn_type`` is
+    ``lstm``); None for a feedforward one.
+
+    Raises a :class:`SpecError` where the reference cannot follow the
+    policy: stacked memories, no file for the family, or a dtype the
+    family's ``step`` refuses (one step at width 1 on the CPU asks it)."""
+    if policy["class_name"] != "ActorCriticRecurrent":
+        return None
+    layers = policy.get("rnn_num_layers", 1)
+    if layers != 1:
+        raise SpecError(f"rnn_num_layers {layers}: the reference follows a single memory layer")
+    rnn_type = policy.get("rnn_type", "lstm").lower()
+    path = root / "portbench" / "reference" / "cells" / f"{rnn_type}.py"
+    if not path.is_file():
+        raise SpecError(f"memory {rnn_type}: no reference cell {path}")
+    memory = _load_module(f"portbench_cell_{rnn_type}", path)
+    import torch
+
+    from portbench.reference.ppo import dtype_of
+
+    P = {leaf: torch.zeros(shape) for leaf, shape, _ in memory.layout(1, 1)}
+    memory.step(P, memory.zeros(1, 1, "cpu"), torch.zeros(1, 1), dtype_of(policy.get("dtype")), lambda t: t)
+    return memory
+
+
+def _load_module(name: str, path: Path):
+    module_spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(module_spec)
     module_spec.loader.exec_module(module)
-    return module.read
+    return module
 
 
 def forbidden_modules() -> list[str]:
@@ -244,7 +279,7 @@ def program_snapshot(runner) -> dict:
     reference's ``snapshot`` (copies). On a mesh the per-env parts (env
     state, obs, carry) are every rank's shards in rank order; the rest is
     replicated. Every rank takes part."""
-    from portbench.reference.ppo import clone_tree
+    from portbench.reference.ppo import clone_tree, map_carry
 
     alg, policy, cs = runner.alg, runner.alg.policy, runner.collect_state
     opt, buffers = alg.optimizer_state(), policy.state_dict()
@@ -254,7 +289,8 @@ def program_snapshot(runner) -> dict:
     rows = _gather_rows if runner.mesh is not None and runner.mesh.distributed else (lambda t: t)
     return clone_tree({
         "params": dict(policy.named_parameters()), "mu": opt["mu"], "nu": opt["nu"], "count": opt["count"],
-        "lr": alg.lr, "obs": rows(cs.obs["policy"]), "carry": None if carry is None else {k: rows(v) for k, v in carry.items()},
+        "lr": alg.lr, "obs": rows(cs.obs["policy"]),
+        "carry": None if carry is None else {k: map_carry(rows, v) for k, v in carry.items()},
         "norms": {w: [buffers[f"norm_{w}.{k}"] for k in ("mean", "var", "count")] for w in ("actor", "critic")},
         "env": {k: rows(getattr(cs.env_state, k)) for k in ("theta", "omega", "rng", "episode_length")},
     })
@@ -279,7 +315,7 @@ def reference(spec: dict, seed: int, device, num_envs: int, weights: dict, contr
     from portbench.reference.ppo import ReferencePPO
 
     config = spec["config"]
-    return ReferencePPO(config["train_cfg"], config["env"], num_envs, weights, seed, device,
+    return ReferencePPO(config["train_cfg"], config["env"], num_envs, weights, seed, device, spec["memory"],
                         random_episode_lengths=spec["mix"].get("init_at_random_ep_len", False),
                         operand="fp8" if control == "fp8" else None, half_batch=half_batch, parts=parts)
 
@@ -325,7 +361,7 @@ def make_cell_weights(spec: dict, seed: int, device) -> tuple[dict, int, int]:
 
     L = spec["config"]["env"]["num_links"]
     obs_dim, num_actions = 3 * L, L
-    layout = param_layout(spec["config"]["train_cfg"], obs_dim, num_actions)
+    layout = param_layout(spec["config"]["train_cfg"], obs_dim, num_actions, spec["memory"])
     return make_weights(layout, seed, device), obs_dim, num_actions
 
 

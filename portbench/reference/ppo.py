@@ -5,8 +5,11 @@ Plain PyTorch from the published description of RSL-RL's PPO (clipped
 surrogate and value losses, entropy bonus, GAE with whitened advantages,
 adaptive-KL learning rate, global-norm clip, Adam) with its
 ``ActorCritic`` / ``ActorCriticRecurrent`` policies (ELU MLP trunks, a
-single-layer GRU memory in front of each, running observation
-normalization, a scalar Gaussian std), on :class:`~portbench.reference.nlink.NLink`.
+single-layer memory in front of each, running observation normalization, a
+scalar Gaussian std), on :class:`~portbench.reference.nlink.NLink`. The
+memory's arithmetic is its family's file, ``cells/<rnn_type>.py``
+(``harness.load_memory``): ``layout``, ``zeros``, ``step`` and ``output``;
+here a carry is that file's tree of tensors, mapped leaf by leaf.
 It imports nothing of the port. Where the configuration states bf16 trunks,
 a hidden layer computes as flax ``nn.Dense(dtype=bfloat16)`` does (operands
 and bias in bf16, the activation in bf16) and the heads in fp32.
@@ -36,13 +39,14 @@ NORM_EPS = 1e-2
 WEIGHT_SEED_SALT = 0x5745494748
 
 
-def param_layout(cfg: dict, obs_dim: int, num_actions: int) -> list[tuple[str, tuple, float | None]]:
+def param_layout(cfg: dict, obs_dim: int, num_actions: int, memory=None) -> list[tuple[str, tuple, float | None]]:
     """``(name, shape, bound)`` of every trained parameter, in the order the
     optimizer sums them: the std (``bound`` None: ones), the actor's and the
     critic's layers, then the two memories (``U(-bound, bound)``: a linear
-    layer's ``1/sqrt(fan_in)``, a GRU cell's ``1/sqrt(H)``)."""
+    layer's ``1/sqrt(fan_in)``, a memory's leaves as ``memory.layout``
+    gives them)."""
     pol = cfg["policy"]
-    H = pol.get("rnn_hidden_dim") if pol["class_name"] == "ActorCriticRecurrent" else None
+    H = _hidden(pol, memory)
     out = [("std", (num_actions,), None)]
     for net, dims, final in (("actor", pol["actor_hidden_dims"], num_actions), ("critic", pol["critic_hidden_dims"], 1)):
         sizes = [H or obs_dim, *dims, final]
@@ -50,11 +54,18 @@ def param_layout(cfg: dict, obs_dim: int, num_actions: int) -> list[tuple[str, t
             b = 1.0 / math.sqrt(sizes[i])
             out += [(f"{net}.dense_{i}.weight", (sizes[i + 1], sizes[i]), b), (f"{net}.dense_{i}.bias", (sizes[i + 1],), b)]
     if H:
-        b = 1.0 / math.sqrt(H)
         for mem in ("memory_a", "memory_c"):
-            out += [(f"{mem}.cell_0.wx", (obs_dim, 3 * H), b), (f"{mem}.cell_0.bx", (3 * H,), b),
-                    (f"{mem}.cell_0.wh", (H, 3 * H), b), (f"{mem}.cell_0.bhn", (H,), b)]
+            out += [(f"{mem}.cell_0.{leaf}", shape, b) for leaf, shape, b in memory.layout(obs_dim, H)]
     return out
+
+
+def _hidden(pol: dict, memory) -> int | None:
+    """The memory's width of a recurrent policy (the port's default 256), None for a feedforward one."""
+    if pol["class_name"] != "ActorCriticRecurrent":
+        return None
+    if memory is None:
+        raise ValueError("a recurrent policy needs its memory family (harness.load_memory)")
+    return pol.get("rnn_hidden_dim", 256)
 
 
 def make_weights(layout, seed: int, device) -> dict[str, torch.Tensor]:
@@ -71,21 +82,24 @@ def make_weights(layout, seed: int, device) -> dict[str, torch.Tensor]:
     return out
 
 
-def _dtype(name):
+def dtype_of(name: str | None):
+    """A configuration's ``dtype``: None for fp32, else the torch dtype."""
     return None if name in (None, "float32") else getattr(torch, name)
 
 
 class ReferencePPO:
     """One PPO run of ``cfg`` (the configuration file's ``train_cfg`` and
     ``env``) on ``num_envs`` envs from ``weights``; :meth:`iteration` runs a
-    window and an update and returns the update's mean losses."""
+    window and an update and returns the update's mean losses. ``memory``
+    is the memory family's module of a recurrent policy."""
 
-    def __init__(self, cfg: dict, env_cfg: dict, num_envs: int, weights: dict, seed: int, device,
+    def __init__(self, cfg: dict, env_cfg: dict, num_envs: int, weights: dict, seed: int, device, memory=None,
                  random_episode_lengths: bool = False, operand: str | None = None, half_batch: bool = False,
                  parts: int = 1):
         self.alg, self.pol = cfg["algorithm"], cfg["policy"]
-        self.recurrent = self.pol["class_name"] == "ActorCriticRecurrent"
-        self.dtype = _dtype(self.pol.get("dtype"))
+        H = _hidden(self.pol, memory)
+        self.recurrent, self.memory = H is not None, memory
+        self.dtype = dtype_of(self.pol.get("dtype"))
         fp8 = operand == "fp8"
         self.op = (lambda t: t.to(torch.float8_e4m3fn).to(t.dtype)) if fp8 else (lambda t: t)
         #: a planted fault: each minibatch's loss over its first half only
@@ -107,8 +121,7 @@ class ReferencePPO:
         D = self.obs.shape[-1]
         self.norms = {k: [torch.zeros(D, device=device), torch.ones(D, device=device), torch.zeros((), device=device)]
                       for k in ("actor", "critic")}
-        H = self.pol.get("rnn_hidden_dim")
-        self.carry = {k: torch.zeros(num_envs, H, device=device) for k in ("actor", "critic")} if self.recurrent else None
+        self.carry = {k: memory.zeros(num_envs, H, device) for k in ("actor", "critic")} if self.recurrent else None
         self.gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
         self.device = device
 
@@ -165,22 +178,17 @@ class ReferencePPO:
                 x = F.elu(x)
         return x.to(torch.float32)
 
-    def _gru(self, mem, h, x):
-        P = self.params
-        wx, bx, wh, bhn = (P[f"{mem}.cell_0.{k}"] for k in ("wx", "bx", "wh", "bhn"))
-        H = wh.shape[0]
-        xp = torch.matmul(x, wx) + bx
-        hp = torch.matmul(h, wh)
-        r = torch.sigmoid(xp[..., :H] + hp[..., :H])
-        z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
-        n = torch.tanh(xp[..., 2 * H:] + r * (hp[..., 2 * H:] + bhn))
-        return (1.0 - z) * n + z * h
+    def _memory_step(self, mem, carry, x):
+        prefix = f"{mem}.cell_0."
+        P = {k.removeprefix(prefix): v for k, v in self.params.items() if k.startswith(prefix)}
+        return self.memory.step(P, carry, x, self.dtype, self.op)
 
-    def _replay(self, mem, h, xs, resets):
+    def _replay(self, mem, carry, xs, resets):
         outs = []
         for t in range(xs.shape[0]):
-            h = self._gru(mem, h * (1.0 - resets[t])[:, None], xs[t])
-            outs.append(h)
+            keep = (1.0 - resets[t])[:, None]
+            carry = self._memory_step(mem, map_carry(lambda v: v * keep, carry), xs[t])
+            outs.append(self.memory.output(carry))
         return torch.stack(outs)
 
     # ------------------------------------------------------------- iteration
@@ -193,23 +201,23 @@ class ReferencePPO:
         for _ in range(self.T):
             fa, fc = self._norm("actor", obs), self._norm("critic", obs)
             if self.recurrent:
-                carry = {"actor": self._gru("memory_a", carry["actor"], fa), "critic": carry["critic"]}
-                fa = carry["actor"]
+                carry = {**carry, "actor": self._memory_step("memory_a", carry["actor"], fa)}
+                fa = self.memory.output(carry["actor"])
             mean = self._mlp("actor", fa)
             std = self.params["std"].expand_as(mean)
             noise = torch.randn(mean.shape, dtype=mean.dtype, device=mean.device, generator=self.gen)
             action = mean + std * noise
             log_p = _log_prob(mean, std, action)
             if self.recurrent:
-                carry = {"actor": carry["actor"], "critic": self._gru("memory_c", carry["critic"], fc)}
-                fc = carry["critic"]
+                carry = {**carry, "critic": self._memory_step("memory_c", carry["critic"], fc)}
+                fc = self.memory.output(carry["critic"])
             value = self._mlp("critic", fc).squeeze(-1)
             self.env_state, next_obs, rew, done = self.env.step(self.env_state, action)
             self._update_norms(next_obs)
             total = rew + gamma * value * done.to(torch.float32)
             if self.recurrent:
                 keep = (1.0 - done.to(torch.float32))[:, None]
-                carry = {k: v * keep for k, v in carry.items()}
+                carry = {k: map_carry(lambda v: v * keep, c) for k, c in carry.items()}
             for k, v in (("obs", obs), ("actions", action), ("rewards", total), ("dones", done), ("values", value),
                          ("log_probs", log_p), ("mu", mean), ("sigma", std)):
                 steps[k].append(v)
@@ -221,8 +229,8 @@ class ReferencePPO:
     def _gae(self, roll):
         fc = self._norm("critic", self.obs)
         if self.recurrent:
-            self.carry = {**self.carry, "critic": self._gru("memory_c", self.carry["critic"], fc)}
-            fc = self.carry["critic"]
+            self.carry = {**self.carry, "critic": self._memory_step("memory_c", self.carry["critic"], fc)}
+            fc = self.memory.output(self.carry["critic"])
         next_values = self._mlp("critic", fc).squeeze(-1)
         gamma, lam = self.alg["gamma"], self.alg["lam"]
         values, not_term = roll["values"], 1.0 - roll["dones"].to(torch.float32)
@@ -246,7 +254,7 @@ class ReferencePPO:
             for _ in range(E):
                 for i in range(M):
                     yield ({k: v[:, i * nb:(i + 1) * nb] for k, v in fields.items()},
-                           {k: v[i * nb:(i + 1) * nb] for k, v in carry0.items()})
+                           {k: map_carry(lambda v: v[i * nb:(i + 1) * nb], c) for k, c in carry0.items()})
             return
         n = roll["dones"].numel()
         perm = torch.randperm(M * (n // M), generator=self.gen, device=self.device)
@@ -260,7 +268,8 @@ class ReferencePPO:
         if self.half_batch:
             axis = 1 if self.recurrent else 0
             b = {k: v.narrow(axis, 0, v.shape[axis] // 2) for k, v in b.items()}
-            carry0 = None if carry0 is None else {k: v[: v.shape[0] // 2] for k, v in carry0.items()}
+            carry0 = None if carry0 is None else {k: map_carry(lambda v: v[: v.shape[0] // 2], c)
+                                                  for k, c in carry0.items()}
         fa, fc = self._norm("actor", b["obs"]), self._norm("critic", b["obs"])
         if self.recurrent:
             fa = self._replay("memory_a", carry0["actor"], fa, b["resets"])
@@ -335,6 +344,13 @@ class ReferencePPO:
             for k, v in aux.items():
                 sums.setdefault(k, []).append(v.detach())
         return {**{k: float(torch.stack(v).mean()) for k, v in sums.items()}, "learning_rate": float(self.lr)}
+
+
+def map_carry(f, carry):
+    """``f`` of every tensor of a memory's carry: a tensor, or a tuple of carries."""
+    if isinstance(carry, tuple):
+        return tuple(map_carry(f, c) for c in carry)
+    return f(carry)
 
 
 def clone_tree(tree):
