@@ -100,6 +100,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     fwd_plan,
     is_bf16,
     load_kernels,
+    marked,
     merge_streams,
     mm,
     op,
@@ -108,6 +109,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     stream,
     wgrad_scratch,
 )
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.trace import LaunchCounts
 
 #: launches of the x-streaming kernels (``gru_x_*``) and of the xproj kernels (``gru_xp_*``)
@@ -281,7 +283,8 @@ def gru_x_fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16: bool = False) -> torch.
         check("bhn", bhn, (S, H)),
     ]
     hs = torch.empty((S, T, B, H), dtype=torch.float32, device=xs.device)
-    raise_on("gru_x_fwd", _lib().gru_x_fwd(*ptrs, hs.data_ptr(), S, T, B, D, H, int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("gru_x_fwd", _lib().gru_x_fwd(*ptrs, hs.data_ptr(), S, T, B, D, H, int(bf16), stream()))
     launch_counts.fwd_launches += 1
     return hs
 
@@ -316,7 +319,8 @@ def _gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, bf16, phase_ms):
     dcarry0 = torch.empty_like(carry0)
     gscratch = torch.empty((S, T, B, 4 * H), dtype=torch.float32, device=xs.device)
     out = [dx.data_ptr(), dcarry0.data_ptr(), gscratch.data_ptr()]
-    raise_on("gru_x_bwd", _lib().gru_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream(), phase_ms))
+    with trace.interval("memory"):
+        raise_on("gru_x_bwd", _lib().gru_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream(), phase_ms))
     launch_counts.bwd_launches += 1
     return dx, dcarry0, gscratch
 
@@ -376,8 +380,9 @@ def gru_x_wgrad(xs, resets, carry0, hs, gscratch, bf16: bool = False):
         check("gscratch", gscratch, (S, T, B, 4 * H)),
     ]
     P, W, C = wgrad_scratch(S, T, B, D, H, xs.device, bf16)
-    raise_on("gru_x_wgrad", _lib().gru_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
-                                                int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("gru_x_wgrad", _lib().gru_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
+                                                    int(bf16), stream()))
     launch_counts.wgrad_launches += 1
     return gru_wgrad_outputs(C, H, D)
 
@@ -402,7 +407,8 @@ def gru_xp_fwd(wh, bhn, carry0, xproj, resets, bf16: bool = False) -> torch.Tens
         check("bhn", bhn, (G, H)),
     ]
     hs = torch.empty((G, T, B, H), dtype=torch.float32, device=xproj.device)
-    raise_on("gru_xp_fwd", _lib("gru_xp").gru_xp_fwd(*ptrs, hs.data_ptr(), G, T, B, H, int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("gru_xp_fwd", _lib("gru_xp").gru_xp_fwd(*ptrs, hs.data_ptr(), G, T, B, H, int(bf16), stream()))
     xp_launch_counts.fwd_launches += 1
     return hs
 
@@ -432,8 +438,9 @@ def _gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, bf16, phase_ms):
     ]
     dcarry0 = torch.empty_like(carry0)
     gscratch = torch.empty((G, T, B, 4 * H), dtype=torch.float32, device=xproj.device)
-    raise_on("gru_xp_bwd", _lib("gru_xp").gru_xp_bwd(*ptrs, dcarry0.data_ptr(), gscratch.data_ptr(),
-                                                      G, T, B, H, int(bf16), stream(), phase_ms))
+    with trace.interval("memory"):
+        raise_on("gru_xp_bwd", _lib("gru_xp").gru_xp_bwd(*ptrs, dcarry0.data_ptr(), gscratch.data_ptr(),
+                                                          G, T, B, H, int(bf16), stream(), phase_ms))
     xp_launch_counts.bwd_launches += 1
     return dcarry0, gscratch
 
@@ -470,8 +477,9 @@ def gru_xp_wgrad(resets, carry0, hs, gscratch, bf16: bool = False):
         check("gscratch", gscratch, (G, T, B, 4 * H)),
     ]
     P, W, C = wgrad_scratch(G, T, B, 0, H, hs.device, bf16)
-    raise_on("gru_xp_wgrad", _lib("gru_xp").gru_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
-                                                          int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("gru_xp_wgrad", _lib("gru_xp").gru_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
+                                                              int(bf16), stream()))
     xp_launch_counts.wgrad_launches += 1
     return gru_wgrad_outputs(C, H, 0)[2:]
 
@@ -487,7 +495,7 @@ class _GruXp(torch.autograd.Function):
 
     @staticmethod
     def forward(wh, bhn, carry0, xproj, resets, bf16):
-        fwd = gru_xp_fwd if xproj.is_cuda else gru_xp_plain_fwd
+        fwd = gru_xp_fwd if xproj.is_cuda else marked(gru_xp_plain_fwd)
         return fwd(wh, bhn, carry0, xproj, resets, bf16)
 
     @staticmethod
@@ -501,11 +509,11 @@ class _GruXp(torch.autograd.Function):
         wh, bhn, carry0, xproj, resets, hs = ctx.saved_tensors
         ghs = ghs.contiguous()
         if xproj.is_cuda:
-            dcarry0, gscratch = gru_xp_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, ctx.bf16)
-            dwh, dbhn = gru_xp_wgrad(resets, carry0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = gru_xp_bwd, gru_xp_wgrad
         else:
-            dcarry0, gscratch = gru_xp_plain_bwd(wh, bhn, carry0, xproj, resets, hs, ghs, ctx.bf16)
-            dwh, dbhn = gru_xp_plain_wgrad(resets, carry0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = marked(gru_xp_plain_bwd), marked(gru_xp_plain_wgrad)
+        dcarry0, gscratch = bwd(wh, bhn, carry0, xproj, resets, hs, ghs, ctx.bf16)
+        dwh, dbhn = wgrad(resets, carry0, hs, gscratch, ctx.bf16)
         return dwh, dbhn, dcarry0, gscratch[..., : 3 * wh.shape[-2]], None, None
 
     @staticmethod
@@ -530,7 +538,7 @@ class _GruX(torch.autograd.Function):
 
     @staticmethod
     def forward(wx, bx, wh, bhn, carry0, xs, resets, bf16):
-        fwd = gru_x_fwd if xs.is_cuda else gru_x_plain_fwd
+        fwd = gru_x_fwd if xs.is_cuda else marked(gru_x_plain_fwd)
         return fwd(wx, bx, wh, bhn, carry0, xs, resets, bf16)
 
     @staticmethod
@@ -544,11 +552,11 @@ class _GruX(torch.autograd.Function):
         wx, bx, wh, bhn, carry0, xs, resets, hs = ctx.saved_tensors
         ghs = ghs.contiguous()
         if xs.is_cuda:
-            dx, dcarry0, gscratch = gru_x_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, ctx.bf16)
-            dwx, dbx, dwh, dbhn = gru_x_wgrad(xs, resets, carry0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = gru_x_bwd, gru_x_wgrad
         else:
-            dx, dcarry0, gscratch = gru_x_plain_bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, ctx.bf16)
-            dwx, dbx, dwh, dbhn = gru_x_plain_wgrad(xs, resets, carry0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = marked(gru_x_plain_bwd), marked(gru_x_plain_wgrad)
+        dx, dcarry0, gscratch = bwd(wx, bx, wh, bhn, carry0, xs, resets, hs, ghs, ctx.bf16)
+        dwx, dbx, dwh, dbhn = wgrad(xs, resets, carry0, hs, gscratch, ctx.bf16)
         return dwx, dbx, dwh, dbhn, dcarry0, dx, None, None
 
     @staticmethod

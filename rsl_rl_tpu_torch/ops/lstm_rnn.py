@@ -93,6 +93,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     fwd_plan,
     is_bf16,
     load_kernels,
+    marked,
     merge_streams,
     mm,
     op,
@@ -101,6 +102,7 @@ from rsl_rl_tpu_torch.ops.rnn_common import (
     stream,
     wgrad_scratch,
 )
+from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.trace import LaunchCounts
 
 #: launches of the x-streaming kernels (``lstm_x_*``) and of the xproj kernels (``lstm_xp_*``)
@@ -286,8 +288,9 @@ def lstm_x_fwd(wx, wh, bh, c0, h0, xs, resets, bf16: bool = False):
     ptrs = _input_ptrs(wx, wh, bh, c0, h0, xs, resets) + [check("bh", bh, (S, 4 * H))]
     hs = torch.empty((S, T, B, H), dtype=torch.float32, device=xs.device)
     cs = torch.empty_like(hs)
-    raise_on("lstm_x_fwd", _lib().lstm_x_fwd(*ptrs, hs.data_ptr(), cs.data_ptr(),
-                                             S, T, B, D, H, int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("lstm_x_fwd", _lib().lstm_x_fwd(*ptrs, hs.data_ptr(), cs.data_ptr(),
+                                                 S, T, B, D, H, int(bf16), stream()))
     launch_counts.fwd_launches += 1
     return hs, cs
 
@@ -317,7 +320,8 @@ def _lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, bf16, phase_ms):
     dh0 = torch.empty_like(h0)
     gscratch = torch.empty((S, T, B, 4 * H), dtype=torch.float32, device=xs.device)
     out = [dx.data_ptr(), dc0.data_ptr(), dh0.data_ptr(), gscratch.data_ptr()]
-    raise_on("lstm_x_bwd", _lib().lstm_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream(), phase_ms))
+    with trace.interval("memory"):
+        raise_on("lstm_x_bwd", _lib().lstm_x_bwd(*ptrs, *out, S, T, B, D, H, int(bf16), stream(), phase_ms))
     launch_counts.bwd_launches += 1
     return dx, dc0, dh0, gscratch
 
@@ -357,8 +361,9 @@ def lstm_x_wgrad(xs, resets, h0, hs, gscratch, bf16: bool = False):
         check("gscratch", gscratch, (S, T, B, 4 * H)),
     ]
     P, W, C = wgrad_scratch(S, T, B, D, H, xs.device, bf16)
-    raise_on("lstm_x_wgrad", _lib().lstm_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
-                                                 int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("lstm_x_wgrad", _lib().lstm_x_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), S, T, B, D, H, P,
+                                                     int(bf16), stream()))
     launch_counts.wgrad_launches += 1
     return C[:, H : H + D].contiguous(), C[:, :H].contiguous(), C[:, H + D].contiguous()
 
@@ -390,8 +395,9 @@ def lstm_xp_fwd(wh, bh, c0, h0, xproj, resets, bf16: bool = False):
     ptrs = _xp_input_ptrs(wh, bh, c0, h0, xproj, resets) + [check("bh", bh, (G, 4 * H))]
     hs = torch.empty((G, T, B, H), dtype=torch.float32, device=xproj.device)
     cs = torch.empty_like(hs)
-    raise_on("lstm_xp_fwd", _lib("lstm_xp").lstm_xp_fwd(*ptrs, hs.data_ptr(), cs.data_ptr(),
-                                                         G, T, B, H, int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("lstm_xp_fwd", _lib("lstm_xp").lstm_xp_fwd(*ptrs, hs.data_ptr(), cs.data_ptr(),
+                                                             G, T, B, H, int(bf16), stream()))
     xp_launch_counts.fwd_launches += 1
     return hs, cs
 
@@ -420,7 +426,8 @@ def _lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, bf16, phase_ms):
     dh0 = torch.empty_like(h0)
     gscratch = torch.empty((G, T, B, 4 * H), dtype=torch.float32, device=xproj.device)
     out = [dc0.data_ptr(), dh0.data_ptr(), gscratch.data_ptr()]
-    raise_on("lstm_xp_bwd", _lib("lstm_xp").lstm_xp_bwd(*ptrs, *out, G, T, B, H, int(bf16), stream(), phase_ms))
+    with trace.interval("memory"):
+        raise_on("lstm_xp_bwd", _lib("lstm_xp").lstm_xp_bwd(*ptrs, *out, G, T, B, H, int(bf16), stream(), phase_ms))
     xp_launch_counts.bwd_launches += 1
     return dc0, dh0, gscratch
 
@@ -457,8 +464,9 @@ def lstm_xp_wgrad(resets, h0, hs, gscratch, bf16: bool = False):
         check("gscratch", gscratch, (G, T, B, 4 * H)),
     ]
     P, W, C = wgrad_scratch(G, T, B, 0, H, hs.device, bf16)
-    raise_on("lstm_xp_wgrad", _lib("lstm_xp").lstm_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
-                                                             int(bf16), stream()))
+    with trace.interval("memory"):
+        raise_on("lstm_xp_wgrad", _lib("lstm_xp").lstm_xp_wgrad(*ptrs, W.data_ptr(), C.data_ptr(), G, T, B, H, P,
+                                                                 int(bf16), stream()))
     xp_launch_counts.wgrad_launches += 1
     return C[:, :H].contiguous(), C[:, H].contiguous()
 
@@ -476,7 +484,7 @@ class _LstmXp(torch.autograd.Function):
 
     @staticmethod
     def forward(wh, bh, c0, h0, xproj, resets, bf16):
-        fwd = lstm_xp_fwd if xproj.is_cuda else lstm_xp_plain_fwd
+        fwd = lstm_xp_fwd if xproj.is_cuda else marked(lstm_xp_plain_fwd)
         hs, cs = fwd(wh, bh, c0, h0, xproj, resets, bf16)
         return hs, cs[:, -1].clone(), cs
 
@@ -493,11 +501,11 @@ class _LstmXp(torch.autograd.Function):
         wh, bh, c0, h0, xproj, resets, hs, cs = ctx.saved_tensors
         ghs = ghs.contiguous()
         if xproj.is_cuda:
-            dc0, dh0, gscratch = lstm_xp_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, ctx.bf16)
-            dwh, dbh = lstm_xp_wgrad(resets, h0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = lstm_xp_bwd, lstm_xp_wgrad
         else:
-            dc0, dh0, gscratch = lstm_xp_plain_bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, ctx.bf16)
-            dwh, dbh = lstm_xp_plain_wgrad(resets, h0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = marked(lstm_xp_plain_bwd), marked(lstm_xp_plain_wgrad)
+        dc0, dh0, gscratch = bwd(wh, bh, c0, h0, xproj, resets, hs, cs, ghs, ctx.bf16)
+        dwh, dbh = wgrad(resets, h0, hs, gscratch, ctx.bf16)
         return dwh, dbh, dc0, dh0, gscratch, None, None
 
     @staticmethod
@@ -524,7 +532,7 @@ class _LstmX(torch.autograd.Function):
 
     @staticmethod
     def forward(wx, wh, bh, c0, h0, xs, resets, bf16):
-        fwd = lstm_x_fwd if xs.is_cuda else lstm_x_plain_fwd
+        fwd = lstm_x_fwd if xs.is_cuda else marked(lstm_x_plain_fwd)
         hs, cs = fwd(wx, wh, bh, c0, h0, xs, resets, bf16)
         return hs, cs[:, -1].clone(), cs
 
@@ -541,11 +549,11 @@ class _LstmX(torch.autograd.Function):
         wx, wh, bh, c0, h0, xs, resets, hs, cs = ctx.saved_tensors
         ghs = ghs.contiguous()
         if xs.is_cuda:
-            dx, dc0, dh0, gscratch = lstm_x_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, ctx.bf16)
-            dwx, dwh, dbh = lstm_x_wgrad(xs, resets, h0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = lstm_x_bwd, lstm_x_wgrad
         else:
-            dx, dc0, dh0, gscratch = lstm_x_plain_bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, ctx.bf16)
-            dwx, dwh, dbh = lstm_x_plain_wgrad(xs, resets, h0, hs, gscratch, ctx.bf16)
+            bwd, wgrad = marked(lstm_x_plain_bwd), marked(lstm_x_plain_wgrad)
+        dx, dc0, dh0, gscratch = bwd(wx, wh, bh, c0, h0, xs, resets, hs, cs, ghs, ctx.bf16)
+        dwx, dwh, dbh = wgrad(xs, resets, h0, hs, gscratch, ctx.bf16)
         return dwx, dwh, dbh, dc0, dh0, dx, None, None
 
     @staticmethod

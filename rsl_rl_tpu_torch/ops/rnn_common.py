@@ -1,8 +1,13 @@
 """What the GRU and LSTM window replays (``ops/gru_rnn.py``,
 ``ops/lstm_rnn.py``) share: the operand rounding of the bf16 mode, the
-compute-dtype rule, the checks of the kernel wrappers and the batching of
-the replays' ``torch.func.vmap`` rules (their launch counters are
-``utils/trace.py``'s ``LaunchCounts``)."""
+compute-dtype rule, the checks of the kernel wrappers, the tracer's marks
+of the plain replays and the batching of the replays' ``torch.func.vmap``
+rules (their launch counters are ``utils/trace.py``'s ``LaunchCounts``).
+
+The tracer's ``memory`` span (``utils/trace.py``) times the replays inside
+an iteration: on the card the kernel wrappers place its marks around each
+launch (forward, backward, weight gradient), on the CPU :func:`marked`
+places them around each of the plain versions the replays run there."""
 
 from __future__ import annotations
 
@@ -11,6 +16,8 @@ import functools
 from dataclasses import dataclass
 
 import torch
+
+from rsl_rl_tpu_torch.utils import trace
 
 #: the most hidden columns the kernels take, as the JAX package's
 #: single-stream kernels take within their VMEM budget (``csrc/rnn_common.cuh``
@@ -50,6 +57,17 @@ def is_bf16(compute_dtype) -> bool:
     if compute_dtype == torch.bfloat16:
         return True
     raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
+
+
+def marked(fn):
+    """``fn`` (a plain replay function, the CPU's stand-in for one kernel
+    launch) between the tracer's ``memory`` marks."""
+
+    def run(*args):
+        with trace.interval("memory"):
+            return fn(*args)
+
+    return run
 
 
 def load_kernels(name: str, signatures: dict) -> ctypes.CDLL:

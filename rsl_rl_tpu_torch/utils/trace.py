@@ -13,20 +13,22 @@ and readers (the benchmark's, the tests') take the records from here.
   iteration, then a phase).
 - **Device stamps.** Inside an iteration the program marks points
   (:func:`begin_iteration`, :func:`end_collection`, :func:`end_iteration`,
-  and :func:`interval` around each ``env.step`` and each collective of
-  ``parallel/mesh.py``). On CUDA a mark launches ``csrc/stamp.cu``, one
-  thread storing the GPU's nanosecond timer into a slot of the iteration's
-  int64 buffer, so it costs no host call beyond its launch and no
-  synchronization; a CUDA graph captures the marks with the iteration and
-  ``IterationGraph`` carries each replay's buffer home with its metrics. On
-  the CPU a mark reads the host clock. :func:`book` turns an iteration's
-  marks into its spans: ``iteration`` (first to last mark), ``collect``
-  (first mark to the end of collection), ``update`` (the rest), ``env``
-  (the env steps), ``exchange.collect`` / ``exchange.update`` (the
-  collectives on either side), the host-env window's device phases ``act``
-  and ``process``, and the record's ``gap_ms``: from the previous
-  iteration's last mark on that clock to this one's first, the time the
-  device stood waiting on the host.
+  and :func:`interval` around each ``env.step``, each collective of
+  ``parallel/mesh.py`` and each launch of a memory-replay kernel,
+  ``ops/gru_rnn.py`` and ``ops/lstm_rnn.py``; on the CPU around each plain
+  replay function that stands in for one). On CUDA a mark launches
+  ``csrc/stamp.cu``, one thread storing the GPU's nanosecond timer into a
+  slot of the iteration's int64 buffer, so it costs no host call beyond its
+  launch and no synchronization; a CUDA graph captures the marks with the
+  iteration and ``IterationGraph`` carries each replay's buffer home with
+  its metrics. On the CPU a mark reads the host clock. :func:`book` turns
+  an iteration's marks into its spans: ``iteration`` (first to last mark),
+  ``collect`` (first mark to the end of collection), ``update`` (the rest),
+  ``env`` (the env steps), ``exchange.collect`` / ``exchange.update`` (the
+  collectives on either side), ``memory`` (the replays, under ``update``),
+  the host-env window's device phases ``act`` and ``process``, and the
+  record's ``gap_ms``: from the previous iteration's last mark on that
+  clock to this one's first, the time the device stood waiting on the host.
 - **Counts** (:func:`count`): a kernel's launches inside the iteration's
   marks (``env.kernel``, the env step kernel's, ``ops/nlink_step.py``),
   captured with them and booked as the record's :attr:`Record.counts`.
@@ -318,7 +320,7 @@ _IDLE = contextlib.nullcontext()
 
 def interval(name: str):
     """Marks around a block of an iteration (``env``, ``exchange``, ``act``,
-    ``process``); outside an iteration's marks, nothing."""
+    ``process``, ``memory``); outside an iteration's marks, nothing."""
     return _IDLE if _stamps is None else _Interval(_stamps, name)
 
 

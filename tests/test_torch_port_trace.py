@@ -1,6 +1,7 @@
 """The port's tracer (``rsl_rl_tpu_torch/utils/trace.py``): one record an
 iteration with its phases from the runner's stamps, split and fused and at
-K=2; the host spans under a profiler, nested iteration -> phase, and no
+K=2; the memory replays' ``memory`` span in the update, paired marks around
+each of a minibatch's three replay calls; the host spans under a profiler, nested iteration -> phase, and no
 ``record_function`` without one; the collector's pauses; the host-env
 window's phases; the collectives booked to the side of the iteration they
 ran on; the stamps riding in the fused iteration's metrics bit for bit.
@@ -25,26 +26,38 @@ from rsl_rl_tpu_torch.utils import trace
 from rsl_rl_tpu_torch.utils.cuda_graph import IterationGraph
 
 N, LINKS, T = 8, 3, 4
+EPOCHS, MINIBATCHES = 2, 2
+#: replay calls a recurrent update makes (forward, backward, weight
+#: gradient a minibatch), each between a pair of ``memory`` marks
+REPLAYS = 3 * EPOCHS * MINIBATCHES
 #: labels of the spans the program emits as ``record_function`` ranges
 PROGRAM_LABELS = {"iteration", "alg.collect", "alg.update", "dispatch.replay", "dispatch.read_metrics",
                   "runner.log", "gc"}
 MODES = {"split": {}, "fused": {"fuse_iteration": True}, "k2": {"iterations_per_dispatch": 2}}
 
 
-def _cfg(recurrent: bool, **keys) -> dict:
+def _cfg(recurrent: bool, rnn_type: str = "gru", **keys) -> dict:
     policy = {"class_name": "ActorCriticRecurrent" if recurrent else "ActorCritic",
               "actor_hidden_dims": [16], "critic_hidden_dims": [16],
               "actor_obs_normalization": True, "critic_obs_normalization": True}
     if recurrent:
-        policy.update(rnn_type="gru", rnn_hidden_dim=8)
+        policy.update(rnn_type=rnn_type, rnn_hidden_dim=8)
     return {"num_steps_per_env": T, "seed": 3, "obs_groups": {"policy": ["policy"], "critic": ["policy"]},
-            "policy": policy, "algorithm": {"class_name": "PPO", "num_learning_epochs": 2, "num_mini_batches": 2},
+            "policy": policy,
+            "algorithm": {"class_name": "PPO", "num_learning_epochs": EPOCHS, "num_mini_batches": MINIBATCHES},
             **keys}
 
 
-def _runner(mode: str = "split", recurrent: bool = False, device: str = "cpu") -> OnPolicyRunner:
+def _runner(mode: str = "split", recurrent: bool = False, device: str = "cpu",
+            rnn_type: str = "gru") -> OnPolicyRunner:
     env = NLinkPendulum(N, LINKS, max_episode_length=6, device=device)
-    return OnPolicyRunner(env, _cfg(recurrent, **MODES[mode]), device=device)
+    return OnPolicyRunner(env, _cfg(recurrent, rnn_type, **MODES[mode]), device=device)
+
+
+def _marks(recurrent: bool) -> int:
+    """Marks an iteration places: its three, a pair a step around ``env.step``
+    and, recurrent, a pair around each replay call of the update."""
+    return 2 * T + 3 + (2 * REPLAYS if recurrent else 0)
 
 
 def _records(*iterations: int) -> list:
@@ -73,7 +86,7 @@ def test_one_record_an_iteration_with_every_phase(mode, recurrent):
         assert r.ms("collect") + r.ms("update") == pytest.approx(r.ms("iteration"), rel=1e-9)
         assert r.ms("iteration") == pytest.approx((r.last_ns - r.first_ns) * 1e-6)
         assert r.clock == "cpu" and "exchange.collect" not in r.spans
-        assert r.marks == 2 * T + 3 and r.ordered
+        assert r.marks == _marks(recurrent) and r.ordered
     later = _records(0, 1, 2)[1:]
     assert all(r.gap_ms is not None and r.gap_ms >= 0 for r in later)
 
@@ -89,6 +102,50 @@ def test_k2_gives_each_iteration_its_own_stamps():
     assert [r.spans["dispatch.replay"].count for r in records] == [1, 1, 1, 1]
     assert ["dispatch.read_metrics" in r.spans for r in records] == [False, True, False, True]
     assert len({r.first_ns for r in records}) == 4
+
+
+def _check_memory_marks(labels: list) -> None:
+    """The ``memory`` marks come in begin / end pairs with nothing between
+    the two of a pair, all after the collection's end."""
+    collect_end = labels.index(("collect", trace.END))
+    memory = [i for i, (name, _) in enumerate(labels) if name == "memory"]
+    assert len(memory) == 2 * REPLAYS and memory[0] > collect_end
+    for begin, end in zip(memory[::2], memory[1::2]):
+        assert labels[begin] == ("memory", trace.BEGIN) and labels[end] == ("memory", trace.END)
+        assert end == begin + 1
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("rnn_type", ["gru", "lstm"])
+def test_a_recurrent_update_books_its_replays_as_memory(mode, rnn_type):
+    runner = _runner(mode, True, rnn_type=rnn_type)
+    runner.learn(2)
+    for r in _records(0, 1):
+        span = r.spans["memory"]
+        assert span.parent == "update" and span.clock == "stamp" and span.count == REPLAYS
+        assert 0 < r.ms("memory") <= r.ms("update")
+        assert r.marks == _marks(True) and r.ordered
+    if mode == "fused":
+        _check_memory_marks(runner.iteration_graph.stamp_labels)
+
+
+@pytest.mark.parametrize("mode", ["split", "fused"])
+def test_a_feedforward_update_books_no_memory(mode):
+    runner = _runner(mode)
+    runner.learn(2)
+    assert all("memory" not in r.spans and r.marks == _marks(False) for r in _records(0, 1))
+
+
+def test_replays_outside_an_iteration_place_no_marks():
+    from rsl_rl_tpu_torch.ops.lstm_rnn import lstm_sequence_pair
+
+    H, B, D = 4, 3, 5
+    params = {"wx": torch.randn(D, 4 * H, requires_grad=True), "wh": torch.randn(H, 4 * H), "bh": torch.randn(4 * H)}
+    carry = (torch.zeros(B, H), torch.zeros(B, H))
+    xs = torch.randn(T, B, D)
+    hs_a, hs_b = lstm_sequence_pair((params, params), (carry, carry), (xs, xs), torch.zeros(T, B))
+    (hs_a.sum() + hs_b.sum()).backward()
+    assert trace.take_stamps() is None and params["wx"].grad is not None
 
 
 def _events(prof) -> list:
@@ -256,6 +313,29 @@ def test_stamp_kernel_reads_a_monotonic_device_clock():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rnn_type", ["gru", "lstm"])
+def test_graph_replays_book_the_replay_kernels_as_memory_on_the_card(rnn_type):
+    """Inside an ``IterationGraph`` replay the kernel wrappers' marks are
+    captured with the iteration: each replay books a ``memory`` span of three
+    launches a minibatch under ``update``, its marks paired and in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rsl_rl_tpu_torch.utils.cuda_graph import launch_counters
+
+    runner = _runner("fused", recurrent=True, device="cuda", rnn_type=rnn_type)
+    runner.learn(1)  # the warm-up and the capture
+    before = sum(c.fwd_launches + c.bwd_launches + c.wgrad_launches for c in launch_counters())
+    runner.learn(3)
+    after = sum(c.fwd_launches + c.bwd_launches + c.wgrad_launches for c in launch_counters())
+    assert after - before == 3 * REPLAYS
+    _check_memory_marks(runner.iteration_graph.stamp_labels)
+    for r in _records(0, 1, 2):
+        assert r.clock.startswith("cuda") and r.ordered and r.marks == _marks(True)
+        assert r.spans["memory"].count == REPLAYS and r.spans["memory"].parent == "update"
+        assert 0 < r.ms("memory") < r.ms("update")
+
+
+@pytest.mark.cuda
 def test_graphed_run_records_monotonic_stamps_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -264,6 +344,6 @@ def test_graphed_run_records_monotonic_stamps_on_the_card():
     records = _records(*range(6))
     for r in records:
         assert r.clock.startswith("cuda") and r.ms("env") <= r.ms("collect")
-        assert r.ordered and r.marks == 2 * T + 3
+        assert r.ordered and r.marks == _marks(True)
     for a, b in zip(records[:-1], records[1:]):
         assert a.last_ns <= b.first_ns
